@@ -1,0 +1,62 @@
+"""Algorithm strategy interface (algorithms/base.py of the JAX package):
+the part of it that the FedAvg main path uses.
+
+An algorithm builds a **round function** — local training on every client,
+then aggregation — and may run a host-side ``post_round`` hook.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+
+@dataclass
+class RoundContext:
+    """Everything a host-side post_round hook may need for one round."""
+
+    round_idx: int  # 0-based
+    global_params: Any  # aggregated flat params after this round
+    prev_global_params: Any  # flat params before this round
+    sizes: Any  # [n_clients] aggregation weights
+    aux: dict  # round_fn diagnostics
+    metrics: dict  # server-side eval of global_params {'loss', 'accuracy'}
+    prev_metrics: dict | None  # eval of prev_global_params
+    eval_batches: tuple  # (xb, yb, mb) padded test set on the device
+    log_dir: str | None
+    extra: dict = field(default_factory=dict)
+
+
+class Algorithm:
+    """Base strategy. Subclasses set ``name`` (registry key) and implement
+    ``make_round_fn``."""
+
+    name: str = ""
+
+    def __init__(self, config):
+        self.config = config
+
+    def check_cohort(self, n_clients: int) -> None:
+        """Validate the actual client count before any training runs."""
+
+    def make_round_fn(self, apply_fn: Callable, optimizer, layout,
+                      n_clients: int, preprocess: Callable | None = None,
+                      client_sizes=None, device=None) -> Callable:
+        """Return ``round_fn(global_flat, cx, cy, cmask, sizes, generator,
+        lr_scale=1.0, client_rng=None) -> (new_global_flat, aux)``.
+
+        ``client_rng(client, n_slots) -> (epoch_perms, sr_salt)``
+        optionally replaces the generator's draws (tests)."""
+        raise NotImplementedError
+
+    def make_server_update(self):
+        """Optional server-side optimizer; None means the round aggregate
+        becomes the next global model unchanged."""
+        return None
+
+    def prepare(self, apply_fn, eval_fn) -> None:
+        """One-time setup after the engine is built."""
+
+    def post_round(self, ctx: RoundContext) -> dict:
+        """Host-side per-round hook; returns extra metrics to record/log."""
+        return {}

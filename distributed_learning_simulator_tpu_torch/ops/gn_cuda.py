@@ -1,0 +1,194 @@
+"""GroupNorm forward: the hand-written Hopper kernels and their plain versions.
+
+Counterpart of ``distributed_learning_simulator_tpu/ops/gn_pallas.py``:
+
+* :func:`gn_stats` launches ``gn_stats_kernel`` (csrc/gn.cu), which replaces
+  ``gn_pallas.py:_stats_kernel`` together with the host glue after it
+  (``_per_group``, ``var = max(E[x^2] - E[x]^2, 0)``, ``rsqrt``): it emits
+  per-(sample, group) ``mean`` and ``rstd`` in f32 directly.
+* :func:`gn_normalize` launches ``gn_normalize_kernel``, which replaces
+  ``gn_pallas.py:_norm_kernel``: ``y = (x - mean) * (rstd * scale) + bias``
+  in f32, cast once.
+* :func:`group_norm` is the counterpart of ``pallas_group_norm(...,
+  folds=1)``: ``x [B, H, W, C] -> (y, mean_g [B, G], rstd_g [B, G])``.
+
+Both kernels are bound by bytes on an H100 (3.35 TB/s): the stats pass must
+read ``x`` once, the normalize pass read ``x`` and write ``y`` once each.
+csrc/gn.cu says what the design does about that bound.
+
+Dispatch rule: a tensor on the CPU takes the plain PyTorch version (that is
+how the tests run); a CUDA tensor launches the kernel or raises. There is no
+fallback from the kernel to the plain version. Each wrapper counts its
+launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from distributed_learning_simulator_tpu_torch.ops._build import load_library
+
+_THREADS = 256  # csrc/gn.cu kThreads
+
+
+def gn_stats_plain(x: torch.Tensor, g: int, eps: float):
+    """Plain version of the stats kernel: ``x [B, HW, C] -> (mean, rstd)``,
+    both ``[B, G]`` f32 (one-pass E[x^2] - E[x]^2 statistics)."""
+    b, hw, c = x.shape
+    cpg = c // g
+    x32 = x.float().reshape(b, hw, g, cpg)
+    cnt = hw * cpg
+    mean = x32.sum(dim=(1, 3)) / cnt
+    mean2 = (x32 * x32).sum(dim=(1, 3)) / cnt
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    return mean, torch.rsqrt(var + eps)
+
+
+def gn_normalize_plain(x, mean, rstd, scale, bias, out_dtype):
+    """Plain version of the normalize kernel: subtract first, then one
+    multiply by ``a = rstd * scale``, then the bias, in f32, cast once."""
+    b, hw, c = x.shape
+    g = mean.shape[1]
+    cpg = c // g
+    a = rstd[:, :, None] * scale.float().reshape(g, cpg)       # [B, G, cpg]
+    y = (x.float().reshape(b, hw, g, cpg) - mean[:, None, :, None]) * a[
+        :, None
+    ] + bias.float().reshape(g, cpg)
+    return y.to(out_dtype).reshape(b, hw, c)
+
+
+_KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = load_library("gn")
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for suffix in _KERNEL_DTYPES.values():
+        stats = getattr(lib, f"dls_gn_stats_{suffix}")
+        stats.argtypes = [vp, vp, vp, ci, ci, ci, ci, cf, vp]
+        stats.restype = ci
+        norm = getattr(lib, f"dls_gn_normalize_{suffix}")
+        norm.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        norm.restype = ci
+    return lib
+
+
+def _check_cuda_input(x: torch.Tensor, g: int) -> str:
+    """Raise on anything the kernels do not take; return the dtype suffix."""
+    if x.device.type != "cuda":
+        raise ValueError(f"GroupNorm kernels run on CUDA tensors, got {x.device}")
+    if x.dtype not in _KERNEL_DTYPES:
+        raise ValueError(
+            f"GroupNorm kernels take bfloat16 or float32, got {x.dtype}"
+        )
+    if x.dim() != 3:
+        raise ValueError(f"expected x [B, HW, C], got shape {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("GroupNorm kernels need a contiguous [B, HW, C] x")
+    b, hw, c = x.shape
+    vec = 16 // x.element_size()
+    if b < 1 or hw < 1:
+        raise ValueError(f"empty GroupNorm input {tuple(x.shape)}")
+    if c % g:
+        raise ValueError(f"groups ({g}) must divide channels ({c})")
+    if c % vec or c // vec > _THREADS:
+        raise ValueError(
+            f"GroupNorm kernels need C a multiple of {vec} and at most "
+            f"{_THREADS * vec} for {x.dtype}, got C={c}"
+        )
+    if x.data_ptr() % 16:
+        raise ValueError("GroupNorm kernels need a 16-byte aligned x")
+    return _KERNEL_DTYPES[x.dtype]
+
+
+def _raise_on_error(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what} launch failed: cudaError {err} "
+            f"({torch.cuda.get_device_name()})"
+        )
+
+
+def gn_stats(x: torch.Tensor, g: int, eps: float):
+    """Per-(sample, group) ``(mean, rstd)`` of ``x [B, HW, C]``, f32."""
+    if x.device.type == "cpu":
+        return gn_stats_plain(x, g, eps)
+    suffix = _check_cuda_input(x, g)
+    b, hw, c = x.shape
+    mean = torch.empty((b, g), dtype=torch.float32, device=x.device)
+    rstd = torch.empty_like(mean)
+    fn = getattr(_lib(), f"dls_gn_stats_{suffix}")
+    err = fn(
+        x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), b, hw, c, g, eps,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _raise_on_error(err, "gn_stats_kernel")
+    gn_stats.launches += 1
+    return mean, rstd
+
+
+gn_stats.launches = 0
+
+
+def gn_normalize(x, mean, rstd, scale, bias, out_dtype):
+    """``y = (x - mean) * (rstd * scale) + bias`` on ``x [B, HW, C]``."""
+    if x.device.type == "cpu":
+        return gn_normalize_plain(x, mean, rstd, scale, bias, out_dtype)
+    suffix = _check_cuda_input(x, mean.shape[1])
+    b, hw, c = x.shape
+    g = mean.shape[1]
+    if out_dtype != x.dtype:
+        raise ValueError(
+            f"gn_normalize_kernel writes y in x's dtype ({x.dtype}), "
+            f"asked for {out_dtype}"
+        )
+    stats = (mean, rstd)
+    if any(
+        t.dtype != torch.float32 or t.shape != (b, g) or not t.is_contiguous()
+        or t.device != x.device
+        for t in stats
+    ):
+        raise ValueError("mean/rstd must be contiguous [B, G] f32 on x's device")
+    # The kernel reads the per-channel affine in f32 (under bf16 local
+    # training the parameters are bf16; the conversion is exact).
+    scale32 = scale.to(dtype=torch.float32).contiguous()
+    bias32 = bias.to(dtype=torch.float32).contiguous()
+    if scale32.shape != (c,) or bias32.shape != (c,):
+        raise ValueError(f"scale/bias must be [{c}]")
+    y = torch.empty_like(x)
+    fn = getattr(_lib(), f"dls_gn_normalize_{suffix}")
+    err = fn(
+        x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), scale32.data_ptr(),
+        bias32.data_ptr(), y.data_ptr(), b, hw, c, g,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _raise_on_error(err, "gn_normalize_kernel")
+    gn_normalize.launches += 1
+    return y
+
+
+gn_normalize.launches = 0
+
+
+def reset_launch_counts() -> None:
+    gn_stats.launches = 0
+    gn_normalize.launches = 0
+
+
+def group_norm(x, scale, bias, g: int, eps: float, out_dtype):
+    """GroupNorm forward on ``x [B, H, W, C]``; returns ``(y [B, H, W, C],
+    mean_g [B, G] f32, rstd_g [B, G] f32)`` — ``pallas_group_norm`` at
+    ``folds=1``. ``scale``/``bias`` are per-channel ``[C]``."""
+    b, h, w, c = x.shape
+    if x.device.type != "cpu" and not x.is_contiguous():
+        # A reshape would copy silently; the model keeps its activations
+        # channels-last so this view is free.
+        raise ValueError("group_norm on CUDA needs a contiguous NHWC x")
+    xr = x.reshape(b, h * w, c)
+    mean_g, rstd_g = gn_stats(xr, g, eps)
+    y = gn_normalize(xr, mean_g, rstd_g, scale, bias, out_dtype)
+    return y.reshape(b, h, w, c), mean_g, rstd_g

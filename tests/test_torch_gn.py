@@ -1,0 +1,153 @@
+"""The port's GroupNorm (ops/gn_cuda.py, models/resnet.py) against the JAX
+package's: the real Pallas kernels run in TPU interpret mode on the CPU,
+the jnp forward ``_gn_forward``, and the closed-form backward.
+
+On the CPU the port's wrappers take their plain PyTorch versions (the CUDA
+kernels themselves are held against those versions on the card by
+chip_smoke.py). Tolerances:
+
+* mean/rstd: rtol 1e-5 (f32 reductions in another order);
+* y: ``y = (x - mean) * a + bias`` (``a = rstd * scale``) sums the terms
+  ``x*a``, ``mean*a`` and ``bias``, so its error scales with the largest of
+  them, not with ``y``: where they cancel, ``y`` is tiny and a 1e-7
+  relative difference in mean is many ulps of it. bf16: within one bf16
+  ulp of ``max(|y|, (|x| + |mean|) * |a|, |bias|)``; f32: within 1e-5 of
+  that magnitude;
+* the backward: rtol 1e-4 / atol 1e-6 (the tolerance
+  tests/test_folded_resnet.py holds the closed form to against autodiff),
+  with an output gradient of magnitude 1e-2 so the parameter-gradient sums,
+  which cancel, stay inside the absolute tolerance.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from distributed_learning_simulator_tpu.models.resnet import (
+    _gn_forward,
+    _plain_group_norm,
+)
+from distributed_learning_simulator_tpu.ops.gn_pallas import pallas_group_norm
+from distributed_learning_simulator_tpu_torch.models.resnet import (
+    PlainGroupNorm,
+)
+from distributed_learning_simulator_tpu_torch.ops import gn_cuda
+
+SHAPES = [(3, 16, 16, 64), (2, 8, 8, 128), (2, 4, 4, 512)]
+G = 32
+EPS = 1e-6
+
+
+def _inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=shape) * 2 + 1.5).astype(np.float32)
+    scale = rng.normal(size=shape[-1]).astype(np.float32)
+    bias = rng.normal(size=shape[-1]).astype(np.float32)
+    return x, scale, bias
+
+
+def _bf16_ulp(mag):
+    mag = np.maximum(mag, 2.0**-126)
+    return np.exp2(np.floor(np.log2(mag)) - 7)
+
+
+def _term_magnitude(x, y, mean, rstd, scale, bias):
+    """The largest of the terms that sum to ``y`` (module docstring);
+    ``mean``/``rstd`` are ``[B, G]``."""
+    b, h, w, c = x.shape
+    cpg = c // G
+    a = np.repeat(rstd, cpg, axis=1)[:, None, None, :] * scale
+    m = np.repeat(mean, cpg, axis=1)[:, None, None, :]
+    return np.maximum(
+        np.maximum(np.abs(y), (np.abs(x) + np.abs(m)) * np.abs(a)),
+        np.abs(bias),
+    )
+
+
+def _port(x_np, scale, bias, dtype):
+    x = torch.tensor(x_np).to(dtype)
+    y, mean, rstd = gn_cuda.group_norm(
+        x, torch.from_numpy(scale), torch.from_numpy(bias), G, EPS, dtype
+    )
+    return y.float().numpy(), mean.numpy(), rstd.numpy()
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_group_norm_matches_pallas_and_jnp(shape, dtype):
+    x, scale, bias = _inputs(shape, seed=sum(shape))
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    xj = jnp.asarray(x).astype(jdt)
+    gn_cuda.reset_launch_counts()
+    y_t, m_t, r_t = _port(np.asarray(xj.astype(jnp.float32)), scale, bias, tdt)
+    assert gn_cuda.gn_stats.launches == gn_cuda.gn_normalize.launches == 0
+    with pltpu.force_tpu_interpret_mode():
+        y_p, m_p, r_p = pallas_group_norm(
+            xj, jnp.asarray(scale), jnp.asarray(bias), G, EPS, jdt, folds=1
+        )
+    y_j, m_j, r_j = _gn_forward(
+        xj, jnp.asarray(scale), jnp.asarray(bias), G, EPS, jdt
+    )
+    b = shape[0]
+    for y_ref, m_ref, r_ref in ((y_p, m_p, r_p), (y_j, m_j, r_j)):
+        np.testing.assert_allclose(
+            m_t, np.asarray(m_ref).reshape(b, G), rtol=1e-5
+        )
+        np.testing.assert_allclose(
+            r_t, np.asarray(r_ref).reshape(b, G), rtol=1e-5
+        )
+        y_ref = np.asarray(y_ref.astype(jnp.float32))
+        mag = _term_magnitude(
+            np.asarray(xj.astype(jnp.float32)), y_ref, m_t, r_t, scale, bias
+        )
+        tol = _bf16_ulp(mag) if dtype == "bfloat16" else 1e-5 * mag
+        err = np.abs(y_t - y_ref)
+        assert np.all(err <= tol), np.max(err / tol)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_group_norm_backward_matches_jax_vjp(shape):
+    x, scale, bias = _inputs(shape, seed=7 + sum(shape))
+    dy = (1e-2 * np.random.default_rng(1).normal(size=shape)).astype(
+        np.float32
+    )
+    _, vjp = jax.vjp(
+        lambda a, s, b: _plain_group_norm(a, s, b, G, EPS, jnp.float32),
+        jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias),
+    )
+    dx_j, ds_j, db_j = vjp(jnp.asarray(dy))
+
+    norm = PlainGroupNorm(shape[-1], G, dtype=torch.float32)
+    with torch.no_grad():
+        norm.scale.copy_(torch.from_numpy(scale))
+        norm.bias.copy_(torch.from_numpy(bias))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    norm(xt).backward(torch.from_numpy(dy))
+    for got, want in ((xt.grad, dx_j), (norm.scale.grad, ds_j),
+                      (norm.bias.grad, db_j)):
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-6
+        )
+
+
+def test_cpu_tensors_take_the_plain_path_only():
+    x, scale, bias = _inputs((2, 4, 4, 64), seed=3)
+    gn_cuda.reset_launch_counts()
+    y, mean, rstd = gn_cuda.group_norm(
+        torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias),
+        G, EPS, torch.float32,
+    )
+    m_p, r_p = gn_cuda.gn_stats_plain(torch.from_numpy(x).reshape(2, 16, 64),
+                                      G, EPS)
+    assert torch.equal(mean, m_p) and torch.equal(rstd, r_p)
+    assert gn_cuda.gn_stats.launches == 0
+    assert gn_cuda.gn_normalize.launches == 0
+
+
+def test_group_count_must_divide_channels():
+    with pytest.raises(ValueError, match="must divide"):
+        PlainGroupNorm(48, 32)

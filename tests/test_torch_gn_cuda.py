@@ -1,0 +1,107 @@
+"""The GroupNorm CUDA kernels (csrc/gn.cu) against their plain PyTorch
+versions, on the card. CUDA kernels have no CPU mode, so every test here
+needs an NVIDIA GPU and skips without one; on a GPU machine (which need
+not have JAX) run them without the suite's JAX conftest:
+
+    python -m pytest --noconftest tests/test_torch_gn_cuda.py -q
+
+Tolerances as in chip_smoke.py and tests/test_torch_gn.py: mean/rstd rtol
+1e-5; y, measured at the largest of the terms ``x*a``, ``mean*a``,
+``bias`` that sum to it, within one bf16 ulp (bf16) or 1e-5 of it (f32).
+The normalize kernel alone, on the plain statistics, is bit-equal to the
+plain version.
+"""
+
+import pytest
+import torch
+
+from distributed_learning_simulator_tpu_torch.models.registry import get_model
+from distributed_learning_simulator_tpu_torch.ops import gn_cuda
+
+pytestmark = pytest.mark.cuda
+
+G = 32
+EPS = 1e-6
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(b, hw, c, dtype, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(b, hw, c, device=device, generator=gen) * 2 + 1.5)
+    scale = torch.randn(c, device=device, generator=gen)
+    bias = torch.randn(c, device=device, generator=gen)
+    return x.to(dtype), scale, bias
+
+
+def _error_in_tolerances(x, y_k, y_p, mean, rstd, scale, bias):
+    """Largest |y_k - y_p| as a multiple of its tolerance (module doc)."""
+    cpg = x.shape[2] // mean.shape[1]
+    a = (rstd.repeat_interleave(cpg, dim=1) * scale)[:, None, :]
+    m = mean.repeat_interleave(cpg, dim=1)[:, None, :]
+    mag = torch.maximum(
+        torch.maximum(y_p.float().abs(), (x.float().abs() + m.abs()) * a.abs()),
+        bias.abs(),
+    ).clamp(min=2.0**-126)
+    if y_p.dtype == torch.bfloat16:
+        tol = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    else:
+        tol = 1e-5 * mag
+    return ((y_k.float() - y_p.float()).abs() / tol).max().item()
+
+
+@pytest.mark.parametrize("b,hw,c", [
+    (25, 1024, 64), (25, 256, 128), (25, 64, 256), (25, 16, 512),
+    (3, 7, 96),  # C/8 = 12 vectors: a thread count that is not 256
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernels_match_plain(cuda, b, hw, c, dtype):
+    x, scale, bias = _inputs(b, hw, c, dtype, cuda)
+    mean_k, rstd_k = gn_cuda.gn_stats(x, G, EPS)
+    mean_p, rstd_p = gn_cuda.gn_stats_plain(x, G, EPS)
+    torch.testing.assert_close(mean_k, mean_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(rstd_k, rstd_p, rtol=1e-5, atol=0)
+    y_p = gn_cuda.gn_normalize_plain(x, mean_p, rstd_p, scale, bias, dtype)
+    y_alone = gn_cuda.gn_normalize(x, mean_p, rstd_p, scale, bias, dtype)
+    assert torch.equal(y_alone, y_p)
+    y_k = gn_cuda.gn_normalize(x, mean_k, rstd_k, scale, bias, dtype)
+    torch.cuda.synchronize()
+    assert _error_in_tolerances(x, y_k, y_p, mean_p, rstd_p, scale,
+                                bias) <= 1.0
+
+
+def test_stats_are_bitwise_deterministic(cuda):
+    x, _, _ = _inputs(25, 1024, 64, torch.bfloat16, cuda, seed=1)
+    first = gn_cuda.gn_stats(x, G, EPS)
+    again = gn_cuda.gn_stats(x, G, EPS)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x, scale, bias = _inputs(4, 16, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn_cuda.gn_stats(x.transpose(1, 2).contiguous().transpose(1, 2), G,
+                         EPS)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        gn_cuda.gn_stats(x.half(), G, EPS)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        gn_cuda.gn_stats(torch.zeros(2, 4, 36, dtype=torch.bfloat16,
+                                     device=cuda), 4, EPS)
+    mean, rstd = gn_cuda.gn_stats(x, G, EPS)
+    with pytest.raises(ValueError, match="dtype"):
+        gn_cuda.gn_normalize(x, mean, rstd, scale, bias, torch.float32)
+
+
+def test_model_forward_launches_each_kernel_once_per_group_norm(cuda):
+    model = get_model("resnet18").to(cuda)
+    gn_cuda.reset_launch_counts()
+    with torch.no_grad():
+        logits = model(torch.rand(2, 32, 32, 3, device=cuda))
+    torch.cuda.synchronize()
+    assert logits.shape == (2, 10) and torch.isfinite(logits).all()
+    assert gn_cuda.gn_stats.launches == gn_cuda.gn_normalize.launches == 20
