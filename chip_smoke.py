@@ -3,25 +3,40 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Builds the port's CUDA kernels from csrc/, then runs three phases and exits
-non-zero if any of them fails:
+Builds the port's CUDA kernels from csrc/ (one nvcc per source, started
+together), then runs these phases and exits non-zero if any of them fails:
 
 1. Kernels against their plain PyTorch versions, on the card, at the shapes
-   the main path gives them: the GroupNorm stats and normalize kernels at
-   B=25 for each of ResNet-18's four stage shapes and at an eval-sized
-   batch. mean/rstd must agree at rtol 1e-5 and y within one bf16 ulp
-   (of the largest term that sums to y; see ``ulps``).
-   Times each kernel (CUDA events, median) beside its bound, its plain
-   version and torch.nn.functional.group_norm as a yardstick; and checks a
-   small f32 ResNet-18 forward on the card against the same forward on the
-   CPU.
-2. The main path: ``run_simulation`` with ``device="cuda"`` at the flagship
-   settings (ResNet-18 at full width, cifar10-shaped data, Dirichlet(0.1),
-   shard cap 100, batch 25, chunk 40, momentum 0.9, lr 0.02, bf16 local
-   state) cut to 100 clients and 2 rounds. Every test loss must be finite,
-   and each GroupNorm kernel must have launched exactly 20 times per model
-   forward that ran (ResNet-18 has 20 GroupNorms).
-3. Prints the kernels' JSON line, the card's name and power limit, and as
+   the main path gives them:
+   * the GroupNorm stats and normalize kernels at B=25 for each of
+     ResNet-18's four stage shapes and at an eval-sized batch. mean/rstd
+     must agree at rtol 1e-5 and y within one bf16 ulp (of the largest term
+     that sums to y; see ``ulps``);
+   * the stage-1 weight-gradient kernel at (B, H, W, C) = (25, 32, 32, 64)
+     in bf16 and f32: |kernel - plain| <= 1e-4 * max|plain| in f32, and
+     within one bf16 ulp (of the element's term magnitude, see
+     ``wgrad_ulps``) after the cast.
+   Times each kernel (CUDA-graph replay, median) beside its bound, its
+   plain version and one PyTorch call computing the same function as a
+   yardstick (F.group_norm; cuDNN's weight-only convolution_backward); and
+   checks a small f32 ResNet-18 forward and backward on the card against
+   the same on the CPU.
+2. The main paths: ``run_simulation`` with ``device="cuda"``, ResNet-18 at
+   full width on cifar10-shaped data, 100 clients x 2 rounds each:
+   * ``fed`` at the flagship settings (Dirichlet(0.1), shard cap 100, batch
+     25, chunk 40, momentum 0.9, lr 0.02, bf16 local state);
+   * ``sign_SGD`` at examples/sign_sgd.sh's lr 0.001 with momentum 0.9, f32
+     local state, the flagship's partition and batch;
+   * ``fed_quant`` at the flagship settings with 256 levels and QAT.
+   Each path runs with every launch count set to 0 just before it and read
+   just after. Every test loss must be finite; each GroupNorm kernel must
+   have launched exactly 20 times per model forward (ResNet-18 has 20
+   GroupNorms) and the wgrad kernel exactly 4 times per training step
+   (stage 0's four 3x3 convolutions) and never in eval; the records carry
+   the algorithm's fields (compression ratios ~32 for sign, ~4 for 8-bit).
+3. A profiler pass per algorithm (10 clients, 2 rounds): device busy time
+   and idle share.
+4. Prints the kernels' JSON line, the card's name and power limit, and as
    its last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package. Writes its full numbers to
@@ -32,6 +47,7 @@ lists).
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import math
 import os
@@ -42,6 +58,8 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+TF32_OPS_PER_S = 495e12       # H100 SXM dense TF32 tensor cores (f32 inputs)
 EPS = 1e-6
 GROUPS = 32
 # (HW, C) of ResNet-18's four stages on 32x32 inputs, and how many of the
@@ -50,6 +68,8 @@ STAGES = ((1024, 64, 5), (256, 128, 5), (64, 256, 5), (16, 512, 5))
 TRAIN_BATCH = 25
 EVAL_BATCH = 1000
 GN_PER_FORWARD = 20
+WGRAD_SHAPE = (TRAIN_BATCH, 32, 32, 64)  # ResNet-18 stage 1, training batch
+WGRAD_PER_STEP = 4  # 2 x stage_sizes[0]
 
 
 def fail(msg: str) -> None:
@@ -221,6 +241,71 @@ def check_kernels(torch, gn):
     return rows
 
 
+def wgrad_ulps(torch, wg, x, g, k, p):
+    """Largest |k - p| after a bf16 cast, in bf16 ulps of the element's
+    term magnitude ``sum |x_pad * g|``: where the terms cancel, |dW| is far
+    below the rounding of the terms that sum to it."""
+    mag = wg.conv3x3_wgrad_plain(x.abs(), g.abs()).clamp(min=2.0**-126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return ((k.bfloat16().float() - p.bfloat16().float()).abs() / ulp
+            ).max().item()
+
+
+def check_wgrad(torch, wg):
+    """Phase 1b: the wgrad kernel vs its plain version in bf16 and f32;
+    returns one row per dtype."""
+    b, h, w, c = WGRAD_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        x = torch.randn(WGRAD_SHAPE, device="cuda", generator=gen).to(dtype)
+        g = torch.randn(WGRAD_SHAPE, device="cuda", generator=gen).to(dtype)
+        k = wg.conv3x3_wgrad(x, g)
+        p = wg.conv3x3_wgrad_plain(x, g)
+        torch.cuda.synchronize()
+        err = (k - p).abs().max().item()
+        scale = p.abs().max().item()
+        ulp = wgrad_ulps(torch, wg, x, g, k, p)
+        if not (math.isfinite(err) and err <= 1e-4 * scale):
+            fail(f"wgrad {name}: max abs err {err:.3e} > 1e-4 * {scale:.3e}")
+        if not ulp <= 1.0:
+            fail(f"wgrad {name}: {ulp:.2f} bf16 ulps after the cast")
+        # cuDNN's weight gradient of the same convolution, alone: the
+        # yardstick (channels-last NCHW views of the same tensors).
+        weight = torch.zeros(c, c, 3, 3, dtype=dtype, device="cuda").to(
+            memory_format=torch.channels_last)
+        x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+
+        def cudnn():
+            return torch.ops.aten.convolution_backward(
+                g_nchw, x_nchw, weight, None, [1, 1], [1, 1], [1, 1], False,
+                [0, 0], 1, [False, True, False])[1]
+
+        elem = x.element_size()
+        row = {
+            "shape": list(WGRAD_SHAPE), "dtype": name,
+            "ms": time_ms(torch, lambda: wg.conv3x3_wgrad(x, g)),
+            "eager_ms": eager_ms(torch, lambda: wg.conv3x3_wgrad(x, g)),
+            "plain_ms": time_ms(torch, lambda: wg.conv3x3_wgrad_plain(x, g)),
+            "library_ms": time_ms(torch, cudnn),
+            "bytes": 2 * b * h * w * c * elem + 9 * c * c * 4,
+            "ops": 2 * 9 * c * c * b * h * w,
+            "max_abs_err": err, "bf16_ulps": ulp,
+        }
+        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else TF32_OPS_PER_S
+        t_bytes = row["bytes"] / HBM_BYTES_PER_S
+        t_ops = row["ops"] / peak
+        row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"wgrad {name} {WGRAD_SHAPE}: {row['ms']:.4f} ms (eager "
+            f"{row['eager_ms']:.4f}, bound {row['bound_ms']:.4f} by "
+            f"{row['bound_by']}, plain {row['plain_ms']:.4f}, cuDNN wgrad "
+            f"{row['library_ms']:.4f}); max abs err {err:.2e} "
+            f"({err / scale:.2e} of max), {ulp:.2f} bf16 ulp")
+        rows[name] = row
+    return rows
+
+
 def check_model_forward(torch):
     """Phase 1b: a small f32 ResNet-18 forward and backward on the card
     (GroupNorm kernels) against the same on the CPU (plain versions), with
@@ -268,33 +353,59 @@ def check_model_forward(torch):
         f"{worst:.2e})")
 
 
-def run_main_path(torch, gn):
-    """Phase 2: the flagship FedAvg path through run_simulation."""
+def path_configs(n_clients: int, n_train: int, n_test: int, log_level):
+    """The three main paths' configurations at ``n_clients``."""
     from distributed_learning_simulator_tpu_torch.config import (
         ExperimentConfig,
     )
+
+    common = dict(
+        dataset_name="cifar10", model_name="resnet18",
+        worker_number=n_clients, round=2, epoch=1, batch_size=25,
+        partition="dirichlet", dirichlet_alpha=0.1, max_shard_size=100,
+        client_chunk_size=40, n_train=n_train, n_test=n_test,
+        eval_batch_size=1000, log_level=log_level, device="cuda",
+    )
+    flagship = dict(learning_rate=0.02, momentum=0.9,
+                    local_compute_dtype="bfloat16")
+    return {
+        "fed": ExperimentConfig(distributed_algorithm="fed", **flagship,
+                                **common),
+        "sign_SGD": ExperimentConfig(
+            distributed_algorithm="sign_SGD", learning_rate=0.001,
+            momentum=0.9, local_compute_dtype="float32", **common),
+        "fed_quant": ExperimentConfig(
+            distributed_algorithm="fed_quant", quant_levels=256, qat=True,
+            **flagship, **common),
+    }
+
+
+# Record fields each algorithm must report, with the expected value of the
+# compression ratio (analytic: 32 bits -> 1 or 8 bits plus metadata).
+RECORD_CHECKS = {
+    "fed": {},
+    "sign_SGD": {"uplink_compression_ratio": 32.0},
+    "fed_quant": {"uplink_compression_ratio": 4.0,
+                  "downlink_compression_ratio": 4.0},
+}
+
+
+def run_path(torch, gn, wg, name, config):
+    """Phase 2: one main path through run_simulation, with every launch
+    count set to 0 just before it and read just after."""
     from distributed_learning_simulator_tpu_torch.models.resnet import ResNet18
     from distributed_learning_simulator_tpu_torch.simulator import (
         run_simulation,
     )
 
-    config = ExperimentConfig(
-        dataset_name="cifar10", model_name="resnet18",
-        distributed_algorithm="fed", worker_number=100, round=2, epoch=1,
-        learning_rate=0.02, momentum=0.9, batch_size=25,
-        partition="dirichlet", dirichlet_alpha=0.1, max_shard_size=100,
-        client_chunk_size=40, local_compute_dtype="bfloat16",
-        n_train=10000, n_test=2000, eval_batch_size=1000,
-        log_level="INFO", device="cuda",
-    )
-    forwards = 0
+    forwards = {"train": 0, "eval": 0}
 
     def count(module, args, output):
-        nonlocal forwards
         if isinstance(module, ResNet18):
-            forwards += 1
+            forwards["train" if torch.is_grad_enabled() else "eval"] += 1
 
     gn.reset_launch_counts()
+    wg.reset_launch_counts()
     hook = torch.nn.modules.module.register_module_forward_hook(count)
     try:
         result = run_simulation(config, setup_logging=False)
@@ -302,24 +413,34 @@ def run_main_path(torch, gn):
         hook.remove()
     torch.cuda.synchronize()
     launches = {"gn_stats": gn.gn_stats.launches,
-                "gn_normalize": gn.gn_normalize.launches}
+                "gn_normalize": gn.gn_normalize.launches,
+                "conv3x3_wgrad": wg.conv3x3_wgrad.launches}
     history = result["history"]
     if len(history) != config.round:
-        fail(f"main path ran {len(history)} of {config.round} rounds")
+        fail(f"{name}: ran {len(history)} of {config.round} rounds")
     for rec in history:
-        if not math.isfinite(rec["test_loss"]):
-            fail(f"round {rec['round']}: non-finite test_loss")
-    if forwards == 0:
-        fail("main path ran no model forward")
-    for name, n in launches.items():
-        if n != GN_PER_FORWARD * forwards:
-            fail(f"{name} launched {n} times for {forwards} forwards "
-                 f"(expected {GN_PER_FORWARD} per forward)")
+        if not (math.isfinite(rec["test_loss"])
+                and math.isfinite(rec["mean_client_loss"])):
+            fail(f"{name} round {rec['round']}: non-finite loss")
+        for field, want in RECORD_CHECKS[name].items():
+            if not abs(rec.get(field, math.nan) - want) <= 0.01 * want:
+                fail(f"{name} round {rec['round']}: {field}="
+                     f"{rec.get(field)} (expected ~{want})")
+    if forwards["train"] == 0:
+        fail(f"{name}: no training forward ran")
+    total_fwd = forwards["train"] + forwards["eval"]
+    for kernel in ("gn_stats", "gn_normalize"):
+        if launches[kernel] != GN_PER_FORWARD * total_fwd:
+            fail(f"{name}: {kernel} launched {launches[kernel]} times for "
+                 f"{total_fwd} forwards (expected {GN_PER_FORWARD} each)")
+    if launches["conv3x3_wgrad"] != WGRAD_PER_STEP * forwards["train"]:
+        fail(f"{name}: conv3x3_wgrad launched "
+             f"{launches['conv3x3_wgrad']} times for {forwards['train']} "
+             f"training steps (expected {WGRAD_PER_STEP} each)")
     seconds = [rec["round_seconds"] for rec in history]
-    log(f"main path: {forwards} forwards, launches {launches}, round "
-        f"seconds {seconds}, {result['client_rounds_per_sec']:.2f} "
-        "client-rounds/s, test_loss "
-        f"{[rec['test_loss'] for rec in history]}")
+    log(f"{name}: {forwards} forwards, launches {launches}, round seconds "
+        f"{seconds}, {result['client_rounds_per_sec']:.2f} client-rounds/s, "
+        f"test_loss {[rec['test_loss'] for rec in history]}")
     return {
         "forwards": forwards, "launches": launches, "round_seconds": seconds,
         "client_rounds_per_sec": result["client_rounds_per_sec"],
@@ -327,29 +448,19 @@ def run_main_path(torch, gn):
     }
 
 
-def profile_rounds(torch):
-    """Where a round's time goes (informational, not a check): the same
-    flagship settings cut to 20 clients, 2 rounds, under torch.profiler.
-    Reports the device's busy time (sum of kernel times; one stream, so
-    kernels do not overlap) against the round loop's wall time, and the
-    kernels that take the most device time."""
+def profile_rounds(torch, name, config):
+    """Phase 3, where a round's time goes (informational, not a check): one
+    algorithm at 10 clients, 2 rounds, under torch.profiler (whose trace
+    processing, not the rounds, takes most of this phase's time). Reports the
+    device's busy time (sum of kernel times; one stream, so kernels do not
+    overlap) against the round loop's wall time, and the kernels that take
+    the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from distributed_learning_simulator_tpu_torch.config import (
-        ExperimentConfig,
-    )
     from distributed_learning_simulator_tpu_torch.simulator import (
         run_simulation,
     )
 
-    config = ExperimentConfig(
-        dataset_name="cifar10", model_name="resnet18", worker_number=20,
-        round=2, epoch=1, learning_rate=0.02, momentum=0.9, batch_size=25,
-        partition="dirichlet", dirichlet_alpha=0.1, max_shard_size=100,
-        client_chunk_size=40, local_compute_dtype="bfloat16",
-        n_train=2000, n_test=1000, eval_batch_size=1000,
-        log_level="WARNING", device="cuda",
-    )
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         result = run_simulation(config, setup_logging=False)
         torch.cuda.synchronize()
@@ -365,21 +476,22 @@ def profile_rounds(torch):
     busy_ms = sum(r[1] for r in rows)
     wall_ms = 1e3 * result["total_seconds"]
     out = {
-        "clients": config.worker_number, "rounds": config.round,
-        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "algorithm": name, "clients": config.worker_number,
+        "rounds": config.round, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "round_seconds": [rec["round_seconds"] for rec in result["history"]],
         "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
         "top_kernels": [
             {"name": k[:120], "device_ms": t, "calls": c} for k, t, c in rows[:12]
         ],
     }
     if busy_ms:
-        log(f"profile: {config.worker_number} clients x {config.round} rounds,"
-            f" wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle "
-            f"share {out['idle_share']:.3f}")
+        log(f"profile {name}: {config.worker_number} clients x "
+            f"{config.round} rounds, wall {wall_ms:.1f} ms, device busy "
+            f"{busy_ms:.1f} ms, idle share {out['idle_share']:.3f}")
         for r in out["top_kernels"][:8]:
             log(f"  {r['device_ms']:9.2f} ms {r['calls']:7d}x {r['name']}")
     else:
-        log("profile: torch.profiler saw no device time")
+        log(f"profile {name}: torch.profiler saw no device time")
     return out
 
 
@@ -397,6 +509,9 @@ def main() -> None:
     try:
         from distributed_learning_simulator_tpu_torch.ops import _build
         from distributed_learning_simulator_tpu_torch.ops import gn_cuda as gn
+        from distributed_learning_simulator_tpu_torch.ops import (
+            wgrad_cuda as wg,
+        )
     except ImportError as e:
         fail(f"the port's package is not beside this script: {e}")
     smi = subprocess.run(
@@ -406,15 +521,33 @@ def main() -> None:
     card = smi[0] if smi else "nvidia-smi gave nothing"
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {card}")
 
+    # One nvcc per source, all started together (nvcc runs in a
+    # subprocess, so the threads overlap).
     t0 = time.perf_counter()
-    gn._lib()
-    log(f"built csrc/gn.cu in {time.perf_counter() - t0:.1f}s:\n"
-        + _build.BUILD_LOGS.get("gn", "").strip())
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        for fut in [pool.submit(m._lib) for m in (gn, wg)]:
+            fut.result()
+    log(f"built csrc/gn.cu and csrc/wgrad.cu in "
+        f"{time.perf_counter() - t0:.1f}s:\n"
+        + "\n".join(_build.BUILD_LOGS.get(n, "").strip()
+                    for n in ("gn", "wgrad")))
 
     rows = check_kernels(torch, gn)
+    wgrad_rows = check_wgrad(torch, wg)
     check_model_forward(torch)
-    main_path = run_main_path(torch, gn)
-    profile = profile_rounds(torch)
+    paths = {
+        name: run_path(torch, gn, wg, name, config)
+        for name, config in path_configs(100, 10000, 2000, "INFO").items()
+    }
+    profiles = [
+        profile_rounds(torch, name, config)
+        for name, config in path_configs(10, 1000, 1000, "WARNING").items()
+    ]
+    # Launches over the three main paths (each counted from 0).
+    launches = {
+        k: sum(p["launches"][k] for p in paths.values())
+        for k in ("gn_stats", "gn_normalize", "conv3x3_wgrad")
+    }
 
     train_rows = [r for r in rows if r["per_forward"]]
     kernels = []
@@ -436,7 +569,7 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": "distributed_learning_simulator_tpu_torch/csrc/gn.cu",
             "replaces": replaces,
-            "launches": main_path["launches"][name],
+            "launches": launches[name],
             "max_abs_err": max(r[key]["max_abs_err"] for r in rows),
             "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],
             "bound_ms": 1e3 * max(t_bytes, t_ops),
@@ -444,12 +577,23 @@ def main() -> None:
             "library_ms": sum(r["per_forward"] * r["library_ms"]
                               for r in train_rows),
         })
+    # The main path runs the bf16 model: its wgrad calls are the bf16 row.
+    w = wgrad_rows["bf16"]
+    kernels.append({
+        "name": "conv3x3_wgrad", "route": "cuda",
+        "source": "distributed_learning_simulator_tpu_torch/csrc/wgrad.cu",
+        "replaces": "scripts/exp_pallas_wgrad.py:63",
+        "launches": launches["conv3x3_wgrad"],
+        "max_abs_err": w["max_abs_err"], "ms": w["ms"],
+        "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
+        "bound_by": w["bound_by"], "library_ms": w["library_ms"],
+    })
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
-                   "kernel_rows": rows, "kernels": kernels,
-                   "main_path": main_path, "profile": profile}, f,
-                  indent=1)
+                   "kernel_rows": rows, "wgrad_rows": wgrad_rows,
+                   "kernels": kernels, "main_paths": paths,
+                   "profiles": profiles}, f, indent=1)
     if "jax" in sys.modules:
         fail("the port imported jax")
     print(json.dumps({"kernels": kernels}))

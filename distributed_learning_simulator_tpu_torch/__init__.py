@@ -9,7 +9,8 @@ by hand for Hopper here (csrc/, ops/gn_cuda.py); what the JAX package left
 to XLA, the port leaves to PyTorch.
 
 The port imports torch and numpy, never jax and nothing of the JAX package.
-The slice ported so far is synchronous FedAvg on ResNet-18/34 (ROADMAP.md).
+Ported so far: synchronous FedAvg, sign_SGD and fed_quant on ResNet-18/34
+(ROADMAP.md).
 """
 
 __version__ = "0.1.0"

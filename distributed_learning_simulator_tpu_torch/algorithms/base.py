@@ -1,8 +1,9 @@
 """Algorithm strategy interface (algorithms/base.py of the JAX package):
-the part of it that the FedAvg main path uses.
+the part of it that the ported algorithms use.
 
 An algorithm builds a **round function** — local training on every client,
-then aggregation — and may run a host-side ``post_round`` hook.
+then aggregation — keeps optional per-client state across rounds
+(``init_client_state``), and may run a host-side ``post_round`` hook.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ class RoundContext:
     prev_metrics: dict | None  # eval of prev_global_params
     eval_batches: tuple  # (xb, yb, mb) padded test set on the device
     log_dir: str | None
+    layout: Any = None  # models/registry.ParamLayout of the flat params
     extra: dict = field(default_factory=dict)
 
 
@@ -42,20 +44,31 @@ class Algorithm:
     def make_round_fn(self, apply_fn: Callable, optimizer, layout,
                       n_clients: int, preprocess: Callable | None = None,
                       client_sizes=None, device=None) -> Callable:
-        """Return ``round_fn(global_flat, cx, cy, cmask, sizes, generator,
-        lr_scale=1.0, client_rng=None) -> (new_global_flat, aux)``.
+        """Return ``round_fn(global_flat, client_state, cx, cy, cmask,
+        sizes, generator, lr_scale=1.0, client_rng=None,
+        payload_salts=None) -> (new_global_flat, new_client_state, aux)``.
 
-        ``client_rng(client, n_slots) -> (epoch_perms, sr_salt)``
-        optionally replaces the generator's draws (tests)."""
+        ``client_state`` is whatever per-client state persists across
+        rounds (``init_client_state``; None when nothing does).
+        ``client_rng(client, n_slots) -> (epoch_perms, sr_salt)`` and
+        ``payload_salts(client or None) -> per-leaf salts`` optionally
+        replace the generator's draws (tests pass the JAX package's)."""
         raise NotImplementedError
+
+    def init_client_state(self, optimizer, global_flat, n_clients: int):
+        """Initial per-client persistent state; None when client optimizers
+        reset every round (the only mode ported: config.py refuses
+        ``reset_client_optimizer=False``)."""
+        return None
 
     def make_server_update(self):
         """Optional server-side optimizer; None means the round aggregate
         becomes the next global model unchanged."""
         return None
 
-    def prepare(self, apply_fn, eval_fn) -> None:
-        """One-time setup after the engine is built."""
+    def prepare(self, apply_fn, eval_fn, eval_batches=None) -> None:
+        """One-time setup after the engine is built; ``eval_batches`` is
+        the padded test set on the device."""
 
     def post_round(self, ctx: RoundContext) -> dict:
         """Host-side per-round hook; returns extra metrics to record/log."""

@@ -312,6 +312,11 @@ class ExperimentConfig:
                 "constant, cosine, step"
             )
         if self.lr_schedule.lower() != "constant":
+            if self.distributed_algorithm == "sign_SGD":
+                raise ValueError(
+                    "lr_schedule is supported for the FedAvg family only, "
+                    "not sign_SGD"
+                )
             if not 0.0 <= self.lr_min_factor <= 1.0:
                 raise ValueError("lr_min_factor must be in [0, 1]")
             if (
@@ -377,12 +382,14 @@ class ExperimentConfig:
             (self.profile_dir is not None, "profile_dir", 13),
             (self.cost_model_trace is not None, "cost_model_trace", 13),
             (bool(self.sweep_seeds or self.sweep_points), "sweeps", 16),
-            (self.optimizer_name.lower() != "sgd",
+            # sign_SGD's constructor raises ValueError for any optimizer
+            # but SGD, as in the JAX package.
+            (self.optimizer_name.lower() != "sgd"
+             and self.distributed_algorithm != "sign_SGD",
              f"optimizer_name={self.optimizer_name!r}", 19),
             (self.server_optimizer_name.lower() not in ("none", ""),
              f"server_optimizer_name={self.server_optimizer_name!r}", 19),
             (self.augment.lower() != "none", f"augment={self.augment!r}", 20),
-            (self.client_eval is True, "client_eval=True", 20),
             (not self.reset_client_optimizer,
              "reset_client_optimizer=False", 20),
             (self.client_chunk_size == 0, "client_chunk_size=0 (auto)", 20),

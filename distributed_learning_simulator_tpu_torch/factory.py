@@ -1,18 +1,25 @@
 """Algorithm registry: the JAX package's five names (factory.py there).
 
-``fed`` is built; the other four raise NotImplementedError naming the
-ROADMAP.md queue 1 item that ports them; an unknown name raises
-RuntimeError naming all five, as in the JAX package.
+``fed``, ``sign_SGD`` and ``fed_quant`` are built; the two Shapley names
+raise NotImplementedError naming the ROADMAP.md queue 1 item that ports
+them; an unknown name raises RuntimeError naming all five, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
+from distributed_learning_simulator_tpu_torch.algorithms.fed_quant import (
+    FedQuant,
+)
 from distributed_learning_simulator_tpu_torch.algorithms.fedavg import FedAvg
+from distributed_learning_simulator_tpu_torch.algorithms.sign_sgd import (
+    SignSGD,
+)
 
 _ALGORITHMS = {
     "fed": FedAvg,
-    "sign_SGD": 8,
-    "fed_quant": 9,
+    "sign_SGD": SignSGD,
+    "fed_quant": FedQuant,
     "multiround_shapley_value": 10,
     "GTG_shapley_value": 10,
 }

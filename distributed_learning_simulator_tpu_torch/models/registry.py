@@ -98,10 +98,3 @@ class ParamLayout:
         """Views into ``flat`` (``split`` keeps the backward one ``cat``)."""
         parts = flat.split(self.numels)
         return {n: p.view(s) for n, p, s in zip(self.names, parts, self.shapes)}
-
-    def leaf_ids(self, device) -> torch.Tensor:
-        """int64 ``[size]``: each element's leaf index in ``names``."""
-        return torch.repeat_interleave(
-            torch.arange(len(self.names), device=device),
-            torch.tensor(self.numels, device=device),
-        )

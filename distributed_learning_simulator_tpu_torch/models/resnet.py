@@ -14,7 +14,13 @@ stage 1:
   backward is the closed form ``_pgn_bwd`` in plain PyTorch, consuming the
   forward's per-group mean and rstd;
 * residual add and relu run in the model dtype, the mean pool returns the
-  model dtype, and the classifier head is f32 with f32 logits.
+  model dtype, and the classifier head is f32 with f32 logits;
+* stage 0's 3x3 stride-1 width->width convolutions (``2 * stage_sizes[0]``
+  of them, 4 in ResNet-18) are ``_Conv3x3Fn``: the forward and the input
+  gradient are cuDNN's, the weight gradient is the hand-written kernel
+  (ops/wgrad_cuda.py ``conv3x3_wgrad``), which the JAX package prototyped
+  in Pallas for exactly these convolutions. The stem, the stride-2 and
+  projection convolutions and the later stages stay on plain autograd.
 
 Activations move between layers as NHWC tensors. Each convolution reads a
 ``permute`` view of its NHWC input, which is a channels-last NCHW tensor,
@@ -38,6 +44,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from distributed_learning_simulator_tpu_torch.ops.gn_cuda import group_norm
+from distributed_learning_simulator_tpu_torch.ops.wgrad_cuda import (
+    conv3x3_wgrad,
+)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -127,16 +136,58 @@ def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+class _Conv3x3Fn(torch.autograd.Function):
+    """3x3 stride-1 SAME convolution of NHWC ``x`` with an OIHW ``weight``,
+    both in the compute dtype. Forward and input gradient are cuDNN's
+    (``convolution_backward`` asked for the input gradient only); the weight
+    gradient is :func:`conv3x3_wgrad` (the kernel on a CUDA tensor, its
+    plain version on a CPU one), f32, cast to the weight's dtype as JAX
+    gives a bf16 convolution a bf16 weight cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.save_for_backward(x, weight)
+        y = F.conv2d(x.permute(0, 3, 1, 2), weight, padding=1)
+        return y.permute(0, 2, 3, 1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.ops.aten.convolution_backward(
+                dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), weight, None,
+                [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                [True, False, False],
+            )[0].permute(0, 2, 3, 1)
+        if ctx.needs_input_grad[1]:
+            dw = conv3x3_wgrad(x.contiguous(), dy)
+            dw = dw.permute(3, 2, 0, 1).to(weight.dtype)
+        return dx, dw
+
+
 class SameConv2d(nn.Conv2d):
     """Bias-free convolution on NHWC tensors with the JAX package's SAME
-    padding, computed in ``dtype``."""
+    padding, computed in ``dtype``. ``wgrad_kernel=True`` (3x3, stride 1,
+    cin == cout only) takes its weight gradient from the hand-written
+    kernel (``_Conv3x3Fn``)."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, wgrad_kernel: bool = False):
         super().__init__(cin, cout, k, stride=stride, bias=False)
+        if wgrad_kernel and not (k == 3 and stride == 1 and cin == cout):
+            raise ValueError(
+                "the wgrad kernel takes 3x3 stride-1 width->width "
+                f"convolutions, got k={k} stride={stride} {cin}->{cout}"
+            )
         self.compute_dtype = resolve_dtype(dtype)
+        self.wgrad_kernel = wgrad_kernel
 
     def forward(self, x):
+        if self.wgrad_kernel:
+            return _Conv3x3Fn.apply(x.to(self.compute_dtype),
+                                    self.weight.to(self.compute_dtype))
         xc = x.to(self.compute_dtype).permute(0, 3, 1, 2)
         k, s = self.kernel_size[0], self.stride[0]
         ph = _same_pads(xc.shape[2], k, s)
@@ -159,13 +210,17 @@ class Dense(nn.Linear):
 
 
 class ResidualBlock(nn.Module):
+    """Basic block; ``wgrad_kernel`` (stage 0) routes both 3x3 convolutions'
+    weight gradients through the hand-written kernel."""
+
     def __init__(self, cin: int, features: int, strides: int = 1,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, wgrad_kernel: bool = False):
         super().__init__()
         groups = min(32, features)
-        self.conv1 = SameConv2d(cin, features, 3, strides, dtype)
+        self.conv1 = SameConv2d(cin, features, 3, strides, dtype,
+                                wgrad_kernel)
         self.norm1 = PlainGroupNorm(features, groups, dtype)
-        self.conv2 = SameConv2d(features, features, 3, 1, dtype)
+        self.conv2 = SameConv2d(features, features, 3, 1, dtype, wgrad_kernel)
         self.norm2 = PlainGroupNorm(features, groups, dtype)
         self.proj = self.proj_norm = None
         if strides != 1 or cin != features:
@@ -211,7 +266,8 @@ class ResNet18(nn.Module):
             features = width * 2**stage
             for block in range(n_blocks):
                 strides = 2 if stage > 0 and block == 0 else 1
-                blocks.append(ResidualBlock(cin, features, strides, self.dtype))
+                blocks.append(ResidualBlock(cin, features, strides, self.dtype,
+                                            wgrad_kernel=stage == 0))
                 cin = features
         self.blocks = nn.Sequential(*blocks)
         self.head = Dense(cin, num_classes)

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from distributed_learning_simulator_tpu_torch.ops.quantize import (
     MASK32,
+    Segments,
     hash_mix,
 )
 
@@ -67,11 +68,16 @@ def make_optimizer(name: str, learning_rate: float, momentum: float = 0.0,
     return SGD(learning_rate, momentum, weight_decay)
 
 
-def make_loss_fn(apply_fn: Callable):
+def make_loss_fn(apply_fn: Callable, param_transform: Callable | None = None):
     """Masked softmax cross-entropy + accuracy:
-    ``loss_fn(params, x, y, mask) -> (loss, acc)``."""
+    ``loss_fn(params, x, y, mask) -> (loss, acc)``.
+
+    ``param_transform`` hooks QAT: fed_quant's straight-through fake-quant
+    applied to the params inside the loss (JAX ``make_loss_fn``)."""
 
     def loss_fn(params, x, y, mask):
+        if param_transform is not None:
+            params = param_transform(params)
         logits = apply_fn(params, x).float()
         nll = F.cross_entropy(logits, y, reduction="none")
         denom = torch.clamp(mask.sum(), min=1.0)
@@ -125,7 +131,8 @@ class FlatRounder:
 
     def __init__(self, layout, device):
         self.n_leaves = len(layout.names)
-        self.offsets = (layout.leaf_ids(device) * SALT_STEP) & MASK32
+        steps = torch.arange(self.n_leaves, device=device) * SALT_STEP
+        self.offsets = Segments(layout.numels, device).spread(steps & MASK32)
 
     def __call__(self, flat32: torch.Tensor, salt: int):
         rounded, _ = _sr_to_bf16(flat32, (self.offsets + salt) & MASK32)
@@ -150,6 +157,7 @@ def make_local_train_fn(
     preprocess: Callable | None = None,
     compute_dtype: torch.dtype | None = None,
     device=None,
+    param_transform: Callable | None = None,
 ):
     """Build ``local_train(global_flat, xs, ys, mask, epoch_perms, sr_salt,
     lr_scale=1.0) -> (params_flat, metrics)``.
@@ -169,8 +177,13 @@ def make_local_train_fn(
     The optimizer starts fresh every round (``reset_client_optimizer``;
     persistent per-client optimizer state is not ported, config.py
     refuses it).
+
+    ``param_transform`` (flat -> flat, e.g. fed_quant's fake-quant) is
+    applied to the params inside the loss.
     """
-    loss_fn = make_loss_fn(apply_fn)
+    loss_fn = make_loss_fn(
+        lambda flat, x: apply_fn(layout.unflatten(flat), x), param_transform
+    )
     sr_enabled = compute_dtype == torch.bfloat16
     rounder = FlatRounder(layout, device) if sr_enabled else None
 
@@ -193,7 +206,7 @@ def make_local_train_fn(
                 if preprocess is not None:
                     bx = preprocess(bx)
                 p = params.detach().requires_grad_(True)
-                loss, acc = loss_fn(layout.unflatten(p), bx, by, bm)
+                loss, acc = loss_fn(p, bx, by, bm)
                 (grads,) = torch.autograd.grad(loss, p)
                 with torch.no_grad():
                     updates, opt_state = optimizer.update(

@@ -1,5 +1,5 @@
 """Simulation entry point and CLI (simulator.py of the JAX package), main path:
-data, client data, init, rounds, one server eval per round.
+data, client data, init, per-client state, rounds, one server eval per round.
 
     python -m distributed_learning_simulator_tpu_torch.simulator \\
         --dataset_name cifar10 --model_name resnet18 --distributed_algorithm fed \\
@@ -211,13 +211,15 @@ def run_simulation(
     def apply_fn(flat_views, x):
         return torch.func.functional_call(model, flat_views, (x,))
 
+    # The algorithm first: sign_SGD refuses a non-SGD optimizer with the
+    # JAX package's ValueError before the optimizer registry is asked.
+    algorithm = get_algorithm(config.distributed_algorithm, config)
     optimizer = make_optimizer(
         config.optimizer_name, config.learning_rate,
         momentum=config.momentum, weight_decay=config.weight_decay,
     )
-    algorithm = get_algorithm(config.distributed_algorithm, config)
     evaluate = make_eval_fn(apply_fn)
-    algorithm.prepare(apply_fn, evaluate)
+    algorithm.prepare(apply_fn, evaluate, eval_batches)
     round_fn = algorithm.make_round_fn(
         apply_fn, optimizer, layout, n_clients,
         preprocess=(
@@ -227,6 +229,8 @@ def run_simulation(
         client_sizes=client_data.sizes,
         device=device,
     )
+    client_state = algorithm.init_client_state(optimizer, global_flat,
+                                               n_clients)
     generator = torch.Generator().manual_seed(config.seed + 1)
 
     # --- round loop ---------------------------------------------------------
@@ -237,8 +241,9 @@ def run_simulation(
     t_prev_done = t_start
     for round_idx in range(config.round):
         lr_scale = float(lr_factors(config, round_idx, 1)[0])
-        new_global, aux = round_fn(
-            global_flat, cx, cy, cmask, client_data.sizes, generator,
+        new_global, client_state, aux = round_fn(
+            global_flat, client_state, cx, cy, cmask, client_data.sizes,
+            generator,
             lr_scale=lr_scale,
             client_rng=client_rng_fn(round_idx) if client_rng_fn else None,
         )
@@ -249,7 +254,7 @@ def run_simulation(
             round_idx=round_idx, global_params=new_global,
             prev_global_params=global_flat, sizes=client_data.sizes,
             aux=aux, metrics=metrics, prev_metrics=prev_metrics,
-            eval_batches=eval_batches, log_dir=log_dir,
+            eval_batches=eval_batches, log_dir=log_dir, layout=layout,
         )) or {}
         global_flat, prev_metrics = new_global, metrics
         now = time.perf_counter()
@@ -277,7 +282,7 @@ def run_simulation(
     )
     return {
         "global_params": layout.unflatten(global_flat),
-        "client_state": None,
+        "client_state": client_state,
         "history": history,
         "algorithm": algorithm,
         "final_accuracy": history[-1]["test_accuracy"] if history else None,

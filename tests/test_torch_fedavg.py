@@ -134,8 +134,8 @@ def test_round_matches_jax(case):
         preprocess=engine.make_decoder(sample_shape),
         client_sizes=cd.sizes, device="cpu",
     )
-    new, aux = round_fn(
-        layout.flatten(params), torch.from_numpy(cd.x),
+    new, state, aux = round_fn(
+        layout.flatten(params), None, torch.from_numpy(cd.x),
         torch.from_numpy(cd.y.astype(np.int64)), torch.from_numpy(cd.mask),
         cd.sizes, generator=None, client_rng=client_rng,
     )
@@ -145,6 +145,7 @@ def test_round_matches_jax(case):
         "plain_chunks": {0: 8, 1: 8, 2: 8, 3: 8},
     }[case]
     assert slots_seen == expected_slots
+    assert state is None
     want = params_from_jax(jax.device_get(j_new))
     for name, leaf in layout.unflatten(new).items():
         np.testing.assert_allclose(leaf.numpy(), want[name].numpy(),
@@ -168,8 +169,9 @@ def test_all_empty_round_keeps_previous_global():
         preprocess=engine.make_decoder(cd.sample_shape), device="cpu",
     )
     flat = layout.flatten(params)
-    new, _ = round_fn(
-        flat, torch.from_numpy(cd.x), torch.from_numpy(cd.y.astype(np.int64)),
+    new, _, _ = round_fn(
+        flat, None, torch.from_numpy(cd.x),
+        torch.from_numpy(cd.y.astype(np.int64)),
         torch.from_numpy(cd.mask), np.zeros(cd.n_clients, np.float32),
         torch.Generator().manual_seed(0),
     )

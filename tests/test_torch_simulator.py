@@ -132,7 +132,7 @@ def test_probes_raise_as_in_jax():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--distributed_algorithm", "sign_SGD"], "item 8"),
+    (["--distributed_algorithm", "multiround_shapley_value"], "item 10"),
     (["--aggregation", "median"], "item 11"),
     (["--participation_fraction", "0.5"], "item 7"),
     (["--optimizer_name", "adam"], "item 19"),
