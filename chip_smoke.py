@@ -13,14 +13,20 @@ together), then runs these phases and exits non-zero if any of them fails:
      must agree at rtol 1e-5 and y within one bf16 ulp (of the largest term
      that sums to y; see ``ulps``);
    * the stage-1 weight-gradient kernel at (B, H, W, C) = (25, 32, 32, 64)
-     in bf16 and f32: |kernel - plain| <= 1e-4 * max|plain| in f32, and
-     within one bf16 ulp (of the element's term magnitude, see
-     ``wgrad_ulps``) after the cast.
+     in bf16 and f32, and at (4, 28, 28, 64) in bf16 (a 28-wide image: the
+     ragged K slab and the zero-fill path): |kernel - plain| <= 1e-4 *
+     max|plain| in f32, and within one bf16 ulp (of the element's term
+     magnitude, see ``wgrad_ulps``) after the cast;
+   * the SASS of the bf16 wgrad kernel (cuobjdump) must hold tensor-core
+     instructions (HMMA or HGMMA).
    Times each kernel (CUDA-graph replay, median) beside its bound, its
    plain version and one PyTorch call computing the same function as a
-   yardstick (F.group_norm; cuDNN's weight-only convolution_backward); and
-   checks a small f32 ResNet-18 forward and backward on the card against
-   the same on the CPU.
+   yardstick (F.group_norm; cuDNN's weight-only convolution_backward), the
+   GroupNorm stats kernel at every cluster size S beside the planned one,
+   and a one-kernel fill as the per-launch floor of a graph replay; prints
+   the two kernels redesigned for Hopper beside their times before the
+   redesign (constants from PERF.md); and checks a small f32 ResNet-18
+   forward and backward on the card against the same on the CPU.
 2. The main paths: ``run_simulation`` with ``device="cuda"``, ResNet-18 at
    full width on cifar10-shaped data, 100 clients x 2 rounds each:
    * ``fed`` at the flagship settings (Dirichlet(0.1), shard cap 100, batch
@@ -51,6 +57,7 @@ import concurrent.futures
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -69,7 +76,16 @@ TRAIN_BATCH = 25
 EVAL_BATCH = 1000
 GN_PER_FORWARD = 20
 WGRAD_SHAPE = (TRAIN_BATCH, 32, 32, 64)  # ResNet-18 stage 1, training batch
+WGRAD_RAGGED_SHAPE = (4, 28, 28, 64)  # W not a multiple of the 16-deep slab
 WGRAD_PER_STEP = 4  # 2 x stage_sizes[0]
+# Device ms of the kernels before their Hopper redesign, as PERF.md section
+# 6 records them (H100 80GB HBM3 at 700.00 W): constants for the comparison
+# lines, not measured here.
+EARLIER_MS = {
+    "conv3x3_wgrad bf16 (25, 32, 32, 64), f32 CUDA-core kernel": 0.0860,
+    "gn_stats per training forward (B=25), one CTA per sample": 0.1181,
+    "gn_stats (1000, 1024, 64), one CTA per sample": 0.05638,
+}
 
 
 def fail(msg: str) -> None:
@@ -190,8 +206,19 @@ def check_kernels(torch, gn):
         x_bytes = b * hw * c * 2
         stat_bytes = 2 * b * GROUPS * 4
         elems = b * hw * c
+        # The stats kernel at every cluster size S, beside the planner's
+        # pick (ops/gn_cuda.py stats_split): the evidence for its cost model.
+        split_ms = {
+            s: time_ms(torch,
+                       lambda s=s: gn.gn_stats(x, GROUPS, EPS, split=s))
+            for s in (1, 2, 4, 8) if b < EVAL_BATCH
+        }
         row = {
             "shape": [b, hw, c], "per_forward": per_forward,
+            # The smallest kernel a replay can hold: a fill of [B, G] f32.
+            "launch_floor_ms": time_ms(torch, torch.empty_like(mean_k).zero_),
+            "split": gn.stats_split(b, hw, c, x.element_size()),
+            "split_ms": split_ms,
             "stats": {
                 "ms": time_ms(torch, lambda: gn.gn_stats(x, GROUPS, EPS)),
                 "eager_ms": eager_ms(
@@ -235,7 +262,10 @@ def check_kernels(torch, gn):
             f"{row['normalize']['eager_ms']:.4f}, bound "
             f"{row['normalize']['bound_ms']:.4f}, plain "
             f"{row['normalize']['plain_ms']:.4f}); F.group_norm "
-            f"{row['library_ms']:.4f} ms; y within {y_ulps:.2f} ulp"
+            f"{row['library_ms']:.4f} ms; y within {y_ulps:.2f} ulp; "
+            f"launch floor {row['launch_floor_ms']:.4f} ms; "
+            f"stats at S = {row['split']} (planned), by S: "
+            + ", ".join(f"{k}: {v:.4f}" for k, v in split_ms.items())
         )
         rows.append(row)
     return rows
@@ -252,14 +282,19 @@ def wgrad_ulps(torch, wg, x, g, k, p):
 
 
 def check_wgrad(torch, wg):
-    """Phase 1b: the wgrad kernel vs its plain version in bf16 and f32;
-    returns one row per dtype."""
-    b, h, w, c = WGRAD_SHAPE
+    """Phase 1b: the wgrad kernel vs its plain version in bf16 and f32 at
+    the main path's shape, and in bf16 at a ragged shape; returns one row
+    per case."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
-    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        x = torch.randn(WGRAD_SHAPE, device="cuda", generator=gen).to(dtype)
-        g = torch.randn(WGRAD_SHAPE, device="cuda", generator=gen).to(dtype)
+    for name, shape, dtype in (
+        ("bf16", WGRAD_SHAPE, torch.bfloat16),
+        ("f32", WGRAD_SHAPE, torch.float32),
+        ("bf16_ragged", WGRAD_RAGGED_SHAPE, torch.bfloat16),
+    ):
+        b, h, w, c = shape
+        x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        g = torch.randn(shape, device="cuda", generator=gen).to(dtype)
         k = wg.conv3x3_wgrad(x, g)
         p = wg.conv3x3_wgrad_plain(x, g)
         torch.cuda.synchronize()
@@ -267,9 +302,10 @@ def check_wgrad(torch, wg):
         scale = p.abs().max().item()
         ulp = wgrad_ulps(torch, wg, x, g, k, p)
         if not (math.isfinite(err) and err <= 1e-4 * scale):
-            fail(f"wgrad {name}: max abs err {err:.3e} > 1e-4 * {scale:.3e}")
+            fail(f"wgrad {name} {shape}: max abs err {err:.3e} > 1e-4 * "
+                 f"{scale:.3e}")
         if not ulp <= 1.0:
-            fail(f"wgrad {name}: {ulp:.2f} bf16 ulps after the cast")
+            fail(f"wgrad {name} {shape}: {ulp:.2f} bf16 ulps after the cast")
         # cuDNN's weight gradient of the same convolution, alone: the
         # yardstick (channels-last NCHW views of the same tensors).
         weight = torch.zeros(c, c, 3, 3, dtype=dtype, device="cuda").to(
@@ -283,7 +319,7 @@ def check_wgrad(torch, wg):
 
         elem = x.element_size()
         row = {
-            "shape": list(WGRAD_SHAPE), "dtype": name,
+            "shape": list(shape), "dtype": name,
             "ms": time_ms(torch, lambda: wg.conv3x3_wgrad(x, g)),
             "eager_ms": eager_ms(torch, lambda: wg.conv3x3_wgrad(x, g)),
             "plain_ms": time_ms(torch, lambda: wg.conv3x3_wgrad_plain(x, g)),
@@ -297,13 +333,36 @@ def check_wgrad(torch, wg):
         t_ops = row["ops"] / peak
         row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        log(f"wgrad {name} {WGRAD_SHAPE}: {row['ms']:.4f} ms (eager "
+        log(f"wgrad {name} {shape}: {row['ms']:.4f} ms (eager "
             f"{row['eager_ms']:.4f}, bound {row['bound_ms']:.4f} by "
             f"{row['bound_by']}, plain {row['plain_ms']:.4f}, cuDNN wgrad "
             f"{row['library_ms']:.4f}); max abs err {err:.2e} "
             f"({err / scale:.2e} of max), {ulp:.2f} bf16 ulp")
         rows[name] = row
     return rows
+
+
+def check_wgrad_sass(_build):
+    """Phase 1c: the bf16 wgrad kernel must run on the tensor cores. Counts
+    HMMA/HGMMA instructions per partial kernel in the built library's SASS
+    (cuobjdump) and fails if the bf16 one has none."""
+    proc = subprocess.run(
+        [_build.cuda_tool("cuobjdump"), "-sass", _build.LIB_PATHS["wgrad"]],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        fail(f"cuobjdump -sass failed: {proc.stderr.strip()[:500]}")
+    counts = {}
+    for section in proc.stdout.split("Function : ")[1:]:
+        name = section.split(None, 1)[0]
+        for kernel in ("wgrad_tc_partial_kernel", "wgrad_f32_partial_kernel"):
+            if kernel in name:
+                counts[kernel] = len(re.findall(r"\bHG?MMA\b", section))
+    if not counts.get("wgrad_tc_partial_kernel"):
+        fail(f"no tensor-core instruction (HMMA/HGMMA) in the bf16 wgrad "
+             f"kernel's SASS: {counts}")
+    log(f"SASS tensor-core instructions per kernel: {counts}")
+    return counts
 
 
 def check_model_forward(torch):
@@ -495,6 +554,37 @@ def profile_rounds(torch, name, config):
     return out
 
 
+def redesign_lines(kernels, rows, wgrad_rows):
+    """Prints the kernels redesigned for Hopper beside their yardsticks,
+    bounds and earlier times (EARLIER_MS: PERF.md constants, not this
+    run); returns the same numbers."""
+    by_name = {k["name"]: k for k in kernels}
+    w = wgrad_rows["bf16"]
+    stats = by_name["gn_stats"]
+    eval_row = next(r for r in rows if r["shape"][0] == EVAL_BATCH)
+    out = {
+        "conv3x3_wgrad_bf16": {"ms": w["ms"], "cudnn_ms": w["library_ms"],
+                               "bound_ms": w["bound_ms"]},
+        "gn_stats_per_training_forward": {
+            "ms": stats["ms"], "bound_ms": stats["bound_ms"],
+            "f_group_norm_ms": stats["library_ms"]},
+        "gn_stats_eval": {"ms": eval_row["stats"]["ms"],
+                          "bound_ms": eval_row["stats"]["bound_ms"]},
+    }
+    before = [f"before: {k} (PERF.md constant): {v:.4f} ms"
+              for k, v in EARLIER_MS.items()]
+    log(f"redesigned conv3x3_wgrad bf16 {WGRAD_SHAPE}: {w['ms']:.4f} ms "
+        f"against cuDNN wgrad {w['library_ms']:.4f} ms (bound "
+        f"{w['bound_ms']:.4f}); {before[0]}")
+    log(f"redesigned gn_stats per training forward: {stats['ms']:.4f} ms "
+        f"(bound {stats['bound_ms']:.4f}; F.group_norm, stats and normalize "
+        f"together, {stats['library_ms']:.4f}); {before[1]}")
+    log(f"redesigned gn_stats {tuple(eval_row['shape'])}: "
+        f"{eval_row['stats']['ms']:.4f} ms (bound "
+        f"{eval_row['stats']['bound_ms']:.4f}); {before[2]}")
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=os.path.join("build", "chip_smoke"),
@@ -534,6 +624,7 @@ def main() -> None:
 
     rows = check_kernels(torch, gn)
     wgrad_rows = check_wgrad(torch, wg)
+    sass = check_wgrad_sass(_build)
     check_model_forward(torch)
     paths = {
         name: run_path(torch, gn, wg, name, config)
@@ -588,10 +679,13 @@ def main() -> None:
         "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
         "bound_by": w["bound_by"], "library_ms": w["library_ms"],
     })
+    redesigned = redesign_lines(kernels, rows, wgrad_rows)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "kernel_rows": rows, "wgrad_rows": wgrad_rows,
+                   "wgrad_sass_mma": sass, "redesigned": redesigned,
+                   "earlier_ms": EARLIER_MS,
                    "kernels": kernels, "main_paths": paths,
                    "profiles": profiles}, f, indent=1)
     if "jax" in sys.modules:

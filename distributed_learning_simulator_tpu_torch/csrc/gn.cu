@@ -16,33 +16,52 @@
 // design is about reading each activation byte exactly once, in 16-byte
 // coalesced vectors along C, with all arithmetic in registers:
 //
-// * Stats: one block per sample. Threads are laid out [rows][C / VEC]; each
-//   thread owns one 16-byte channel vector and walks the HW axis with a
-//   stride of `rows` (the loop replaces the TPU grid's sequential HW axis,
-//   which carried the sums across grid steps -- CUDA blocks run in no
-//   order, so nothing is carried across blocks). Per-thread f32 partial
-//   sums are combined through shared memory in a fixed order, pooled into
-//   groups in f32 adds, and turned into mean/rstd in the same kernel. No
-//   float atomics: a rerun is bitwise equal.
+// * Stats: one kernel whose grid is B x S CTAs, launched as thread-block
+//   clusters of S CTAs per sample (cudaLaunchKernelEx with a cluster
+//   dimension; S in {1, 2, 4, 8}). CTA rank r of a cluster reads the r-th
+//   contiguous slice of the sample's HW rows. Its threads are laid out
+//   [rows][C / VEC]; each owns one 16-byte channel vector and walks its
+//   slice with a stride of `rows`, kInFlight predicated loads issued
+//   together per batch (one memory round trip). ops/gn_cuda.py
+//   `stats_split` picks S: a split divides the batches by S, but a cluster
+//   launch and its barriers cost about 1.5 round trips on an H100, so at
+//   the training batch of 25 only stage 1 (HW 1024, 4 batches on one CTA)
+//   splits (S = 4), and S = 1 once B fills the card (B >= 264).
+//   Per-thread f32 sums meet in shared memory. Where C and G are powers of
+//   two (ResNet's widths, G = 32) the lanes of a group each add VEC of its
+//   slots in order and a fixed xor shuffle tree adds the lanes; otherwise
+//   channels are totalled over the rows in row order and pooled in channel
+//   order. At S = 1 the tree's lane 0 writes mean/rstd directly. At S > 1
+//   each CTA leaves its group sums in shared memory, and after
+//   cluster.sync() rank 0 reads the S sums of every group through
+//   distributed shared memory, all S reads in flight at once (read one after
+//   another, S x C remote reads cost microseconds), adds them in rank order
+//   and writes mean/rstd; a second cluster.sync() keeps every CTA's shared
+//   memory alive until rank 0 has read it. The loop replaces the TPU grid's
+//   sequential HW axis, which carried the sums across grid steps; CUDA
+//   blocks run in no order, so nothing is carried across blocks except
+//   through the cluster's shared memory. No global scratch, no second
+//   launch, no float atomics: a rerun is bitwise equal.
 // * Normalize: a grid-stride loop over the flat tensor, one 16-byte vector
 //   (8 bf16 / 4 f32 values) per thread step. C is a multiple of the vector
 //   width (checked by the wrapper), so a vector never straddles a row.
 //
-// Known limit of this first version: with B=25 per training step the stats
-// grid has only 25 blocks for 132 SMs. Splitting HW across blocks needs a
-// second reduction pass; that is left to a later performance change.
-//
 // Plain C interface for ctypes: every function returns cudaGetLastError()
 // right after its launch, and the Python wrapper raises if it is not 0.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxVec = 8;  // 16 bytes of bf16
+constexpr int kMaxVec = 8;    // 16 bytes of bf16
+constexpr int kMaxSplit = 8;  // CTAs per cluster (portable limit)
+constexpr int kInFlight = 8;  // independent 16-byte loads per thread
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -59,19 +78,50 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 }
 
 template <typename T>
+__device__ __forceinline__ void accumulate(const uint4& raw, float* s1,
+                                           float* s2) {
+  constexpr int VEC = 16 / sizeof(T);
+  const T* in = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const float f = to_f32(in[j]);
+    s1[j] += f;
+    s2[j] += f * f;
+  }
+}
+
+// mean and rstd = rsqrt(max(E[x^2] - mean^2, 0) + eps) of one group from its
+// sums over `cnt` elements.
+__device__ __forceinline__ void write_stats(float s1, float s2, float cnt,
+                                            float eps, float* mean,
+                                            float* rstd) {
+  const float m = s1 / cnt;
+  *mean = m;
+  *rstd = rsqrtf(fmaxf(s2 / cnt - m * m, 0.f) + eps);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 gn_stats_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
                 float* __restrict__ rstd_out, int hw, int c, int g,
                 float eps) {
   constexpr int VEC = 16 / sizeof(T);
-  // [rows][c] partial sums, then reused for per-channel totals.
+  // [rows][c] partial sums, then per-channel totals in row 0, then group
+  // sums in each group's first channel slot.
   __shared__ float sh1[kThreads * kMaxVec];
   __shared__ float sh2[kThreads * kMaxVec];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / split;
+  const int per = (hw + split - 1) / split;
+  const int row0 = min(hw, rank * per);
+  const int row1 = min(hw, row0 + per);
 
   const int nvec = c / VEC;            // 16-byte vectors per HW row
   const int rows = kThreads / nvec;    // HW rows in flight per block
   const int tid = threadIdx.x;
-  const int b = blockIdx.x;
   const T* xb = x + (int64_t)b * hw * c;
 
   float s1[VEC], s2[VEC];
@@ -84,16 +134,18 @@ gn_stats_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
   const int v = tid % nvec;
   if (r < rows) {
     const uint4* base = reinterpret_cast<const uint4*>(xb) + v;
-#pragma unroll 4
-    for (int row = r; row < hw; row += rows) {
-      const uint4 raw = __ldg(base + (int64_t)row * nvec);
-      const T* in = reinterpret_cast<const T*>(&raw);
+    // kInFlight predicated loads issued together, then summed in row order.
+    for (int row = row0 + r; row < row1; row += kInFlight * rows) {
+      uint4 raw[kInFlight];
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const float f = to_f32(in[j]);
-        s1[j] += f;
-        s2[j] += f * f;
+      for (int u = 0; u < kInFlight; ++u) {
+        const int rr = row + u * rows;
+        raw[u] = rr < row1 ? __ldg(base + (int64_t)rr * nvec)
+                           : make_uint4(0, 0, 0, 0);
       }
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u)
+        if (row + u * rows < row1) accumulate<T>(raw[u], s1, s2);
     }
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
@@ -102,42 +154,92 @@ gn_stats_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
     }
   }
   __syncthreads();
-  // Per-channel totals over the rows, in row order (deterministic).
-  float t1[kMaxVec], t2[kMaxVec];
-  int nmine = 0;
-  for (int ch = tid; ch < c; ch += kThreads) {
-    float a1 = 0.f, a2 = 0.f;
-    for (int rr = 0; rr < rows; ++rr) {
-      a1 += sh1[rr * c + ch];
-      a2 += sh2[rr * c + ch];
-    }
-    t1[nmine] = a1;
-    t2[nmine] = a2;
-    ++nmine;
-  }
-  __syncthreads();
-  nmine = 0;
-  for (int ch = tid; ch < c; ch += kThreads) {
-    sh1[ch] = t1[nmine];
-    sh2[ch] = t2[nmine];
-    ++nmine;
-  }
-  __syncthreads();
-  // Pool channels into groups with plain f32 adds (no reduced-precision
-  // matmul passes), then the statistics.
+  // This CTA's group sums, into each group's first channel slot of row 0.
   const int cpg = c / g;
-  const float cnt = (float)hw * (float)cpg;
-  for (int gi = tid; gi < g; gi += kThreads) {
+  if (kThreads % nvec == 0 && kThreads % g == 0 && g >= 8) {
+    // C and G are powers of two: the lanes of a group are consecutive,
+    // kThreads / G <= 32 of them, and each sums VEC of its group's
+    // rows * cpg slots (entry e = rr * cpg + i, in order), then a fixed xor
+    // tree adds the lanes. Every lane ends with the same sum.
+    const int lanes = kThreads / g;
+    const int gi = tid / lanes;
+    const int sub = tid % lanes;
+    const int shift = __ffs(cpg) - 1;  // log2(cpg)
     float g1 = 0.f, g2 = 0.f;
-    for (int i = 0; i < cpg; ++i) {
-      g1 += sh1[gi * cpg + i];
-      g2 += sh2[gi * cpg + i];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      const int e = sub + k * lanes;
+      const int at = (e >> shift) * c + gi * cpg + (e & (cpg - 1));
+      g1 += sh1[at];
+      g2 += sh2[at];
     }
-    const float m = g1 / cnt;
-    const float var = fmaxf(g2 / cnt - m * m, 0.f);
-    mean_out[b * g + gi] = m;
-    rstd_out[b * g + gi] = rsqrtf(var + eps);
+    for (int off = lanes / 2; off > 0; off /= 2) {
+      g1 += __shfl_xor_sync(0xffffffffu, g1, off);
+      g2 += __shfl_xor_sync(0xffffffffu, g2, off);
+    }
+    if (split == 1) {  // the sample's sums are complete: no second pass
+      if (sub == 0) write_stats(g1, g2, (float)hw * (float)cpg, eps,
+                                mean_out + b * g + gi, rstd_out + b * g + gi);
+      return;
+    }
+    __syncthreads();  // every slot has been read
+    if (sub == 0) {
+      sh1[gi * cpg] = g1;
+      sh2[gi * cpg] = g2;
+    }
+  } else {
+    // Any C and G: per-channel totals over the rows in row order (each
+    // column belongs to one thread), then channels pooled in order.
+    for (int ch = tid; ch < c; ch += kThreads) {
+      float a1 = 0.f, a2 = 0.f;
+      for (int rr = 0; rr < rows; ++rr) {
+        a1 += sh1[rr * c + ch];
+        a2 += sh2[rr * c + ch];
+      }
+      sh1[ch] = a1;
+      sh2[ch] = a2;
+    }
+    __syncthreads();
+    for (int gi = tid; gi < g; gi += kThreads) {
+      float g1 = 0.f, g2 = 0.f;
+      for (int i = 0; i < cpg; ++i) {
+        g1 += sh1[gi * cpg + i];
+        g2 += sh2[gi * cpg + i];
+      }
+      sh1[gi * cpg] = g1;
+      sh2[gi * cpg] = g2;
+    }
   }
+  // A one-CTA cluster needs no cluster barrier (and pays none).
+  if (split > 1) {
+    cluster.sync();
+  } else {
+    __syncthreads();
+  }
+  if (rank == 0) {
+    // The cluster's group sums, read from each rank's shared memory (its
+    // own included) with all kMaxSplit reads in flight, added in rank order
+    // (ranks past the cluster add +0).
+    const float cnt = (float)hw * (float)cpg;
+    for (int gi = tid; gi < g; gi += kThreads) {
+      float v1[kMaxSplit], v2[kMaxSplit];
+#pragma unroll
+      for (int q = 0; q < kMaxSplit; ++q) {
+        v1[q] = q < split ? cluster.map_shared_rank(sh1, q)[gi * cpg] : 0.f;
+        v2[q] = q < split ? cluster.map_shared_rank(sh2, q)[gi * cpg] : 0.f;
+      }
+      float g1 = 0.f, g2 = 0.f;
+#pragma unroll
+      for (int q = 0; q < kMaxSplit; ++q) {
+        g1 += v1[q];
+        g2 += v2[q];
+      }
+      write_stats(g1, g2, cnt, eps, mean_out + b * g + gi,
+                  rstd_out + b * g + gi);
+    }
+  }
+  // The other ranks' shared memory stays until rank 0 has read it.
+  if (split > 1) cluster.sync();
 }
 
 template <typename T>
@@ -178,9 +280,28 @@ gn_normalize_kernel(const T* __restrict__ x, const float* __restrict__ mean,
 
 template <typename T>
 int launch_stats(const void* x, void* mean, void* rstd, int b, int hw, int c,
-                 int g, float eps, void* stream) {
-  gn_stats_kernel<T><<<b, kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)x, (float*)mean, (float*)rstd, hw, c, g, eps);
+                 int g, float eps, int split, void* stream) {
+  if (split == 1) {  // one CTA per sample: a plain launch
+    gn_stats_kernel<T><<<b, kThreads, 0, (cudaStream_t)stream>>>(
+        (const T*)x, (float*)mean, (float*)rstd, hw, c, g, eps);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = split;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)b * split);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, gn_stats_kernel<T>, (const T*)x, (float*)mean, (float*)rstd, hw,
+      c, g, eps);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -207,14 +328,14 @@ int launch_normalize(const void* x, const void* mean, const void* rstd,
 extern "C" {
 
 int dls_gn_stats_bf16(const void* x, void* mean, void* rstd, int b, int hw,
-                      int c, int g, float eps, void* stream) {
-  return launch_stats<__nv_bfloat16>(x, mean, rstd, b, hw, c, g, eps,
+                      int c, int g, float eps, int split, void* stream) {
+  return launch_stats<__nv_bfloat16>(x, mean, rstd, b, hw, c, g, eps, split,
                                      stream);
 }
 
 int dls_gn_stats_f32(const void* x, void* mean, void* rstd, int b, int hw,
-                     int c, int g, float eps, void* stream) {
-  return launch_stats<float>(x, mean, rstd, b, hw, c, g, eps, stream);
+                     int c, int g, float eps, int split, void* stream) {
+  return launch_stats<float>(x, mean, rstd, b, hw, c, g, eps, split, stream);
 }
 
 int dls_gn_normalize_bf16(const void* x, const void* mean, const void* rstd,

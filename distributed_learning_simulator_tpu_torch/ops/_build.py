@@ -39,20 +39,21 @@ def build_dir() -> str:
     )
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     candidates = []
     if CUDA_HOME:
-        candidates.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
-    found = shutil.which("nvcc")
+        candidates.append(os.path.join(CUDA_HOME, "bin", name))
+    found = shutil.which(name)
     if found:
         candidates.append(found)
     for path in candidates:
         if os.path.exists(path):
             return path
     raise RuntimeError(
-        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the port's "
+        f"{name} not found (set CUDA_HOME or put it on PATH): the port's "
         "CUDA kernels are built from csrc/ at first use"
     )
 
@@ -60,6 +61,8 @@ def _nvcc() -> str:
 #: Build logs (nvcc's stdout+stderr, including ``-Xptxas -v``) by source
 #: name, for callers that want to print register and shared-memory use.
 BUILD_LOGS: dict[str, str] = {}
+#: Paths of the loaded libraries by source name (for cuobjdump).
+LIB_PATHS: dict[str, str] = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,7 +79,7 @@ def load_library(name: str) -> ctypes.CDLL:
     if not os.path.exists(lib_path):
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+        cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, src]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         BUILD_LOGS[name] = proc.stdout + proc.stderr
         if proc.returncode != 0:
@@ -88,4 +91,5 @@ def load_library(name: str) -> ctypes.CDLL:
         os.replace(tmp, lib_path)
     else:
         BUILD_LOGS.setdefault(name, f"(reused {lib_path})")
+    LIB_PATHS[name] = lib_path
     return ctypes.CDLL(lib_path)

@@ -5,7 +5,9 @@ Counterpart of ``distributed_learning_simulator_tpu/ops/gn_pallas.py``:
 * :func:`gn_stats` launches ``gn_stats_kernel`` (csrc/gn.cu), which replaces
   ``gn_pallas.py:_stats_kernel`` together with the host glue after it
   (``_per_group``, ``var = max(E[x^2] - E[x]^2, 0)``, ``rsqrt``): it emits
-  per-(sample, group) ``mean`` and ``rstd`` in f32 directly.
+  per-(sample, group) ``mean`` and ``rstd`` in f32 directly, from one
+  launch of ``B x S`` CTAs in clusters of ``S`` per sample
+  (:func:`stats_split` plans ``S``).
 * :func:`gn_normalize` launches ``gn_normalize_kernel``, which replaces
   ``gn_pallas.py:_norm_kernel``: ``y = (x - mean) * (rstd * scale) + bias``
   in f32, cast once.
@@ -32,6 +34,37 @@ import torch
 from distributed_learning_simulator_tpu_torch.ops._build import load_library
 
 _THREADS = 256  # csrc/gn.cu kThreads
+_MAX_SPLIT = 8  # the largest portable thread-block cluster
+_IN_FLIGHT = 8  # csrc/gn.cu kInFlight: loads a thread issues together
+# Below two CTAs per SM of an H100 (132 SMs) a split can fill the card.
+_TARGET_CTAS = 2 * 132
+# What a cluster of S > 1 costs beyond one CTA per sample, in load round
+# trips: on an H100 the cluster launch and its two barriers cost about as
+# much as 1.5 batches of in-flight loads (chip_smoke.py's split sweep).
+_CLUSTER_COST = 1.5
+
+
+def stats_split(b: int, hw: int, c: int, elem_size: int) -> int:
+    """CTAs per sample (the cluster size S, a power of two up to 8) of the
+    stats kernel for ``x [B, HW, C]``. One CTA walks its HW rows in batches
+    of ``_IN_FLIGHT`` loads per thread, each batch one memory round trip;
+    S CTAs cut the batches by S but pay ``_CLUSTER_COST``. S is the smallest
+    split with the fewest batches plus that cost, 1 once B alone gives
+    ``_TARGET_CTAS`` CTAs, and at most HW (a CTA with an empty slice adds
+    zeros)."""
+    if b >= _TARGET_CTAS:
+        return 1
+    rows = _THREADS // (c // (16 // elem_size))  # HW rows in flight a CTA
+    best = None
+    for split in (1, 2, 4, 8):
+        if split > hw:
+            break
+        rows_per_cta = -(-hw // split)
+        batches = -(-rows_per_cta // (rows * _IN_FLIGHT))
+        cost = batches + (_CLUSTER_COST if split > 1 else 0.0)
+        if best is None or cost < best[0]:
+            best = (cost, split)
+    return best[1]
 
 
 def gn_stats_plain(x: torch.Tensor, g: int, eps: float):
@@ -69,7 +102,7 @@ def _lib() -> ctypes.CDLL:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for suffix in _KERNEL_DTYPES.values():
         stats = getattr(lib, f"dls_gn_stats_{suffix}")
-        stats.argtypes = [vp, vp, vp, ci, ci, ci, ci, cf, vp]
+        stats.argtypes = [vp, vp, vp, ci, ci, ci, ci, cf, ci, vp]
         stats.restype = ci
         norm = getattr(lib, f"dls_gn_normalize_{suffix}")
         norm.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
@@ -113,18 +146,24 @@ def _raise_on_error(err: int, what: str) -> None:
         )
 
 
-def gn_stats(x: torch.Tensor, g: int, eps: float):
-    """Per-(sample, group) ``(mean, rstd)`` of ``x [B, HW, C]``, f32."""
+def gn_stats(x: torch.Tensor, g: int, eps: float, split: int | None = None):
+    """Per-(sample, group) ``(mean, rstd)`` of ``x [B, HW, C]``, f32.
+    ``split`` overrides the planned cluster size (tests and chip_smoke.py's
+    sweep)."""
     if x.device.type == "cpu":
         return gn_stats_plain(x, g, eps)
     suffix = _check_cuda_input(x, g)
     b, hw, c = x.shape
+    if split is None:
+        split = stats_split(b, hw, c, x.element_size())
+    elif split not in (1, 2, 4, 8):
+        raise ValueError(f"split must be 1, 2, 4 or 8, got {split}")
     mean = torch.empty((b, g), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
     fn = getattr(_lib(), f"dls_gn_stats_{suffix}")
     err = fn(
         x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), b, hw, c, g, eps,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        split, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _raise_on_error(err, "gn_stats_kernel")
     gn_stats.launches += 1

@@ -14,10 +14,12 @@ input, ``g`` the gradient of its NHWC output, ``dW`` ``[3, 3, C, C]`` f32
 port keeps the plain NHWC layout, so the kernel is written from the formula
 above, not block by block (csrc/wgrad.cu says how).
 
-:func:`conv3x3_wgrad` launches ``wgrad_partial_kernel`` and
-``wgrad_reduce_kernel`` (csrc/wgrad.cu) on CUDA tensors, bf16 or f32,
-``C % 8 == 0``, any B, H, W. :func:`conv3x3_wgrad_plain` is the same
-function in plain PyTorch (nine shifted contractions in f32).
+:func:`conv3x3_wgrad` launches a partial kernel and ``wgrad_reduce_kernel``
+(csrc/wgrad.cu) on CUDA tensors, bf16 or f32, ``C % 8 == 0``, any B, H, W:
+bf16 inputs take ``wgrad_tc_partial_kernel`` (tensor cores), f32 inputs
+``wgrad_f32_partial_kernel`` (CUDA cores, no TF32). :func:`chunking` plans
+both grids. :func:`conv3x3_wgrad_plain` is the same function in plain
+PyTorch (nine shifted contractions in f32).
 
 Dispatch rule: a tensor on the CPU takes the plain version (that is how the
 tests run); a CUDA tensor launches the kernel or raises. There is no
@@ -28,6 +30,7 @@ counts the wrapper's launches.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -35,8 +38,12 @@ import torch.nn.functional as F
 
 from distributed_learning_simulator_tpu_torch.ops._build import load_library
 
-_ROWS = 32  # csrc/wgrad.cu kRows: K rows a block stages per step
-_CHUNKS = 64  # K chunks to aim for: with 9 taps, ~4 blocks per SM
+_TILE = 64  # csrc/wgrad.cu kTile: ci and co extent of a block's tile
+_SEG = 32  # csrc/wgrad.cu kSeg: positions of one image row per staged piece
+# K-chunks per tap row dy: 3 x 44 = 132 tensor-core CTAs, one per SM of an
+# H100, each with the same number of row pairs (within one).
+_CHUNKS = 132 // 3
+_MIN_CHUNK_PAIRS = 2  # smaller problems take fewer, fuller chunks
 
 
 def conv3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -61,7 +68,7 @@ def _lib() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for suffix in _KERNEL_DTYPES.values():
         fn = getattr(lib, f"dls_wgrad_{suffix}")
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         fn.restype = ci
     return lib
 
@@ -107,12 +114,73 @@ def _raise_on_error(err: int) -> None:
         )
 
 
-def chunking(k_total: int) -> tuple[int, int]:
-    """``(rows_per_block, n_chunks)`` for ``k_total = B*H*W`` rows: about
-    ``_CHUNKS`` chunks, each a whole number of staged row tiles."""
-    per = -(-k_total // _CHUNKS)
-    per = -(-per // _ROWS) * _ROWS
-    return per, -(-k_total // per)
+@dataclasses.dataclass(frozen=True)
+class WgradPlan:
+    """The grids of both partial kernels for one (B, H, W, C).
+
+    K (the B*H*W positions) is cut into ``n_chunks`` runs of whole row
+    pairs (rows 2p, 2p + 1 of one sample; with H odd a sample's last pair
+    has one row), balanced to within one pair: chunk ``i`` covers the
+    image rows ``chunk_rows(i)`` of the B*H rows (a run may span samples,
+    a pair never does). A stage of the tensor-core kernel is ``_SEG``
+    positions of one pair (``pieces_per_row`` per row, the last one ragged
+    when ``_SEG`` does not divide W). Both kernels write one ``[C, C]`` f32
+    partial per (chunk, tap)."""
+
+    b: int
+    h: int
+    w: int
+    c: int
+    n_chunks: int
+    pieces_per_row: int
+    c_tiles: int
+
+    @property
+    def pairs(self) -> int:
+        """Row pairs per sample."""
+        return -(-self.h // 2)
+
+    @property
+    def tc_grid(self) -> tuple[int, int, int]:
+        """bf16 kernel: (chunk, dy, tile); a CTA computes taps (dy, 0..2)."""
+        return self.n_chunks, 3, self.c_tiles**2
+
+    @property
+    def f32_grid(self) -> tuple[int, int, int]:
+        """f32 kernel: (chunk, tap, tile)."""
+        return self.n_chunks, 9, self.c_tiles**2
+
+    @property
+    def partial_floats(self) -> int:
+        return self.n_chunks * 9 * self.c * self.c
+
+    def chunk_units(self, chunk: int) -> tuple[int, int]:
+        """``[u0, u1)``: the row pairs of chunk ``chunk`` (csrc/wgrad.cu
+        ``chunk_units``)."""
+        total = self.b * self.pairs
+        return (chunk * total // self.n_chunks,
+                (chunk + 1) * total // self.n_chunks)
+
+    def chunk_rows(self, chunk: int) -> tuple[int, int]:
+        """``[r0, r1)``: the rows (``sample * H + h``) of chunk ``chunk``."""
+
+        def first_row(unit: int) -> int:
+            sample, pair = divmod(unit, self.pairs)
+            return sample * self.h + 2 * pair
+
+        u0, u1 = self.chunk_units(chunk)
+        return first_row(u0), first_row(u1)
+
+
+def chunking(b: int, h: int, w: int, c: int) -> WgradPlan:
+    """The grid plan of ``conv3x3_wgrad`` for ``x, g [B, H, W, C]``."""
+    c_tiles = -(-c // _TILE)
+    if c_tiles**2 > 65535:
+        raise ValueError(f"the wgrad kernel's grid takes C <= 16320, got {c}")
+    units = b * -(-h // 2)
+    n_chunks = min(_CHUNKS, -(-units // _MIN_CHUNK_PAIRS))
+    return WgradPlan(b=b, h=h, w=w, c=c, n_chunks=n_chunks,
+                     pieces_per_row=-(-w // _SEG), c_tiles=c_tiles)
 
 
 def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -122,14 +190,14 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         return conv3x3_wgrad_plain(x, g)
     suffix = _check_cuda_inputs(x, g)
     b, h, w, c = x.shape
-    rows_per_block, n_chunks = chunking(b * h * w)
-    partial = torch.empty(n_chunks * 9 * c * c, dtype=torch.float32,
+    plan = chunking(b, h, w, c)
+    partial = torch.empty(plan.partial_floats, dtype=torch.float32,
                           device=x.device)
     out = torch.empty((3, 3, c, c), dtype=torch.float32, device=x.device)
     fn = getattr(_lib(), f"dls_wgrad_{suffix}")
     err = fn(
         x.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        b, h, w, c, rows_per_block, n_chunks,
+        b, h, w, c, plan.n_chunks,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _raise_on_error(err)

@@ -151,3 +151,39 @@ def test_cpu_tensors_take_the_plain_path_only():
 def test_group_count_must_divide_channels():
     with pytest.raises(ValueError, match="must divide"):
         PlainGroupNorm(48, 32)
+
+
+@pytest.mark.parametrize("b,hw,c,elem", [
+    (1, 1, 64, 2), (2, 1024, 64, 2), (3, 7, 96, 2), (5, 5, 64, 4),
+    (25, 1024, 64, 2), (25, 256, 128, 2), (25, 64, 256, 2), (25, 16, 512, 2),
+    (25, 1024, 64, 4), (200, 1024, 64, 2), (263, 4096, 64, 2),
+    (264, 1024, 64, 2), (1000, 1024, 64, 2), (1000, 16, 512, 2),
+    (10**6, 3, 64, 4), (1, 10**6, 2048, 2),
+])
+def test_stats_split_plan(b, hw, c, elem):
+    """S is a power of two in 1..8 (a portable cluster) and at most HW,
+    B*S a legal grid, S = 1 once B fills two CTAs per SM, and the kernel's
+    HW slices (rank r: rows [r*ceil(HW/S), ...)) cover every row once."""
+    s = gn_cuda.stats_split(b, hw, c, elem)
+    assert s in (1, 2, 4, 8)
+    assert b * s < 2**31
+    assert s <= max(1, hw)
+    if b >= 264:
+        assert s == 1
+    per = -(-hw // s)
+    rows = np.zeros(hw, dtype=int)
+    for rank in range(s):
+        r0 = min(hw, rank * per)
+        rows[r0:min(hw, r0 + per)] += 1
+    assert (rows == 1).all()
+
+
+def test_stats_split_at_the_main_path_shapes():
+    # Stage 1 at B=25: 4 batches of 8 loads a thread on one CTA, 1 on four.
+    assert gn_cuda.stats_split(25, 1024, 64, 2) == 4
+    # The other stages need at most 2 batches: a cluster does not pay.
+    assert gn_cuda.stats_split(25, 256, 128, 2) == 1
+    assert gn_cuda.stats_split(25, 64, 256, 2) == 1
+    assert gn_cuda.stats_split(25, 16, 512, 2) == 1
+    assert gn_cuda.stats_split(1000, 1024, 64, 2) == 1  # eval: fills the card
+    assert gn_cuda.stats_split(1, 10**6, 64, 2) == 8

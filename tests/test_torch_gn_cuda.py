@@ -56,8 +56,10 @@ def _error_in_tolerances(x, y_k, y_p, mean, rstd, scale, bias):
 
 
 @pytest.mark.parametrize("b,hw,c", [
-    (25, 1024, 64), (25, 256, 128), (25, 64, 256), (25, 16, 512),
-    (3, 7, 96),  # C/8 = 12 vectors: a thread count that is not 256
+    (25, 1024, 64),  # S = 4 planned
+    (25, 256, 128), (25, 64, 256), (25, 16, 512),
+    (3, 7, 96),  # C/8 = 12 vectors: the general (not power-of-two) path
+    (1000, 1024, 64),  # the eval batch: S = 1, one CTA per sample
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernels_match_plain(cuda, b, hw, c, dtype):
@@ -75,11 +77,28 @@ def test_kernels_match_plain(cuda, b, hw, c, dtype):
                                 bias) <= 1.0
 
 
-def test_stats_are_bitwise_deterministic(cuda):
-    x, _, _ = _inputs(25, 1024, 64, torch.bfloat16, cuda, seed=1)
-    first = gn_cuda.gn_stats(x, G, EPS)
-    again = gn_cuda.gn_stats(x, G, EPS)
-    assert all(torch.equal(a, b) for a, b in zip(first, again))
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("b,hw,c,dtype", [
+    (25, 1024, 64, torch.bfloat16),
+    (25, 16, 512, torch.bfloat16),  # S = 8: two HW rows a CTA
+    (3, 7, 96, torch.bfloat16),  # S = 4, 8 over 7 rows: ragged, empty slices
+    (4, 100, 64, torch.float32),
+])
+def test_every_split_matches_plain(cuda, b, hw, c, dtype, split):
+    x, _, _ = _inputs(b, hw, c, dtype, cuda, seed=2)
+    mean_k, rstd_k = gn_cuda.gn_stats(x, G, EPS, split=split)
+    mean_p, rstd_p = gn_cuda.gn_stats_plain(x, G, EPS)
+    torch.testing.assert_close(mean_k, mean_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(rstd_k, rstd_p, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("b,hw,c", [(25, 1024, 64), (1000, 1024, 64)])
+def test_stats_are_bitwise_deterministic(cuda, b, hw, c):
+    x, _, _ = _inputs(b, hw, c, torch.bfloat16, cuda, seed=1)
+    for split in (None, 8):
+        first = gn_cuda.gn_stats(x, G, EPS, split=split)
+        again = gn_cuda.gn_stats(x, G, EPS, split=split)
+        assert all(torch.equal(p, q) for p, q in zip(first, again))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -113,7 +113,105 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert conv3x3_wgrad.launches == 0
 
 
-def test_chunking_covers_every_row():
-    for k in (1, 31, 192, 25600, 10**6):
-        per, n = wgrad_cuda.chunking(k)
-        assert per % 32 == 0 and n * per >= k > (n - 1) * per
+PLAN_SHAPES = [
+    (25, 32, 32, 64),  # ResNet-18 stage 1 at the training batch
+    (4, 28, 28, 64),   # W not a multiple of the 32-position piece
+    (3, 20, 32, 64),   # H not a multiple of the 16-row chunk
+    (3, 8, 8, 8),
+    (2, 7, 5, 136),
+    (1, 1, 1, 8),
+    (2, 40, 70, 16),   # three pieces per row
+]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_chunking_covers_every_row(shape):
+    """Every K row (b, h, w) lies in exactly one chunk and one piece,
+    chunks differ by at most one row pair and never split a pair, and both
+    grids cover every tap and every (ci, co) tile once."""
+    b, h, w, c = shape
+    plan = wgrad_cuda.chunking(b, h, w, c)
+    covered = np.zeros(b * h, dtype=int)
+    sizes = []
+    for i in range(plan.n_chunks):
+        u0, u1 = plan.chunk_units(i)
+        r0, r1 = plan.chunk_rows(i)
+        covered[r0:r1] += 1
+        sizes.append(u1 - u0)
+        # a chunk starts at an even row of a sample: no pair is split
+        assert r0 % h % 2 == 0
+    assert (covered == 1).all()
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    cols = np.zeros(w, dtype=int)
+    for p in range(plan.pieces_per_row):
+        cols[p * wgrad_cuda._SEG:(p + 1) * wgrad_cuda._SEG] += 1
+    assert (cols == 1).all()
+    # tc grid: y = dy and each CTA computes dx = 0, 1, 2; f32 grid: y = tap.
+    assert sorted((dy, dx) for dy in range(plan.tc_grid[1])
+                  for dx in range(3)) == [(i, j) for i in range(3)
+                                          for j in range(3)]
+    assert plan.f32_grid[:2] == (plan.n_chunks, 9)
+    assert (plan.c_tiles - 1) * 64 < c <= plan.c_tiles * 64
+    assert plan.tc_grid[2] == plan.f32_grid[2] == plan.c_tiles**2
+    assert plan.partial_floats == plan.n_chunks * 9 * c * c
+
+
+def test_chunking_at_the_main_path_shape():
+    plan = wgrad_cuda.chunking(25, 32, 32, 64)
+    assert plan.tc_grid == (44, 3, 1)  # 132 CTAs: one per SM of an H100
+    sizes = {u1 - u0 for u0, u1 in map(plan.chunk_units, range(44))}
+    assert sizes == {9, 10}  # row pairs: 18 or 20 rows
+    assert plan.partial_floats * 4 == 44 * 9 * 64 * 64 * 4  # 6.5 MB
+    assert wgrad_cuda.chunking(1, 5, 5, 8).n_chunks == 2  # >= 2 pairs each
+    with pytest.raises(ValueError, match="C <= 16320"):
+        wgrad_cuda.chunking(1, 1, 1, 16384)
+
+
+def _emulate_tc_kernel(x, g, plan):
+    """numpy mirror of wgrad_tc_partial_kernel's staging and tap views
+    (csrc/wgrad.cu): per (chunk, dy), stage s holds piece s %
+    pieces_per_row of row pair u0 + s // pieces_per_row, rows h0 and
+    h0 + 1 of one sample: two g boxes of 32 positions and four x boxes of
+    the 34 columns around them (rows h0-1 .. h0+2), zero outside the
+    image; CTA dy reads x boxes dy and dy + 1, and tap dx the x view
+    starting at column dx, 16 rows per slab. Then the sum over chunks."""
+    seg, xseg = wgrad_cuda._SEG, wgrad_cuda._SEG + 2
+    _, h, w, c = x.shape
+
+    def box(t, sample, row, w0, width):
+        out = np.zeros((width, c))
+        if 0 <= row < h:
+            for p in range(width):
+                if 0 <= w0 + p < w:
+                    out[p] = t[sample, row, w0 + p]
+        return out
+
+    partial = np.zeros((plan.n_chunks, 3, 3, c, c), np.float64)
+    for chunk in range(plan.n_chunks):
+        u0, u1 = plan.chunk_units(chunk)
+        for step in range((u1 - u0) * plan.pieces_per_row):
+            unit, piece = divmod(step, plan.pieces_per_row)
+            sample, pair = divmod(u0 + unit, plan.pairs)
+            h0, w0 = 2 * pair, piece * seg
+            gs = [box(g, sample, h0 + q, w0, seg) for q in range(2)]
+            xs = [box(x, sample, h0 + k - 1, w0 - 1, xseg) for k in range(4)]
+            for dy in range(3):
+                for q in range(2):
+                    for t in range(seg // 16):
+                        for dx in range(3):
+                            xv = xs[dy + q][16 * t + dx:16 * t + dx + 16]
+                            partial[chunk, dy, dx] += (
+                                xv.T @ gs[q][16 * t:16 * t + 16])
+    return partial.sum(axis=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 7, 8), (1, 3, 40, 8),
+                                   (2, 18, 4, 16), (3, 7, 9, 8)])
+def test_tc_staging_arithmetic_matches_plain(shape):
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal(shape)
+    g = rng.standard_normal(shape)
+    got = _emulate_tc_kernel(x, g, wgrad_cuda.chunking(*shape))
+    want = conv3x3_wgrad_plain(torch.from_numpy(x), torch.from_numpy(g))
+    np.testing.assert_allclose(got, want.double().numpy(), rtol=1e-5,
+                               atol=1e-5)

@@ -53,6 +53,8 @@ def _bf16_ulps(k, p, x, g):
     (25, 32, 32, 64),  # ResNet-18 stage 1 at the training batch
     (3, 8, 8, 8),      # odd shape: one ragged 64-wide tile, one chunk
     (2, 7, 5, 136),    # C > 64 and not a multiple of 64: 3x3 tiles
+    (4, 28, 28, 64),   # W not a multiple of 16: ragged K slabs, zero fill
+    (3, 20, 32, 64),   # H not a multiple of the 16-row chunk
 ])
 def test_kernel_matches_plain(cuda, shape, dtype):
     x, g = _inputs(shape, dtype, cuda)
@@ -65,8 +67,9 @@ def test_kernel_matches_plain(cuda, shape, dtype):
     assert _bf16_ulps(k, p, x, g) <= 1.0
 
 
-def test_reruns_are_bitwise_equal(cuda):
-    x, g = _inputs((25, 32, 32, 64), torch.bfloat16, cuda, seed=1)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_reruns_are_bitwise_equal(cuda, dtype):
+    x, g = _inputs((25, 32, 32, 64), dtype, cuda, seed=1)
     first = wgrad_cuda.conv3x3_wgrad(x, g)
     for _ in range(3):
         assert torch.equal(wgrad_cuda.conv3x3_wgrad(x, g), first)
