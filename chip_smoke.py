@@ -11,7 +11,11 @@ together), then runs these phases and exits non-zero if any of them fails:
    * the GroupNorm stats and normalize kernels at B=25 for each of
      ResNet-18's four stage shapes and at an eval-sized batch. mean/rstd
      must agree at rtol 1e-5 and y within one bf16 ulp (of the largest term
-     that sums to y; see ``ulps``);
+     that sums to y; see ``ulps``); the normalize kernel alone, on the plain
+     statistics, must be bit-equal to its plain version with f32 and with
+     bf16 scale/bias; the stats -> normalize pair (``group_norm``, a
+     programmatic dependent launch) replayed from a CUDA graph must be
+     bitwise equal to the eager pair;
    * the stage-1 weight-gradient kernel at (B, H, W, C) = (25, 32, 32, 64)
      in bf16 and f32, and at (4, 28, 28, 64) in bf16 (a 28-wide image: the
      ragged K slab and the zero-fill path): |kernel - plain| <= 1e-4 *
@@ -22,9 +26,12 @@ together), then runs these phases and exits non-zero if any of them fails:
    Times each kernel (CUDA-graph replay, median) beside its bound, its
    plain version and one PyTorch call computing the same function as a
    yardstick (F.group_norm; cuDNN's weight-only convolution_backward), the
-   GroupNorm stats kernel at every cluster size S beside the planned one,
+   normalize kernel with f32 (eval) and bf16 (bf16 training) scale/bias,
+   the pair in one graph beside the sum of its two kernels alone, the
+   GroupNorm stats kernel at every cluster size S and the normalize kernel
+   at several slice counts beside the planned ones,
    and a one-kernel fill as the per-launch floor of a graph replay; prints
-   the two kernels redesigned for Hopper beside their times before the
+   the three kernels redesigned for Hopper beside their times before the
    redesign (constants from PERF.md); and checks a small f32 ResNet-18
    forward and backward on the card against the same on the CPU.
 2. The main paths: ``run_simulation`` with ``device="cuda"``, ResNet-18 at
@@ -85,6 +92,9 @@ EARLIER_MS = {
     "conv3x3_wgrad bf16 (25, 32, 32, 64), f32 CUDA-core kernel": 0.0860,
     "gn_stats per training forward (B=25), one CTA per sample": 0.1181,
     "gn_stats (1000, 1024, 64), one CTA per sample": 0.05638,
+    "gn_normalize per training forward (B=25), flat grid-stride kernel":
+        0.07444,
+    "gn_normalize (1000, 1024, 64), flat grid-stride kernel": 0.1083,
 }
 
 
@@ -97,12 +107,10 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(torch, fn, iters: int = 20, repeats: int = 7) -> float:
-    """Median per-call DEVICE time of ``fn``: ``iters`` calls captured in a
-    CUDA graph, the graph replayed ``repeats`` times between CUDA events.
-    Replays issue no host work, so this is the kernels' own time (at
-    B=25 the eager calls are bound by the Python wrapper instead, see
-    ``eager_ms``)."""
+def capture(torch, fn, iters: int = 1):
+    """``fn`` warmed up on a side stream, then ``iters`` calls of it
+    captured in a CUDA graph; returns the graph and the last call's
+    output (which each replay rewrites)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -112,7 +120,17 @@ def time_ms(torch, fn, iters: int = 20, repeats: int = 7) -> float:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(iters):
-            fn()
+            out = fn()
+    return graph, out
+
+
+def time_ms(torch, fn, iters: int = 20, repeats: int = 7) -> float:
+    """Median per-call DEVICE time of ``fn``: ``iters`` calls captured in a
+    CUDA graph, the graph replayed ``repeats`` times between CUDA events.
+    Replays issue no host work, so this is the kernels' own time (at
+    B=25 the eager calls are bound by the Python wrapper instead, see
+    ``eager_ms``)."""
+    graph, _ = capture(torch, fn, iters)
     graph.replay()
     torch.cuda.synchronize()
     samples = []
@@ -164,6 +182,18 @@ def ulps(torch, x, y_k, y_p, mean, rstd, scale, bias):
     return ((y_k.float() - y_p.float()).abs() / ulp).max().item()
 
 
+def graph_replay_equal(torch, fn, want) -> bool:
+    """Whether ``fn()`` captured in a CUDA graph and replayed twice gives
+    tensors bitwise equal to ``want``."""
+    graph, got = capture(torch, fn)
+    same = True
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        same = same and all(torch.equal(p, q) for p, q in zip(got, want))
+    return same
+
+
 def check_kernels(torch, gn):
     """Phase 1a: each kernel vs its plain version; returns per-shape rows."""
     import torch.nn.functional as F
@@ -177,6 +207,8 @@ def check_kernels(torch, gn):
              ).to(torch.bfloat16)
         scale = torch.randn(c, device="cuda", generator=gen)
         bias = torch.randn(c, device="cuda", generator=gen)
+        # bf16 scale/bias: what bf16 local training hands the kernel.
+        scale16, bias16 = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
         mean_k, rstd_k = gn.gn_stats(x, GROUPS, EPS)
         y_k = gn.gn_normalize(x, mean_k, rstd_k, scale, bias, torch.bfloat16)
         mean_p, rstd_p = gn.gn_stats_plain(x, GROUPS, EPS)
@@ -185,7 +217,16 @@ def check_kernels(torch, gn):
         # The normalize kernel alone, on the plain version's statistics.
         y_k_alone = gn.gn_normalize(x, mean_p, rstd_p, scale, bias,
                                     torch.bfloat16)
+        y16_p = gn.gn_normalize_plain(x, mean_p, rstd_p, scale16, bias16,
+                                      torch.bfloat16)
+        y16_k = gn.gn_normalize(x, mean_p, rstd_p, scale16, bias16,
+                                torch.bfloat16)
         torch.cuda.synchronize()
+        if not (torch.equal(y_k_alone, y_p) and torch.equal(y16_k, y16_p)):
+            fail(f"gn_normalize at {(b, hw, c)} is not bit-equal to its plain "
+                 "version on the same statistics (f32 scale/bias: "
+                 f"{torch.equal(y_k_alone, y_p)}, bf16: "
+                 f"{torch.equal(y16_k, y16_p)})")
         for name, k, p in (("mean", mean_k, mean_p), ("rstd", rstd_k, rstd_p)):
             rel = ((k - p).abs() / p.abs().clamp(min=1e-30)).max().item()
             if not math.isfinite(rel) or rel > 1e-5:
@@ -199,10 +240,27 @@ def check_kernels(torch, gn):
                  f"({alone_ulps:.2f} for the normalize kernel alone)")
         stats_err = max((mean_k - mean_p).abs().max().item(),
                         (rstd_k - rstd_p).abs().max().item())
-        norm_err = (y_k_alone.float() - y_p.float()).abs().max().item()
+        norm_err = {
+            key: (k.float() - p.float()).abs().max().item()
+            for key, k, p in (("normalize", y_k_alone, y_p),
+                              ("normalize_bf16", y16_k, y16_p))
+        }
+        # The pair as the model calls it: group_norm on the NHWC view with
+        # bf16 scale/bias; eager twice, then replayed from a graph.
+        x4 = x.view(b, int(math.isqrt(hw)), -1, c)
 
-        xr4 = x.view(b, int(math.isqrt(hw)), -1, c).permute(0, 3, 1, 2)
-        scale16, bias16 = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+        def pair():
+            return gn.group_norm(x4, scale16, bias16, GROUPS, EPS,
+                                 torch.bfloat16)
+
+        eager_pair = pair()
+        if not all(torch.equal(p, q) for p, q in zip(eager_pair, pair())):
+            fail(f"group_norm at {(b, hw, c)}: an eager rerun differs")
+        if not graph_replay_equal(torch, pair, eager_pair):
+            fail(f"group_norm at {(b, hw, c)}: the graph-replayed pair "
+                 "differs from the eager pair")
+
+        xr4 = x4.permute(0, 3, 1, 2)
         x_bytes = b * hw * c * 2
         stat_bytes = 2 * b * GROUPS * 4
         elems = b * hw * c
@@ -213,12 +271,24 @@ def check_kernels(torch, gn):
                        lambda s=s: gn.gn_stats(x, GROUPS, EPS, split=s))
             for s in (1, 2, 4, 8) if b < EVAL_BATCH
         }
+        # The normalize kernel (bf16 scale/bias) at several slice counts,
+        # beside the planner's pick (ops/gn_cuda.py normalize_plan), keyed
+        # by the CTAs each gives.
+        slice_ms = {}
+        for s in (1, 2, 4, 8, 16, 32) if b < EVAL_BATCH else ():
+            ctas = gn.normalize_plan(b, hw, c, x.element_size(), s).grid
+            slice_ms.setdefault(ctas, time_ms(torch, lambda s=s: (
+                gn.gn_normalize(x, mean_k, rstd_k, scale16, bias16,
+                                torch.bfloat16, slices=s))))
         row = {
             "shape": [b, hw, c], "per_forward": per_forward,
             # The smallest kernel a replay can hold: a fill of [B, G] f32.
             "launch_floor_ms": time_ms(torch, torch.empty_like(mean_k).zero_),
             "split": gn.stats_split(b, hw, c, x.element_size()),
             "split_ms": split_ms,
+            "normalize_ctas": gn.normalize_plan(
+                b, hw, c, x.element_size()).grid,
+            "normalize_ms_by_ctas": slice_ms,
             "stats": {
                 "ms": time_ms(torch, lambda: gn.gn_stats(x, GROUPS, EPS)),
                 "eager_ms": eager_ms(
@@ -228,23 +298,38 @@ def check_kernels(torch, gn):
                 "bytes": x_bytes + stat_bytes, "ops": 3 * elems,
                 "max_abs_err": stats_err,
             },
-            "normalize": {
+            # f32 scale/bias (the eval model), then bf16 (bf16 training).
+            **{key: {
                 "ms": time_ms(torch, lambda: gn.gn_normalize(
-                    x, mean_k, rstd_k, scale, bias, torch.bfloat16)),
+                    x, mean_k, rstd_k, s_, b_, torch.bfloat16)),
                 "eager_ms": eager_ms(torch, lambda: gn.gn_normalize(
-                    x, mean_k, rstd_k, scale, bias, torch.bfloat16)),
+                    x, mean_k, rstd_k, s_, b_, torch.bfloat16)),
                 "plain_ms": time_ms(torch, lambda: gn.gn_normalize_plain(
-                    x, mean_k, rstd_k, scale, bias, torch.bfloat16)),
-                "bytes": 2 * x_bytes + stat_bytes + 2 * c * 4,
+                    x, mean_k, rstd_k, s_, b_, torch.bfloat16)),
+                "bytes": 2 * x_bytes + stat_bytes + 2 * c * s_.element_size(),
                 "ops": 4 * elems,
-                "max_abs_err": norm_err,
-            },
+                "max_abs_err": norm_err[key],
+            } for key, s_, b_ in (("normalize", scale, bias),
+                                  ("normalize_bf16", scale16, bias16))},
+            # bf16 scale/bias as the wrapper took them before they reached
+            # the kernel in their own dtype: two conversions, then the
+            # kernel on f32 copies.
+            "normalize_bf16_converted_eager_ms": eager_ms(
+                torch, lambda: gn.gn_normalize(
+                    x, mean_k, rstd_k, scale16.to(torch.float32).contiguous(),
+                    bias16.to(torch.float32).contiguous(), torch.bfloat16)),
+            # The pair in one graph: the normalize launch overlaps the stats
+            # kernel (programmatic dependent launch).
+            "pair_ms": time_ms(torch, pair),
+            "pair_eager_ms": eager_ms(torch, pair),
             # One PyTorch call computing the whole GroupNorm forward on the
             # same input (stats and normalize together): the yardstick.
             "library_ms": time_ms(torch, lambda: F.group_norm(
                 xr4, GROUPS, scale16, bias16, EPS)),
         }
-        for k in ("stats", "normalize"):
+        row["kernels_alone_ms"] = (row["stats"]["ms"]
+                                   + row["normalize_bf16"]["ms"])
+        for k in ("stats", "normalize", "normalize_bf16"):
             r = row[k]
             r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
                                       r["ops"] / F32_OPS_PER_S)
@@ -261,11 +346,18 @@ def check_kernels(torch, gn):
             f"{row['normalize']['ms']:.4f} ms (eager "
             f"{row['normalize']['eager_ms']:.4f}, bound "
             f"{row['normalize']['bound_ms']:.4f}, plain "
-            f"{row['normalize']['plain_ms']:.4f}); F.group_norm "
+            f"{row['normalize']['plain_ms']:.4f}), with bf16 scale/bias "
+            f"{row['normalize_bf16']['ms']:.4f} ms (eager "
+            f"{row['normalize_bf16']['eager_ms']:.4f}; converted first "
+            f"{row['normalize_bf16_converted_eager_ms']:.4f}); pair "
+            f"{row['pair_ms']:.4f} ms (eager {row['pair_eager_ms']:.4f}) "
+            f"against {row['kernels_alone_ms']:.4f} alone; F.group_norm "
             f"{row['library_ms']:.4f} ms; y within {y_ulps:.2f} ulp; "
             f"launch floor {row['launch_floor_ms']:.4f} ms; "
             f"stats at S = {row['split']} (planned), by S: "
             + ", ".join(f"{k}: {v:.4f}" for k, v in split_ms.items())
+            + f"; normalize on {row['normalize_ctas']} CTAs (planned), by "
+            "CTAs: " + ", ".join(f"{k}: {v:.4f}" for k, v in slice_ms.items())
         )
         rows.append(row)
     return rows
@@ -561,7 +653,11 @@ def redesign_lines(kernels, rows, wgrad_rows):
     by_name = {k["name"]: k for k in kernels}
     w = wgrad_rows["bf16"]
     stats = by_name["gn_stats"]
+    norm = by_name["gn_normalize"]
     eval_row = next(r for r in rows if r["shape"][0] == EVAL_BATCH)
+    train_rows = [r for r in rows if r["per_forward"]]
+    pair, alone = (sum(r["per_forward"] * r[k] for r in train_rows)
+                   for k in ("pair_ms", "kernels_alone_ms"))
     out = {
         "conv3x3_wgrad_bf16": {"ms": w["ms"], "cudnn_ms": w["library_ms"],
                                "bound_ms": w["bound_ms"]},
@@ -570,6 +666,15 @@ def redesign_lines(kernels, rows, wgrad_rows):
             "f_group_norm_ms": stats["library_ms"]},
         "gn_stats_eval": {"ms": eval_row["stats"]["ms"],
                           "bound_ms": eval_row["stats"]["bound_ms"]},
+        "gn_normalize_per_training_forward": {
+            "ms": norm["ms"], "bound_ms": norm["bound_ms"],
+            "f32_params_ms": sum(r["per_forward"] * r["normalize"]["ms"]
+                                 for r in train_rows)},
+        "gn_normalize_eval": {"ms": eval_row["normalize"]["ms"],
+                              "bound_ms": eval_row["normalize"]["bound_ms"]},
+        "group_norm_pair_per_training_forward": {
+            "ms": pair, "kernels_alone_ms": alone,
+            "f_group_norm_ms": stats["library_ms"]},
     }
     before = [f"before: {k} (PERF.md constant): {v:.4f} ms"
               for k, v in EARLIER_MS.items()]
@@ -582,6 +687,17 @@ def redesign_lines(kernels, rows, wgrad_rows):
     log(f"redesigned gn_stats {tuple(eval_row['shape'])}: "
         f"{eval_row['stats']['ms']:.4f} ms (bound "
         f"{eval_row['stats']['bound_ms']:.4f}); {before[2]}")
+    n = out["gn_normalize_per_training_forward"]
+    log(f"redesigned gn_normalize per training forward, bf16 scale/bias: "
+        f"{n['ms']:.4f} ms (f32 scale/bias {n['f32_params_ms']:.4f}; bound "
+        f"{n['bound_ms']:.4f}); {before[3]}")
+    log(f"redesigned gn_normalize {tuple(eval_row['shape'])}: "
+        f"{eval_row['normalize']['ms']:.4f} ms (bound "
+        f"{eval_row['normalize']['bound_ms']:.4f}); {before[4]}")
+    log(f"group_norm pair per training forward in one graph: {pair:.4f} ms "
+        f"against {alone:.4f} ms for its two kernels alone (programmatic "
+        f"dependent launch saves {alone - pair:.4f}); F.group_norm "
+        f"{stats['library_ms']:.4f}")
     return out
 
 
@@ -642,10 +758,12 @@ def main() -> None:
 
     train_rows = [r for r in rows if r["per_forward"]]
     kernels = []
+    # The training forward's normalize calls take bf16 scale/bias (bf16
+    # local state, as on the fed and fed_quant paths).
     for name, key, replaces in (
         ("gn_stats", "stats",
          "distributed_learning_simulator_tpu/ops/gn_pallas.py:63"),
-        ("gn_normalize", "normalize",
+        ("gn_normalize", "normalize_bf16",
          "distributed_learning_simulator_tpu/ops/gn_pallas.py:75"),
     ):
         # Per training forward at B=25: each stage shape times the number

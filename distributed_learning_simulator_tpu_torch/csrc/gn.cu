@@ -42,9 +42,43 @@
 //   blocks run in no order, so nothing is carried across blocks except
 //   through the cluster's shared memory. No global scratch, no second
 //   launch, no float atomics: a rerun is bitwise equal.
-// * Normalize: a grid-stride loop over the flat tensor, one 16-byte vector
-//   (8 bf16 / 4 f32 values) per thread step. C is a multiple of the vector
-//   width (checked by the wrapper), so a vector never straddles a row.
+// * Normalize: a grid of B x slices CTAs; CTA (b, s) normalizes the s-th
+//   contiguous slice of sample b's HW rows (ops/gn_cuda.py
+//   `normalize_plan` sizes the slices: at most one CTA per SM, unless a
+//   thread would have more than kInFlight rows). Threads are laid out [rows][C / VEC] as in
+//   the stats kernel, so each owns one fixed 16-byte channel vector (8 bf16
+//   / 4 f32 values; C is a multiple of VEC, checked by the wrapper) for the
+//   whole kernel. Before its loop a thread holds its channels' a_c =
+//   rstd_g * scale_c, mean_g and bias_c in registers: the TPU kernel's
+//   per-(sample, channel) a_c / mean_c blocks. The loop then has no
+//   division and no scalar load: kInFlight predicated 16-byte loads of x
+//   issued together, the arithmetic, 16-byte stores (ordinary ones: the
+//   ReLU or residual add that follows reads y at once, from L2). scale and
+//   bias are read in their own dtype (bf16 under bf16 local training, else
+//   f32) and widened exactly, once per thread.
+//
+// Programmatic dependent launch (PDL). group_norm launches the stats kernel
+// and then the normalize kernel on one stream. The normalize kernel is
+// launched with cudaLaunchAttributeProgrammaticStreamSerialization, and the
+// stats kernel executes griddepcontrol.launch_dependents at its start, so
+// the normalize CTAs are scheduled while the stats kernel still runs. A
+// normalize thread first loads its scale/bias and its first batch of x,
+// then executes griddepcontrol.wait, and only then reads mean/rstd. Why
+// that is safe:
+// * griddepcontrol.wait returns once the primary grid has completed and its
+//   writes are visible to this grid, so mean/rstd are read after the stats
+//   kernel wrote them.
+// * x, scale and bias were written before the stats kernel began: the
+//   stats kernel is an ordinary launch, so it starts only after everything
+//   before it on the stream has completed. They may be read before the wait.
+// * The normalize kernel never triggers early itself, and every one of its
+//   threads waits. So a normalize that follows anything else (another
+//   normalize, a PyTorch kernel) is launched only once that kernel has
+//   completed, and no normalize completes before its primary: stream order
+//   holds for every later kernel, exactly as without PDL.
+// * At B <= 264 every stats CTA is resident before the trigger takes
+//   effect, so early normalize CTAs cannot starve it; at larger B the
+//   dependent launch starts only once the last stats wave has started.
 //
 // Plain C interface for ctypes: every function returns cudaGetLastError()
 // right after its launch, and the Python wrapper raises if it is not 0.
@@ -75,6 +109,16 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// Programmatic dependent launch (file comment): let the grid launched after
+// this one on the stream start; and wait for the grid before this one to
+// complete and flush its memory.
+__device__ __forceinline__ void allow_dependent_launch() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+__device__ __forceinline__ void wait_for_primary_grid() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
 template <typename T>
@@ -111,6 +155,7 @@ gn_stats_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
   __shared__ float sh1[kThreads * kMaxVec];
   __shared__ float sh2[kThreads * kMaxVec];
 
+  allow_dependent_launch();
   cg::cluster_group cluster = cg::this_cluster();
   const int split = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -242,39 +287,97 @@ gn_stats_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
   if (split > 1) cluster.sync();
 }
 
+// y = (x - mean_g) * (rstd_g * scale_c) + bias_c for one channel vector:
+// subtract first, then one multiply by a, then the bias; explicit _rn ops
+// keep nvcc from contracting into an FMA, so the rounding matches the plain
+// PyTorch version op for op.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gn_normalize_kernel(const T* __restrict__ x, const float* __restrict__ mean,
-                    const float* __restrict__ rstd,
-                    const float* __restrict__ scale,
-                    const float* __restrict__ bias, T* __restrict__ y,
-                    int64_t n_vec, int hw, int c, int g) {
+__device__ __forceinline__ uint4 normalize_vec(const uint4& raw,
+                                               const float* m, const float* a,
+                                               const float* bi) {
   constexpr int VEC = 16 / sizeof(T);
-  const int cpg = c / g;
-  const int64_t per_sample = (int64_t)hw * c;
-  const uint4* xin = reinterpret_cast<const uint4*>(x);
-  uint4* yout = reinterpret_cast<uint4*>(y);
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n_vec;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t e = i * VEC;
-    const int b = (int)(e / per_sample);
-    const int c0 = (int)(e % c);
-    const uint4 raw = __ldg(xin + i);
-    const T* in = reinterpret_cast<const T*>(&raw);
-    uint4 raw_out;
-    T* out = reinterpret_cast<T*>(&raw_out);
+  const T* in = reinterpret_cast<const T*>(&raw);
+  uint4 raw_out;
+  T* out = reinterpret_cast<T*>(&raw_out);
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      const int ch = c0 + j;
-      const int gi = b * g + ch / cpg;
-      // Subtract first, then one multiply by a = rstd * scale, then the
-      // bias; explicit _rn ops keep nvcc from contracting into an FMA, so
-      // the rounding matches the plain PyTorch version op for op.
-      const float a = __fmul_rn(__ldg(rstd + gi), __ldg(scale + ch));
-      const float d = __fsub_rn(to_f32(in[j]), __ldg(mean + gi));
-      out[j] = from_f32<T>(__fadd_rn(__fmul_rn(d, a), __ldg(bias + ch)));
+  for (int j = 0; j < VEC; ++j)
+    out[j] = from_f32<T>(
+        __fadd_rn(__fmul_rn(__fsub_rn(to_f32(in[j]), m[j]), a[j]), bi[j]));
+  return raw_out;
+}
+
+// kInFlight predicated 16-byte loads, rows row, row + rows, ... of this
+// thread's channel vector, issued together.
+__device__ __forceinline__ void load_rows(uint4 (&raw)[kInFlight],
+                                          const uint4* base, int row,
+                                          int row1, int rows, int nvec) {
+#pragma unroll
+  for (int u = 0; u < kInFlight; ++u) {
+    const int rr = row + u * rows;
+    raw[u] = rr < row1 ? __ldg(base + (int64_t)rr * nvec)
+                       : make_uint4(0, 0, 0, 0);
+  }
+}
+
+// T: the dtype of x and y; P: the dtype of scale and bias.
+template <typename T, typename P>
+__global__ void __launch_bounds__(kThreads)
+gn_normalize_kernel(const T* __restrict__ x, const float* mean,
+                    const float* rstd, const P* __restrict__ scale,
+                    const P* __restrict__ bias, T* __restrict__ y, int hw,
+                    int c, int g, int slices, int rows_per_slice) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int b = blockIdx.x / slices;
+  const int row0 = min(hw, (int)(blockIdx.x % slices) * rows_per_slice);
+  const int row1 = min(hw, row0 + rows_per_slice);
+  const int nvec = c / VEC;          // 16-byte vectors per HW row
+  const int rows = kThreads / nvec;  // HW rows a CTA covers per step
+  const int r = threadIdx.x / nvec;
+  const int v = threadIdx.x % nvec;
+  const int c0 = v * VEC;
+  const int64_t sample = (int64_t)b * hw * nvec;  // in vectors
+  const uint4* xin = reinterpret_cast<const uint4*>(x) + sample + v;
+  uint4* yout = reinterpret_cast<uint4*>(y) + sample + v;
+  // The kThreads % nvec threads past the last whole row of vectors load and
+  // store nothing (they still wait below).
+  int row = r < rows ? row0 + r : row1;
+
+  // 1. What the stats kernel does not write: this vector's scale, bias and
+  //    groups, and the first batch of x.
+  const int cpg = c / g;
+  float sc[VEC], bi[VEC];
+  int gi[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    sc[j] = to_f32(scale[c0 + j]);
+    bi[j] = to_f32(bias[c0 + j]);
+    gi[j] = b * g + (c0 + j) / cpg;
+  }
+  uint4 raw[kInFlight];
+  load_rows(raw, xin, row, row1, rows, nvec);
+
+  // 2. The stats kernel has completed; 3. its mean/rstd, read once by
+  // ordinary (coherent, L1-cached) loads: not __ldg, whose non-coherent
+  // path assumes data that no grid writes while this one runs, and not
+  // __ldcg, which sends every thread's read to the same few L2 lines (a
+  // diagnostic build with it took up to 1.6x as long at B=25).
+  wait_for_primary_grid();
+  float m[VEC], a[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    m[j] = mean[gi[j]];
+    a[j] = __fmul_rn(rstd[gi[j]], sc[j]);
+  }
+  for (;;) {
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int rr = row + u * rows;
+      if (rr < row1)
+        yout[(int64_t)rr * nvec] = normalize_vec<T>(raw[u], m, a, bi);
     }
-    yout[i] = raw_out;
+    row += kInFlight * rows;
+    if (row >= row1) break;
+    load_rows(raw, xin, row, row1, rows, nvec);
   }
 }
 
@@ -305,21 +408,28 @@ int launch_stats(const void* x, void* mean, void* rstd, int b, int hw, int c,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// One CTA per (sample, slice), launched as a programmatic dependent launch
+// of the kernel before it on the stream (file comment).
+template <typename T, typename P>
 int launch_normalize(const void* x, const void* mean, const void* rstd,
                      const void* scale, const void* bias, void* y, int b,
-                     int hw, int c, int g, void* stream) {
-  constexpr int VEC = 16 / sizeof(T);
-  const int64_t n_vec = (int64_t)b * hw * c / VEC;
-  int64_t blocks = (n_vec + kThreads - 1) / kThreads;
-  // 132 SMs x 8 resident blocks of 256 threads fill the card twice over;
-  // larger tensors take the grid-stride loop.
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  if (blocks < 1) blocks = 1;
-  gn_normalize_kernel<T><<<(unsigned)blocks, kThreads, 0,
-                           (cudaStream_t)stream>>>(
-      (const T*)x, (const float*)mean, (const float*)rstd,
-      (const float*)scale, (const float*)bias, (T*)y, n_vec, hw, c, g);
+                     int hw, int c, int g, int slices, int rows_per_slice,
+                     void* stream) {
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)b * (unsigned)slices);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, gn_normalize_kernel<T, P>, (const T*)x, (const float*)mean,
+      (const float*)rstd, (const P*)scale, (const P*)bias, (T*)y, hw, c, g,
+      slices, rows_per_slice);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -338,18 +448,18 @@ int dls_gn_stats_f32(const void* x, void* mean, void* rstd, int b, int hw,
   return launch_stats<float>(x, mean, rstd, b, hw, c, g, eps, split, stream);
 }
 
-int dls_gn_normalize_bf16(const void* x, const void* mean, const void* rstd,
-                          const void* scale, const void* bias, void* y, int b,
-                          int hw, int c, int g, void* stream) {
-  return launch_normalize<__nv_bfloat16>(x, mean, rstd, scale, bias, y, b, hw,
-                                         c, g, stream);
-}
-
-int dls_gn_normalize_f32(const void* x, const void* mean, const void* rstd,
-                         const void* scale, const void* bias, void* y, int b,
-                         int hw, int c, int g, void* stream) {
-  return launch_normalize<float>(x, mean, rstd, scale, bias, y, b, hw, c, g,
-                                 stream);
-}
+// dls_gn_normalize_<x dtype>_<scale/bias dtype>
+#define DLS_GN_NORMALIZE(NAME, T, P)                                         \
+  int NAME(const void* x, const void* mean, const void* rstd,                \
+           const void* scale, const void* bias, void* y, int b, int hw,      \
+           int c, int g, int slices, int rows_per_slice, void* stream) {     \
+    return launch_normalize<T, P>(x, mean, rstd, scale, bias, y, b, hw, c,   \
+                                  g, slices, rows_per_slice, stream);        \
+  }
+DLS_GN_NORMALIZE(dls_gn_normalize_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
+DLS_GN_NORMALIZE(dls_gn_normalize_bf16_f32, __nv_bfloat16, float)
+DLS_GN_NORMALIZE(dls_gn_normalize_f32_bf16, float, __nv_bfloat16)
+DLS_GN_NORMALIZE(dls_gn_normalize_f32_f32, float, float)
+#undef DLS_GN_NORMALIZE
 
 }  // extern "C"

@@ -10,7 +10,11 @@ Counterpart of ``distributed_learning_simulator_tpu/ops/gn_pallas.py``:
   (:func:`stats_split` plans ``S``).
 * :func:`gn_normalize` launches ``gn_normalize_kernel``, which replaces
   ``gn_pallas.py:_norm_kernel``: ``y = (x - mean) * (rstd * scale) + bias``
-  in f32, cast once.
+  in f32, cast once, from ``B x slices`` CTAs (:func:`normalize_plan`
+  plans the slices), with ``scale``/``bias`` read in their own dtype (bf16
+  or f32). It is a programmatic dependent launch: in :func:`group_norm` its
+  CTAs start while the stats kernel still runs, and read mean/rstd only
+  once it has completed (csrc/gn.cu says why that is safe).
 * :func:`group_norm` is the counterpart of ``pallas_group_norm(...,
   folds=1)``: ``x [B, H, W, C] -> (y, mean_g [B, G], rstd_g [B, G])``.
 
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -36,8 +41,9 @@ from distributed_learning_simulator_tpu_torch.ops._build import load_library
 _THREADS = 256  # csrc/gn.cu kThreads
 _MAX_SPLIT = 8  # the largest portable thread-block cluster
 _IN_FLIGHT = 8  # csrc/gn.cu kInFlight: loads a thread issues together
-# Below two CTAs per SM of an H100 (132 SMs) a split can fill the card.
-_TARGET_CTAS = 2 * 132
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+# Below two CTAs per SM a stats split can fill the card.
+_TARGET_CTAS = 2 * _SMS
 # What a cluster of S > 1 costs beyond one CTA per sample, in load round
 # trips: on an H100 the cluster launch and its two barriers cost about as
 # much as 1.5 batches of in-flight loads (chip_smoke.py's split sweep).
@@ -65,6 +71,40 @@ def stats_split(b: int, hw: int, c: int, elem_size: int) -> int:
         if best is None or cost < best[0]:
             best = (cost, split)
     return best[1]
+
+
+class NormalizePlan(NamedTuple):
+    """The normalize kernel's grid: CTA ``i`` normalizes HW rows
+    ``[s * rows_per_slice, (s + 1) * rows_per_slice)`` of sample ``i //
+    slices``, with ``s = i % slices``."""
+
+    slices: int          # CTAs per sample
+    rows_per_slice: int  # HW rows a CTA normalizes (the last may have fewer)
+    grid: int            # CTAs in all, B x slices
+
+
+def normalize_plan(b: int, hw: int, c: int, elem_size: int,
+                   slices: int | None = None) -> NormalizePlan:
+    """Slices per sample of the normalize kernel for ``x [B, HW, C]``. A CTA
+    covers ``rows`` HW rows per step (one 16-byte vector a thread), and a
+    thread issues all its steps' loads together when there are at most
+    ``_IN_FLIGHT`` of them. Each CTA pays a fixed start (its launch, its
+    threads' scale/bias/mean/rstd loads), so fewer, fuller CTAs win until
+    the card runs out of SMs (chip_smoke.py's slice sweep at B=25: 100 CTAs
+    beat 200 to 800 at every stage shape). So: at most one CTA per SM
+    (``_SMS // B`` slices), unless a thread would have more than
+    ``_IN_FLIGHT`` steps; never more slices than steps (no CTA without
+    rows); the steps spread evenly. ``slices`` asks for a count instead
+    (tests, the sweep); it is spread the same way. A slice never spans two
+    samples."""
+    rows = _THREADS // (c // (16 // elem_size))
+    steps = -(-hw // rows)
+    if slices is None:
+        slices = max(_SMS // b, -(-steps // _IN_FLIGHT))
+    slices = max(1, min(steps, slices))
+    per = -(-steps // slices)  # steps of each slice but the last
+    slices = -(-steps // per)
+    return NormalizePlan(slices, per * rows, b * slices)
 
 
 def gn_stats_plain(x: torch.Tensor, g: int, eps: float):
@@ -104,9 +144,11 @@ def _lib() -> ctypes.CDLL:
         stats = getattr(lib, f"dls_gn_stats_{suffix}")
         stats.argtypes = [vp, vp, vp, ci, ci, ci, ci, cf, ci, vp]
         stats.restype = ci
-        norm = getattr(lib, f"dls_gn_normalize_{suffix}")
-        norm.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
-        norm.restype = ci
+        for params in _KERNEL_DTYPES.values():
+            norm = getattr(lib, f"dls_gn_normalize_{suffix}_{params}")
+            norm.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                             vp]
+            norm.restype = ci
     return lib
 
 
@@ -173,8 +215,11 @@ def gn_stats(x: torch.Tensor, g: int, eps: float, split: int | None = None):
 gn_stats.launches = 0
 
 
-def gn_normalize(x, mean, rstd, scale, bias, out_dtype):
-    """``y = (x - mean) * (rstd * scale) + bias`` on ``x [B, HW, C]``."""
+def gn_normalize(x, mean, rstd, scale, bias, out_dtype,
+                 slices: int | None = None):
+    """``y = (x - mean) * (rstd * scale) + bias`` on ``x [B, HW, C]``.
+    ``slices`` overrides the planned CTAs per sample (tests and
+    chip_smoke.py's sweep)."""
     if x.device.type == "cpu":
         return gn_normalize_plain(x, mean, rstd, scale, bias, out_dtype)
     suffix = _check_cuda_input(x, mean.shape[1])
@@ -192,18 +237,28 @@ def gn_normalize(x, mean, rstd, scale, bias, out_dtype):
         for t in stats
     ):
         raise ValueError("mean/rstd must be contiguous [B, G] f32 on x's device")
-    # The kernel reads the per-channel affine in f32 (under bf16 local
-    # training the parameters are bf16; the conversion is exact).
-    scale32 = scale.to(dtype=torch.float32).contiguous()
-    bias32 = bias.to(dtype=torch.float32).contiguous()
-    if scale32.shape != (c,) or bias32.shape != (c,):
-        raise ValueError(f"scale/bias must be [{c}]")
+    # The kernel reads the per-channel affine in its own dtype (bf16 under
+    # bf16 local training) and widens it exactly: no conversion launches.
+    if (
+        scale.dtype not in _KERNEL_DTYPES or bias.dtype != scale.dtype
+        or any(t.shape != (c,) or not t.is_contiguous()
+               or t.device != x.device for t in (scale, bias))
+    ):
+        raise ValueError(
+            f"scale/bias must be contiguous [{c}] bfloat16 or float32 of one "
+            "dtype on x's device"
+        )
+    if slices is not None and slices < 1:
+        raise ValueError(f"slices must be at least 1, got {slices}")
+    plan = normalize_plan(b, hw, c, x.element_size(), slices)
     y = torch.empty_like(x)
-    fn = getattr(_lib(), f"dls_gn_normalize_{suffix}")
+    fn = getattr(
+        _lib(), f"dls_gn_normalize_{suffix}_{_KERNEL_DTYPES[scale.dtype]}"
+    )
     err = fn(
-        x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), scale32.data_ptr(),
-        bias32.data_ptr(), y.data_ptr(), b, hw, c, g,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), y.data_ptr(), b, hw, c, g, plan.slices,
+        plan.rows_per_slice, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _raise_on_error(err, "gn_normalize_kernel")
     gn_normalize.launches += 1
@@ -228,6 +283,8 @@ def group_norm(x, scale, bias, g: int, eps: float, out_dtype):
         # channels-last so this view is free.
         raise ValueError("group_norm on CUDA needs a contiguous NHWC x")
     xr = x.reshape(b, h * w, c)
+    # Back to back on one stream, nothing launched between: the normalize
+    # kernel's programmatic dependent launch overlaps the stats kernel.
     mean_g, rstd_g = gn_stats(xr, g, eps)
     y = gn_normalize(xr, mean_g, rstd_g, scale, bias, out_dtype)
     return y.reshape(b, h, w, c), mean_g, rstd_g

@@ -187,3 +187,95 @@ def test_stats_split_at_the_main_path_shapes():
     assert gn_cuda.stats_split(25, 16, 512, 2) == 1
     assert gn_cuda.stats_split(1000, 1024, 64, 2) == 1  # eval: fills the card
     assert gn_cuda.stats_split(1, 10**6, 64, 2) == 8
+
+
+def _normalize_cover(b, hw, c, elem, slices=None):
+    """How often the normalize kernel's CTAs and threads (a numpy mirror of
+    csrc/gn.cu ``gn_normalize_kernel``'s index arithmetic) touch each 16-byte
+    vector ``[b, row, v]`` of ``x``, and the sample each CTA reads."""
+    plan = gn_cuda.normalize_plan(b, hw, c, elem, slices)
+    nvec = c // (16 // elem)
+    rows = 256 // nvec
+    cta = np.arange(plan.grid)[:, None]
+    tid = np.arange(256)[None, :]
+    sample = cta // plan.slices
+    row0 = np.minimum(hw, (cta % plan.slices) * plan.rows_per_slice)
+    row1 = np.minimum(hw, row0 + plan.rows_per_slice)
+    r, v = tid // nvec, tid % nvec
+    row = np.where(r < rows, row0 + r, row1)
+    hits = []
+    while (row < row1).any():
+        for u in range(8):  # kInFlight
+            rr = row + u * rows
+            live = rr < row1
+            hits.append(((sample * hw + rr) * nvec + v)[live])
+        row = row + 8 * rows
+    cover = np.bincount(np.concatenate(hits), minlength=b * hw * nvec)
+    return plan, cover, sample[:, 0]
+
+
+@pytest.mark.parametrize("b,hw,c,elem,slices", [
+    # the main path: four stage shapes at B=25 and the eval batch, bf16 x
+    (25, 1024, 64, 2, None), (25, 256, 128, 2, None), (25, 64, 256, 2, None),
+    (25, 16, 512, 2, None), (1000, 1024, 64, 2, None),
+    (25, 1024, 64, 4, None), (3, 7, 96, 2, None),
+    # ragged: idle threads (kThreads % nvec != 0), a short last slice, one
+    # vector a row, one row
+    (2, 1000, 40, 2, None), (300, 49, 192, 4, None), (7, 33, 2048, 2, None),
+    (1, 1, 64, 2, None), (4, 100, 64, 4, None),
+    # forced counts (the sweep, the card tests): more steps than kInFlight
+    # a thread, counts that do not divide the steps, more than the steps
+    (3, 1024, 64, 2, 1), (25, 1024, 64, 2, 7), (3, 7, 96, 2, 5),
+    (2, 100, 64, 4, 3),
+])
+def test_normalize_plan_covers_every_vector_once(b, hw, c, elem, slices):
+    plan, cover, sample = _normalize_cover(b, hw, c, elem, slices)
+    assert plan.grid == b * plan.slices < 2**31
+    assert (cover == 1).all()
+    # CTA i reads sample i // slices only, and every CTA has rows.
+    assert (sample == np.repeat(np.arange(b), plan.slices)).all()
+    assert (plan.slices - 1) * plan.rows_per_slice < hw
+
+
+@pytest.mark.parametrize("b,hw,c,elem", [
+    (10**6, 3, 64, 4), (1, 10**6, 2048, 2), (1, 1, 64, 2), (5000, 16, 512, 2),
+])
+def test_normalize_plan_limits(b, hw, c, elem):
+    """The grid fits a launch and no thread has more than one batch of
+    kInFlight loads, at extreme shapes."""
+    plan = gn_cuda.normalize_plan(b, hw, c, elem)
+    rows = 256 // (c // (16 // elem))
+    assert 1 <= plan.slices and plan.grid == b * plan.slices < 2**31
+    assert plan.rows_per_slice % rows == 0
+    assert plan.rows_per_slice // rows <= 8
+    assert (plan.slices - 1) * plan.rows_per_slice < hw <= (
+        plan.slices * plan.rows_per_slice)
+
+
+def test_normalize_plan_at_the_main_path_shapes():
+    # Training batch: at most one CTA per SM (132 // 25 = 5 slices), spread
+    # evenly over the row steps.
+    assert gn_cuda.normalize_plan(25, 1024, 64, 2) == (5, 224, 125)
+    assert gn_cuda.normalize_plan(25, 256, 128, 2) == (4, 64, 100)
+    assert gn_cuda.normalize_plan(25, 64, 256, 2) == (4, 16, 100)
+    assert gn_cuda.normalize_plan(25, 16, 512, 2) == (4, 4, 100)
+    # Eval batch: the card is full at one slice; 4 slices keep a thread's
+    # loads to one batch of 8.
+    assert gn_cuda.normalize_plan(1000, 1024, 64, 2) == (4, 256, 4000)
+    # A forced count is spread the same way and clipped to the row steps.
+    assert gn_cuda.normalize_plan(25, 1024, 64, 2, 11) == (11, 96, 275)
+    assert gn_cuda.normalize_plan(25, 16, 512, 2, 64) == (4, 4, 100)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_plain_normalize_takes_bf16_params_exactly(dtype):
+    """bf16 scale/bias (bf16 local training) give the same y as their exact
+    f32 copies: the kernel widens them the same way."""
+    x, scale, bias = _inputs((3, 8, 8, 64), seed=11)
+    xt = torch.from_numpy(x).reshape(3, 64, 64).to(dtype)
+    mean, rstd = gn_cuda.gn_stats_plain(xt, G, EPS)
+    s16 = torch.from_numpy(scale).to(torch.bfloat16)
+    b16 = torch.from_numpy(bias).to(torch.bfloat16)
+    y16 = gn_cuda.gn_normalize(xt, mean, rstd, s16, b16, dtype)
+    y32 = gn_cuda.gn_normalize(xt, mean, rstd, s16.float(), b16.float(), dtype)
+    assert y16.dtype == dtype and torch.equal(y16, y32)

@@ -9,7 +9,9 @@ Tolerances as in chip_smoke.py and tests/test_torch_gn.py: mean/rstd rtol
 1e-5; y, measured at the largest of the terms ``x*a``, ``mean*a``,
 ``bias`` that sum to it, within one bf16 ulp (bf16) or 1e-5 of it (f32).
 The normalize kernel alone, on the plain statistics, is bit-equal to the
-plain version.
+plain version, with f32 and with bf16 scale/bias (bf16 local training); a
+stats -> normalize pair (a programmatic dependent launch) replayed from a
+CUDA graph is bitwise equal to the eager pair.
 """
 
 import pytest
@@ -62,8 +64,10 @@ def _error_in_tolerances(x, y_k, y_p, mean, rstd, scale, bias):
     (1000, 1024, 64),  # the eval batch: S = 1, one CTA per sample
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_kernels_match_plain(cuda, b, hw, c, dtype):
+@pytest.mark.parametrize("params", [torch.float32, torch.bfloat16])
+def test_kernels_match_plain(cuda, b, hw, c, dtype, params):
     x, scale, bias = _inputs(b, hw, c, dtype, cuda)
+    scale, bias = scale.to(params), bias.to(params)
     mean_k, rstd_k = gn_cuda.gn_stats(x, G, EPS)
     mean_p, rstd_p = gn_cuda.gn_stats_plain(x, G, EPS)
     torch.testing.assert_close(mean_k, mean_p, rtol=1e-5, atol=0)
@@ -73,8 +77,56 @@ def test_kernels_match_plain(cuda, b, hw, c, dtype):
     assert torch.equal(y_alone, y_p)
     y_k = gn_cuda.gn_normalize(x, mean_k, rstd_k, scale, bias, dtype)
     torch.cuda.synchronize()
-    assert _error_in_tolerances(x, y_k, y_p, mean_p, rstd_p, scale,
-                                bias) <= 1.0
+    assert _error_in_tolerances(x, y_k, y_p, mean_p, rstd_p, scale.float(),
+                                bias.float()) <= 1.0
+
+
+@pytest.mark.parametrize("b,hw,c", [(25, 1024, 64), (1000, 1024, 64)])
+def test_pair_graph_replay_is_bitwise_equal_to_eager(cuda, b, hw, c):
+    x, scale, bias = _inputs(b, hw, c, torch.bfloat16, cuda, seed=3)
+    x4 = x.view(b, 32, hw // 32, c)
+    scale, bias = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+
+    def pair():
+        return gn_cuda.group_norm(x4, scale, bias, G, EPS, torch.bfloat16)
+
+    eager = pair()
+    assert all(torch.equal(p, q) for p, q in zip(eager, pair()))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pair()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pair()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(p, q) for p, q in zip(eager, captured))
+
+
+def test_one_group_norm_call_launches_two_kernels(cuda):
+    """bf16 scale/bias reach the kernel as they are: one group_norm call is
+    the stats and the normalize kernel, no conversion kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, scale, bias = _inputs(25, 256, 128, torch.bfloat16, cuda)
+    x4 = x.view(25, 16, 16, 128)
+    scale, bias = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+    gn_cuda.group_norm(x4, scale, bias, G, EPS, torch.bfloat16)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gn_cuda.group_norm(x4, scale, bias, G, EPS, torch.bfloat16)
+        torch.cuda.synchronize()
+    kernels = [
+        e.name for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not e.name.startswith(("Memcpy", "Memset"))
+    ]
+    assert len(kernels) == 2, kernels
+    assert any("gn_stats_kernel" in k for k in kernels)
+    assert any("gn_normalize_kernel" in k for k in kernels)
 
 
 @pytest.mark.parametrize("split", [1, 2, 4, 8])
@@ -90,6 +142,21 @@ def test_every_split_matches_plain(cuda, b, hw, c, dtype, split):
     mean_p, rstd_p = gn_cuda.gn_stats_plain(x, G, EPS)
     torch.testing.assert_close(mean_k, mean_p, rtol=1e-5, atol=0)
     torch.testing.assert_close(rstd_k, rstd_p, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("slices", [1, 3, 7, 64])
+@pytest.mark.parametrize("b,hw,c,dtype", [
+    (25, 1024, 64, torch.bfloat16),  # 1: 32 rows a thread, 4 load batches
+    (3, 7, 96, torch.bfloat16),  # idle threads, slices past the rows
+    (4, 100, 64, torch.float32),
+])
+def test_every_normalize_slicing_matches_plain(cuda, b, hw, c, dtype, slices):
+    x, scale, bias = _inputs(b, hw, c, dtype, cuda, seed=4)
+    scale, bias = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+    mean, rstd = gn_cuda.gn_stats_plain(x, G, EPS)
+    y = gn_cuda.gn_normalize(x, mean, rstd, scale, bias, dtype, slices=slices)
+    assert torch.equal(y, gn_cuda.gn_normalize_plain(x, mean, rstd, scale,
+                                                     bias, dtype))
 
 
 @pytest.mark.parametrize("b,hw,c", [(25, 1024, 64), (1000, 1024, 64)])
@@ -114,10 +181,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     mean, rstd = gn_cuda.gn_stats(x, G, EPS)
     with pytest.raises(ValueError, match="dtype"):
         gn_cuda.gn_normalize(x, mean, rstd, scale, bias, torch.float32)
+    for s, b in ((scale.half(), bias.half()), (scale, bias.bfloat16()),
+                 (scale[:32], bias), (scale.cpu(), bias.cpu())):
+        with pytest.raises(ValueError, match="scale/bias"):
+            gn_cuda.gn_normalize(x, mean, rstd, s, b, torch.bfloat16)
+    with pytest.raises(ValueError, match="slices"):
+        gn_cuda.gn_normalize(x, mean, rstd, scale, bias, torch.bfloat16,
+                             slices=0)
 
 
-def test_model_forward_launches_each_kernel_once_per_group_norm(cuda):
-    model = get_model("resnet18").to(cuda)
+@pytest.mark.parametrize("params", [torch.float32, torch.bfloat16])
+def test_model_forward_launches_each_kernel_once_per_group_norm(cuda, params):
+    model = get_model("resnet18").to(cuda, params)
     gn_cuda.reset_launch_counts()
     with torch.no_grad():
         logits = model(torch.rand(2, 32, 32, 3, device=cuda))
