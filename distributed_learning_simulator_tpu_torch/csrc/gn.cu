@@ -44,41 +44,45 @@
 //   launch, no float atomics: a rerun is bitwise equal.
 // * Normalize: a grid of B x slices CTAs; CTA (b, s) normalizes the s-th
 //   contiguous slice of sample b's HW rows (ops/gn_cuda.py
-//   `normalize_plan` sizes the slices: at most one CTA per SM, unless a
-//   thread would have more than kInFlight rows). Threads are laid out [rows][C / VEC] as in
-//   the stats kernel, so each owns one fixed 16-byte channel vector (8 bf16
-//   / 4 f32 values; C is a multiple of VEC, checked by the wrapper) for the
-//   whole kernel. Before its loop a thread holds its channels' a_c =
-//   rstd_g * scale_c, mean_g and bias_c in registers: the TPU kernel's
-//   per-(sample, channel) a_c / mean_c blocks. The loop then has no
-//   division and no scalar load: kInFlight predicated 16-byte loads of x
-//   issued together, the arithmetic, 16-byte stores (ordinary ones: the
-//   ReLU or residual add that follows reads y at once, from L2). scale and
-//   bias are read in their own dtype (bf16 under bf16 local training, else
-//   f32) and widened exactly, once per thread.
+//   `normalize_plan` sizes the slices: at most one CTA per SM, and never
+//   more than kInFlight rows a thread). Threads are laid out [rows][C / VEC]
+//   as in the stats kernel, so each owns one fixed 16-byte channel vector
+//   (8 bf16 / 4 f32 values; C is a multiple of VEC, checked by the wrapper).
+//   A thread holds its channels' a_c = rstd_g * scale_c, mean_g and bias_c
+//   in registers: the TPU kernel's per-(sample, channel) a_c / mean_c
+//   blocks. It issues its (at most kInFlight) predicated 16-byte loads of x
+//   together, one memory round trip, then the arithmetic with no division
+//   and no scalar load, then 16-byte stores (ordinary ones: the ReLU or
+//   residual add that follows reads y at once, from L2). scale and bias are
+//   read in their own dtype (bf16 under bf16 local training, else f32) and
+//   widened exactly, once per thread.
 //
-// Programmatic dependent launch (PDL). group_norm launches the stats kernel
-// and then the normalize kernel on one stream. The normalize kernel is
-// launched with cudaLaunchAttributeProgrammaticStreamSerialization, and the
-// stats kernel executes griddepcontrol.launch_dependents at its start, so
-// the normalize CTAs are scheduled while the stats kernel still runs. A
-// normalize thread first loads its scale/bias and its first batch of x,
-// then executes griddepcontrol.wait, and only then reads mean/rstd. Why
-// that is safe:
+// Programmatic dependent launch (PDL), inside group_norm only. group_norm
+// launches the stats kernel and, right behind it on the same stream, the
+// normalize kernel with cudaLaunchAttributeProgrammaticStreamSerialization;
+// the stats kernel executes griddepcontrol.launch_dependents at its start,
+// so the normalize CTAs are scheduled while the stats kernel still runs. A
+// normalize thread first loads its scale/bias and its x, then executes
+// griddepcontrol.wait, and only then reads mean/rstd. What makes the reads
+// before the wait safe is the condition that the kernel just before the
+// normalize on the stream is that gn_stats kernel:
 // * griddepcontrol.wait returns once the primary grid has completed and its
 //   writes are visible to this grid, so mean/rstd are read after the stats
-//   kernel wrote them.
-// * x, scale and bias were written before the stats kernel began: the
-//   stats kernel is an ordinary launch, so it starts only after everything
-//   before it on the stream has completed. They may be read before the wait.
-// * The normalize kernel never triggers early itself, and every one of its
-//   threads waits. So a normalize that follows anything else (another
-//   normalize, a PyTorch kernel) is launched only once that kernel has
-//   completed, and no normalize completes before its primary: stream order
-//   holds for every later kernel, exactly as without PDL.
+//   kernel wrote them. Nothing promises that the primary's writes are
+//   visible before the wait.
+// * The primary (gn_stats) writes only mean/rstd. x, scale and bias were
+//   written before it began: it is an ordinary launch, so it starts only
+//   after everything before it on the stream has completed.
+// * Every normalize thread waits, so no normalize completes before its
+//   primary, and it never triggers early itself: stream order holds for
+//   every later kernel, exactly as without PDL.
 // * At B <= 264 every stats CTA is resident before the trigger takes
 //   effect, so early normalize CTAs cannot starve it; at larger B the
 //   dependent launch starts only once the last stats wave has started.
+// The public gn_normalize, which may follow any kernel (one that wrote x,
+// scale or bias included), launches the same kernel without the attribute:
+// it starts only once its predecessor has completed, and its wait returns
+// at once.
 //
 // Plain C interface for ctypes: every function returns cudaGetLastError()
 // right after its launch, and the Python wrapper raises if it is not 0.
@@ -306,20 +310,9 @@ __device__ __forceinline__ uint4 normalize_vec(const uint4& raw,
   return raw_out;
 }
 
-// kInFlight predicated 16-byte loads, rows row, row + rows, ... of this
-// thread's channel vector, issued together.
-__device__ __forceinline__ void load_rows(uint4 (&raw)[kInFlight],
-                                          const uint4* base, int row,
-                                          int row1, int rows, int nvec) {
-#pragma unroll
-  for (int u = 0; u < kInFlight; ++u) {
-    const int rr = row + u * rows;
-    raw[u] = rr < row1 ? __ldg(base + (int64_t)rr * nvec)
-                       : make_uint4(0, 0, 0, 0);
-  }
-}
-
-// T: the dtype of x and y; P: the dtype of scale and bias.
+// T: the dtype of x and y; P: the dtype of scale and bias. A slice holds at
+// most kInFlight * rows HW rows (launch_normalize checks it), so each thread
+// has at most kInFlight of them: rows row, row + rows, ...
 template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads)
 gn_normalize_kernel(const T* __restrict__ x, const float* mean,
@@ -340,10 +333,11 @@ gn_normalize_kernel(const T* __restrict__ x, const float* mean,
   uint4* yout = reinterpret_cast<uint4*>(y) + sample + v;
   // The kThreads % nvec threads past the last whole row of vectors load and
   // store nothing (they still wait below).
-  int row = r < rows ? row0 + r : row1;
+  const int row = r < rows ? row0 + r : row1;
 
-  // 1. What the stats kernel does not write: this vector's scale, bias and
-  //    groups, and the first batch of x.
+  // 1. What the stats kernel does not write (under PDL its predecessor on
+  //    the stream; file comment): this vector's scale, bias and groups, and
+  //    its x, all loads issued together.
   const int cpg = c / g;
   float sc[VEC], bi[VEC];
   int gi[VEC];
@@ -354,9 +348,15 @@ gn_normalize_kernel(const T* __restrict__ x, const float* mean,
     gi[j] = b * g + (c0 + j) / cpg;
   }
   uint4 raw[kInFlight];
-  load_rows(raw, xin, row, row1, rows, nvec);
+#pragma unroll
+  for (int u = 0; u < kInFlight; ++u) {
+    const int rr = row + u * rows;
+    raw[u] = rr < row1 ? __ldg(xin + (int64_t)rr * nvec)
+                       : make_uint4(0, 0, 0, 0);
+  }
 
-  // 2. The stats kernel has completed; 3. its mean/rstd, read once by
+  // 2. The stats kernel has completed (without the PDL attribute the wait
+  // returns at once); 3. its mean/rstd, read once by
   // ordinary (coherent, L1-cached) loads: not __ldg, whose non-coherent
   // path assumes data that no grid writes while this one runs, and not
   // __ldcg, which sends every thread's read to the same few L2 lines (a
@@ -368,16 +368,11 @@ gn_normalize_kernel(const T* __restrict__ x, const float* mean,
     m[j] = mean[gi[j]];
     a[j] = __fmul_rn(rstd[gi[j]], sc[j]);
   }
-  for (;;) {
 #pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      const int rr = row + u * rows;
-      if (rr < row1)
-        yout[(int64_t)rr * nvec] = normalize_vec<T>(raw[u], m, a, bi);
-    }
-    row += kInFlight * rows;
-    if (row >= row1) break;
-    load_rows(raw, xin, row, row1, rows, nvec);
+  for (int u = 0; u < kInFlight; ++u) {
+    const int rr = row + u * rows;
+    if (rr < row1)
+      yout[(int64_t)rr * nvec] = normalize_vec<T>(raw[u], m, a, bi);
   }
 }
 
@@ -408,13 +403,18 @@ int launch_stats(const void* x, void* mean, void* rstd, int b, int hw, int c,
   return (int)cudaGetLastError();
 }
 
-// One CTA per (sample, slice), launched as a programmatic dependent launch
-// of the kernel before it on the stream (file comment).
+// One CTA per (sample, slice). after_stats != 0 makes it a programmatic
+// dependent launch of the kernel before it on the stream, which must then
+// be the gn_stats kernel that wrote mean/rstd (file comment); 0 makes it an
+// ordinary launch.
 template <typename T, typename P>
 int launch_normalize(const void* x, const void* mean, const void* rstd,
                      const void* scale, const void* bias, void* y, int b,
                      int hw, int c, int g, int slices, int rows_per_slice,
-                     void* stream) {
+                     int after_stats, void* stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (rows_per_slice > kInFlight * (kThreads / (c / VEC)))
+    return (int)cudaErrorInvalidValue;  // more than one batch a thread
   cudaLaunchAttribute pdl;
   pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   pdl.val.programmaticStreamSerializationAllowed = 1;
@@ -424,7 +424,7 @@ int launch_normalize(const void* x, const void* mean, const void* rstd,
   cfg.dynamicSmemBytes = 0;
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = &pdl;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = after_stats ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, gn_normalize_kernel<T, P>, (const T*)x, (const float*)mean,
       (const float*)rstd, (const P*)scale, (const P*)bias, (T*)y, hw, c, g,
@@ -452,9 +452,11 @@ int dls_gn_stats_f32(const void* x, void* mean, void* rstd, int b, int hw,
 #define DLS_GN_NORMALIZE(NAME, T, P)                                         \
   int NAME(const void* x, const void* mean, const void* rstd,                \
            const void* scale, const void* bias, void* y, int b, int hw,      \
-           int c, int g, int slices, int rows_per_slice, void* stream) {     \
+           int c, int g, int slices, int rows_per_slice, int after_stats,   \
+           void* stream) {                                                   \
     return launch_normalize<T, P>(x, mean, rstd, scale, bias, y, b, hw, c,   \
-                                  g, slices, rows_per_slice, stream);        \
+                                  g, slices, rows_per_slice, after_stats,    \
+                                  stream);                                   \
   }
 DLS_GN_NORMALIZE(dls_gn_normalize_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
 DLS_GN_NORMALIZE(dls_gn_normalize_bf16_f32, __nv_bfloat16, float)

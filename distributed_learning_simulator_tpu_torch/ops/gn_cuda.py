@@ -12,9 +12,11 @@ Counterpart of ``distributed_learning_simulator_tpu/ops/gn_pallas.py``:
   ``gn_pallas.py:_norm_kernel``: ``y = (x - mean) * (rstd * scale) + bias``
   in f32, cast once, from ``B x slices`` CTAs (:func:`normalize_plan`
   plans the slices), with ``scale``/``bias`` read in their own dtype (bf16
-  or f32). It is a programmatic dependent launch: in :func:`group_norm` its
-  CTAs start while the stats kernel still runs, and read mean/rstd only
-  once it has completed (csrc/gn.cu says why that is safe).
+  or f32). Called alone it is an ordinary launch. Inside
+  :func:`group_norm`, right behind the stats kernel, it is a programmatic
+  dependent launch: its CTAs start while the stats kernel still runs, and
+  read mean/rstd only once it has completed (csrc/gn.cu says why that is
+  safe there and only there).
 * :func:`group_norm` is the counterpart of ``pallas_group_norm(...,
   folds=1)``: ``x [B, H, W, C] -> (y, mean_g [B, G], rstd_g [B, G])``.
 
@@ -41,9 +43,9 @@ from distributed_learning_simulator_tpu_torch.ops._build import load_library
 _THREADS = 256  # csrc/gn.cu kThreads
 _MAX_SPLIT = 8  # the largest portable thread-block cluster
 _IN_FLIGHT = 8  # csrc/gn.cu kInFlight: loads a thread issues together
-_SMS = 132  # streaming multiprocessors of an H100 SXM
-# Below two CTAs per SM a stats split can fill the card.
-_TARGET_CTAS = 2 * _SMS
+# Two CTAs per SM of the H100 SXM (132 SMs) that stats_split was measured
+# on: below that many CTAs a split can fill the card.
+_TARGET_CTAS = 2 * 132
 # What a cluster of S > 1 costs beyond one CTA per sample, in load round
 # trips: on an H100 the cluster launch and its two barriers cost about as
 # much as 1.5 batches of in-flight loads (chip_smoke.py's split sweep).
@@ -83,28 +85,34 @@ class NormalizePlan(NamedTuple):
     grid: int            # CTAs in all, B x slices
 
 
-def normalize_plan(b: int, hw: int, c: int, elem_size: int,
+def normalize_plan(b: int, hw: int, c: int, elem_size: int, sms: int,
                    slices: int | None = None) -> NormalizePlan:
-    """Slices per sample of the normalize kernel for ``x [B, HW, C]``. A CTA
-    covers ``rows`` HW rows per step (one 16-byte vector a thread), and a
-    thread issues all its steps' loads together when there are at most
-    ``_IN_FLIGHT`` of them. Each CTA pays a fixed start (its launch, its
-    threads' scale/bias/mean/rstd loads), so fewer, fuller CTAs win until
-    the card runs out of SMs (chip_smoke.py's slice sweep at B=25: 100 CTAs
-    beat 200 to 800 at every stage shape). So: at most one CTA per SM
-    (``_SMS // B`` slices), unless a thread would have more than
-    ``_IN_FLIGHT`` steps; never more slices than steps (no CTA without
-    rows); the steps spread evenly. ``slices`` asks for a count instead
-    (tests, the sweep); it is spread the same way. A slice never spans two
-    samples."""
+    """Slices per sample of the normalize kernel for ``x [B, HW, C]`` on a
+    card of ``sms`` SMs. A CTA covers ``rows`` HW rows per step (one
+    16-byte vector a thread), and a thread issues all its steps' loads
+    together, so it may have at most ``_IN_FLIGHT`` steps. Each CTA pays a
+    fixed start (its launch, its threads' scale/bias/mean/rstd loads), so
+    fewer, fuller CTAs win until the card runs out of SMs (chip_gn_sweep.py
+    at B=25). So: at most one CTA per SM (``sms // B`` slices), unless a
+    thread would have more than ``_IN_FLIGHT`` steps; never more slices than
+    steps (no CTA without rows); the steps spread evenly. ``slices`` asks
+    for a count instead (chip_gn_sweep.py, the card tests); it is clipped to
+    that range and spread the same way. A slice never spans two samples."""
     rows = _THREADS // (c // (16 // elem_size))
     steps = -(-hw // rows)
+    least = -(-steps // _IN_FLIGHT)  # one batch of loads a thread
     if slices is None:
-        slices = max(_SMS // b, -(-steps // _IN_FLIGHT))
-    slices = max(1, min(steps, slices))
+        slices = sms // b
+    slices = max(least, min(steps, slices))
     per = -(-steps // slices)  # steps of each slice but the last
+    assert per <= _IN_FLIGHT
     slices = -(-steps // per)
     return NormalizePlan(slices, per * rows, b * slices)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def gn_stats_plain(x: torch.Tensor, g: int, eps: float):
@@ -147,7 +155,7 @@ def _lib() -> ctypes.CDLL:
         for params in _KERNEL_DTYPES.values():
             norm = getattr(lib, f"dls_gn_normalize_{suffix}_{params}")
             norm.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                             vp]
+                             ci, vp]
             norm.restype = ci
     return lib
 
@@ -215,11 +223,19 @@ def gn_stats(x: torch.Tensor, g: int, eps: float, split: int | None = None):
 gn_stats.launches = 0
 
 
-def gn_normalize(x, mean, rstd, scale, bias, out_dtype,
-                 slices: int | None = None):
-    """``y = (x - mean) * (rstd * scale) + bias`` on ``x [B, HW, C]``.
-    ``slices`` overrides the planned CTAs per sample (tests and
-    chip_smoke.py's sweep)."""
+def gn_normalize(x, mean, rstd, scale, bias, out_dtype):
+    """``y = (x - mean) * (rstd * scale) + bias`` on ``x [B, HW, C]``: an
+    ordinary launch, so it may follow any kernel that wrote its inputs."""
+    return _normalize(x, mean, rstd, scale, bias, out_dtype, after_stats=False)
+
+
+def _normalize(x, mean, rstd, scale, bias, out_dtype, after_stats: bool,
+               slices: int | None = None):
+    """:func:`gn_normalize`, launched as a programmatic dependent launch of
+    the kernel before it when ``after_stats``: only :func:`group_norm` may
+    ask for that, right behind the ``gn_stats`` launch that wrote ``mean``
+    and ``rstd`` (csrc/gn.cu). ``slices`` overrides the planned CTAs per
+    sample (chip_gn_sweep.py, the card tests)."""
     if x.device.type == "cpu":
         return gn_normalize_plain(x, mean, rstd, scale, bias, out_dtype)
     suffix = _check_cuda_input(x, mean.shape[1])
@@ -248,9 +264,8 @@ def gn_normalize(x, mean, rstd, scale, bias, out_dtype,
             f"scale/bias must be contiguous [{c}] bfloat16 or float32 of one "
             "dtype on x's device"
         )
-    if slices is not None and slices < 1:
-        raise ValueError(f"slices must be at least 1, got {slices}")
-    plan = normalize_plan(b, hw, c, x.element_size(), slices)
+    plan = normalize_plan(b, hw, c, x.element_size(),
+                          _sm_count(x.device.index), slices)
     y = torch.empty_like(x)
     fn = getattr(
         _lib(), f"dls_gn_normalize_{suffix}_{_KERNEL_DTYPES[scale.dtype]}"
@@ -258,7 +273,8 @@ def gn_normalize(x, mean, rstd, scale, bias, out_dtype,
     err = fn(
         x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), scale.data_ptr(),
         bias.data_ptr(), y.data_ptr(), b, hw, c, g, plan.slices,
-        plan.rows_per_slice, torch.cuda.current_stream(x.device).cuda_stream,
+        plan.rows_per_slice, int(after_stats),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _raise_on_error(err, "gn_normalize_kernel")
     gn_normalize.launches += 1
@@ -286,5 +302,6 @@ def group_norm(x, scale, bias, g: int, eps: float, out_dtype):
     # Back to back on one stream, nothing launched between: the normalize
     # kernel's programmatic dependent launch overlaps the stats kernel.
     mean_g, rstd_g = gn_stats(xr, g, eps)
-    y = gn_normalize(xr, mean_g, rstd_g, scale, bias, out_dtype)
+    y = _normalize(xr, mean_g, rstd_g, scale, bias, out_dtype,
+                   after_stats=True)
     return y.reshape(b, h, w, c), mean_g, rstd_g

@@ -189,11 +189,15 @@ def test_stats_split_at_the_main_path_shapes():
     assert gn_cuda.stats_split(1, 10**6, 64, 2) == 8
 
 
+H100_SMS = 132  # the card the plans are tuned on (H100 SXM)
+
+
 def _normalize_cover(b, hw, c, elem, slices=None):
     """How often the normalize kernel's CTAs and threads (a numpy mirror of
-    csrc/gn.cu ``gn_normalize_kernel``'s index arithmetic) touch each 16-byte
-    vector ``[b, row, v]`` of ``x``, and the sample each CTA reads."""
-    plan = gn_cuda.normalize_plan(b, hw, c, elem, slices)
+    csrc/gn.cu ``gn_normalize_kernel``'s index arithmetic: one batch of
+    kInFlight predicated loads a thread) touch each 16-byte vector ``[b,
+    row, v]`` of ``x``, and the sample each CTA reads."""
+    plan = gn_cuda.normalize_plan(b, hw, c, elem, H100_SMS, slices)
     nvec = c // (16 // elem)
     rows = 256 // nvec
     cta = np.arange(plan.grid)[:, None]
@@ -204,12 +208,10 @@ def _normalize_cover(b, hw, c, elem, slices=None):
     r, v = tid // nvec, tid % nvec
     row = np.where(r < rows, row0 + r, row1)
     hits = []
-    while (row < row1).any():
-        for u in range(8):  # kInFlight
-            rr = row + u * rows
-            live = rr < row1
-            hits.append(((sample * hw + rr) * nvec + v)[live])
-        row = row + 8 * rows
+    for u in range(8):  # kInFlight
+        rr = row + u * rows
+        live = rr < row1
+        hits.append(((sample * hw + rr) * nvec + v)[live])
     cover = np.bincount(np.concatenate(hits), minlength=b * hw * nvec)
     return plan, cover, sample[:, 0]
 
@@ -223,8 +225,9 @@ def _normalize_cover(b, hw, c, elem, slices=None):
     # vector a row, one row
     (2, 1000, 40, 2, None), (300, 49, 192, 4, None), (7, 33, 2048, 2, None),
     (1, 1, 64, 2, None), (4, 100, 64, 4, None),
-    # forced counts (the sweep, the card tests): more steps than kInFlight
-    # a thread, counts that do not divide the steps, more than the steps
+    # forced counts (the sweep, the card tests): too few for one batch a
+    # thread or more than the steps (both clipped), counts that do not
+    # divide the steps
     (3, 1024, 64, 2, 1), (25, 1024, 64, 2, 7), (3, 7, 96, 2, 5),
     (2, 100, 64, 4, 3),
 ])
@@ -243,7 +246,7 @@ def test_normalize_plan_covers_every_vector_once(b, hw, c, elem, slices):
 def test_normalize_plan_limits(b, hw, c, elem):
     """The grid fits a launch and no thread has more than one batch of
     kInFlight loads, at extreme shapes."""
-    plan = gn_cuda.normalize_plan(b, hw, c, elem)
+    plan = gn_cuda.normalize_plan(b, hw, c, elem, H100_SMS)
     rows = 256 // (c // (16 // elem))
     assert 1 <= plan.slices and plan.grid == b * plan.slices < 2**31
     assert plan.rows_per_slice % rows == 0
@@ -253,18 +256,25 @@ def test_normalize_plan_limits(b, hw, c, elem):
 
 
 def test_normalize_plan_at_the_main_path_shapes():
+    def plan(*shape, sms=H100_SMS, slices=None):
+        return gn_cuda.normalize_plan(*shape, sms, slices)
+
     # Training batch: at most one CTA per SM (132 // 25 = 5 slices), spread
     # evenly over the row steps.
-    assert gn_cuda.normalize_plan(25, 1024, 64, 2) == (5, 224, 125)
-    assert gn_cuda.normalize_plan(25, 256, 128, 2) == (4, 64, 100)
-    assert gn_cuda.normalize_plan(25, 64, 256, 2) == (4, 16, 100)
-    assert gn_cuda.normalize_plan(25, 16, 512, 2) == (4, 4, 100)
+    assert plan(25, 1024, 64, 2) == (5, 224, 125)
+    assert plan(25, 256, 128, 2) == (4, 64, 100)
+    assert plan(25, 64, 256, 2) == (4, 16, 100)
+    assert plan(25, 16, 512, 2) == (4, 4, 100)
     # Eval batch: the card is full at one slice; 4 slices keep a thread's
     # loads to one batch of 8.
-    assert gn_cuda.normalize_plan(1000, 1024, 64, 2) == (4, 256, 4000)
-    # A forced count is spread the same way and clipped to the row steps.
-    assert gn_cuda.normalize_plan(25, 1024, 64, 2, 11) == (11, 96, 275)
-    assert gn_cuda.normalize_plan(25, 16, 512, 2, 64) == (4, 4, 100)
+    assert plan(1000, 1024, 64, 2) == (4, 256, 4000)
+    # The SM count is the card's: 114 SMs (H100 PCIe) give 4 slices at B=25.
+    assert plan(25, 1024, 64, 2, sms=114) == (4, 256, 100)
+    # A forced count is spread the same way and clipped to the range that
+    # keeps one batch a thread and no CTA without rows.
+    assert plan(25, 1024, 64, 2, slices=11) == (11, 96, 275)
+    assert plan(25, 16, 512, 2, slices=64) == (4, 4, 100)
+    assert plan(3, 1024, 64, 2, slices=1) == (4, 256, 12)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -11,7 +11,8 @@ Tolerances as in chip_smoke.py and tests/test_torch_gn.py: mean/rstd rtol
 The normalize kernel alone, on the plain statistics, is bit-equal to the
 plain version, with f32 and with bf16 scale/bias (bf16 local training); a
 stats -> normalize pair (a programmatic dependent launch) replayed from a
-CUDA graph is bitwise equal to the eager pair.
+CUDA graph is bitwise equal to the eager pair. ``gn_normalize`` alone is an
+ordinary launch: it reads what the kernel just before it wrote.
 """
 
 import pytest
@@ -146,17 +147,53 @@ def test_every_split_matches_plain(cuda, b, hw, c, dtype, split):
 
 @pytest.mark.parametrize("slices", [1, 3, 7, 64])
 @pytest.mark.parametrize("b,hw,c,dtype", [
-    (25, 1024, 64, torch.bfloat16),  # 1: 32 rows a thread, 4 load batches
+    (25, 1024, 64, torch.bfloat16),  # 1 and 3: clipped to 4, 8 rows a thread
     (3, 7, 96, torch.bfloat16),  # idle threads, slices past the rows
     (4, 100, 64, torch.float32),
 ])
 def test_every_normalize_slicing_matches_plain(cuda, b, hw, c, dtype, slices):
+    """The slice counts chip_gn_sweep.py times, through the same private
+    launch."""
     x, scale, bias = _inputs(b, hw, c, dtype, cuda, seed=4)
     scale, bias = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
     mean, rstd = gn_cuda.gn_stats_plain(x, G, EPS)
-    y = gn_cuda.gn_normalize(x, mean, rstd, scale, bias, dtype, slices=slices)
+    y = gn_cuda._normalize(x, mean, rstd, scale, bias, dtype,
+                           after_stats=False, slices=slices)
     assert torch.equal(y, gn_cuda.gn_normalize_plain(x, mean, rstd, scale,
                                                      bias, dtype))
+
+
+@pytest.mark.parametrize("b,hw,c", [(25, 1024, 64), (1000, 1024, 64)])
+@pytest.mark.parametrize("params", [torch.float32, torch.bfloat16])
+def test_normalize_reads_what_the_kernel_before_it_wrote(cuda, b, hw, c,
+                                                         params):
+    """gn_normalize straight after a PyTorch kernel that writes its x, or
+    its scale and bias, reads the new values: it is no dependent launch of
+    a kernel that does not write them. Each round changes every input."""
+    x, scale, bias = _inputs(b, hw, c, torch.bfloat16, cuda, seed=5)
+    scale, bias = scale.to(params), bias.to(params)
+    xs = [x, -x, x * 2]
+    stats = [gn_cuda.gn_stats_plain(v, G, EPS) for v in xs]
+    pars = [(scale, bias), (-scale, bias * 2), (scale * 2, -bias)]
+    x_now = xs[-1].clone()
+    scale_now, bias_now = (t.clone() for t in pars[-1])
+    for k, (v, (mean, rstd), (s, bi)) in enumerate(zip(xs, stats, pars)):
+        want = gn_cuda.gn_normalize_plain(v, mean, rstd, s, bi, v.dtype)
+        torch.cuda.synchronize()
+        # x written by a kernel, then normalize at once.
+        torch.mul(v, 1, out=x_now)
+        got_x = gn_cuda.gn_normalize(x_now, mean, rstd, scale_now, bias_now,
+                                     v.dtype)
+        # scale and bias written by a kernel, then normalize at once.
+        torch.mul(s, 1, out=scale_now)
+        torch.mul(bi, 1, out=bias_now)
+        got_p = gn_cuda.gn_normalize(x_now, mean, rstd, scale_now, bias_now,
+                                     v.dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got_p, want), k
+        prev = pars[k - 1]
+        assert torch.equal(got_x, gn_cuda.gn_normalize_plain(
+            v, mean, rstd, prev[0], prev[1], v.dtype)), k
 
 
 @pytest.mark.parametrize("b,hw,c", [(25, 1024, 64), (1000, 1024, 64)])
@@ -185,9 +222,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                  (scale[:32], bias), (scale.cpu(), bias.cpu())):
         with pytest.raises(ValueError, match="scale/bias"):
             gn_cuda.gn_normalize(x, mean, rstd, s, b, torch.bfloat16)
-    with pytest.raises(ValueError, match="slices"):
-        gn_cuda.gn_normalize(x, mean, rstd, scale, bias, torch.bfloat16,
-                             slices=0)
+    # The C side refuses a plan that gives a thread more than one batch of
+    # 8 loads: at C = 64 bf16 (8 vectors a row) a CTA covers 32 rows a
+    # step, so a slice may hold at most 256 rows.
+    y = torch.empty_like(x)
+    err = gn_cuda._lib().dls_gn_normalize_bf16_f32(
+        x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), y.data_ptr(), 4, 16, 64, G, 1, 32 * 8 + 1, 0,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
 
 
 @pytest.mark.parametrize("params", [torch.float32, torch.bfloat16])
