@@ -50,6 +50,19 @@ together), then runs these phases and exits non-zero if any of them fails:
    GroupNorms) and the wgrad kernel exactly 4 times per training step
    (stage 0's four 3x3 convolutions) and never in eval; the records carry
    the algorithm's fields (compression ratios ~32 for sign, ~4 for 8-bit).
+   Then the paths of the key chain, partial participation, the robust
+   rules and the Shapley algorithms (``extra_path_configs``), each with
+   its counts set to 0 just before it and read just after, to the same
+   launch gates: the flagship at 100 clients with a hashed 10% cohort (each
+   round's cohort is 10 distinct ids equal to the host replay of the key
+   chain, its CRC the record's ``cohort_hash``); ``fed`` at 20 clients
+   under ``median``, ``trimmed_mean`` and ``krum`` (finite losses, the
+   record's fields); exact multi-round Shapley at N=4 (16 subsets a round,
+   sum SV = u(all) - u(empty) to 1e-6, ``metric_<round>.pkl`` with 16
+   subsets); GTG-Shapley at N=10 (finite SVs, a permutation count). In
+   the Shapley rounds every subset-evaluation forward launches exactly 20
+   of each GroupNorm kernel. The key chain's known-answer vectors of
+   ``jax.random`` are checked too.
 3. A profiler pass per algorithm (10 clients, 2 rounds): device busy time
    and idle share.
 4. Prints the kernels' JSON line, the card's name and power limit, and as
@@ -543,9 +556,14 @@ RECORD_CHECKS = {
 }
 
 
-def run_path(torch, gn, wg, name, config):
+def run_path(torch, gn, wg, name, config, post_round_probe=None):
     """Phase 2: one main path through run_simulation, with every launch
-    count set to 0 just before it and read just after."""
+    count set to 0 just before it and read just after. With
+    ``post_round_probe`` (a list), each round's post_round is wrapped and
+    appends its forwards, GroupNorm launches and seconds to it (the
+    Shapley subset evaluations); the run then writes its artifacts under
+    ``config.log_root``."""
+    from distributed_learning_simulator_tpu_torch import factory
     from distributed_learning_simulator_tpu_torch.models.resnet import ResNet18
     from distributed_learning_simulator_tpu_torch.simulator import (
         run_simulation,
@@ -557,13 +575,33 @@ def run_path(torch, gn, wg, name, config):
         if isinstance(module, ResNet18):
             forwards["train" if torch.is_grad_enabled() else "eval"] += 1
 
+    cls = factory._ALGORITHMS[config.distributed_algorithm]
+    original = cls.post_round
+    if post_round_probe is not None:
+        def probed(self, ctx):
+            torch.cuda.synchronize()
+            before = (forwards["eval"], gn.gn_stats.launches,
+                      gn.gn_normalize.launches, time.perf_counter())
+            out = original(self, ctx)
+            torch.cuda.synchronize()
+            post_round_probe.append({
+                "forwards": forwards["eval"] - before[0],
+                "gn_stats": gn.gn_stats.launches - before[1],
+                "gn_normalize": gn.gn_normalize.launches - before[2],
+                "seconds": time.perf_counter() - before[3],
+            })
+            return out
+
+        cls.post_round = probed
     gn.reset_launch_counts()
     wg.reset_launch_counts()
     hook = torch.nn.modules.module.register_module_forward_hook(count)
     try:
-        result = run_simulation(config, setup_logging=False)
+        result = run_simulation(config,
+                                setup_logging=post_round_probe is not None)
     finally:
         hook.remove()
+        cls.post_round = original
     torch.cuda.synchronize()
     launches = {"gn_stats": gn.gn_stats.launches,
                 "gn_normalize": gn.gn_normalize.launches,
@@ -575,7 +613,7 @@ def run_path(torch, gn, wg, name, config):
         if not (math.isfinite(rec["test_loss"])
                 and math.isfinite(rec["mean_client_loss"])):
             fail(f"{name} round {rec['round']}: non-finite loss")
-        for field, want in RECORD_CHECKS[name].items():
+        for field, want in RECORD_CHECKS.get(name, {}).items():
             if not abs(rec.get(field, math.nan) - want) <= 0.01 * want:
                 fail(f"{name} round {rec['round']}: {field}="
                      f"{rec.get(field)} (expected ~{want})")
@@ -599,6 +637,170 @@ def run_path(torch, gn, wg, name, config):
         "client_rounds_per_sec": result["client_rounds_per_sec"],
         "history": history,
     }
+
+
+def extra_path_configs(log_root: str):
+    """The paths of the key chain, partial participation, the robust rules
+    and the Shapley algorithms, at full ResNet-18 width on the same
+    cifar10-shaped data: the flagship at 100 clients with a hashed 10%
+    cohort; ``fed`` under each robust rule at 20 clients (f32 local
+    state); exact multi-round Shapley at N=4 (the reference's canonical
+    run) with 1000 evaluation samples; GTG-Shapley at N=10 with its
+    default bf16 subset evaluation and cumsum prefixes. The Shapley runs
+    write their artifacts under ``log_root``."""
+    from distributed_learning_simulator_tpu_torch.config import (
+        ExperimentConfig,
+    )
+
+    common = dict(
+        dataset_name="cifar10", model_name="resnet18", epoch=1,
+        batch_size=25, partition="dirichlet", dirichlet_alpha=0.1,
+        max_shard_size=100, client_chunk_size=40, eval_batch_size=1000,
+        device="cuda", log_level="INFO", log_root=log_root,
+    )
+    flagship = dict(learning_rate=0.02, momentum=0.9,
+                    local_compute_dtype="bfloat16")
+    out = {
+        "fed_partial": ExperimentConfig(
+            distributed_algorithm="fed", worker_number=100, round=2,
+            participation_fraction=0.1, participation_sampler="hashed",
+            n_train=10000, n_test=2000, **flagship, **common),
+    }
+    for rule in ROBUST_RULES:
+        out[f"robust_{rule}"] = ExperimentConfig(
+            distributed_algorithm="fed", worker_number=20, round=1,
+            aggregation=rule, learning_rate=0.02, momentum=0.9,
+            local_compute_dtype="float32", n_train=2000, n_test=2000,
+            **common)
+    out["multiround_shapley_value"] = ExperimentConfig(
+        distributed_algorithm="multiround_shapley_value", worker_number=4,
+        round=2, shapley_eval_samples=1000, n_train=400, n_test=1000,
+        **flagship, **common)
+    out["GTG_shapley_value"] = ExperimentConfig(
+        distributed_algorithm="GTG_shapley_value", worker_number=10,
+        round=2, n_train=1000, n_test=1000, **flagship, **common)
+    return out
+
+
+ROBUST_RULES = ("median", "trimmed_mean", "krum")
+BASE_RECORD_FIELDS = ("round", "test_accuracy", "test_loss",
+                      "mean_client_loss", "round_seconds")
+
+
+def _newest_artifacts(config) -> str:
+    """The artifacts directory of the newest run of ``config``."""
+    import glob
+
+    dirs = glob.glob(os.path.join(
+        config.log_root, config.distributed_algorithm, config.dataset_name,
+        config.model_name, "*_artifacts"))
+    if not dirs:
+        fail(f"{config.distributed_algorithm}: no artifacts directory under "
+             f"{config.log_root}")
+    return max(dirs, key=os.path.getmtime)
+
+
+def run_extra_paths(torch, gn, wg, log_root: str):
+    """Phase 2b: the paths of ``extra_path_configs``, each
+    through run_path (counts from 0, 20 GroupNorm launches per forward, 4
+    wgrad launches per training step), with their own gates:
+
+    * ``fed_partial``: each round's cohort, replayed on the host from the
+      key chain (``FedAvg.cohort_indices``), is 10 distinct ids in range
+      and its CRC is the record's ``cohort_hash``;
+    * ``robust_*``: finite losses and the record's fields;
+    * the Shapley paths: each round's post_round launched exactly 20 of
+      each GroupNorm kernel per subset-evaluation forward; multiround
+      evaluated 16 subsets a round, sum SV = u(all) - u(empty) to 1e-6
+      and ``metric_<round>.pkl`` holds 16 subsets; GTG records finite SVs
+      and its permutation count.
+
+    Also checks the key chain's known-answer vectors (ops/prng.py)."""
+    import pickle
+
+    from distributed_learning_simulator_tpu_torch.algorithms.fedavg import (
+        FedAvg,
+    )
+    from distributed_learning_simulator_tpu_torch.ops import prng
+    from distributed_learning_simulator_tpu_torch.utils.reporting import (
+        cohort_crc,
+    )
+
+    bad = prng.known_answer_mismatches()
+    if bad:
+        fail(f"key chain known answers differ from jax.random: {bad}")
+    log(f"key chain: {len(prng.KNOWN_ANSWERS)} known answers of jax.random "
+        "reproduced")
+    results = {}
+    for name, config in extra_path_configs(log_root).items():
+        shapley = name.endswith("shapley_value")
+        probes = [] if shapley else None
+        res = run_path(torch, gn, wg, name, config, post_round_probe=probes)
+        history = res["history"]
+        for rec in history:
+            missing = [f for f in BASE_RECORD_FIELDS if f not in rec]
+            if missing:
+                fail(f"{name} round {rec['round']}: record lacks {missing}")
+        if name == "fed_partial":
+            key = prng.key(config.seed + 1)
+            algo = FedAvg(config)
+            cohorts = []
+            for rec in history:
+                key, round_key = prng.split(key)
+                ids = algo.cohort_indices(round_key, config.worker_number)
+                if (len(ids) != 10 or len(set(ids.tolist())) != 10
+                        or ids.min() < 0
+                        or ids.max() >= config.worker_number):
+                    fail(f"{name} round {rec['round']}: cohort {ids}")
+                if rec.get("cohort_hash") != cohort_crc(
+                        ids, config.worker_number):
+                    fail(f"{name} round {rec['round']}: cohort_hash "
+                         f"{rec.get('cohort_hash')} is not the replayed "
+                         f"cohort's {cohort_crc(ids, config.worker_number)}")
+                cohorts.append(ids.tolist())
+            res["cohorts"] = cohorts
+            log(f"{name}: cohorts {cohorts} equal the host replay")
+        if shapley:
+            res["post_round"] = probes
+            for rec, probe in zip(history, probes):
+                for k in ("gn_stats", "gn_normalize"):
+                    if probe[k] != GN_PER_FORWARD * probe["forwards"]:
+                        fail(f"{name} round {rec['round']}: {k} launched "
+                             f"{probe[k]} times for {probe['forwards']} "
+                             "subset-evaluation forwards")
+                sv = [rec["shapley_values"][i]
+                      for i in range(config.worker_number)]
+                if not all(math.isfinite(v) for v in sv):
+                    fail(f"{name} round {rec['round']}: SVs {sv}")
+                probe["evals_per_s"] = (probe["forwards"] / probe["seconds"]
+                                        if probe["seconds"] else None)
+            artifacts = _newest_artifacts(config)
+            if name == "multiround_shapley_value":
+                for rec, probe in zip(history, probes):
+                    with open(os.path.join(
+                            artifacts, f"metric_{rec['round']}.pkl"),
+                            "rb") as f:
+                        utilities = pickle.load(f)
+                    if probe["forwards"] != 16 or len(utilities) != 16:
+                        fail(f"{name} round {rec['round']}: "
+                             f"{probe['forwards']} subset forwards, "
+                             f"{len(utilities)} utilities (expected 16)")
+                    sv = sum(rec["shapley_values"].values())
+                    gap = abs(sv - (utilities[(0, 1, 2, 3)] - utilities[()]))
+                    if not gap <= 1e-6:
+                        fail(f"{name} round {rec['round']}: sum SV "
+                             f"{sv} vs u(all) - u(empty), gap {gap:.3e}")
+            else:
+                for rec in history:
+                    if not isinstance(rec.get("gtg_permutations"), int):
+                        fail(f"{name} round {rec['round']}: no permutation "
+                             "count")
+                if not history[0]["gtg_permutations"]:
+                    fail(f"{name}: round 0 walked no permutation")
+            log(f"{name}: post_round {probes}; shapley values "
+                f"{[rec['shapley_values'] for rec in history]}")
+        results[name] = res
+    return results
 
 
 def profile_rounds(torch, name, config):
@@ -749,11 +951,13 @@ def main() -> None:
         name: run_path(torch, gn, wg, name, config)
         for name, config in path_configs(100, 10000, 2000, "INFO").items()
     }
+    paths.update(run_extra_paths(torch, gn, wg,
+                                 os.path.join(args.out, "log")))
     profiles = [
         profile_rounds(torch, name, config)
         for name, config in path_configs(10, 1000, 1000, "WARNING").items()
     ]
-    # Launches over the three main paths (each counted from 0).
+    # Launches over every main path (each counted from 0).
     launches = {
         k: sum(p["launches"][k] for p in paths.values())
         for k in ("gn_stats", "gn_normalize", "conv3x3_wgrad")

@@ -34,6 +34,10 @@ class Algorithm:
     ``make_round_fn``."""
 
     name: str = ""
+    #: Truthy: the round keeps every cohort client's payload-processed
+    #: upload as an f32 ``[cohort, P]`` stack in ``aux["client_params"]``
+    #: for post_round (the Shapley algorithms).
+    keep_client_params: bool = False
 
     def __init__(self, config):
         self.config = config
@@ -45,14 +49,16 @@ class Algorithm:
                       n_clients: int, preprocess: Callable | None = None,
                       client_sizes=None, device=None) -> Callable:
         """Return ``round_fn(global_flat, client_state, cx, cy, cmask,
-        sizes, generator, lr_scale=1.0, client_rng=None,
-        payload_salts=None) -> (new_global_flat, new_client_state, aux)``.
+        sizes, key, lr_scale=1.0, client_rng=None, payload_salts=None) ->
+        (new_global_flat, new_client_state, aux)``.
 
-        ``client_state`` is whatever per-client state persists across
-        rounds (``init_client_state``; None when nothing does).
-        ``client_rng(client, n_slots) -> (epoch_perms, sr_salt)`` and
-        ``payload_salts(client or None) -> per-leaf salts`` optionally
-        replace the generator's draws (tests pass the JAX package's)."""
+        ``key`` is the round key of the JAX package's key chain
+        (ops/prng.py); every draw of the round derives from it as in the
+        JAX program. ``client_state`` is whatever per-client state
+        persists across rounds (``init_client_state``; None when nothing
+        does). ``client_rng(client, n_slots) -> (epoch_perms, sr_salt)``
+        and ``payload_salts(client or None) -> per-leaf salts`` optionally
+        replace the key chain's draws."""
         raise NotImplementedError
 
     def init_client_state(self, optimizer, global_flat, n_clients: int):

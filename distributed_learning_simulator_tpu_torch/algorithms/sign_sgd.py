@@ -17,17 +17,21 @@ when momentum != 0 (torch allocates no buffer at momentum 0). The port
 updates each client's row in place (the JAX program returns a new stack);
 the round returns the same state object.
 
-Each epoch's batch order is one permutation per client (the JAX package
-draws them per epoch from the round key); each step gathers every client's
-own minibatch rows (ops/cohort.py ``batched_take``). The SGD optimizer is
-required, as in the reference.
+Each epoch's batch order is one permutation per client, drawn as the JAX
+package draws them from the round key (ops/prng.py): client c's order in
+epoch e is ``permutation(split(split(key, epochs)[e], n_clients)[c],
+shard)``. Each step gathers every client's own minibatch rows
+(ops/cohort.py ``batched_take``). The SGD optimizer is required, as in the
+reference.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from distributed_learning_simulator_tpu_torch.algorithms.base import Algorithm
+from distributed_learning_simulator_tpu_torch.ops import prng
 from distributed_learning_simulator_tpu_torch.ops.cohort import batched_take
 from distributed_learning_simulator_tpu_torch.ops.payload import (
     compression_ratio,
@@ -40,7 +44,6 @@ from distributed_learning_simulator_tpu_torch.ops.sign import (
     vote_apply_leaf,
 )
 from distributed_learning_simulator_tpu_torch.parallel.engine import (
-    draw_client_rng,
     make_loss_fn,
 )
 
@@ -112,21 +115,25 @@ class SignSGD(Algorithm):
                                                         x))
 
         def round_fn(global_flat, client_state, cx, cy, cmask, sizes,
-                     generator, lr_scale=1.0, client_rng=None,
+                     key, lr_scale=1.0, client_rng=None,
                      payload_salts=None):
-            """``client_rng(client, n_slots) -> (epoch_perms, _)``
-            optionally replaces the generator's draws (tests pass the JAX
-            package's per-epoch permutations). ``sizes`` (the vote is
-            unweighted), ``lr_scale`` (config.py refuses lr schedules for
-            sign_SGD) and ``payload_salts`` are not read."""
+            """``key`` is the round key; ``client_rng(client, n_slots) ->
+            (epoch_perms, _)`` optionally replaces its draws. ``sizes``
+            (the vote is unweighted), ``lr_scale`` (config.py refuses lr
+            schedules for sign_SGD) and ``payload_salts`` are not read."""
             shard = cx.shape[1]
             steps = shard // bsz
             if client_rng is None:
-                draws = [draw_client_rng(generator, shard, epochs)
-                         for _ in range(n_clients)]
+                perm_keys = [prng.split(ek, n_clients)
+                             for ek in prng.split(key, epochs)]
 
                 def client_rng(i, n_slots):
-                    return draws[i]
+                    return [
+                        torch.from_numpy(
+                            prng.permutation(ks[i], n_slots).astype(np.int64)
+                        )
+                        for ks in perm_keys
+                    ], 0
             client_perms = [client_rng(i, shard)[0] for i in range(n_clients)]
             params = global_flat
             if has_momentum:

@@ -21,6 +21,8 @@ import json
 from dataclasses import dataclass, field
 from typing import Any
 
+from distributed_learning_simulator_tpu_torch.ops.aggregate import trim_count
+
 TELEMETRY_LEVELS = ("off", "basic", "detailed")
 CLIENT_STATS_LEVELS = ("off", "on")
 PARTICIPATION_SAMPLERS = ("exact", "hashed")
@@ -235,6 +237,58 @@ class ExperimentConfig:
             )
         if not 0.0 <= self.trim_ratio < 0.5:
             raise ValueError("trim_ratio must be in [0, 0.5)")
+        if self.aggregation.lower() == "trimmed_mean":
+            cohort = self.cohort_size()
+            if trim_count(cohort, self.trim_ratio) < 1:
+                raise ValueError(
+                    f"trimmed_mean with trim_ratio={self.trim_ratio} and a "
+                    f"cohort of {cohort} trims k=0 clients — a plain mean "
+                    "with zero robustness (one NaN upload poisons the "
+                    "round); raise trim_ratio or the cohort size so "
+                    "trim_ratio * cohort >= 1"
+                )
+        if self.aggregation.lower() == "krum":
+            cohort = self.cohort_size()
+            f = trim_count(cohort, self.trim_ratio)
+            if cohort < 2 * f + 3:
+                raise ValueError(
+                    f"krum needs n >= 2f + 3 participants (cohort={cohort}, "
+                    f"assumed Byzantine f={f}); lower trim_ratio or raise "
+                    "worker_number/participation_fraction"
+                )
+        if (
+            self.client_eval is True
+            and self.distributed_algorithm not in ("fed", "fed_quant")
+        ):
+            raise ValueError(
+                "client_eval=True is only supported for the FedAvg family "
+                f"(fed, fed_quant), not {self.distributed_algorithm!r}"
+            )
+        if (
+            self.shapley_eval_samples is not None
+            and self.shapley_eval_samples < 1
+        ):
+            raise ValueError("shapley_eval_samples must be >= 1 or None")
+        if self.shapley_eval_chunk < 1:
+            raise ValueError("shapley_eval_chunk must be >= 1")
+        if self.shapley_eval_dtype not in ("auto", "float32", "bfloat16"):
+            raise ValueError(
+                "shapley_eval_dtype must be 'auto', 'float32' or "
+                f"'bfloat16', got {self.shapley_eval_dtype!r}"
+            )
+        if self.gtg_prefix_mode not in ("cumsum", "masked"):
+            raise ValueError(
+                "gtg_prefix_mode must be 'cumsum' or 'masked', got "
+                f"{self.gtg_prefix_mode!r}"
+            )
+        if (
+            self.gtg_max_permutations is not None
+            and self.gtg_max_permutations < 1
+        ):
+            raise ValueError(
+                "gtg_max_permutations must be >= 1 or None (= auto "
+                "max(500, 2N))"
+            )
         if not 0.0 <= self.failure_prob <= 1.0:
             raise ValueError("failure_prob must be in [0, 1]")
         if not 0.0 <= self.failure_correlation <= 1.0:
@@ -353,10 +407,6 @@ class ExperimentConfig:
         """NotImplementedError for every feature the port lacks so far,
         naming the ROADMAP.md queue 1 item that brings it."""
         checks = (
-            (self.aggregation.lower() != "mean",
-             f"aggregation={self.aggregation!r}", 11),
-            (self.participation_fraction < 1.0,
-             "participation_fraction < 1", 7),
             (self.client_residency.lower() == "streamed",
              "client_residency='streamed'", 15),
             (self.population.lower() == "dynamic",

@@ -1,8 +1,5 @@
 """Algorithm registry: the JAX package's five names (factory.py there).
-
-``fed``, ``sign_SGD`` and ``fed_quant`` are built; the two Shapley names
-raise NotImplementedError naming the ROADMAP.md queue 1 item that ports
-them; an unknown name raises RuntimeError naming all five, as in the JAX
+An unknown name raises RuntimeError naming all five, as in the JAX
 package.
 """
 
@@ -12,6 +9,10 @@ from distributed_learning_simulator_tpu_torch.algorithms.fed_quant import (
     FedQuant,
 )
 from distributed_learning_simulator_tpu_torch.algorithms.fedavg import FedAvg
+from distributed_learning_simulator_tpu_torch.algorithms.shapley import (
+    GTGShapley,
+    MultiRoundShapley,
+)
 from distributed_learning_simulator_tpu_torch.algorithms.sign_sgd import (
     SignSGD,
 )
@@ -20,8 +21,8 @@ _ALGORITHMS = {
     "fed": FedAvg,
     "sign_SGD": SignSGD,
     "fed_quant": FedQuant,
-    "multiround_shapley_value": 10,
-    "GTG_shapley_value": 10,
+    "multiround_shapley_value": MultiRoundShapley,
+    "GTG_shapley_value": GTGShapley,
 }
 
 
@@ -36,10 +37,4 @@ def get_algorithm(name: str, config):
             f"unknown distributed algorithm {name!r}; "
             f"registered: {registered_algorithms()}"
         )
-    algo = _ALGORITHMS[name]
-    if isinstance(algo, int):
-        raise NotImplementedError(
-            f"algorithm {name!r} is not ported to the PyTorch package yet "
-            f"(ROADMAP.md queue 1 item {algo})"
-        )
-    return algo(config)
+    return _ALGORITHMS[name](config)

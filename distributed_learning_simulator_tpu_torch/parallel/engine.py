@@ -9,9 +9,9 @@ a handful of flat tensor ops, whatever the number of parameter leaves.
 The JAX package vmaps ``local_train`` over the client axis. Here the client
 axis is written out: the round (algorithms/fedavg.py) calls ``local_train``
 once per client. Its randomness — each epoch's batch order and the bf16
-rounding salt — is drawn from an explicit ``torch.Generator``, or handed in
-by the caller (the tests pass the JAX package's own permutations and salts,
-computed with jax, to both sides).
+rounding salt — comes from the client's key of the JAX package's key chain
+(:func:`client_draws`, ops/prng.py), so it is the reference's bit for bit,
+or is handed in by the caller.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from distributed_learning_simulator_tpu_torch.ops import prng
 from distributed_learning_simulator_tpu_torch.ops.quantize import (
     MASK32,
     Segments,
@@ -139,12 +140,15 @@ class FlatRounder:
         return rounded, (salt + self.n_leaves * SALT_STEP) & MASK32
 
 
-def draw_client_rng(generator: torch.Generator, n_slots: int, epochs: int):
-    """One client's randomness for one round: ``epochs`` permutations of
-    its ``n_slots`` batch slots and a 32-bit rounding salt."""
-    perms = [torch.randperm(n_slots, generator=generator)
-             for _ in range(epochs)]
-    salt = int(torch.randint(0, 2**32, (1,), generator=generator))
+def client_draws(client_key, n_slots: int, epochs: int):
+    """One client's randomness for one round, from its training key as the
+    JAX package's ``local_train`` derives it: the bf16 rounding salt is the
+    first word of ``fold_in(key, 7)``, and epoch e's batch order is
+    ``permutation(split(key, epochs)[e], n_slots)``. Returns ``(epoch_perms,
+    sr_salt)``."""
+    salt = int(prng.fold_in(client_key, 7)[0])
+    perms = [torch.from_numpy(prng.permutation(k, n_slots).astype(np.int64))
+             for k in prng.split(client_key, epochs)]
     return perms, salt
 
 

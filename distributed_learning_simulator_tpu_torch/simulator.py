@@ -46,6 +46,7 @@ from distributed_learning_simulator_tpu_torch.models.registry import (
     get_model,
     init_params,
 )
+from distributed_learning_simulator_tpu_torch.ops import prng
 from distributed_learning_simulator_tpu_torch.parallel.engine import (
     make_decoder,
     make_eval_fn,
@@ -59,6 +60,7 @@ from distributed_learning_simulator_tpu_torch.utils.logging import (
 )
 from distributed_learning_simulator_tpu_torch.utils.reporting import (
     build_round_record,
+    cohort_crc,
 )
 
 
@@ -157,10 +159,11 @@ def run_simulation(
 ):
     """Run the federated simulation; returns a result dict.
 
+    The round keys are the JAX package's: ``key = key(seed + 1)``, and each
+    round ``key, round_key = split(key)`` (ops/prng.py), so a port run draws
+    the reference's cohorts, batch orders and salts.
     ``client_rng_fn(round_idx)`` optionally returns the round's
-    ``client_rng(client, n_slots) -> (epoch_perms, sr_salt)`` override
-    (tests); by default the draws come from a ``torch.Generator`` seeded
-    with ``seed + 1``.
+    ``client_rng(client, n_slots) -> (epoch_perms, sr_salt)`` override.
     """
     config.validate()
     device = resolve_device(config.device)
@@ -231,7 +234,7 @@ def run_simulation(
     )
     client_state = algorithm.init_client_state(optimizer, global_flat,
                                                n_clients)
-    generator = torch.Generator().manual_seed(config.seed + 1)
+    key = prng.key(config.seed + 1)
 
     # --- round loop ---------------------------------------------------------
     history: list[dict] = []
@@ -241,9 +244,10 @@ def run_simulation(
     t_prev_done = t_start
     for round_idx in range(config.round):
         lr_scale = float(lr_factors(config, round_idx, 1)[0])
+        key, round_key = prng.split(key)
         new_global, client_state, aux = round_fn(
             global_flat, client_state, cx, cy, cmask, client_data.sizes,
-            generator,
+            round_key,
             lr_scale=lr_scale,
             client_rng=client_rng_fn(round_idx) if client_rng_fn else None,
         )
@@ -258,10 +262,14 @@ def run_simulation(
         )) or {}
         global_flat, prev_metrics = new_global, metrics
         now = time.perf_counter()
-        record = build_round_record(build_base_round_record(
+        base = build_base_round_record(
             config, round_idx, metrics, mean_client_loss, extra,
             round_seconds=now - t_prev_done,
-        ))
+        )
+        if "participants" in aux:
+            # CRC of the sampled cohort, as the JAX package's records.
+            base["cohort_hash"] = cohort_crc(aux["participants"], n_clients)
+        record = build_round_record(base)
         t_prev_done = now
         history.append(record)
         if metrics_path:

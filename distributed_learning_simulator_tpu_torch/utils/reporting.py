@@ -13,6 +13,9 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import zlib
+
+import numpy as np
 
 # metrics.jsonl layout version. v1 (implicit — no version field) is the
 # pre-telemetry record: round/test_accuracy/test_loss/… only. v2 adds
@@ -219,6 +222,18 @@ def build_round_record(base: dict, telemetry: dict | None = None,
     if spans is not None:
         record["spans"] = spans
     return record
+
+
+def cohort_crc(ids, n_clients: int) -> int:
+    """CRC32 of a cohort's client ids as int64 (the full population when
+    ``ids`` is None): the records' ``cohort_hash`` and the key of GTG's
+    cross-round memo (``cohort_crc`` in the JAX package's
+    telemetry/valuation.py)."""
+    arr = (
+        np.arange(n_clients, dtype=np.int64) if ids is None
+        else np.ascontiguousarray(ids, dtype=np.int64)
+    )
+    return zlib.crc32(arr.tobytes())
 
 
 def config_hash(config) -> str:

@@ -288,7 +288,8 @@ def test_round_matches_jax():
     new, _, aux = round_fn(
         flat, None, torch.from_numpy(cd.x),
         torch.from_numpy(cd.y.astype(np.int64)), torch.from_numpy(cd.mask),
-        cd.sizes, generator=None, client_rng=client_rng,
+        cd.sizes, np.asarray(jax.random.key_data(round_key)),
+        client_rng=client_rng,
         payload_salts=salts.__getitem__,
     )
     algo.process_client_payload = upload

@@ -43,6 +43,7 @@ from distributed_learning_simulator_tpu_torch.models.registry import (
     ParamLayout,
 )
 from distributed_learning_simulator_tpu_torch.models.resnet import ResNet18
+from distributed_learning_simulator_tpu_torch.ops import prng
 from distributed_learning_simulator_tpu_torch.ops.aggregate import (
     weighted_mean,
 )
@@ -137,7 +138,8 @@ def test_round_matches_jax(case):
     new, state, aux = round_fn(
         layout.flatten(params), None, torch.from_numpy(cd.x),
         torch.from_numpy(cd.y.astype(np.int64)), torch.from_numpy(cd.mask),
-        cd.sizes, generator=None, client_rng=client_rng,
+        cd.sizes, np.asarray(jax.random.key_data(round_key)),
+        client_rng=client_rng,
     )
     expected_slots = {
         "bucketed_remainder": {0: 8, 1: 8, 3: 8},
@@ -173,7 +175,7 @@ def test_all_empty_round_keeps_previous_global():
         flat, None, torch.from_numpy(cd.x),
         torch.from_numpy(cd.y.astype(np.int64)),
         torch.from_numpy(cd.mask), np.zeros(cd.n_clients, np.float32),
-        torch.Generator().manual_seed(0),
+        prng.key(0),
     )
     assert torch.equal(new, flat)
 

@@ -180,7 +180,8 @@ def test_round_matches_jax():
     new, state, aux = round_fn(
         flat, state, torch.from_numpy(cd.x),
         torch.from_numpy(cd.y.astype(np.int64)), torch.from_numpy(cd.mask),
-        cd.sizes, generator=None, client_rng=client_rng,
+        cd.sizes, np.asarray(jax.random.key_data(key)),
+        client_rng=client_rng,
     )
     want = layout.flatten(params_from_jax(jax.device_get(j_new)))
     diff = (new - want).abs()

@@ -132,9 +132,9 @@ def test_probes_raise_as_in_jax():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--distributed_algorithm", "multiround_shapley_value"], "item 10"),
-    (["--aggregation", "median"], "item 11"),
-    (["--participation_fraction", "0.5"], "item 7"),
+    (["--client_residency", "streamed"], "item 15"),
+    (["--mesh_devices", "2"], "item 17"),
+    (["--telemetry_level", "basic"], "item 13"),
     (["--optimizer_name", "adam"], "item 19"),
     (["--checkpoint_dir", "ckpt", "--checkpoint_every", "1"], "item 12"),
     (["--model_name", "lenet5"], "item 18"),
