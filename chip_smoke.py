@@ -36,9 +36,13 @@ together), then runs these phases and exits non-zero if any of them fails:
    for Hopper beside their times before the redesign (constants from
    PERF.md; normalize like for like, with f32 scale/bias as the earlier
    kernel took them); and checks a small f32 ResNet-18
-   forward and backward on the card against the same on the CPU.
+   forward and backward on the card against the same on the CPU, and the
+   forward of each plain model (MLP, LeNet5, both CIFAR CNNs in bf16,
+   TpuCifarCNN in f32) from the replayed JAX init (``PLAIN_MODELS``).
 2. The main paths: ``run_simulation`` with ``device="cuda"``, ResNet-18 at
-   full width on cifar10-shaped data, 100 clients x 2 rounds each:
+   full width on cifar10-shaped data, 50 clients x 2 rounds each (PRs
+   before the headline path ran 100; cut to keep the whole run near five
+   minutes):
    * ``fed`` at the flagship settings (Dirichlet(0.1), shard cap 100, batch
      25, chunk 40, momentum 0.9, lr 0.02, bf16 local state);
    * ``sign_SGD`` at examples/sign_sgd.sh's lr 0.001 with momentum 0.9, f32
@@ -63,12 +67,24 @@ together), then runs these phases and exits non-zero if any of them fails:
    the Shapley rounds every subset-evaluation forward launches exactly 20
    of each GroupNorm kernel. The key chain's known-answer vectors of
    ``jax.random`` are checked too.
-3. A profiler pass per algorithm (10 clients, 2 rounds): device busy time
-   and idle share.
+   Then the headline workload (``headline_cnn_tpu``: TpuCifarCNN, 1000
+   IID clients on the 50000-sample cifar10 surrogate, batch 25, chunk
+   250, f32 local state, lr 0.1, momentum 0.9, 2 rounds): finite losses,
+   0 launches of every hand-written kernel (the CNN has no GroupNorm and
+   no stage-1 ResNet convolution), every metrics.jsonl record valid
+   against tests/data/metrics_record.schema.json, and every result-dict
+   key of the JAX package's; it prints round seconds, client-rounds/s and
+   the final test loss.
+3. A profiler pass per algorithm (5 clients, 2 rounds) and one of the
+   headline (10 clients, 2 rounds): device busy time, idle share, and the
+   host operators with the most self time. Each phase's wall seconds are
+   logged and kept.
 4. Prints the kernels' JSON line, the card's name and power limit, and as
    its last line ``{"ok": true, "device": {...}}``.
 
-Imports nothing of JAX or of the JAX package. Writes its full numbers to
+Imports nothing of JAX or of the JAX package. Points ``$DLS_DATA_DIR``
+into DIR, so every path trains on the deterministic dataset surrogates and
+nothing outside the checkout is read. Writes its full numbers to
 ``DIR/chip_smoke.json`` (default ``build/chip_smoke``, which .gitignore
 lists).
 """
@@ -101,6 +117,12 @@ GN_PER_FORWARD = 20
 WGRAD_SHAPE = (TRAIN_BATCH, 32, 32, 64)  # ResNet-18 stage 1, training batch
 WGRAD_RAGGED_SHAPE = (4, 28, 28, 64)  # W not a multiple of the 16-deep slab
 WGRAD_PER_STEP = 4  # 2 x stage_sizes[0]
+# The headline workload (bench.py's default leg): TpuCifarCNN, 1000 IID
+# clients on the cifar10-shaped surrogate (50000 train / 10000 test),
+# batch 25, chunk 250, f32 local state, lr 0.1, momentum 0.9, the whole
+# test set as one eval batch.
+HEADLINE_CLIENTS = 1000
+SCHEMA = os.path.join("tests", "data", "metrics_record.schema.json")
 # Device ms of the kernels before their Hopper redesign, as PERF.md section
 # 6 records them (H100 80GB HBM3 at 700.00 W): constants for the comparison
 # lines, not measured here. The earlier normalize kernel took f32 scale/bias
@@ -489,7 +511,7 @@ def check_model_forward(torch):
     )
 
     resolve_device("cuda")
-    params = init_params(get_model("resnet18"), seed=3)
+    params = init_params(get_model("resnet18"), (32, 32), seed=3)
     gen = torch.Generator().manual_seed(4)
     x = torch.rand(4, 32, 32, 3, generator=gen)
     y = torch.randint(0, 10, (4,), generator=gen)
@@ -517,6 +539,51 @@ def check_model_forward(torch):
     log("model: f32 ResNet-18 on the card matches the CPU (max logit diff "
         f"{(a - b).abs().max().item():.2e}, worst gradient relative L2 "
         f"{worst:.2e})")
+    return check_plain_models(torch, get_model, init_params)
+
+
+# (registry name, input shape, model_args, tolerance relative to the largest
+# CPU logit): f32 models at 1e-4 (TF32 off, other conv algorithms); the bf16
+# CNNs at 2**-6, a few bf16 ulps (each bf16 conv output is rounded once, and
+# a card and a CPU accumulation can round an element to neighbouring bf16
+# values).
+PLAIN_MODELS = (
+    ("mlp", (32, 32, 3), {}, 1e-4),
+    ("lenet5", (28, 28, 1), {}, 1e-4),
+    ("cnn", (32, 32, 3), {}, 2.0**-6),
+    ("cnn_tpu", (32, 32, 3), {}, 2.0**-6),
+    ("cnn_tpu", (32, 32, 3), {"dtype": "float32"}, 1e-4),
+)
+
+
+def check_plain_models(torch, get_model, init_params):
+    """Phase 1b: each plain model's forward on the card against the same
+    on the CPU: the replayed JAX init (seed 5) and one batch of 25."""
+    out = []
+    for name, shape, args, tol in PLAIN_MODELS:
+        params = init_params(get_model(name, input_shape=shape, **args),
+                             shape[:2], seed=5)
+        gen = torch.Generator().manual_seed(6)
+        x = torch.rand((TRAIN_BATCH,) + shape, generator=gen)
+        logits = {}
+        with torch.no_grad():
+            for dev in ("cpu", "cuda"):
+                m = get_model(name, input_shape=shape, **args).to(dev)
+                m.load_state_dict({k: v.to(dev) for k, v in params.items()})
+                logits[dev] = m(x.to(dev)).float().cpu()
+        a, b = logits["cuda"], logits["cpu"]
+        if a.shape != (TRAIN_BATCH, 10) or not torch.isfinite(a).all():
+            fail(f"{name} {args}: bad logits on the card")
+        diff = (a - b).abs().max().item()
+        bound = tol * b.abs().max().item()
+        if not diff <= bound:
+            fail(f"{name} {args}: card vs CPU max logit diff {diff:.3e} > "
+                 f"{bound:.3e}")
+        out.append({"model": name, "args": args, "max_abs_diff": diff,
+                    "bound": bound})
+        log(f"model: {name} {args or ''} on the card matches the CPU (max "
+            f"logit diff {diff:.2e}, bound {bound:.2e})")
+    return out
 
 
 def path_configs(n_clients: int, n_train: int, n_test: int, log_level):
@@ -556,23 +623,30 @@ RECORD_CHECKS = {
 }
 
 
-def run_path(torch, gn, wg, name, config, post_round_probe=None):
+def run_path(torch, gn, wg, name, config, post_round_probe=None,
+             gn_per_forward=GN_PER_FORWARD, wgrad_per_step=WGRAD_PER_STEP,
+             setup_logging=False):
     """Phase 2: one main path through run_simulation, with every launch
-    count set to 0 just before it and read just after. With
+    count set to 0 just before it and read just after; each GroupNorm
+    kernel must launch ``gn_per_forward`` times per model forward and the
+    wgrad kernel ``wgrad_per_step`` times per training step (ResNet-18's
+    20 and 4; 0 and 0 for a model without GroupNorm). With
     ``post_round_probe`` (a list), each round's post_round is wrapped and
     appends its forwards, GroupNorm launches and seconds to it (the
-    Shapley subset evaluations); the run then writes its artifacts under
-    ``config.log_root``."""
+    Shapley subset evaluations); such a run, or one with
+    ``setup_logging``, writes its artifacts under ``config.log_root``."""
     from distributed_learning_simulator_tpu_torch import factory
-    from distributed_learning_simulator_tpu_torch.models.resnet import ResNet18
+    from distributed_learning_simulator_tpu_torch.models import registry
     from distributed_learning_simulator_tpu_torch.simulator import (
         run_simulation,
     )
 
     forwards = {"train": 0, "eval": 0}
+    model_classes = tuple({m for m in registry._MODELS.values()
+                           if isinstance(m, type)})
 
     def count(module, args, output):
-        if isinstance(module, ResNet18):
+        if isinstance(module, model_classes):
             forwards["train" if torch.is_grad_enabled() else "eval"] += 1
 
     cls = factory._ALGORITHMS[config.distributed_algorithm]
@@ -597,8 +671,9 @@ def run_path(torch, gn, wg, name, config, post_round_probe=None):
     wg.reset_launch_counts()
     hook = torch.nn.modules.module.register_module_forward_hook(count)
     try:
-        result = run_simulation(config,
-                                setup_logging=post_round_probe is not None)
+        result = run_simulation(
+            config,
+            setup_logging=setup_logging or post_round_probe is not None)
     finally:
         hook.remove()
         cls.post_round = original
@@ -621,13 +696,13 @@ def run_path(torch, gn, wg, name, config, post_round_probe=None):
         fail(f"{name}: no training forward ran")
     total_fwd = forwards["train"] + forwards["eval"]
     for kernel in ("gn_stats", "gn_normalize"):
-        if launches[kernel] != GN_PER_FORWARD * total_fwd:
+        if launches[kernel] != gn_per_forward * total_fwd:
             fail(f"{name}: {kernel} launched {launches[kernel]} times for "
-                 f"{total_fwd} forwards (expected {GN_PER_FORWARD} each)")
-    if launches["conv3x3_wgrad"] != WGRAD_PER_STEP * forwards["train"]:
+                 f"{total_fwd} forwards (expected {gn_per_forward} each)")
+    if launches["conv3x3_wgrad"] != wgrad_per_step * forwards["train"]:
         fail(f"{name}: conv3x3_wgrad launched "
              f"{launches['conv3x3_wgrad']} times for {forwards['train']} "
-             f"training steps (expected {WGRAD_PER_STEP} each)")
+             f"training steps (expected {wgrad_per_step} each)")
     seconds = [rec["round_seconds"] for rec in history]
     log(f"{name}: {forwards} forwards, launches {launches}, round seconds "
         f"{seconds}, {result['client_rounds_per_sec']:.2f} client-rounds/s, "
@@ -635,8 +710,138 @@ def run_path(torch, gn, wg, name, config, post_round_probe=None):
     return {
         "forwards": forwards, "launches": launches, "round_seconds": seconds,
         "client_rounds_per_sec": result["client_rounds_per_sec"],
-        "history": history,
+        "history": history, "result_keys": sorted(result),
     }
+
+
+def headline_config(n_clients: int, n_train, n_test, eval_batch: int,
+                    log_level="INFO", log_root=None):
+    """The headline workload (bench.py's default leg) at ``n_clients``."""
+    from distributed_learning_simulator_tpu_torch.config import (
+        ExperimentConfig,
+    )
+
+    kw = {} if log_root is None else {"log_root": log_root}
+    return ExperimentConfig(
+        dataset_name="cifar10", model_name="cnn_tpu",
+        distributed_algorithm="fed", worker_number=n_clients, round=2,
+        epoch=1, learning_rate=0.1, momentum=0.9, batch_size=25,
+        client_chunk_size=250, local_compute_dtype="float32",
+        partition="iid", n_train=n_train, n_test=n_test,
+        eval_batch_size=eval_batch, log_level=log_level, device="cuda",
+        **kw)
+
+
+def schema_errors(instance, schema, root=None, path="$"):
+    """The draft-07 keywords the metrics-record schema uses ($ref, type,
+    enum, const, properties, required, additionalProperties, items,
+    minimum, maximum, exclusiveMinimum, allOf, anyOf, oneOf, not), checked
+    with the standard library (the card's machine may lack jsonschema);
+    returns the violations, empty when the record is valid.
+    tests/test_torch_chip_smoke.py holds it to jsonschema's verdicts."""
+    root = schema if root is None else root
+    if isinstance(schema, bool):
+        return [] if schema else [f"{path}: false schema"]
+    if "$ref" in schema:
+        target = root
+        for part in schema["$ref"].lstrip("#/").split("/"):
+            target = target[part]
+        return schema_errors(instance, target, root, path)
+    errs = []
+    types = {"object": dict, "array": list, "string": str, "null": type(None),
+             "boolean": bool, "integer": int, "number": (int, float)}
+    if "type" in schema:
+        allowed = schema["type"]
+        allowed = [allowed] if isinstance(allowed, str) else allowed
+        ok = any(isinstance(instance, types[t])
+                 and not (t in ("integer", "number")
+                          and isinstance(instance, bool))
+                 and not (t == "integer" and isinstance(instance, float)
+                          and not instance.is_integer())
+                 for t in allowed)
+        if not ok:
+            return [f"{path}: {instance!r} is not of type {allowed}"]
+    if "enum" in schema and instance not in schema["enum"]:
+        errs.append(f"{path}: {instance!r} not in {schema['enum']}")
+    if "const" in schema and instance != schema["const"]:
+        errs.append(f"{path}: {instance!r} != {schema['const']!r}")
+    if isinstance(instance, (int, float)) and not isinstance(instance, bool):
+        if "minimum" in schema and instance < schema["minimum"]:
+            errs.append(f"{path}: {instance} < {schema['minimum']}")
+        if "maximum" in schema and instance > schema["maximum"]:
+            errs.append(f"{path}: {instance} > {schema['maximum']}")
+        if ("exclusiveMinimum" in schema
+                and instance <= schema["exclusiveMinimum"]):
+            errs.append(f"{path}: {instance} <= {schema['exclusiveMinimum']}")
+    if isinstance(instance, dict):
+        props = schema.get("properties", {})
+        for k in schema.get("required", []):
+            if k not in instance:
+                errs.append(f"{path}: missing {k!r}")
+        for k, v in instance.items():
+            if k in props:
+                errs += schema_errors(v, props[k], root, f"{path}.{k}")
+            elif "additionalProperties" in schema:
+                errs += schema_errors(v, schema["additionalProperties"],
+                                      root, f"{path}.{k}")
+    if isinstance(instance, list) and "items" in schema:
+        for i, v in enumerate(instance):
+            errs += schema_errors(v, schema["items"], root, f"{path}[{i}]")
+    for sub in schema.get("allOf", []):
+        errs += schema_errors(instance, sub, root, path)
+    if "anyOf" in schema and not any(
+            not schema_errors(instance, sub, root, path)
+            for sub in schema["anyOf"]):
+        errs.append(f"{path}: matches none of anyOf")
+    if "oneOf" in schema and sum(
+            not schema_errors(instance, sub, root, path)
+            for sub in schema["oneOf"]) != 1:
+        errs.append(f"{path}: does not match exactly one of oneOf")
+    if "not" in schema and not schema_errors(instance, schema["not"], root,
+                                             path):
+        errs.append(f"{path}: matches a 'not' schema")
+    return errs
+
+
+def run_headline(torch, gn, wg, log_root: str):
+    """Phase 2c: the headline workload at full width and population
+    (``headline_config`` at 1000 clients, 2 rounds) through run_path, with
+    its own gates: 0 GroupNorm and 0 wgrad launches (the CNN has neither),
+    finite losses, every metrics.jsonl record valid against the checked-in
+    schema and equal to the run's history, and the result dict holding
+    every key of the JAX package's (``simulator.RESULT_KEYS``)."""
+    from distributed_learning_simulator_tpu_torch.simulator import (
+        RESULT_KEYS,
+    )
+
+    config = headline_config(HEADLINE_CLIENTS, None, None, 10000,
+                             log_root=log_root)
+    res = run_path(torch, gn, wg, "headline_cnn_tpu", config,
+                   gn_per_forward=0, wgrad_per_step=0, setup_logging=True)
+    if res["result_keys"] != sorted(RESULT_KEYS):
+        fail("headline_cnn_tpu: result keys "
+             f"{sorted(set(res['result_keys']) ^ set(RESULT_KEYS))} differ "
+             "from the JAX package's plus device")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           SCHEMA)) as f:
+        schema = json.load(f)
+    with open(os.path.join(_newest_artifacts(config), "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    if records != res["history"]:
+        fail("headline_cnn_tpu: metrics.jsonl differs from the history")
+    for rec in records:
+        errs = schema_errors(rec, schema)
+        if errs:
+            fail(f"headline_cnn_tpu round {rec['round']}: record invalid "
+                 f"against {SCHEMA}: {errs[:3]}")
+    seconds = res["round_seconds"]
+    log(f"headline_cnn_tpu: {HEADLINE_CLIENTS} clients, round seconds "
+        f"{seconds}, {HEADLINE_CLIENTS / statistics.median(seconds):.1f} "
+        f"client-rounds/s per median round "
+        f"({res['client_rounds_per_sec']:.1f} over the run), final test "
+        f"loss {records[-1]['test_loss']:.4f}, {len(records)} records "
+        "valid against the schema")
+    return res
 
 
 def extra_path_configs(log_root: str):
@@ -808,8 +1013,9 @@ def profile_rounds(torch, name, config):
     algorithm at 10 clients, 2 rounds, under torch.profiler (whose trace
     processing, not the rounds, takes most of this phase's time). Reports the
     device's busy time (sum of kernel times; one stream, so kernels do not
-    overlap) against the round loop's wall time, and the kernels that take
-    the most device time."""
+    overlap) against the round loop's wall time, the kernels that take
+    the most device time, and the host operators that take the most self
+    CPU time."""
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_learning_simulator_tpu_torch.simulator import (
@@ -821,15 +1027,23 @@ def profile_rounds(torch, name, config):
         torch.cuda.synchronize()
     # Kernel events only: the aten ops that launched them carry the same
     # device time again.
+    averages = prof.key_averages()
     rows = [
         (e.key, e.self_device_time_total / 1e3, e.count)
-        for e in prof.key_averages()
+        for e in averages
         if e.device_type == torch.autograd.DeviceType.CUDA
         and e.self_device_time_total > 0
     ]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     wall_ms = 1e3 * result["total_seconds"]
+    # Where the host's time goes (the profiler's own overhead included):
+    # the operators with the most self CPU time.
+    host = sorted(
+        ((e.key, e.self_cpu_time_total / 1e3, e.count)
+         for e in averages
+         if e.device_type == torch.autograd.DeviceType.CPU),
+        key=lambda r: -r[1])
     out = {
         "algorithm": name, "clients": config.worker_number,
         "rounds": config.round, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
@@ -838,6 +1052,11 @@ def profile_rounds(torch, name, config):
         "top_kernels": [
             {"name": k[:120], "device_ms": t, "calls": c} for k, t, c in rows[:12]
         ],
+        "host_self_ms": sum(r[1] for r in host),
+        "top_host_ops": [
+            {"name": k[:120], "self_cpu_ms": t, "calls": c}
+            for k, t, c in host[:12]
+        ],
     }
     if busy_ms:
         log(f"profile {name}: {config.worker_number} clients x "
@@ -845,6 +1064,10 @@ def profile_rounds(torch, name, config):
             f"{busy_ms:.1f} ms, idle share {out['idle_share']:.3f}")
         for r in out["top_kernels"][:8]:
             log(f"  {r['device_ms']:9.2f} ms {r['calls']:7d}x {r['name']}")
+        log(f"  host: {out['host_self_ms']:.1f} ms of operator self time; "
+            "most:")
+        for r in out["top_host_ops"][:6]:
+            log(f"  {r['self_cpu_ms']:9.2f} ms {r['calls']:7d}x {r['name']}")
     else:
         log(f"profile {name}: torch.profiler saw no device time")
     return out
@@ -917,6 +1140,11 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
+    # The datasets' directory inside this run's output directory, which
+    # holds no archive: every path trains on the deterministic surrogate,
+    # and the run reads nothing outside the checkout.
+    os.environ["DLS_DATA_DIR"] = os.path.join(os.path.abspath(args.out),
+                                              "data")
     try:
         from distributed_learning_simulator_tpu_torch.ops import _build
         from distributed_learning_simulator_tpu_torch.ops import gn_cuda as gn
@@ -943,20 +1171,38 @@ def main() -> None:
         + "\n".join(_build.BUILD_LOGS.get(n, "").strip()
                     for n in ("gn", "wgrad")))
 
-    rows = check_kernels(torch, gn)
-    wgrad_rows = check_wgrad(torch, wg)
+    phase_seconds = {"build": time.perf_counter() - t0}
+
+    def phase(name, fn, *fn_args):
+        """``fn(*fn_args)``, its wall seconds logged and kept."""
+        start = time.perf_counter()
+        out = fn(*fn_args)
+        phase_seconds[name] = time.perf_counter() - start
+        log(f"phase {name}: {phase_seconds[name]:.1f}s")
+        return out
+
+    rows = phase("gn_kernels", check_kernels, torch, gn)
+    wgrad_rows = phase("wgrad_kernel", check_wgrad, torch, wg)
     sass = check_wgrad_sass(_build)
-    check_model_forward(torch)
-    paths = {
+    plain_models = phase("models", check_model_forward, torch)
+    paths = phase("main_paths", lambda: {
         name: run_path(torch, gn, wg, name, config)
-        for name, config in path_configs(100, 10000, 2000, "INFO").items()
-    }
-    paths.update(run_extra_paths(torch, gn, wg,
-                                 os.path.join(args.out, "log")))
-    profiles = [
+        for name, config in path_configs(50, 5000, 2000, "INFO").items()
+    })
+    paths.update(phase("extra_paths", run_extra_paths, torch, gn, wg,
+                       os.path.join(args.out, "log")))
+    paths["headline_cnn_tpu"] = phase(
+        "headline", run_headline, torch, gn, wg,
+        os.path.join(args.out, "log"))
+    # The ResNet paths at 5 clients (10 before the headline path: the
+    # profiler's trace processing took most of the run), the headline at
+    # 10 (50 samples each, as at 1000) with a 1000-sample eval.
+    profile_configs = dict(path_configs(5, 500, 1000, "WARNING"))
+    profile_configs["headline_cnn_tpu"] = headline_config(
+        10, 500, 1000, 1000, log_level="WARNING")
+    profiles = phase("profiles", lambda: [
         profile_rounds(torch, name, config)
-        for name, config in path_configs(10, 1000, 1000, "WARNING").items()
-    ]
+        for name, config in profile_configs.items()])
     # Launches over every main path (each counted from 0).
     launches = {
         k: sum(p["launches"][k] for p in paths.values())
@@ -1012,7 +1258,9 @@ def main() -> None:
                    "wgrad_sass_mma": sass, "redesigned": redesigned,
                    "earlier_ms": EARLIER_MS,
                    "kernels": kernels, "main_paths": paths,
-                   "profiles": profiles}, f, indent=1)
+                   "plain_models": plain_models,
+                   "profiles": profiles, "phase_seconds": phase_seconds},
+                  f, indent=1)
     if "jax" in sys.modules:
         fail("the port imported jax")
     print(json.dumps({"kernels": kernels}))

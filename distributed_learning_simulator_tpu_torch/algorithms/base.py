@@ -62,10 +62,16 @@ class Algorithm:
         raise NotImplementedError
 
     def init_client_state(self, optimizer, global_flat, n_clients: int):
-        """Initial per-client persistent state; None when client optimizers
-        reset every round (the only mode ported: config.py refuses
-        ``reset_client_optimizer=False``)."""
-        return None
+        """Initial per-client persistent state: None when client optimizers
+        reset every round (the default), else each client's fresh optimizer
+        state for the f32 global model stacked ``[n_clients, P]`` (None for
+        an optimizer without state, SGD without momentum)."""
+        if self.config.reset_client_optimizer:
+            return None
+        state = optimizer.init(global_flat)
+        if state is None:
+            return None
+        return state[None].expand((n_clients,) + state.shape).clone()
 
     def make_server_update(self):
         """Optional server-side optimizer; None means the round aggregate

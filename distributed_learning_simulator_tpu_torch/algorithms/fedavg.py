@@ -62,6 +62,11 @@ import torch
 from distributed_learning_simulator_tpu_torch.algorithms.base import Algorithm
 from distributed_learning_simulator_tpu_torch.ops import prng
 from distributed_learning_simulator_tpu_torch.ops.aggregate import aggregate
+from distributed_learning_simulator_tpu_torch.ops.augment import get_augment
+from distributed_learning_simulator_tpu_torch.ops.cohort import (
+    cohort_scatter,
+    cohort_take,
+)
 from distributed_learning_simulator_tpu_torch.ops.quantize import Segments
 from distributed_learning_simulator_tpu_torch.ops.sampling import (
     draw_cohort_host,
@@ -164,6 +169,7 @@ class FedAvg(Algorithm):
         )
         self.segments = Segments(layout.numels, device)
         transform = self.client_param_transform()
+        augment = get_augment(cfg.augment)
         client_eval = self._client_eval_enabled
         materialize = self.materializes_client_stack
         keep_stack = bool(self.keep_client_params)
@@ -183,6 +189,8 @@ class FedAvg(Algorithm):
             compute_dtype=compute_dtype,
             device=device,
             param_transform=transform,
+            reset_optimizer=cfg.reset_client_optimizer,
+            augment=augment,
         )
         n_leaves = len(layout.numels)
 
@@ -254,11 +262,14 @@ class FedAvg(Algorithm):
         def round_fn(global_flat, client_state, cx, cy, cmask, sizes, key,
                      lr_scale=1.0, client_rng=None, payload_salts=None):
             """``sizes`` is the host f32 ``[n_clients]`` weight vector,
-            ``key`` the round key (ops/prng.py); ``client_state`` is None
-            (nothing persists across rounds). ``client_rng(client,
-            n_slots) -> (epoch_perms, sr_salt)`` and ``payload_salts(client)
-            -> [n_leaves] salts`` (``client=None``: the broadcast's)
-            optionally replace the key chain's draws (tests)."""
+            ``key`` the round key (ops/prng.py); ``client_state`` is None,
+            or with ``reset_client_optimizer=False`` each client's optimizer
+            state stacked ``[n_clients, P]`` (f32; the cohort's rows are
+            taken, trained from and scattered back, the others keep
+            theirs). ``client_rng(client, n_slots) -> (epoch_perms,
+            sr_salt[, aug_key])`` and ``payload_salts(client) -> [n_leaves]
+            salts`` (``client=None``: the broadcast's) optionally replace
+            the key chain's draws (tests)."""
             _, train_key, payload_key, agg_key = round_key_splits(key)
             ids = self.cohort_indices(key, n_clients)
             if ids is None:
@@ -273,7 +284,8 @@ class FedAvg(Algorithm):
             if client_rng is None:
                 def client_rng(i, n_slots):
                     return client_draws(client_keys[pos_of[i]], n_slots,
-                                        cfg.epoch)
+                                        cfg.epoch,
+                                        augment=augment is not None)
             if payload_salts is None and self.payload_salted:
                 salt_of = {None: prng.leaf_salts(agg_key, n_leaves)}
                 for _, chunks in plan:
@@ -292,14 +304,20 @@ class FedAvg(Algorithm):
             losses = torch.zeros(n_participants, device=global_flat.device)
             accs = torch.zeros_like(losses)
             eval_accs = torch.zeros_like(losses) if client_eval else None
+            state_k = cohort_take(client_state, ids)
 
             def train(p, slots):
                 i = int(ids[p])
-                perms, salt = client_rng(i, slots)
-                params, metrics = local_train(
+                perms, salt, *aug_key = client_rng(i, slots)
+                params, state, metrics = local_train(
                     global_flat, cx[i, :slots], cy[i, :slots],
-                    cmask[i, :slots], perms, salt, lr_scale,
+                    cmask[i, :slots], perms, salt,
+                    aug_key=aug_key[0] if aug_key else None,
+                    lr_scale=lr_scale,
+                    opt_state=None if state_k is None else state_k[p],
                 )
+                if state_k is not None:
+                    state_k[p] = state
                 losses[p] = metrics["loss"]
                 accs[p] = metrics["accuracy"]
                 return params
@@ -356,6 +374,8 @@ class FedAvg(Algorithm):
                 aux["participants"] = np.asarray(ids)
             if client_eval:
                 aux["client_eval_accuracy"] = eval_accs
+            if state_k is not None:
+                client_state = cohort_scatter(client_state, ids, state_k)
             return new_global, client_state, aux
 
         return round_fn

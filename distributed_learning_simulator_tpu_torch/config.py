@@ -133,7 +133,8 @@ class ExperimentConfig:
     process_id: int | None = None
     # Clients per aggregation chunk. The port trains the clients of a chunk
     # one after another and adds each one's params into the chunk's f32
-    # partial sum, in the order the JAX fused path reduces them.
+    # partial sum, in the order the JAX fused path reduces them. 0 = auto,
+    # from the JAX package's device-memory footprint model (simulator.py).
     client_chunk_size: int | None = None
     # Size-aware schedule: clients sorted by shard size, each chunk scans
     # only as far as its largest member (algorithms/fedavg.py _bucket_plan).
@@ -229,6 +230,12 @@ class ExperimentConfig:
                 "model_args must be a dict of model-constructor kwargs "
                 '(CLI: a JSON object, e.g. \'{"fold_stage1": false}\')'
             )
+        # ops/augment.py imports this module's package through ops/prng.py.
+        from distributed_learning_simulator_tpu_torch.ops.augment import (
+            get_augment,
+        )
+
+        get_augment(self.augment)  # fail fast on unknown augmentation names
         if self.aggregation.lower() not in ("mean", "median", "trimmed_mean",
                                             "krum"):
             raise ValueError(
@@ -439,10 +446,6 @@ class ExperimentConfig:
              f"optimizer_name={self.optimizer_name!r}", 19),
             (self.server_optimizer_name.lower() not in ("none", ""),
              f"server_optimizer_name={self.server_optimizer_name!r}", 19),
-            (self.augment.lower() != "none", f"augment={self.augment!r}", 20),
-            (not self.reset_client_optimizer,
-             "reset_client_optimizer=False", 20),
-            (self.client_chunk_size == 0, "client_chunk_size=0 (auto)", 20),
             (self.model_args.get("gn_custom_backward", True) is False,
              "model_args gn_custom_backward=False", 20),
         )

@@ -44,6 +44,30 @@ class ClientData:
     def compact(self) -> bool:
         return self.x.dtype == np.uint8
 
+    def override_client(self, client_id: int, x: np.ndarray, y: np.ndarray):
+        """Replace one client's shard (the heterogeneity injection of
+        simulator_heterogeneous.py), truncated or padded to ``shard_size``;
+        compact storage needs ``x`` in [0, 1]."""
+        n = min(len(x), self.shard_size)
+        xr = x[:n]
+        if self.compact:
+            ok, xmin, xmax = _unit_range(xr)
+            if not ok:
+                raise ValueError(
+                    "override_client on a compact-packed ClientData requires "
+                    f"data in [0, 1]; got range [{xmin:.4g}, {xmax:.4g}]. "
+                    "Rescale the override, or pack with compact=False."
+                )
+            xr = _compact_encode(xr, n, self.x.shape[-1])
+        self.x[client_id] = 0
+        self.y[client_id] = 0
+        self.mask[client_id] = 0.0
+        self.x[client_id, :n] = xr
+        self.y[client_id, :n] = y[:n]
+        self.mask[client_id, :n] = 1.0
+        self.sizes[client_id] = float(n)
+        return self
+
 
 def _compact_encode(x: np.ndarray, n: int, dim: int) -> np.ndarray:
     """uint8 flatten for compact storage; inverse is cast * (1/255) + reshape

@@ -6,9 +6,9 @@ x_train/y_train/x_test/y_test) when it exists and otherwise fall back to a
 deterministic synthetic surrogate with identical shapes, with a WARNING
 line; ``digits`` is scikit-learn's bundled real-pixel set; ``synthetic`` is
 explicitly synthetic. The arrays are identical to the JAX package's for the
-same arguments (tests/test_torch_data.py). One difference: without
-``data_dir`` or ``$DLS_DATA_DIR`` the port looks in ``data/`` under the
-working directory.
+same arguments (tests/test_torch_data.py), and so is the directory: without
+``data_dir``, ``$DLS_DATA_DIR`` or else :data:`DEFAULT_DATA_DIR`, where
+scripts/fetch_datasets.py writes.
 """
 
 from __future__ import annotations
@@ -34,6 +34,9 @@ class Dataset:
     def input_shape(self):
         return self.x_train.shape[1:]
 
+
+#: The JAX package's default dataset directory (its data/registry.py).
+DEFAULT_DATA_DIR = "/root/data"
 
 _SHAPES = {
     "mnist": ((28, 28, 1), 10, 60000, 10000),
@@ -140,7 +143,7 @@ def get_dataset(
     reference's ``dataset_args`` heterogeneity knob (simulator_backup.py:50).
     """
     key = name.lower()
-    data_dir = data_dir or os.environ.get("DLS_DATA_DIR", "data")
+    data_dir = data_dir or os.environ.get("DLS_DATA_DIR", DEFAULT_DATA_DIR)
     if key == "digits":
         ds = _load_digits(key, seed=seed)
     elif key == "synthetic":

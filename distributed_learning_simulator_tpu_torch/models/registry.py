@@ -1,9 +1,10 @@
 """Model registry and parameter initialization (models/registry.py of the
 JAX package), plus the flat parameter layout the engine trains on.
 
-Names are case-insensitive and match the JAX registry. ``resnet18`` and
-``resnet34`` are ported; the JAX package's other models raise
-NotImplementedError naming their ROADMAP.md item.
+Names are case-insensitive (``-`` and ``_`` dropped) and are the JAX
+registry's eight: ``lenet5``, ``cnn``/``cifarcnn``, ``cnntpu``/``tpucnn``,
+``resnet18``, ``resnet34`` and ``mlp``. ``init_params`` returns the JAX
+package's own initial draws (models/flax_init.py).
 """
 
 from __future__ import annotations
@@ -13,57 +14,58 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from distributed_learning_simulator_tpu_torch.models import flax_init
+from distributed_learning_simulator_tpu_torch.models.cnn import (
+    MLP,
+    CifarCNN,
+    TpuCifarCNN,
+)
+from distributed_learning_simulator_tpu_torch.models.lenet import LeNet5
 from distributed_learning_simulator_tpu_torch.models.resnet import (
     ResNet18,
     ResNet34,
-    lecun_normal_,
 )
 
-_MODELS = {"resnet18": ResNet18, "resnet34": ResNet34}
-_NOT_PORTED = ("lenet5", "cnn", "cifarcnn", "cnntpu", "tpucnn", "mlp")
+_MODELS = {
+    "lenet5": LeNet5,
+    "cnn": CifarCNN,
+    "cifarcnn": CifarCNN,
+    "cnntpu": TpuCifarCNN,
+    "tpucnn": TpuCifarCNN,
+    "resnet18": ResNet18,
+    "resnet34": ResNet34,
+    "mlp": MLP,
+}
 
 
 def registered_models():
     return sorted(_MODELS)
 
 
-def get_model(name: str, num_classes: int = 10, in_channels: int = 3,
+def get_model(name: str, num_classes: int = 10,
+              input_shape: tuple[int, int, int] = (32, 32, 3),
               **kwargs) -> nn.Module:
-    """Instantiate a model by registry name."""
+    """Instantiate a model by registry name for ``[B, *input_shape]`` NHWC
+    inputs (the JAX modules infer the input size from their first input;
+    the port's layers are sized from ``input_shape``)."""
     key = name.lower().replace("-", "").replace("_", "")
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to the PyTorch package yet "
-            "(ROADMAP.md queue 1 item 18)"
-        )
     if key not in _MODELS:
         raise ValueError(
             f"unknown model {name!r}; registered: {registered_models()}"
         )
-    return _MODELS[key](num_classes=num_classes, in_channels=in_channels,
-                        **kwargs)
+    cls = _MODELS[key]
+    if cls in (ResNet18, ResNet34):
+        return cls(num_classes=num_classes, in_channels=input_shape[-1],
+                   **kwargs)
+    return cls(num_classes=num_classes, input_shape=tuple(input_shape),
+               **kwargs)
 
 
-def init_params(model: nn.Module, seed: int = 0) -> dict[str, torch.Tensor]:
-    """Fresh f32 parameters on the CPU, drawn from an explicit generator.
-
-    flax's defaults: ``lecun_normal`` (truncated normal, fan-in scaled) for
-    conv and dense kernels, zeros for the dense bias, ones/zeros for the
-    GroupNorm scale/bias. The draws differ from jax.random's, so parity with
-    the JAX package is statistical; tests transplant parameters instead
-    (models/bridge.py)."""
-    gen = torch.Generator().manual_seed(seed)
-    params = {}
-    for name, p in model.named_parameters():
-        t = torch.empty(p.shape, dtype=torch.float32)
-        if name.endswith(".scale"):
-            t.fill_(1.0)
-        elif name.endswith(".bias"):
-            t.zero_()
-        else:  # conv [O, I, H, W] or dense [out, in]: fan_in = I*H*W / in
-            lecun_normal_(t, t[0].numel(), gen)
-        params[name] = t
-    return params
+def init_params(model: nn.Module, input_hw: tuple[int, int],
+                seed: int = 0) -> dict[str, torch.Tensor]:
+    """The JAX package's initial parameters for ``model`` on inputs of
+    spatial size ``input_hw`` and ``seed``, as f32 CPU tensors."""
+    return flax_init.init_params(model, input_hw, seed)
 
 
 @dataclass(frozen=True)

@@ -36,7 +36,6 @@ corresponds to.
 
 from __future__ import annotations
 
-import math
 from typing import Sequence
 
 import torch
@@ -293,11 +292,3 @@ def ResNet34(num_classes: int = 10, **kwargs):
     kwargs.setdefault("stage_sizes", (3, 4, 6, 3))
     return ResNet18(num_classes=num_classes, **kwargs)
 
-
-def lecun_normal_(tensor: torch.Tensor, fan_in: int,
-                  generator: torch.Generator) -> torch.Tensor:
-    """flax's ``lecun_normal``: a normal truncated at two standard
-    deviations, scaled so the truncated draw has variance ``1 / fan_in``."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    return nn.init.trunc_normal_(tensor, 0.0, std, -2.0 * std, 2.0 * std,
-                                 generator=generator)

@@ -1,0 +1,56 @@
+"""In-step data augmentation (ops/augment.py of the JAX package).
+
+``cifar_augment``: the standard CIFAR recipe, a random horizontal flip and
+then a pad-4 random crop with zero fill, per sample. The draws are the JAX
+package's: a step's key is split into a flip key and a crop key, the flips
+are ``bernoulli(flip_key, 0.5, (b,))`` and the crop offsets ``randint(
+crop_key, (b, 2), 0, 9)`` (rows, columns), replayed on the host
+(ops/prng.py) and applied to the batch on its device.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from distributed_learning_simulator_tpu_torch.ops import prng
+
+_PAD = 4
+
+
+def cifar_draws(key, batch: int):
+    """``(flip [b] bool, offsets [b, 2] int32)`` of one step's key."""
+    flip_key, crop_key = prng.split(key, 2)
+    return (prng.bernoulli(flip_key, 0.5, (batch,)),
+            prng.randint(crop_key, (batch, 2), 0, 2 * _PAD + 1))
+
+
+def cifar_augment(x: torch.Tensor, key) -> torch.Tensor:
+    """Random flip + pad-4 random crop of an NHWC batch; same shape and
+    dtype out."""
+    b, h, w, _ = x.shape
+    flip, offsets = cifar_draws(key, b)
+    flip = torch.as_tensor(flip, device=x.device)
+    x = torch.where(flip[:, None, None, None], x.flip(2), x)
+    pad = F.pad(x, (0, 0, _PAD, _PAD, _PAD, _PAD))
+    off = torch.as_tensor(offsets, dtype=torch.long, device=x.device)
+    rows = off[:, 0, None] + torch.arange(h, device=x.device)
+    cols = off[:, 1, None] + torch.arange(w, device=x.device)
+    idx = torch.arange(b, device=x.device)[:, None, None]
+    return pad[idx, rows[:, :, None], cols[:, None, :]]
+
+
+_AUGMENTS = {"cifar": cifar_augment}
+
+
+def get_augment(name: str | None):
+    """Augment registry: name -> fn(batch, key) -> batch; 'none'/None ->
+    None."""
+    if not name or name.lower() in ("none", ""):
+        return None
+    key = name.lower()
+    if key not in _AUGMENTS:
+        raise ValueError(
+            f"unknown augmentation {name!r}; known: none, {sorted(_AUGMENTS)}"
+        )
+    return _AUGMENTS[key]

@@ -140,15 +140,23 @@ class FlatRounder:
         return rounded, (salt + self.n_leaves * SALT_STEP) & MASK32
 
 
-def client_draws(client_key, n_slots: int, epochs: int):
+def client_draws(client_key, n_slots: int, epochs: int,
+                 augment: bool = False):
     """One client's randomness for one round, from its training key as the
     JAX package's ``local_train`` derives it: the bf16 rounding salt is the
     first word of ``fold_in(key, 7)``, and epoch e's batch order is
     ``permutation(split(key, epochs)[e], n_slots)``. Returns ``(epoch_perms,
-    sr_salt)``."""
+    sr_salt)``. With ``augment`` the key is first split into ``(key,
+    aug_key)`` (so the batch orders change only when augmenting) and the
+    result is ``(epoch_perms, sr_salt, aug_key)``."""
     salt = int(prng.fold_in(client_key, 7)[0])
+    aug_key = None
+    if augment:
+        client_key, aug_key = prng.split(client_key, 2)
     perms = [torch.from_numpy(prng.permutation(k, n_slots).astype(np.int64))
              for k in prng.split(client_key, epochs)]
+    if augment:
+        return perms, salt, aug_key
     return perms, salt
 
 
@@ -162,9 +170,12 @@ def make_local_train_fn(
     compute_dtype: torch.dtype | None = None,
     device=None,
     param_transform: Callable | None = None,
+    reset_optimizer: bool = True,
+    augment: Callable | None = None,
 ):
     """Build ``local_train(global_flat, xs, ys, mask, epoch_perms, sr_salt,
-    lr_scale=1.0) -> (params_flat, metrics)``.
+    aug_key=None, lr_scale=1.0, opt_state=None) -> (params_flat, opt_state,
+    metrics)``.
 
     E epochs over the client's ``n_slots = xs.shape[0]`` slots, one batch
     order per epoch (``epoch_perms[e]``, a permutation of the slots), batches
@@ -178,9 +189,16 @@ def make_local_train_fn(
     update to the params in f32 and rounds stochastically into bf16
     storage.
 
-    The optimizer starts fresh every round (``reset_client_optimizer``;
-    persistent per-client optimizer state is not ported, config.py
-    refuses it).
+    With ``reset_optimizer`` (``reset_client_optimizer``, the default) the
+    optimizer starts fresh every round, the ``opt_state`` argument is
+    ignored and None is returned in its place; otherwise the run starts
+    from the client's persistent ``opt_state`` (the momentum trace, f32 as
+    the JAX package initializes it from the f32 global model; None without
+    momentum) and returns its final state.
+
+    ``augment(batch, key)`` (ops/augment.py) transforms each decoded batch
+    with the key ``fold_in(fold_in(aug_key, epoch), step)``, as the JAX
+    scan does.
 
     ``param_transform`` (flat -> flat, e.g. fed_quant's fake-quant) is
     applied to the params inside the loss.
@@ -192,16 +210,17 @@ def make_local_train_fn(
     rounder = FlatRounder(layout, device) if sr_enabled else None
 
     def local_train(global_flat, xs, ys, mask, epoch_perms, sr_salt,
-                    lr_scale=1.0):
+                    aug_key=None, lr_scale=1.0, opt_state=None):
         salt = sr_salt
         params = global_flat  # never written in place
         with torch.no_grad():
             if sr_enabled:
                 params, salt = rounder(global_flat, salt)
-            opt_state = optimizer.init(params)
+            if reset_optimizer:
+                opt_state = optimizer.init(params)
         steps = xs.shape[0] // batch_size
         epoch_loss = epoch_acc = None
-        for perm in epoch_perms:
+        for epoch, perm in enumerate(epoch_perms):
             perm = perm.to(xs.device)
             losses, accs = [], []
             for step in range(steps):
@@ -209,6 +228,9 @@ def make_local_train_fn(
                 bx, by, bm = xs[idx], ys[idx], mask[idx]
                 if preprocess is not None:
                     bx = preprocess(bx)
+                if augment is not None:
+                    bx = augment(bx, prng.fold_in(
+                        prng.fold_in(aug_key, epoch), step))
                 p = params.detach().requires_grad_(True)
                 loss, acc = loss_fn(p, bx, by, bm)
                 (grads,) = torch.autograd.grad(loss, p)
@@ -232,7 +254,8 @@ def make_local_train_fn(
                 accs.append(acc.detach())
             epoch_loss = torch.stack(losses).mean()
             epoch_acc = torch.stack(accs).mean()
-        return params, {"loss": epoch_loss, "accuracy": epoch_acc}
+        return (params, None if reset_optimizer else opt_state,
+                {"loss": epoch_loss, "accuracy": epoch_acc})
 
     return local_train
 

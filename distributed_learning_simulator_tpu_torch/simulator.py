@@ -14,6 +14,7 @@ rather than carry on on the CPU. ``--device cpu`` is for tests.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -64,6 +65,23 @@ from distributed_learning_simulator_tpu_torch.utils.reporting import (
 )
 
 
+#: The keys of ``run_simulation``'s result: the JAX package's, always all
+#: present, plus ``device``.
+RESULT_KEYS = (
+    "global_params", "client_state", "history", "algorithm",
+    "final_accuracy", "total_seconds", "client_rounds_per_sec",
+    "client_chunk_size", "mesh", "rounds_rejected", "telemetry_level",
+    "post_warmup_compiles", "mean_survivor_count", "clients_flagged",
+    "async_speedup_ratio", "sim_clock_seconds", "mean_buffer_occupancy",
+    "client_residency", "stream_overlap_ratio", "stream_h2d_bytes",
+    "stream_d2h_bytes", "participation_sampler", "stream_sample_seconds",
+    "stream_dcn_bytes", "multihost_summary", "costmodel",
+    "client_valuation", "valuation", "valuation_state", "gtg_memo_hit_rate",
+    "population", "population_summary", "span_trace", "span_summary",
+    "preempted_at", "device",
+)
+
+
 def resolve_device(name: str) -> torch.device:
     """The run's device. A CUDA device with no card raises: the port never
     falls back to the CPU by itself."""
@@ -81,6 +99,60 @@ def resolve_device(name: str) -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     return device
+
+
+def device_memory_bytes(device: torch.device) -> int | None:
+    """The card's memory (``torch.cuda.mem_get_info``'s total), or None on
+    the CPU, where the JAX package's memory stats are missing too."""
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.mem_get_info(device)[1])
+
+
+def _device_budget_bytes(config, device) -> float:
+    """Usable device memory for per-client state: 60% of the device's
+    memory times the mesh size; 16 GB when the device reports none (JAX
+    simulator.py ``_device_budget_bytes``)."""
+    hbm = device_memory_bytes(device) or 16 * 1024**3
+    return 0.6 * hbm * (config.mesh_devices or 1)
+
+
+def _persistent_state_factor(config) -> int:
+    """Param-sized persistent per-client buffers: one per client for
+    momentum sign_SGD or a persistent sgd optimizer, two for persistent
+    adam."""
+    if (
+        config.distributed_algorithm == "sign_SGD"
+        and config.momentum != 0.0
+    ):
+        return 1
+    if not config.reset_client_optimizer:
+        return 2 if config.optimizer_name.lower() in ("adam", "adamw") else 1
+    return 0
+
+
+def _resident_clients(config, n_clients: int) -> int:
+    """Clients whose persistent arrays are on the device at once: the
+    whole population when resident, the cohort when streamed."""
+    if config.client_residency.lower() == "streamed":
+        return config.cohort_size(n_clients)
+    return n_clients
+
+
+def _auto_chunk_size(config, n_params: int, n_clients: int,
+                     device) -> int:
+    """``client_chunk_size=0``: in-flight clients from the JAX package's
+    footprint model (``_auto_chunk_size``): ~4x the f32 param bytes of
+    transient state per in-flight client against the device budget, less
+    the persistent per-client state, capped at the cohort."""
+    param_bytes = 4 * n_params
+    budget = (
+        _device_budget_bytes(config, device)
+        - _persistent_state_factor(config)
+        * _resident_clients(config, n_clients) * param_bytes
+    )
+    estimate = max(1, int(budget / (4 * param_bytes)))
+    return min(estimate, config.cohort_size(n_clients))
 
 
 def build_client_data(config: ExperimentConfig, dataset: Dataset) -> ClientData:
@@ -203,13 +275,26 @@ def run_simulation(
     sample_shape = dataset.x_train.shape[1:]
     model = get_model(
         config.model_name, num_classes=dataset.num_classes,
-        in_channels=sample_shape[-1], **config.model_args,
+        input_shape=sample_shape, **config.model_args,
     ).to(device)
-    params = init_params(model, seed=config.seed)
+    params = init_params(model, sample_shape[:2], seed=config.seed)
     layout = ParamLayout.from_params(
         params, jax_leaf_order(model, sample_shape[:2])
     )
     global_flat = layout.flatten(params).to(device)
+    if config.client_chunk_size == 0:  # auto
+        # A local copy, as the JAX package resolves it: the caller's config
+        # keeps auto for its next model.
+        config = dataclasses.replace(
+            config,
+            client_chunk_size=_auto_chunk_size(
+                config, global_flat.numel(), n_clients, device
+            ),
+        )
+        logger.info(
+            "auto client_chunk_size=%d (footprint model, %s params)",
+            config.client_chunk_size, config.model_name,
+        )
 
     def apply_fn(flat_views, x):
         return torch.func.functional_call(model, flat_views, (x,))
@@ -297,6 +382,35 @@ def run_simulation(
         "total_seconds": total,
         "client_rounds_per_sec": n_rounds * n_clients / max(total, 1e-9),
         "client_chunk_size": config.client_chunk_size,
+        # The JAX package's other keys, at the values its run gives them
+        # with each feature off (the port has none of these features yet).
+        "mesh": None,
+        "rounds_rejected": 0,
+        "telemetry_level": config.telemetry_level.lower(),
+        "post_warmup_compiles": None,
+        "mean_survivor_count": None,
+        "clients_flagged": None,
+        "async_speedup_ratio": None,
+        "sim_clock_seconds": None,
+        "mean_buffer_occupancy": None,
+        "client_residency": config.client_residency,
+        "stream_overlap_ratio": None,
+        "stream_h2d_bytes": None,
+        "stream_d2h_bytes": None,
+        "participation_sampler": config.participation_sampler,
+        "stream_sample_seconds": None,
+        "stream_dcn_bytes": None,
+        "multihost_summary": None,
+        "costmodel": None,
+        "client_valuation": config.client_valuation,
+        "valuation": None,
+        "valuation_state": None,
+        "gtg_memo_hit_rate": getattr(algorithm, "gtg_memo_hit_rate", None),
+        "population": config.population,
+        "population_summary": None,
+        "span_trace": config.span_trace,
+        "span_summary": None,
+        "preempted_at": None,
         "device": str(device),
     }
 

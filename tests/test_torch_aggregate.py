@@ -183,6 +183,6 @@ def test_config_checks_match_jax():
 
 
 @pytest.mark.parametrize("rule", ["median", "trimmed_mean", "krum"])
-def test_robust_run_matches_jax(monkeypatch, rule):
-    jres, pres = run_both(monkeypatch, aggregation=rule, trim_ratio=0.2)
+def test_robust_run_matches_jax(rule):
+    jres, pres = run_both(aggregation=rule, trim_ratio=0.2)
     np.testing.assert_allclose(losses_of(pres), losses_of(jres), rtol=1e-4)

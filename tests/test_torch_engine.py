@@ -158,7 +158,7 @@ def test_local_train_matches_jax_with_injected_permutations():
         apply_fn, engine.make_optimizer("sgd", 0.05, 0.9, 1e-3), layout,
         epochs, batch, preprocess=engine.make_decoder(sample_shape),
     )
-    out, metrics = local_train(
+    out, _, metrics = local_train(
         layout.flatten(params), torch.from_numpy(xs),
         torch.from_numpy(ys.astype(np.int64)), torch.from_numpy(mask),
         perms, sr_salt=0,

@@ -50,8 +50,8 @@ def _names_and_numels():
     return names, [shapes[n].numel() for n in names]
 
 
-def test_bf16_salts_replay_jax_at_lr0(monkeypatch):
-    jres, pres = run_both(monkeypatch, local_compute_dtype="bfloat16",
+def test_bf16_salts_replay_jax_at_lr0():
+    jres, pres = run_both(local_compute_dtype="bfloat16",
                           learning_rate=0.0)
     names, _ = _names_and_numels()
     want = flat_params(jres, names)
@@ -62,13 +62,13 @@ def test_bf16_salts_replay_jax_at_lr0(monkeypatch):
 
 @pytest.mark.parametrize("dtype,rtol", [("bfloat16", 2e-3),
                                         ("float32", 1e-4)])
-def test_fed_run_matches_jax(monkeypatch, dtype, rtol):
-    jres, pres = run_both(monkeypatch, local_compute_dtype=dtype)
+def test_fed_run_matches_jax(dtype, rtol):
+    jres, pres = run_both(local_compute_dtype=dtype)
     np.testing.assert_allclose(losses_of(pres), losses_of(jres), rtol=rtol)
 
 
-def test_fed_quant_run_matches_jax(monkeypatch):
-    jres, pres = run_both(monkeypatch, distributed_algorithm="fed_quant",
+def test_fed_quant_run_matches_jax():
+    jres, pres = run_both(distributed_algorithm="fed_quant",
                           quant_levels=256, round=1)
     names, numels = _names_and_numels()
     want = flat_params(jres, names)
@@ -223,9 +223,9 @@ def test_fed_quant_payload_salts_follow_the_jax_chain(case):
     assert len(got) == cfg.cohort_size() + 1
 
 
-def test_sign_sgd_run_matches_jax(monkeypatch):
+def test_sign_sgd_run_matches_jax():
     # Per-epoch, per-client permutations from the round key; the vote is
     # exact given equal gradients (tests/test_torch_sign_sgd.py).
-    jres, pres = run_both(monkeypatch, distributed_algorithm="sign_SGD",
+    jres, pres = run_both(distributed_algorithm="sign_SGD",
                           learning_rate=0.001)
     np.testing.assert_allclose(losses_of(pres), losses_of(jres), rtol=1e-4)

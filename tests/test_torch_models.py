@@ -6,7 +6,8 @@ Tolerances: f32 logits rtol/atol 1e-4 (same math, other op orders); the
 gradients' worst per-leaf relative L2 <= 2e-2, the bound
 tests/test_folded_resnet.py uses for ReLU-flip noise (a ulp-level forward
 difference that lands on a ReLU threshold flips that element's backward
-mask).
+mask). The initial parameters (models/flax_init.py) are bitwise equal to
+the JAX package's draws for ResNet-18 and each plain model.
 """
 
 import flax
@@ -17,6 +18,10 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from distributed_learning_simulator_tpu.models.registry import (
+    get_model as jax_get_model,
+    init_params as jax_init_params,
+)
 from distributed_learning_simulator_tpu.models.resnet import (
     ResNet18 as JaxResNet18,
 )
@@ -110,19 +115,30 @@ def test_bridge_leaf_order_is_jax_tree_order(fold, stage_sizes, width, hw):
     }
 
 
-def test_init_params_statistics():
-    """flax lecun_normal init (truncated, fan-in scaled): parity is only
-    statistical, since jax.random and torch draw different numbers."""
-    model = get_model("resnet18")
-    params = init_params(model, seed=0)
-    w = params["blocks.7.conv2.weight"]  # 512 x 512 x 3 x 3
-    std = np.sqrt(1.0 / (512 * 9))
-    assert abs(float(w.std()) / std - 1.0) < 0.02
-    assert float(w.abs().max()) <= 2 * std / 0.87962566103423978 + 1e-6
-    assert torch.equal(params["stem_norm.scale"], torch.ones(64))
-    assert torch.equal(params["head.bias"], torch.zeros(10))
-    again = init_params(get_model("resnet18"), seed=0)
-    assert all(torch.equal(params[k], again[k]) for k in params)
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name,shape,args", [
+    ("resnet18", (32, 32, 3), {}),
+    ("resnet18", (32, 32, 3), {"fold_stage1": False}),
+    ("mlp", (8, 8, 1), {}),
+    ("lenet5", (28, 28, 1), {}),
+    ("cnn", (32, 32, 3), {}),
+    ("cnn_tpu", (32, 32, 3), {}),
+])
+def test_init_params_equal_jax_draws(name, shape, args, seed):
+    """init_params replays flax's init (models/flax_init.py): every value
+    of ResNet-18's folded and unfolded trees and of each plain model is
+    BITWISE equal to ``jax.device_get(init_params(...))`` of the JAX
+    package (ops/prng.py repeats XLA's f32 erf_inv operation by
+    operation), for seeds 0 and 1."""
+    jmodel = jax_get_model(name, **args)
+    want = params_from_jax(jax.device_get(jax_init_params(
+        jmodel, np.zeros((1,) + shape, np.float32), seed=seed)))
+    got = init_params(get_model(name, input_shape=shape, **args), shape[:2],
+                      seed=seed)
+    assert set(got) == set(want)
+    for k, v in got.items():
+        assert v.dtype == torch.float32
+        assert torch.equal(v, want[k]), k
 
 
 def test_model_args_and_refusals():
@@ -130,7 +146,7 @@ def test_model_args_and_refusals():
     assert get_model("resnet34").stage_sizes == (3, 4, 6, 3)
     with pytest.raises(NotImplementedError, match="item 20"):
         ResNet18(gn_custom_backward=False)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        get_model("lenet5")
+    lenet = get_model("lenet5", input_shape=(28, 28, 1))
+    assert lenet(torch.zeros(2, 28, 28, 1)).shape == (2, 10)
     with pytest.raises(ValueError, match="unknown model"):
         get_model("vgg")

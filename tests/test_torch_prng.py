@@ -120,7 +120,57 @@ def test_known_answers_are_jax_values():
         "choice": lambda k, n, m: np.asarray(jax.random.choice(
             jax.random.wrap_key_data(jnp.asarray(k)), n, (m,),
             replace=False)),
+        "bernoulli": lambda k, p, s: np.asarray(jax.random.bernoulli(
+            jax.random.wrap_key_data(jnp.asarray(k)), p, s)),
+        "randint": lambda k, s, lo, hi: np.asarray(jax.random.randint(
+            jax.random.wrap_key_data(jnp.asarray(k)), s, lo, hi)),
+        "uniform": lambda k, s: np.asarray(jax.random.uniform(
+            jax.random.wrap_key_data(jnp.asarray(k)), s)),
+        "truncated_normal": lambda k, lo, hi, s: np.asarray(
+            jax.random.truncated_normal(
+                jax.random.wrap_key_data(jnp.asarray(k)), lo, hi, s)),
     }
     for name, fn, args, want in prng.KNOWN_ANSWERS:
         assert jfn[fn](*args).tolist() == want, name
     assert prng.known_answer_mismatches() == []
+
+
+@pytest.mark.parametrize("shape", [(1000,), (3, 3, 64, 64), (7, 5)])
+def test_float_and_integer_draws_bit_exact(shape):
+    """uniform (two ranges), bernoulli, randint (a span of 9, as the CIFAR
+    crop draws it, and a power of two) and truncated_normal(-2, 2) over 20
+    seeded keys: every value equal to jax.random's, bit for bit."""
+    for seed in SEEDS[:20]:
+        jk, k = jax.random.key(seed), prng.key(seed)
+        for lo, hi in ((0.0, 1.0), (-0.25, 3.0)):
+            np.testing.assert_array_equal(
+                prng.uniform(k, shape, lo, hi),
+                np.asarray(jax.random.uniform(jk, shape, jnp.float32,
+                                              lo, hi)))
+        np.testing.assert_array_equal(
+            prng.bernoulli(k, 0.5, shape),
+            np.asarray(jax.random.bernoulli(jk, 0.5, shape)))
+        for lo, hi in ((0, 9), (-3, 13)):
+            got = prng.randint(k, shape, lo, hi)
+            assert got.dtype == np.int32
+            np.testing.assert_array_equal(
+                got, np.asarray(jax.random.randint(jk, shape, lo, hi)))
+        got = prng.truncated_normal(k, -2.0, 2.0, shape)
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(
+            got, np.asarray(jax.random.truncated_normal(
+                jk, -2.0, 2.0, shape, jnp.float32)))
+
+
+def test_augmenting_client_draws_split_the_key_first():
+    """With augmentation the JAX local_train splits the client key into
+    (key, aug_key) after taking the rounding salt: the batch orders come
+    from the first half, the augmentation key is the second."""
+    jk, k = jax.random.key(11), prng.key(11)
+    perms, salt, aug_key = client_draws(k, 24, 2, augment=True)
+    jkey, jaug = jax.random.split(jk)
+    assert salt == int(_kd(jax.random.fold_in(jk, 7))[0])
+    np.testing.assert_array_equal(aug_key, _kd(jaug))
+    for p, ek in zip(perms, jax.random.split(jkey, 2)):
+        np.testing.assert_array_equal(
+            p.numpy(), np.asarray(jax.random.permutation(ek, 24)))

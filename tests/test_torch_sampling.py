@@ -139,8 +139,8 @@ def test_cohort_take_and_scatter_equal_jax():
 
 
 @pytest.mark.parametrize("sampler", ["exact", "hashed"])
-def test_partial_participation_run_matches_jax(monkeypatch, sampler):
-    jres, pres = run_both(monkeypatch, participation_fraction=0.5,
+def test_partial_participation_run_matches_jax(sampler):
+    jres, pres = run_both(participation_fraction=0.5,
                           participation_sampler=sampler)
     hashes = [r["cohort_hash"] for r in pres["history"]]
     assert hashes == [r["cohort_hash"] for r in jres["history"]]

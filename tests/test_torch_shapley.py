@@ -126,12 +126,12 @@ class _Lines(logging.Handler):
 
 @pytest.mark.parametrize("algo", ["multiround_shapley_value",
                                   "GTG_shapley_value"])
-def test_one_round_matches_jax(monkeypatch, tmp_path, algo):
+def test_one_round_matches_jax(tmp_path, algo):
     lines = _Lines()
     get_logger().addHandler(lines)
     try:
         jres, pres = run_both(
-            monkeypatch, log_root=tmp_path, distributed_algorithm=algo,
+            log_root=tmp_path, distributed_algorithm=algo,
             worker_number=4, round=1, shapley_eval_dtype="float32",
             # Enough training that the subset models differ: GTG walks
             # more than one iteration and evaluates every subset.

@@ -137,7 +137,9 @@ def test_probes_raise_as_in_jax():
     (["--telemetry_level", "basic"], "item 13"),
     (["--optimizer_name", "adam"], "item 19"),
     (["--checkpoint_dir", "ckpt", "--checkpoint_every", "1"], "item 12"),
-    (["--model_name", "lenet5"], "item 18"),
+    (["--model_args",
+      '{"stage_sizes": [1, 1], "width": 8, "gn_custom_backward": false}'],
+     "item 20"),
 ])
 def test_unported_features_refuse(flags, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -157,6 +159,10 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import distributed_learning_simulator_tpu_torch.simulator\n"
         "import distributed_learning_simulator_tpu_torch.models.bridge\n"
+        "import distributed_learning_simulator_tpu_torch.models.registry\n"
+        "import distributed_learning_simulator_tpu_torch.data.formats\n"
+        "import distributed_learning_simulator_tpu_torch"
+        ".simulator_heterogeneous\n"
         "import distributed_learning_simulator_tpu_torch.__main__\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'distributed_learning_simulator_tpu'))\n"

@@ -1,7 +1,7 @@
 """One configuration through both packages' ``run_simulation`` on the CPU,
-from the same initial parameters (the JAX package's init, transplanted into
-the port), with no injected draws: the port's own key chain must replay the
-JAX package's. Shared by the port's end-to-end parity tests."""
+with nothing injected: the port's own init (models/flax_init.py) and key
+chain must replay the JAX package's. Shared by the port's end-to-end parity
+tests."""
 
 import jax
 import numpy as np
@@ -9,13 +9,6 @@ import torch
 
 from distributed_learning_simulator_tpu.config import (
     ExperimentConfig as JaxConfig,
-)
-from distributed_learning_simulator_tpu.data.registry import (
-    get_dataset as jax_get_dataset,
-)
-from distributed_learning_simulator_tpu.models.registry import (
-    get_model as jax_get_model,
-    init_params as jax_init_params,
 )
 from distributed_learning_simulator_tpu.simulator import (
     run_simulation as jax_run_simulation,
@@ -38,7 +31,7 @@ BASE = dict(
 )
 
 
-def run_both(monkeypatch, log_root=None, **changes):
+def run_both(log_root=None, **changes):
     """``(jax_result, port_result)`` of one configuration (``BASE`` with
     ``changes``). With ``log_root`` both runs write their logs and
     artifacts under it (``<log_root>/jax``, ``<log_root>/port``)."""
@@ -49,17 +42,6 @@ def run_both(monkeypatch, log_root=None, **changes):
         jcfg.log_root = str(log_root / "jax")
         pcfg.log_root = str(log_root / "port")
     jres = jax_run_simulation(jcfg, setup_logging=log_root is not None)
-    ds = jax_get_dataset("synthetic", n_train=kw["n_train"],
-                         n_test=kw["n_test"], seed=kw.get("seed", 0),
-                         shape=(HW, HW, 3))
-    jmodel = jax_get_model("resnet18", num_classes=ds.num_classes,
-                           **kw["model_args"])
-    init = params_from_jax(jax.device_get(
-        jax_init_params(jmodel, ds.x_train[:1], seed=kw.get("seed", 0))))
-    monkeypatch.setattr(
-        simulator, "init_params",
-        lambda model, seed=0: {k: v.clone() for k, v in init.items()},
-    )
     pres = simulator.run_simulation(pcfg,
                                     setup_logging=log_root is not None)
     return jres, pres
