@@ -24,7 +24,18 @@ together), then runs these phases and exits non-zero if any of them fails:
      max|plain| in f32, and within one bf16 ulp (of the element's term
      magnitude, see ``wgrad_ulps``) after the cast;
    * the SASS of the bf16 wgrad kernel (cuobjdump) must hold tensor-core
-     instructions (HMMA or HGMMA).
+     instructions (HMMA or HGMMA);
+   * the batched shapes the main path gives the kernels at the flagship's
+     chunk of 40 clients (``check_batched``): the wgrad kernel at
+     (40, 25, 32, 32, 64) bf16 must be bitwise equal to 40 one-client calls
+     given the batched call's grid plan, and within the tolerance above of
+     its plain version; the normalize kernel at 40 x 25 samples of each
+     stage shape with a per-model ``[40, C]`` bf16 affine must be bitwise
+     equal to 40 calls with ``[C]`` affines and to its plain version; the
+     stats kernel at those 1000 samples within rtol 1e-5 of its plain
+     version. Timed beside their bounds, their plain versions, cuDNN's
+     weight-only convolution_backward of the grouped convolution (wgrad)
+     and the 40 one-client calls (wgrad, the one-client path).
    Times each kernel (CUDA-graph replay, median) beside its bound, its
    plain version and one PyTorch call computing the same function as a
    yardstick (F.group_norm; cuDNN's weight-only convolution_backward), the
@@ -42,7 +53,7 @@ together), then runs these phases and exits non-zero if any of them fails:
 2. The main paths: ``run_simulation`` with ``device="cuda"``, ResNet-18 at
    full width on cifar10-shaped data, 50 clients x 2 rounds each (PRs
    before the headline path ran 100; cut to keep the whole run near five
-   minutes):
+   minutes), each client chunk trained as one vmapped program:
    * ``fed`` at the flagship settings (Dirichlet(0.1), shard cap 100, batch
      25, chunk 40, momentum 0.9, lr 0.02, bf16 local state);
    * ``sign_SGD`` at examples/sign_sgd.sh's lr 0.001 with momentum 0.9, f32
@@ -51,9 +62,12 @@ together), then runs these phases and exits non-zero if any of them fails:
    Each path runs with every launch count set to 0 just before it and read
    just after. Every test loss must be finite; each GroupNorm kernel must
    have launched exactly 20 times per model forward (ResNet-18 has 20
-   GroupNorms) and the wgrad kernel exactly 4 times per training step
-   (stage 0's four 3x3 convolutions) and never in eval; the records carry
-   the algorithm's fields (compression ratios ~32 for sign, ~4 for 8-bit).
+   GroupNorms; a forward is a whole chunk's) and the wgrad kernel exactly
+   4 times per training step (stage 0's four 3x3 convolutions; a step is a
+   whole chunk's) and never in eval; the training forwards must be at most
+   rounds x steps x chunks (one per chunk-step, never one per client); the
+   records carry the algorithm's fields (compression ratios ~32 for sign,
+   ~4 for 8-bit). Each path's peak device memory is kept.
    Then the paths of the key chain, partial participation, the robust
    rules and the Shapley algorithms (``extra_path_configs``), each with
    its counts set to 0 just before it and read just after, to the same
@@ -64,8 +78,10 @@ together), then runs these phases and exits non-zero if any of them fails:
    record's fields); exact multi-round Shapley at N=4 (16 subsets a round,
    sum SV = u(all) - u(empty) to 1e-6, ``metric_<round>.pkl`` with 16
    subsets); GTG-Shapley at N=10 (finite SVs, a permutation count). In
-   the Shapley rounds every subset-evaluation forward launches exactly 20
-   of each GroupNorm kernel. The key chain's known-answer vectors of
+   the Shapley rounds the subset models are evaluated a batch of up to
+   ``shapley_eval_chunk`` at a time, one vmapped forward per eval batch
+   (never one per model), and every such forward launches exactly 20 of
+   each GroupNorm kernel. The key chain's known-answer vectors of
    ``jax.random`` are checked too.
    Then the headline workload (``headline_cnn_tpu``: TpuCifarCNN, 1000
    IID clients on the 50000-sample cifar10 surrogate, batch 25, chunk
@@ -75,12 +91,21 @@ together), then runs these phases and exits non-zero if any of them fails:
    against tests/data/metrics_record.schema.json, and every result-dict
    key of the JAX package's; it prints round seconds, client-rounds/s and
    the final test loss.
+   Then one ``fed`` round of ResNet-18 (f32 model and local state, 8
+   clients of one step each, no size-aware schedule) at chunk 1 and at
+   chunk 4
+   (``compare_chunks``): the two global models must agree at rtol 1e-4 /
+   atol 1e-5 and the test losses at rtol 1e-4.
 3. A profiler pass per algorithm (5 clients, 2 rounds) and one of the
    headline (10 clients, 2 rounds): device busy time, idle share, and the
    host operators with the most self time. Each phase's wall seconds are
    logged and kept.
 4. Prints the kernels' JSON line, the card's name and power limit, and as
    its last line ``{"ok": true, "device": {...}}``.
+
+Every phase runs with functorch's per-example fallback disabled
+(``engine.no_vmap_fallback``): an op without a batching rule under
+``torch.func.vmap`` raises instead of looping over the chunk.
 
 Imports nothing of JAX or of the JAX package. Points ``$DLS_DATA_DIR``
 into DIR, so every path trains on the deterministic dataset surrogates and
@@ -93,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import math
 import os
@@ -117,6 +143,7 @@ GN_PER_FORWARD = 20
 WGRAD_SHAPE = (TRAIN_BATCH, 32, 32, 64)  # ResNet-18 stage 1, training batch
 WGRAD_RAGGED_SHAPE = (4, 28, 28, 64)  # W not a multiple of the 16-deep slab
 WGRAD_PER_STEP = 4  # 2 x stage_sizes[0]
+FLAGSHIP_CHUNK = 40  # examples/resnet18_noniid_1000.sh's client_chunk_size
 # The headline workload (bench.py's default leg): TpuCifarCNN, 1000 IID
 # clients on the cifar10-shaped surrogate (50000 train / 10000 test),
 # batch 25, chunk 250, f32 local state, lr 0.1, momentum 0.9, the whole
@@ -494,6 +521,156 @@ def check_wgrad_sass(_build):
     return counts
 
 
+def check_batched(torch, gn, wg):
+    """Phase 1d: the kernels at the batched shapes of the main path, the
+    flagship's chunk of 40 clients (module docstring); returns the rows."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    n = FLAGSHIP_CHUNK
+    b, h, w, c = WGRAD_SHAPE
+    x = torch.randn((n,) + WGRAD_SHAPE, device="cuda",
+                    generator=gen).bfloat16()
+    g = torch.randn((n,) + WGRAD_SHAPE, device="cuda",
+                    generator=gen).bfloat16()
+    k = wg.conv3x3_wgrad(x, g)
+    plan = wg.chunking(b, h, w, c, n)
+    torch.cuda.synchronize()
+    if not all(torch.equal(k[i], wg.conv3x3_wgrad(x[i], g[i], plan=plan))
+               for i in range(n)):
+        fail(f"batched wgrad {tuple(x.shape)} is not bitwise equal to {n} "
+             "one-client calls with its plan")
+    p = wg.conv3x3_wgrad_plain(x, g)
+    err = (k - p).abs().max().item()
+    scale = p.abs().max().item()
+    ulp = wgrad_ulps(torch, wg, x, g, k, p)
+    if not (math.isfinite(err) and err <= 1e-4 * scale and ulp <= 1.0):
+        fail(f"batched wgrad {tuple(x.shape)}: max abs err {err:.3e} "
+             f"(1e-4 * max {1e-4 * scale:.3e}), {ulp:.2f} bf16 ulps")
+    # cuDNN's weight gradient of the grouped convolution the vmapped model
+    # runs (the chunk's clients as n groups of c channels, channels-last).
+    xg = x.permute(1, 2, 3, 0, 4).reshape(b, h, w, n * c).permute(0, 3, 1, 2)
+    gg = g.permute(1, 2, 3, 0, 4).reshape(b, h, w, n * c).permute(0, 3, 1, 2)
+    weight = torch.zeros(n * c, c, 3, 3, dtype=torch.bfloat16,
+                         device="cuda").to(memory_format=torch.channels_last)
+
+    def cudnn():
+        return torch.ops.aten.convolution_backward(
+            gg, xg, weight, None, [1, 1], [1, 1], [1, 1], False, [0, 0], n,
+            [False, True, False])[1]
+
+    # [n*co, ci, dy, dx] -> [n, dy, dx, ci, co]
+    lib = cudnn().float().reshape(n, c, c, 3, 3).permute(0, 3, 4, 2, 1)
+    wrow = {
+        "shape": [n, b, h, w, c], "dtype": "bf16", "n_chunks": plan.n_chunks,
+        "ctas": plan.tc_grid[0] * plan.tc_grid[1] * plan.tc_grid[2],
+        "ms": time_ms(torch, lambda: wg.conv3x3_wgrad(x, g)),
+        "eager_ms": eager_ms(torch, lambda: wg.conv3x3_wgrad(x, g)),
+        "plain_ms": time_ms(torch, lambda: wg.conv3x3_wgrad_plain(x, g),
+                            iters=3),
+        "library_ms": time_ms(torch, cudnn, iters=5),
+        "library_max_abs_diff": (lib - p).abs().max().item(),
+        # The one-client path: n calls, each with its own 44-chunk plan.
+        "one_client_calls_ms": time_ms(
+            torch, lambda: [wg.conv3x3_wgrad(x[i], g[i]) for i in range(n)],
+            iters=3),
+        "bytes": 2 * n * b * h * w * c * 2 + n * 9 * c * c * 4,
+        "ops": 2 * 9 * c * c * n * b * h * w,
+        "max_abs_err": err, "bf16_ulps": ulp,
+    }
+    t_bytes = wrow["bytes"] / HBM_BYTES_PER_S
+    t_ops = wrow["ops"] / BF16_OPS_PER_S
+    wrow["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+    wrow["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"batched wgrad {tuple(x.shape)} bf16 ({plan.n_chunks} chunk a "
+        f"client, {wrow['ctas']} CTAs): {wrow['ms']:.4f} ms (eager "
+        f"{wrow['eager_ms']:.4f}, bound {wrow['bound_ms']:.4f} by "
+        f"{wrow['bound_by']}, plain {wrow['plain_ms']:.4f}, cuDNN grouped "
+        f"wgrad {wrow['library_ms']:.4f}, {n} one-client calls "
+        f"{wrow['one_client_calls_ms']:.4f}); bitwise equal to the "
+        f"one-client calls; max abs err {err:.2e}, {ulp:.2f} bf16 ulp")
+
+    m, rows_per = n, TRAIN_BATCH
+    norm_rows = []
+    for hw, c, per_forward in STAGES:
+        rows = m * rows_per
+        x = (torch.randn(rows, hw, c, device="cuda", generator=gen) * 2
+             + 1.5).bfloat16()
+        scale = torch.randn(m, c, device="cuda", generator=gen).bfloat16()
+        bias = torch.randn(m, c, device="cuda", generator=gen).bfloat16()
+        mean_p, rstd_p = gn.gn_stats_plain(x, GROUPS, EPS)
+        y_k = gn.gn_normalize(x, mean_p, rstd_p, scale, bias, torch.bfloat16)
+        y_p = gn.gn_normalize_plain(x, mean_p, rstd_p, scale, bias,
+                                    torch.bfloat16)
+        per_model = all(
+            torch.equal(y_k[i * rows_per:(i + 1) * rows_per], gn.gn_normalize(
+                x[i * rows_per:(i + 1) * rows_per],
+                mean_p[i * rows_per:(i + 1) * rows_per],
+                rstd_p[i * rows_per:(i + 1) * rows_per],
+                scale[i], bias[i], torch.bfloat16))
+            for i in range(m))
+        if not (per_model and torch.equal(y_k, y_p)):
+            fail(f"gn_normalize at {(rows, hw, c)} with a [{m}, {c}] affine:"
+                 f" bitwise per-model {per_model}, plain "
+                 f"{torch.equal(y_k, y_p)}")
+        mean_k, rstd_k = gn.gn_stats(x, GROUPS, EPS)
+        stats_err = 0.0
+        for name, kk, pp in (("mean", mean_k, mean_p),
+                             ("rstd", rstd_k, rstd_p)):
+            rel = ((kk - pp).abs() / pp.abs().clamp(min=1e-30)).max().item()
+            if not rel <= 1e-5:
+                fail(f"gn_stats {name} at {(rows, hw, c)}: max rel err "
+                     f"{rel:.3e} > 1e-5")
+            stats_err = max(stats_err, (kk - pp).abs().max().item())
+        x4 = x.view(rows, int(math.isqrt(hw)), -1, c)
+        xr4 = x4.permute(0, 3, 1, 2)
+        x_bytes = rows * hw * c * 2
+        stat_bytes = 2 * rows * GROUPS * 4
+        row = {
+            "shape": [rows, hw, c], "models": m, "per_forward": per_forward,
+            "stats": {
+                "ms": time_ms(torch, lambda: gn.gn_stats(x, GROUPS, EPS)),
+                "plain_ms": time_ms(
+                    torch, lambda: gn.gn_stats_plain(x, GROUPS, EPS)),
+                "bytes": x_bytes + stat_bytes, "ops": 3 * rows * hw * c,
+                "max_abs_err": stats_err,
+                # The whole GroupNorm forward in one PyTorch call (one
+                # affine for every sample): the yardstick, as at B=25.
+                "library_ms": time_ms(torch, lambda: torch.nn.functional
+                                      .group_norm(xr4, GROUPS, scale[0],
+                                                  bias[0], EPS)),
+            },
+            "normalize": {
+                "ms": time_ms(torch, lambda: gn.gn_normalize(
+                    x, mean_k, rstd_k, scale, bias, torch.bfloat16)),
+                "plain_ms": time_ms(torch, lambda: gn.gn_normalize_plain(
+                    x, mean_k, rstd_k, scale, bias, torch.bfloat16)),
+                "bytes": 2 * x_bytes + stat_bytes + 2 * m * c * 2,
+                "ops": 4 * rows * hw * c, "max_abs_err": 0.0,
+                # No PyTorch call normalizes with a per-sample affine.
+                "library_ms": None,
+            },
+            "pair_ms": time_ms(torch, lambda: gn.group_norm(
+                x4, scale, bias, GROUPS, EPS, torch.bfloat16)),
+        }
+        for key in ("stats", "normalize"):
+            r = row[key]
+            t_bytes = r["bytes"] / HBM_BYTES_PER_S
+            t_ops = r["ops"] / F32_OPS_PER_S
+            r["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+            r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"batched GN {(rows, hw, c)} with a [{m}, {c}] bf16 affine: "
+            f"stats {row['stats']['ms']:.4f} ms (bound "
+            f"{row['stats']['bound_ms']:.4f}, plain "
+            f"{row['stats']['plain_ms']:.4f}); normalize "
+            f"{row['normalize']['ms']:.4f} ms (bound "
+            f"{row['normalize']['bound_ms']:.4f}, plain "
+            f"{row['normalize']['plain_ms']:.4f}); pair {row['pair_ms']:.4f}"
+            f" ms; F.group_norm {row['stats']['library_ms']:.4f} ms; "
+            "normalize bitwise equal to the per-model calls and the plain "
+            "version")
+        norm_rows.append(row)
+    return {"wgrad": wrow, "gn": norm_rows}
+
+
 def check_model_forward(torch):
     """Phase 1b: a small f32 ResNet-18 forward and backward on the card
     (GroupNorm kernels) against the same on the CPU (plain versions), with
@@ -623,9 +800,20 @@ RECORD_CHECKS = {
 }
 
 
+def chunk_steps(config, n_train: int) -> int:
+    """The most chunk-steps (vmapped training forwards) ``config`` can
+    run: rounds x epochs x steps of the largest shard x chunks of the
+    cohort. A client-by-client loop would run about chunk times more."""
+    slots = config.max_shard_size or -(-n_train // config.worker_number)
+    cohort = config.cohort_size()
+    chunk = config.client_chunk_size or cohort
+    return (config.round * config.epoch * -(-slots // config.batch_size)
+            * -(-cohort // chunk))
+
+
 def run_path(torch, gn, wg, name, config, post_round_probe=None,
              gn_per_forward=GN_PER_FORWARD, wgrad_per_step=WGRAD_PER_STEP,
-             setup_logging=False):
+             setup_logging=False, n_train=None, keep_params=False):
     """Phase 2: one main path through run_simulation, with every launch
     count set to 0 just before it and read just after; each GroupNorm
     kernel must launch ``gn_per_forward`` times per model forward and the
@@ -634,8 +822,12 @@ def run_path(torch, gn, wg, name, config, post_round_probe=None,
     ``post_round_probe`` (a list), each round's post_round is wrapped and
     appends its forwards, GroupNorm launches and seconds to it (the
     Shapley subset evaluations); such a run, or one with
-    ``setup_logging``, writes its artifacts under ``config.log_root``."""
+    ``setup_logging``, writes its artifacts under ``config.log_root``.
+    The training forwards must be at most :func:`chunk_steps` (``n_train``
+    defaults to ``config.n_train``). Keeps the run's peak device memory;
+    ``keep_params`` returns the final global model too."""
     from distributed_learning_simulator_tpu_torch import factory
+    from distributed_learning_simulator_tpu_torch.algorithms import shapley
     from distributed_learning_simulator_tpu_torch.models import registry
     from distributed_learning_simulator_tpu_torch.simulator import (
         run_simulation,
@@ -651,11 +843,15 @@ def run_path(torch, gn, wg, name, config, post_round_probe=None,
 
     cls = factory._ALGORITHMS[config.distributed_algorithm]
     original = cls.post_round
+    evaluator = shapley._SubsetEvaluator
+    original_accuracies = evaluator._accuracies
+    batches = []  # models per vmapped subset evaluation, this round
     if post_round_probe is not None:
         def probed(self, ctx):
             torch.cuda.synchronize()
             before = (forwards["eval"], gn.gn_stats.launches,
                       gn.gn_normalize.launches, time.perf_counter())
+            batches.clear()
             out = original(self, ctx)
             torch.cuda.synchronize()
             post_round_probe.append({
@@ -663,12 +859,21 @@ def run_path(torch, gn, wg, name, config, post_round_probe=None,
                 "gn_stats": gn.gn_stats.launches - before[1],
                 "gn_normalize": gn.gn_normalize.launches - before[2],
                 "seconds": time.perf_counter() - before[3],
+                "models": sum(batches), "model_batches": len(batches),
+                "most_models_per_batch": max(batches, default=0),
             })
             return out
 
+        def counted(self, models, eval_batches):
+            batches.append(int(models.shape[0]))
+            return original_accuracies(self, models, eval_batches)
+
         cls.post_round = probed
+        evaluator._accuracies = counted
     gn.reset_launch_counts()
     wg.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     hook = torch.nn.modules.module.register_module_forward_hook(count)
     try:
         result = run_simulation(
@@ -677,7 +882,9 @@ def run_path(torch, gn, wg, name, config, post_round_probe=None,
     finally:
         hook.remove()
         cls.post_round = original
+        evaluator._accuracies = original_accuracies
     torch.cuda.synchronize()
+    peak_bytes = torch.cuda.max_memory_allocated()
     launches = {"gn_stats": gn.gn_stats.launches,
                 "gn_normalize": gn.gn_normalize.launches,
                 "conv3x3_wgrad": wg.conv3x3_wgrad.launches}
@@ -703,15 +910,26 @@ def run_path(torch, gn, wg, name, config, post_round_probe=None,
         fail(f"{name}: conv3x3_wgrad launched "
              f"{launches['conv3x3_wgrad']} times for {forwards['train']} "
              f"training steps (expected {wgrad_per_step} each)")
+    bound = chunk_steps(config, n_train or config.n_train)
+    if forwards["train"] > bound:
+        fail(f"{name}: {forwards['train']} training forwards, more than the "
+             f"{bound} chunk-steps of chunk {config.client_chunk_size}: the "
+             "clients did not train a chunk at a time")
     seconds = [rec["round_seconds"] for rec in history]
-    log(f"{name}: {forwards} forwards, launches {launches}, round seconds "
-        f"{seconds}, {result['client_rounds_per_sec']:.2f} client-rounds/s, "
-        f"test_loss {[rec['test_loss'] for rec in history]}")
-    return {
+    log(f"{name}: {forwards} forwards (at most {bound} chunk-steps), "
+        f"launches {launches}, round seconds {seconds}, "
+        f"{result['client_rounds_per_sec']:.2f} client-rounds/s, test_loss "
+        f"{[rec['test_loss'] for rec in history]}, peak device memory "
+        f"{peak_bytes / 2**30:.2f} GiB")
+    out = {
         "forwards": forwards, "launches": launches, "round_seconds": seconds,
         "client_rounds_per_sec": result["client_rounds_per_sec"],
         "history": history, "result_keys": sorted(result),
+        "chunk_steps_bound": bound, "peak_memory_bytes": peak_bytes,
     }
+    if keep_params:
+        out["global_params"] = result["global_params"]
+    return out
 
 
 def headline_config(n_clients: int, n_train, n_test, eval_batch: int,
@@ -817,7 +1035,8 @@ def run_headline(torch, gn, wg, log_root: str):
     config = headline_config(HEADLINE_CLIENTS, None, None, 10000,
                              log_root=log_root)
     res = run_path(torch, gn, wg, "headline_cnn_tpu", config,
-                   gn_per_forward=0, wgrad_per_step=0, setup_logging=True)
+                   gn_per_forward=0, wgrad_per_step=0, setup_logging=True,
+                   n_train=50000)
     if res["result_keys"] != sorted(RESULT_KEYS):
         fail("headline_cnn_tpu: result keys "
              f"{sorted(set(res['result_keys']) ^ set(RESULT_KEYS))} differ "
@@ -842,6 +1061,51 @@ def run_headline(torch, gn, wg, log_root: str):
         f"loss {records[-1]['test_loss']:.4f}, {len(records)} records "
         "valid against the schema")
     return res
+
+
+def compare_chunks(torch, gn, wg):
+    """Phase 2d: one ``fed`` round of ResNet-18 at full width, f32 model
+    and local state, 8 clients with no size-aware schedule (so the chunk
+    size changes nothing but how many clients train at once), at chunk 1
+    and at chunk 4, each through run_path's gates; the global models must
+    agree at rtol 1e-4 / atol 1e-5 and the test losses at rtol 1e-4. Each
+    client takes one step (25 samples): over several steps training
+    amplifies f32 noise (on the CPU a 1e-7 relative change of a narrow
+    ResNet's start grew to 4.5% of its update in 4 steps at lr 0.02), and
+    the comparison is of the batched gradients, not of that growth."""
+    from distributed_learning_simulator_tpu_torch.config import (
+        ExperimentConfig,
+    )
+
+    runs = {}
+    for chunk in (1, 4):
+        config = ExperimentConfig(
+            dataset_name="cifar10", model_name="resnet18",
+            distributed_algorithm="fed", worker_number=8, round=1, epoch=1,
+            batch_size=25, partition="dirichlet", dirichlet_alpha=0.1,
+            max_shard_size=25, bucket_client_work=False,
+            client_chunk_size=chunk, learning_rate=0.02, momentum=0.9,
+            local_compute_dtype="float32", model_args={"dtype": "float32"},
+            n_train=800, n_test=1000, eval_batch_size=1000,
+            log_level="WARNING", device="cuda")
+        runs[chunk] = run_path(torch, gn, wg, f"fed_f32_chunk{chunk}",
+                               config, keep_params=True)
+    flat = {k: torch.cat([v.float().reshape(-1) for _, v in
+                          sorted(r.pop("global_params").items())])
+            for k, r in runs.items()}
+    diff = (flat[4] - flat[1]).abs()
+    worst = (diff / (1e-5 + 1e-4 * flat[1].abs())).max().item()
+    losses = [runs[k]["history"][0]["test_loss"] for k in (1, 4)]
+    if not (worst <= 1.0 and abs(losses[1] - losses[0])
+            <= 1e-4 * abs(losses[0])):
+        fail(f"fed at chunk 4 vs chunk 1: global model off by {worst:.2f} x "
+             f"(1e-5 + 1e-4 |p|), test losses {losses}")
+    log(f"fed f32 at chunk 4 vs chunk 1: global model max abs diff "
+        f"{diff.max().item():.3e} ({worst:.3f} of the tolerance), test "
+        f"losses {losses}; round seconds {runs[1]['round_seconds']} at "
+        f"chunk 1, {runs[4]['round_seconds']} at chunk 4")
+    return {"runs": runs, "max_abs_diff": diff.max().item(),
+            "tolerance_share": worst, "test_losses": losses}
 
 
 def extra_path_configs(log_root: str):
@@ -914,8 +1178,10 @@ def run_extra_paths(torch, gn, wg, log_root: str):
       key chain (``FedAvg.cohort_indices``), is 10 distinct ids in range
       and its CRC is the record's ``cohort_hash``;
     * ``robust_*``: finite losses and the record's fields;
-    * the Shapley paths: each round's post_round launched exactly 20 of
-      each GroupNorm kernel per subset-evaluation forward; multiround
+    * the Shapley paths: each round's post_round ran one vmapped forward
+      per eval batch for each batch of subset models (at most
+      ``shapley_eval_chunk``, or GTG's 16-prefix block), and launched
+      exactly 20 of each GroupNorm kernel per such forward; multiround
       evaluated 16 subsets a round, sum SV = u(all) - u(empty) to 1e-6
       and ``metric_<round>.pkl`` holds 16 subsets; GTG records finite SVs
       and its permutation count.
@@ -977,7 +1243,20 @@ def run_extra_paths(torch, gn, wg, log_root: str):
                       for i in range(config.worker_number)]
                 if not all(math.isfinite(v) for v in sv):
                     fail(f"{name} round {rec['round']}: SVs {sv}")
-                probe["evals_per_s"] = (probe["forwards"] / probe["seconds"]
+                # One vmapped forward per eval batch for each batch of
+                # subset models, never one per model.
+                n_batches = -(-min(config.shapley_eval_samples
+                                   or config.n_test, config.n_test)
+                              // config.eval_batch_size)
+                most = max(config.shapley_eval_chunk, 16)
+                if (probe["forwards"] != n_batches * probe["model_batches"]
+                        or probe["most_models_per_batch"] > most):
+                    fail(f"{name} round {rec['round']}: {probe['forwards']} "
+                         f"subset forwards for {probe['model_batches']} "
+                         f"batches of models ({n_batches} eval batches), at "
+                         f"most {probe['most_models_per_batch']} models a "
+                         "batch")
+                probe["evals_per_s"] = (probe["models"] / probe["seconds"]
                                         if probe["seconds"] else None)
             artifacts = _newest_artifacts(config)
             if name == "multiround_shapley_value":
@@ -986,9 +1265,9 @@ def run_extra_paths(torch, gn, wg, log_root: str):
                             artifacts, f"metric_{rec['round']}.pkl"),
                             "rb") as f:
                         utilities = pickle.load(f)
-                    if probe["forwards"] != 16 or len(utilities) != 16:
+                    if probe["models"] != 16 or len(utilities) != 16:
                         fail(f"{name} round {rec['round']}: "
-                             f"{probe['forwards']} subset forwards, "
+                             f"{probe['models']} subset models, "
                              f"{len(utilities)} utilities (expected 16)")
                     sv = sum(rec["shapley_values"].values())
                     gap = abs(sv - (utilities[(0, 1, 2, 3)] - utilities[()]))
@@ -1073,16 +1352,19 @@ def profile_rounds(torch, name, config):
     return out
 
 
-def redesign_lines(kernels, rows, wgrad_rows):
+def redesign_lines(rows, wgrad_rows):
     """Prints the kernels redesigned for Hopper beside their yardsticks,
     bounds and earlier times (EARLIER_MS: PERF.md constants, not this
-    run); returns the same numbers."""
-    by_name = {k["name"]: k for k in kernels}
+    run), all at one client's shapes (B=25); returns the same numbers."""
     w = wgrad_rows["bf16"]
-    stats = by_name["gn_stats"]
-    norm = by_name["gn_normalize"]
     eval_row = next(r for r in rows if r["shape"][0] == EVAL_BATCH)
     train_rows = [r for r in rows if r["per_forward"]]
+    stats, norm = (
+        {f: sum(r["per_forward"] * r[key][f] for r in train_rows)
+         for f in ("ms", "bound_ms")}
+        for key in ("stats", "normalize_bf16"))
+    stats["library_ms"] = sum(r["per_forward"] * r["library_ms"]
+                              for r in train_rows)
     pair, alone = (sum(r["per_forward"] * r[k] for r in train_rows)
                    for k in ("pair_ms", "kernels_alone_ms"))
     out = {
@@ -1147,6 +1429,9 @@ def main() -> None:
                                               "data")
     try:
         from distributed_learning_simulator_tpu_torch.ops import _build
+        from distributed_learning_simulator_tpu_torch.parallel.engine import (
+            no_vmap_fallback,
+        )
         from distributed_learning_simulator_tpu_torch.ops import gn_cuda as gn
         from distributed_learning_simulator_tpu_torch.ops import (
             wgrad_cuda as wg,
@@ -1172,6 +1457,9 @@ def main() -> None:
                     for n in ("gn", "wgrad")))
 
     phase_seconds = {"build": time.perf_counter() - t0}
+    # Every phase: an op with no batching rule raises (module docstring).
+    strict_vmap = contextlib.ExitStack()
+    strict_vmap.enter_context(no_vmap_fallback())
 
     def phase(name, fn, *fn_args):
         """``fn(*fn_args)``, its wall seconds logged and kept."""
@@ -1184,6 +1472,7 @@ def main() -> None:
     rows = phase("gn_kernels", check_kernels, torch, gn)
     wgrad_rows = phase("wgrad_kernel", check_wgrad, torch, wg)
     sass = check_wgrad_sass(_build)
+    batched = phase("batched_kernels", check_batched, torch, gn, wg)
     plain_models = phase("models", check_model_forward, torch)
     paths = phase("main_paths", lambda: {
         name: run_path(torch, gn, wg, name, config)
@@ -1194,6 +1483,7 @@ def main() -> None:
     paths["headline_cnn_tpu"] = phase(
         "headline", run_headline, torch, gn, wg,
         os.path.join(args.out, "log"))
+    chunks = phase("chunk_compare", compare_chunks, torch, gn, wg)
     # The ResNet paths at 5 clients (10 before the headline path: the
     # profiler's trace processing took most of the run), the headline at
     # 10 (50 samples each, as at 1000) with a 1000-sample eval.
@@ -1209,38 +1499,39 @@ def main() -> None:
         for k in ("gn_stats", "gn_normalize", "conv3x3_wgrad")
     }
 
-    train_rows = [r for r in rows if r["per_forward"]]
+    # The kernels at the shapes the main path gives them: a chunk of 40
+    # clients. GroupNorm per batched training forward (each stage shape
+    # times the GroupNorms that run at it, 1000 samples each, bf16
+    # [40, C] scale/bias as bf16 local training hands them); the wgrad
+    # kernel per batched call.
     kernels = []
-    # The training forward's normalize calls take bf16 scale/bias (bf16
-    # local state, as on the fed and fed_quant paths).
     for name, key, replaces in (
         ("gn_stats", "stats",
          "distributed_learning_simulator_tpu/ops/gn_pallas.py:63"),
-        ("gn_normalize", "normalize_bf16",
+        ("gn_normalize", "normalize",
          "distributed_learning_simulator_tpu/ops/gn_pallas.py:75"),
     ):
-        # Per training forward at B=25: each stage shape times the number
-        # of GroupNorms that run at it.
         per_fwd = {
-            f: sum(r["per_forward"] * r[key][f] for r in train_rows)
+            f: sum(r["per_forward"] * r[key][f] for r in batched["gn"])
             for f in ("ms", "plain_ms", "bytes", "ops")
         }
         t_bytes = per_fwd["bytes"] / HBM_BYTES_PER_S
         t_ops = per_fwd["ops"] / F32_OPS_PER_S
+        library = [r[key]["library_ms"] for r in batched["gn"]]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "distributed_learning_simulator_tpu_torch/csrc/gn.cu",
             "replaces": replaces,
             "launches": launches[name],
-            "max_abs_err": max(r[key]["max_abs_err"] for r in rows),
+            "max_abs_err": max(r[key]["max_abs_err"] for r in batched["gn"]),
             "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": sum(r["per_forward"] * r["library_ms"]
-                              for r in train_rows),
+            "library_ms": None if None in library else sum(
+                r["per_forward"] * r[key]["library_ms"]
+                for r in batched["gn"]),
         })
-    # The main path runs the bf16 model: its wgrad calls are the bf16 row.
-    w = wgrad_rows["bf16"]
+    w = batched["wgrad"]
     kernels.append({
         "name": "conv3x3_wgrad", "route": "cuda",
         "source": "distributed_learning_simulator_tpu_torch/csrc/wgrad.cu",
@@ -1250,12 +1541,14 @@ def main() -> None:
         "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
         "bound_by": w["bound_by"], "library_ms": w["library_ms"],
     })
-    redesigned = redesign_lines(kernels, rows, wgrad_rows)
+    strict_vmap.close()
+    redesigned = redesign_lines(rows, wgrad_rows)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "kernel_rows": rows, "wgrad_rows": wgrad_rows,
                    "wgrad_sass_mma": sass, "redesigned": redesigned,
+                   "batched_kernels": batched, "chunk_compare": chunks,
                    "earlier_ms": EARLIER_MS,
                    "kernels": kernels, "main_paths": paths,
                    "plain_models": plain_models,

@@ -4,7 +4,8 @@
   the loss (QAT, ops/quantize.py ``fake_quant``, per leaf of the flat
   vector).
 * Each client's upload is stochastically quantized to ``quant_levels``
-  levels and dequantized before the weighted average; the aggregate is
+  levels and dequantized before the weighted average (a chunk's uploads in
+  one pass, row by row); the aggregate is
   quantized the same way for the downlink broadcast. The salts are one per
   (client, leaf) and one per leaf of the broadcast (algorithms/fedavg.py).
 * post_round reports the analytic compression ratios (ops/payload.py) and,
@@ -13,6 +14,8 @@
 """
 
 from __future__ import annotations
+
+import torch
 
 from distributed_learning_simulator_tpu_torch.algorithms.fedavg import FedAvg
 from distributed_learning_simulator_tpu_torch.ops.payload import (
@@ -24,6 +27,9 @@ from distributed_learning_simulator_tpu_torch.ops.quantize import (
     dequantize,
     fake_quant,
     stochastic_quantize,
+)
+from distributed_learning_simulator_tpu_torch.parallel.engine import (
+    ROUND_ELEMENTS,
 )
 
 
@@ -47,8 +53,22 @@ class FedQuant(FedAvg):
         return dequantize(q, self.segments)
 
     def process_client_payload(self, client_params, salts):
-        """The quantized uplink: stochastic quantize -> dequantize (f32)."""
-        return self._quantize_roundtrip(client_params, salts), {}
+        """The quantized uplink of a chunk: each row stochastically
+        quantized with its own salts, then dequantized (f32). The stack is
+        cut into row slices so the int64 hash temporaries stay bounded
+        (``ROUND_ELEMENTS``); each row's codes are those of a call on the
+        row alone."""
+        salts = torch.as_tensor(salts, dtype=torch.int64)
+        out = torch.empty(client_params.shape, dtype=torch.float32,
+                          device=client_params.device)
+        n = client_params.shape[0]
+        step = max(1, ROUND_ELEMENTS // max(1, client_params.shape[1]))
+        for r in range(0, n, step):
+            q = stochastic_quantize(client_params[r:r + step], self.levels,
+                                    salts[r:r + step], self.segments,
+                                    rows=True)
+            out[r:r + step] = dequantize(q, self.segments)
+        return out, {}
 
     def process_aggregated(self, global_params, salts):
         """The quantized downlink broadcast."""

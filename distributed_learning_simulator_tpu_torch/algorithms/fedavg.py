@@ -19,22 +19,26 @@ Two ways to combine the uploads:
 * **The mean path** (``aggregation='mean'``, no client stack asked for):
   each upload is added, with weight ``w_p = size_p / sum(cohort sizes)``,
   into an f32 aggregate (f32 even when the client params are bf16). The
-  clients run one after another in the order the JAX fused path reduces
-  them: without the size-aware schedule, chunks of ``client_chunk_size``
-  cohort positions in order (the last chunk may be a remainder); with it
+  clients train a chunk at a time, as one vmapped program per chunk
+  (parallel/engine.py ``make_chunk_train_fn``), in the order the JAX fused
+  path reduces them: without the size-aware schedule, chunks of
+  ``client_chunk_size`` cohort positions in order (the last chunk may be a
+  remainder; no chunk size: the whole cohort at once); with it
   (``bucket_client_work``, full participation only), the ``_bucket_plan``
   groups in descending step count, each group chunked the same way; a
   client in a group with ``s`` steps trains on its first ``s * batch_size``
   slots, so its epoch permutations run over that many slots. Empty clients
-  are skipped. Each chunk's weighted sum is accumulated separately and
-  added into its group's, and the groups into the aggregate, as the JAX
-  program adds its partial sums.
+  are skipped. Each chunk's weighted sum (one f32 contraction of its
+  weights with its uploads, the JAX package's ``tensordot``) is
+  accumulated separately and added into its group's, and the groups into
+  the aggregate, as the JAX program adds its partial sums.
 * **The materializing path** (``materializes_client_stack``: a robust rule,
-  ``client_eval``, or ``keep_client_params``): every cohort client trains
-  on its whole shard, and its processed upload, in f32, becomes row p of a
-  ``[cohort, P]`` stack; ``ops/aggregate.aggregate`` combines the stack by
-  ``config.aggregation``. A robust rule whose result is not finite keeps the
-  previous global model. With ``keep_client_params`` (the Shapley
+  ``client_eval``, or ``keep_client_params``): the cohort trains on its
+  whole shards, chunk by chunk in cohort order, and each client's processed
+  upload, in f32, becomes row p of a ``[cohort, P]`` stack;
+  ``ops/aggregate.aggregate`` combines the stack by ``config.aggregation``.
+  A robust rule whose result is not finite keeps the previous global
+  model. With ``keep_client_params`` (the Shapley
   algorithms) the stack is ``aux["client_params"]``.
 
 A round whose cohort weight is 0 keeps the previous global model.
@@ -47,11 +51,13 @@ here they take per-leaf 32-bit salts, which the round derives from the
 payload keys exactly as the JAX hooks fold theirs: per chunk of the
 reduction order (or the whole cohort on the materializing path) a key is
 split into one key per client, and each client's into one salt per leaf.
+``process_client_payload`` takes a chunk's ``[M, P]`` uploads with their
+``[M, n_leaves]`` salts.
 
-``client_eval`` (auto: on for fed_quant at cohorts <= 32): each client's
-raw model, cast to f32, is evaluated through the transform right after it
-trains, before its payload is processed, and post_round reports the
-``client_eval`` record sub-object.
+``client_eval`` (auto: on for fed_quant at cohorts <= 32): each chunk's raw
+models, cast to f32, are evaluated through the transform in one vmapped
+forward right after they train, before their payloads are processed, and
+post_round reports the ``client_eval`` record sub-object.
 """
 
 from __future__ import annotations
@@ -73,7 +79,9 @@ from distributed_learning_simulator_tpu_torch.ops.sampling import (
 )
 from distributed_learning_simulator_tpu_torch.parallel.engine import (
     client_draws,
-    make_local_train_fn,
+    make_chunk_train_fn,
+    make_models_eval_fn,
+    stack_draws,
 )
 from distributed_learning_simulator_tpu_torch.utils.logging import get_logger
 
@@ -153,6 +161,8 @@ class FedAvg(Algorithm):
         return None
 
     def process_client_payload(self, client_params, salts):
+        """A chunk's uploads ``[M, P]`` with their salts ``[M, n_leaves]``
+        (None when unsalted) -> ``(processed [M, P], extra_aux)``."""
         return client_params, {}
 
     def process_aggregated(self, global_params, salts):
@@ -181,7 +191,7 @@ class FedAvg(Algorithm):
                 "client_eval needs prepare(apply_fn, eval_fn, eval_batches) "
                 "before make_round_fn"
             )
-        local_train = make_local_train_fn(
+        train_chunk = make_chunk_train_fn(
             apply_fn, optimizer, layout,
             local_epochs=cfg.epoch,
             batch_size=bsz,
@@ -193,13 +203,10 @@ class FedAvg(Algorithm):
             augment=augment,
         )
         n_leaves = len(layout.numels)
-
-        def evaluate_client(params):
-            with torch.no_grad():
-                if transform is not None:
-                    params = transform(params)
-                return self._eval_fn(layout.unflatten(params),
-                                     *self._eval_batches)["accuracy"]
+        evaluate_models = (
+            make_models_eval_fn(self._eval_fn, layout, transform)
+            if client_eval else None
+        )
 
         bucket_sizes = None
         if (
@@ -306,35 +313,50 @@ class FedAvg(Algorithm):
             eval_accs = torch.zeros_like(losses) if client_eval else None
             state_k = cohort_take(client_state, ids)
 
-            def train(p, slots):
-                i = int(ids[p])
-                perms, salt, *aug_key = client_rng(i, slots)
-                params, state, metrics = local_train(
-                    global_flat, cx[i, :slots], cy[i, :slots],
-                    cmask[i, :slots], perms, salt,
-                    aug_key=aug_key[0] if aug_key else None,
+            def train(members, slots):
+                """The cohort positions ``members`` as one chunk on their
+                first ``slots`` slots; returns their ``[M, P]`` params."""
+                pos = torch.as_tensor(members, dtype=torch.long,
+                                      device=global_flat.device)
+                rows = torch.as_tensor(ids[members], dtype=torch.long,
+                                       device=cx.device)
+                perms, salts, aug_keys = stack_draws(
+                    [client_rng(int(ids[p]), slots) for p in members])
+                params, state, metrics = train_chunk(
+                    global_flat, cx[rows, :slots], cy[rows, :slots],
+                    cmask[rows, :slots], perms, salts, aug_keys=aug_keys,
                     lr_scale=lr_scale,
-                    opt_state=None if state_k is None else state_k[p],
+                    opt_state=None if state_k is None else state_k[pos],
                 )
                 if state_k is not None:
-                    state_k[p] = state
-                losses[p] = metrics["loss"]
-                accs[p] = metrics["accuracy"]
+                    state_k[pos] = state
+                losses[pos] = metrics["loss"]
+                accs[pos] = metrics["accuracy"]
                 return params
+
+            def payload(members, params):
+                salts = [payload_salts(int(ids[p])) for p in members]
+                if salts[0] is None:
+                    salts = None
+                return self.process_client_payload(params, salts)[0]
 
             aux = {}
             if materialize:
                 stack = torch.empty((n_participants,) + global_flat.shape,
                                     dtype=torch.float32,
                                     device=global_flat.device)
-                for p in range(n_participants):
+                step = chunk if chunk else n_participants
+                for start in range(0, n_participants, step):
+                    members = list(range(start,
+                                         min(start + step, n_participants)))
                     # f32, as the JAX package casts the stack for the rules.
-                    params = train(p, cx.shape[1]).float()
+                    params = train(members, cx.shape[1]).float()
                     if client_eval:
-                        eval_accs[p] = evaluate_client(params)
-                    stack[p], _ = self.process_client_payload(
-                        params, payload_salts(int(ids[p]))
-                    )
+                        eval_accs[start:start + len(members)] = (
+                            evaluate_models(params, *self._eval_batches)[
+                                "accuracy"])
+                    stack[start:start + len(members)] = payload(members,
+                                                                params)
                 new_global = aggregate(stack, part_sizes, aggregation,
                                        cfg.trim_ratio)
                 if (aggregation != "mean"
@@ -349,14 +371,11 @@ class FedAvg(Algorithm):
                 for slots, chunks in plan:
                     group_acc = torch.zeros_like(new_global)
                     for _, members in chunks:
-                        chunk_acc = torch.zeros_like(new_global)
-                        for p in members:
-                            params, _ = self.process_client_payload(
-                                train(p, slots), payload_salts(int(ids[p]))
-                            )
-                            chunk_acc.add_(params.float(),
-                                           alpha=float(norm_w[p]))
-                        group_acc += chunk_acc
+                        uploads = payload(members, train(members, slots))
+                        w = torch.as_tensor(norm_w[members],
+                                            device=uploads.device)
+                        group_acc += torch.tensordot(w, uploads.float(),
+                                                     dims=1)
                     new_global += group_acc
             # Empty effective cohort: keep the previous global model.
             if not total > 0:

@@ -17,10 +17,13 @@ its members' uploads, or the previous global model for the empty subset.
   permutations are drawn.
 
 How the subset models are formed (:class:`_SubsetEvaluator`): a chunk of
-subset masks becomes one product ``(masks * w) [chunk, n] @ stack [n, P]``
-(ops/aggregate.py ``subset_weighted_mean``), and the models are evaluated
-one after another by the run's eval function: on the card each is a
-ResNet forward through the GroupNorm kernels. GTG's default prefix mode
+up to ``shapley_eval_chunk`` subset masks becomes one product ``(masks * w)
+[chunk, n] @ stack [n, P]`` (ops/aggregate.py ``subset_weighted_mean``),
+and the chunk's models are evaluated together: the run's eval function
+vmapped over them with the eval batches shared, as the JAX evaluator does,
+so on the card one ResNet forward per eval batch serves the whole chunk
+(the GroupNorm kernels take the models' samples stacked, each with its own
+affine). GTG's default prefix mode
 ``cumsum`` extends each permutation's weighted running sum block by block
 instead (:class:`_CumsumPrefixWalker`); ``masked`` forms every prefix by
 the mask product. ``shapley_eval_dtype`` (``auto``: f32 for multiround,
@@ -288,16 +291,17 @@ def cap_eval_batches(eval_batches, max_samples: int | None):
 
 class _SubsetEvaluator:
     """Subset-model accuracies, ``chunk`` (config.shapley_eval_chunk)
-    models formed per product.
+    models formed per product and evaluated per vmapped forward.
 
     ``eval_fn(flat_model, xb, yb, mb) -> {"accuracy": ...}`` evaluates one
-    flat model. The models of a call are evaluated one after another and
-    their accuracies fetched to the host once, at the end of the call."""
+    flat model; it is vmapped over each chunk's models. A call's
+    accuracies are fetched to the host once, at the end of the call."""
 
     def __init__(self, eval_fn, chunk: int = _EVAL_CHUNK,
                  eval_dtype: str = "float32"):
         self._chunk = int(chunk)
         self._eval_fn = eval_fn
+        self._batched = {}  # number of eval batch tensors -> vmapped eval_fn
         self._eval_dtype = {"float32": torch.float32,
                             "bfloat16": torch.bfloat16}[str(eval_dtype)]
 
@@ -313,8 +317,16 @@ class _SubsetEvaluator:
             return client_params
         return client_params.to(self._eval_dtype).float()
 
-    def _accuracies(self, models: torch.Tensor, eval_batches) -> list:
-        return [self._eval_fn(m, *eval_batches)["accuracy"] for m in models]
+    def _accuracies(self, models: torch.Tensor, eval_batches
+                    ) -> torch.Tensor:
+        """``[K]`` accuracies of ``models [K, P]``: one vmapped forward per
+        eval batch."""
+        n = len(eval_batches)
+        if n not in self._batched:
+            self._batched[n] = torch.func.vmap(
+                self._eval_fn, in_dims=(0,) + (None,) * n)
+        with torch.no_grad():
+            return self._batched[n](models, *eval_batches)["accuracy"]
 
     def __call__(self, client_params, sizes, masks, prev_global,
                  eval_batches) -> np.ndarray:
@@ -325,8 +337,8 @@ class _SubsetEvaluator:
                 client_params, sizes, masks[start:start + self._chunk],
                 prev_global,
             )
-            accs += self._accuracies(models, eval_batches)
-        return torch.stack(accs).float().cpu().numpy()
+            accs.append(self._accuracies(models, eval_batches))
+        return torch.cat(accs).float().cpu().numpy()
 
     def prefix_wave(self, client_params, sizes, carry, carry_t, perm_block,
                     prev_global, eval_batches):
@@ -339,7 +351,7 @@ class _SubsetEvaluator:
         models = prefix_means_from_cumsum(cs, totals, prev_global)
         g, b = models.shape[:2]
         accs = self._accuracies(models.reshape(g * b, -1), eval_batches)
-        return torch.stack(accs).reshape(g, b), cs[:, -1], totals[:, -1]
+        return accs.reshape(g, b), cs[:, -1], totals[:, -1]
 
 
 class _CumsumPrefixWalker:

@@ -6,15 +6,18 @@ params (all clients apply the same voted update, so they always hold the
 same params), turns it into its torch-SGD update direction (momentum,
 dampening, nesterov), and signs it. The signs are summed over the clients
 in f32, re-signed (the majority vote), and applied with weight decay:
-``p <- p - lr * (voted + wd * p)``. The sum of +-1/0 terms is exact in any
-order, so the JAX package's chunking of the client axis (a memory bound
-for its vmapped gradients) changes nothing here: the port sums client by
-client.
+``p <- p - lr * (voted + wd * p)``. As in the JAX package, each step takes
+the clients a chunk of ``client_chunk_size`` at a time (all at once
+without a chunk size): one ``torch.func.vmap`` of the gradient over the
+chunk's batches at the shared params, then the chunk's momenta, directions
+and signs as ops on its ``[M, P]`` stack, and its partial sign sum added
+to the vote. The sum of +-1/0 terms is exact in any order, so the
+chunking changes nothing but memory.
 
 Per-client momentum buffers and step counters persist across rounds as the
 algorithm's client state: a flat ``[n_clients, P]`` tensor, allocated only
 when momentum != 0 (torch allocates no buffer at momentum 0). The port
-updates each client's row in place (the JAX program returns a new stack);
+updates each chunk's rows in place (the JAX program returns a new stack);
 the round returns the same state object.
 
 Each epoch's batch order is one permutation per client, drawn as the JAX
@@ -44,6 +47,7 @@ from distributed_learning_simulator_tpu_torch.ops.sign import (
     vote_apply_leaf,
 )
 from distributed_learning_simulator_tpu_torch.parallel.engine import (
+    chunk_decoder,
     make_loss_fn,
 )
 
@@ -111,8 +115,15 @@ class SignSGD(Algorithm):
         dampening, nesterov = cfg.dampening, cfg.nesterov
         bsz, epochs = cfg.batch_size, cfg.epoch
         has_momentum = mu != 0.0
+        chunk = cfg.client_chunk_size or n_clients
         loss_fn = make_loss_fn(lambda flat, x: apply_fn(layout.unflatten(flat),
                                                         x))
+        # The chunk's gradients at the ONE shared params (JAX: vmap of the
+        # grad with in_axes=(None, 0, 0, 0)).
+        grad_fn = torch.func.vmap(
+            torch.func.grad_and_value(loss_fn, has_aux=True),
+            in_dims=(None, 0, 0, 0))
+        decode = chunk_decoder(preprocess) if preprocess is not None else None
 
         def round_fn(global_flat, client_state, cx, cy, cmask, sizes,
                      key, lr_scale=1.0, client_rng=None,
@@ -153,26 +164,26 @@ class SignSGD(Algorithm):
                     by = batched_take(cy, idx)
                     bm = batched_take(cmask, idx)
                     is_first = step_counts == 0
-                    p = params.detach().requires_grad_(True)
                     vote = torch.zeros_like(params, dtype=torch.float32)
                     loss_sum = torch.zeros((), dtype=torch.float32,
                                            device=params.device)
-                    for i in range(n_clients):
-                        xb = bx[i] if preprocess is None else preprocess(bx[i])
-                        loss, _ = loss_fn(p, xb, by[i], bm[i])
-                        (grad,) = torch.autograd.grad(loss, p)
+                    for c0 in range(0, n_clients, chunk):
+                        rows = slice(c0, c0 + chunk)
+                        xb = bx[rows] if decode is None else decode(bx[rows])
+                        grads, (losses, _) = grad_fn(params, xb, by[rows],
+                                                     bm[rows])
                         with torch.no_grad():
-                            direction = grad
+                            direction = grads
                             if has_momentum:
                                 m_new = momentum_leaf(
-                                    momenta[i], grad, is_first[i], mu,
-                                    dampening,
+                                    momenta[rows], grads,
+                                    is_first[rows, None], mu, dampening,
                                 )
-                                momenta[i] = m_new
-                                direction = direction_leaf(grad, m_new, mu,
+                                momenta[rows] = m_new
+                                direction = direction_leaf(grads, m_new, mu,
                                                            nesterov)
-                            vote += torch.sign(direction)
-                            loss_sum += loss.detach()
+                            vote += torch.sign(direction).sum(dim=0)
+                            loss_sum += losses.sum()
                     with torch.no_grad():
                         params = vote_apply_leaf(params, torch.sign(vote), lr,
                                                  wd)

@@ -9,6 +9,11 @@
 //   gn_normalize_kernel  replaces _norm_kernel:
 //                        y = (x - mean_g) * (rstd_g * scale_c) + bias_c,
 //                        computed in f32 and cast once to the output type.
+//                        scale/bias are one [C] row for every sample, or
+//                        one row per model ([M, C]) when the batch stacks M
+//                        models' samples (x [M*B, HW, C], sample s reads
+//                        row s / B): the TPU kernel under the client vmap,
+//                        where each client's GroupNorm has its own affine.
 //
 // What bounds them on an H100: bytes. The stats pass reads x once (3 flops
 // per element against 2 bytes); the normalize pass reads x once and writes
@@ -55,7 +60,9 @@
 //   and no scalar load, then 16-byte stores (ordinary ones: the ReLU or
 //   residual add that follows reads y at once, from L2). scale and bias are
 //   read in their own dtype (bf16 under bf16 local training, else f32) and
-//   widened exactly, once per thread.
+//   widened exactly, once per thread. With a per-model affine the CTA's
+//   sample picks the row (every CTA lies inside one sample, so inside one
+//   model): a pointer offset per CTA, nothing per element.
 //
 // Programmatic dependent launch (PDL), inside group_norm only. group_norm
 // launches the stats kernel and, right behind it on the same stream, the
@@ -318,9 +325,15 @@ __global__ void __launch_bounds__(kThreads)
 gn_normalize_kernel(const T* __restrict__ x, const float* mean,
                     const float* rstd, const P* __restrict__ scale,
                     const P* __restrict__ bias, T* __restrict__ y, int hw,
-                    int c, int g, int slices, int rows_per_slice) {
+                    int c, int g, int slices, int rows_per_slice,
+                    int rows_per_model) {
   constexpr int VEC = 16 / sizeof(T);
   const int b = blockIdx.x / slices;
+  if (rows_per_model > 0) {  // [M, C] scale/bias: this sample's model's row
+    const int64_t row_off = (int64_t)(b / rows_per_model) * c;
+    scale += row_off;
+    bias += row_off;
+  }
   const int row0 = min(hw, (int)(blockIdx.x % slices) * rows_per_slice);
   const int row1 = min(hw, row0 + rows_per_slice);
   const int nvec = c / VEC;          // 16-byte vectors per HW row
@@ -406,12 +419,13 @@ int launch_stats(const void* x, void* mean, void* rstd, int b, int hw, int c,
 // One CTA per (sample, slice). after_stats != 0 makes it a programmatic
 // dependent launch of the kernel before it on the stream, which must then
 // be the gn_stats kernel that wrote mean/rstd (file comment); 0 makes it an
-// ordinary launch.
+// ordinary launch. rows_per_model: 0 for a [C] scale/bias, else B of an
+// [M, C] one (x holds M * B samples).
 template <typename T, typename P>
 int launch_normalize(const void* x, const void* mean, const void* rstd,
                      const void* scale, const void* bias, void* y, int b,
                      int hw, int c, int g, int slices, int rows_per_slice,
-                     int after_stats, void* stream) {
+                     int rows_per_model, int after_stats, void* stream) {
   constexpr int VEC = 16 / sizeof(T);
   if (rows_per_slice > kInFlight * (kThreads / (c / VEC)))
     return (int)cudaErrorInvalidValue;  // more than one batch a thread
@@ -428,7 +442,7 @@ int launch_normalize(const void* x, const void* mean, const void* rstd,
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, gn_normalize_kernel<T, P>, (const T*)x, (const float*)mean,
       (const float*)rstd, (const P*)scale, (const P*)bias, (T*)y, hw, c, g,
-      slices, rows_per_slice);
+      slices, rows_per_slice, rows_per_model);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -452,11 +466,11 @@ int dls_gn_stats_f32(const void* x, void* mean, void* rstd, int b, int hw,
 #define DLS_GN_NORMALIZE(NAME, T, P)                                         \
   int NAME(const void* x, const void* mean, const void* rstd,                \
            const void* scale, const void* bias, void* y, int b, int hw,      \
-           int c, int g, int slices, int rows_per_slice, int after_stats,   \
-           void* stream) {                                                   \
+           int c, int g, int slices, int rows_per_slice, int rows_per_model, \
+           int after_stats, void* stream) {                                  \
     return launch_normalize<T, P>(x, mean, rstd, scale, bias, y, b, hw, c,   \
-                                  g, slices, rows_per_slice, after_stats,    \
-                                  stream);                                   \
+                                  g, slices, rows_per_slice, rows_per_model, \
+                                  after_stats, stream);                      \
   }
 DLS_GN_NORMALIZE(dls_gn_normalize_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
 DLS_GN_NORMALIZE(dls_gn_normalize_bf16_f32, __nv_bfloat16, float)

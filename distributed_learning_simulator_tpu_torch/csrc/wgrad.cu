@@ -6,7 +6,9 @@
 //
 // with x [B, H, W, C] the convolution's input, g [B, H, W, C] the gradient
 // of its output, and x read as 0 outside the image. dW is [3, 3, C, C] f32
-// (HWIO, the JAX package's kernel layout).
+// (HWIO, the JAX package's kernel layout). A launch computes it for N
+// clients at once: x, g [N, B, H, W, C] -> dW [N, 3, 3, C, C], as the TPU
+// kernel's grid runs over its client axis (N = 1 is one client's call).
 //
 // It replaces scripts/exp_pallas_wgrad.py `_wgrad_kernel` (called through
 // `pallas_wgrad`), the TPU prototype that computed the same gradient for
@@ -20,24 +22,34 @@
 // 2.00 us at 3.35 TB/s; and does 1.89 GFLOP: 1.91 us at the 989 TFLOP/s
 // dense bf16 tensor-core peak. Bytes and operations bound it about equally.
 //
-// Both passes split K into n_chunks runs of whole row pairs (rows 2p, 2p + 1
-// of one sample; with H odd a sample's last pair has one row), balanced to
-// within one pair (ops/wgrad_cuda.py `chunking` plans them; a run may span
-// two samples, a pair never does), write one f32 partial per (chunk, tap)
-// and leave the sum over chunks to `wgrad_reduce_kernel`, which adds them in
-// a fixed order. No float atomics: a rerun is bitwise equal.
+// Both passes split each client's K into n_chunks runs of whole row pairs
+// (rows 2p, 2p + 1 of one sample; with H odd a sample's last pair has one
+// row), balanced to within one pair (ops/wgrad_cuda.py `chunking` plans
+// them; a run may span two samples of a client, a pair never does, and no
+// run spans two clients), write one f32 partial per (client, chunk, tap)
+// and leave the sum over each client's chunks to `wgrad_reduce_kernel`,
+// which adds them in a fixed order. No float atomics: a rerun is bitwise
+// equal, and client n's result is bitwise the one-client call's with the
+// same n_chunks (its CTAs do the same work in the same order). With one
+// chunk a client (the plan for many clients: at N = 40 the grid N x 3 x
+// tiles already fills the card, and per-client K-splits would write N
+// times the partials) the partial kernel writes dW itself and no reduce
+// runs.
 //
 // bf16 inputs (every main path): `wgrad_tc_partial_kernel`, on the tensor
 // cores.
-// * One CTA per (K-chunk, dy, 64x64 output tile): 44 chunks x 3 dy = 132
-//   CTAs at C = 64, one per SM, 9 or 10 row pairs each. A CTA computes the
+// * One CTA per (client, K-chunk, dy, 64x64 output tile): for one client
+//   44 chunks x 3 dy = 132 CTAs at C = 64, one per SM, 9 or 10 row pairs
+//   each; for 40 clients 40 x 1 x 3 = 120 CTAs of 400 row pairs each. A CTA computes the
 //   three taps (dy, 0..2) at once: for a fixed dy they read the same x rows,
 //   shifted by one column each. A staged piece holds 32 positions of one
 //   g row and the 34 x columns w0-1 .. w0+32 around them, so tap dx is the x
 //   view starting at column dx: a 16-deep K slab is 16 consecutive staged
 //   rows, and the shift is an address offset per lane.
 // * Staging is TMA: thread 0 issues per stage (one piece of both rows of a
-//   pair) four box loads of 4-D (C, W, H, B) tensor maps, completed on an
+//   pair) four box loads of 4-D (C, W, H, N*B) tensor maps (the client
+//   axis folded into the sample axis: a box never crosses samples, so it
+//   never crosses clients either), completed on an
 //   mbarrier, into a ring of kStages stages. The maps zero-fill what lies
 //   outside the tensor: the SAME padding (image row -1 or H, column -1 or
 //   W), the ragged end of a row and channels past C, so no thread computes
@@ -171,27 +183,29 @@ __device__ __forceinline__ void chunk_units(int chunk, int n_chunks,
   u1 = (int)((int64_t)(chunk + 1) * total_units / n_chunks);
 }
 
-// xmap and gmap view x and g as 4-D (C, W, H, B) tensors with 64 x 34 and
+// xmap and gmap view x and g as 4-D (C, W, H, N*B) tensors with 64 x 34 and
 // 64 x 32 (channel x column) boxes of one image row, 128-byte swizzled.
+// blockIdx.x is client * n_chunks + chunk.
 __global__ void __launch_bounds__(kTcThreads, 1)
 wgrad_tc_partial_kernel(const __grid_constant__ CUtensorMap xmap,
                         const __grid_constant__ CUtensorMap gmap,
                         float* __restrict__ partial, int b, int h, int w,
-                        int c) {
+                        int c, int n_chunks) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages];
   const uint32_t sbase =
       ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023) & ~1023u;
   const uint32_t bar0 = (uint32_t)__cvta_generic_to_shared(full);
 
-  const int chunk = blockIdx.x;
+  const int client = blockIdx.x / n_chunks;
+  const int chunk = blockIdx.x % n_chunks;
   const int dy = blockIdx.y;
   const int n_tiles = (c + kTile - 1) / kTile;
   const int ci0 = (blockIdx.z / n_tiles) * kTile;
   const int co0 = (blockIdx.z % n_tiles) * kTile;
   const int pairs = (h + 1) / 2;  // row pairs per sample
   int u0, u1;
-  chunk_units(chunk, gridDim.x, b * pairs, u0, u1);
+  chunk_units(chunk, n_chunks, b * pairs, u0, u1);
   const int pieces_per_row = (w + kSeg - 1) / kSeg;
   // Stage s: piece s % pieces_per_row of row pair u0 + s / pieces_per_row.
   const int n_steps = (u1 - u0) * pieces_per_row;
@@ -216,12 +230,13 @@ wgrad_tc_partial_kernel(const __grid_constant__ CUtensorMap xmap,
     const int w0 = (step % pieces_per_row) * kSeg;
     const int sample = unit / pairs;
     const int h0 = 2 * (unit - sample * pairs);
+    const int row4 = client * b + sample;  // the maps' fourth coordinate
     mbar_expect_tx(bar, kStageBytes);
 #pragma unroll
     for (int q = 0; q < kPieces; ++q) {
-      tma_load_4d(dst + q * kSeg * 128, &gmap, bar, co0, w0, h0 + q, sample);
+      tma_load_4d(dst + q * kSeg * 128, &gmap, bar, co0, w0, h0 + q, row4);
       tma_load_4d(dst + (kXRow0 + q * kXStride) * 128, &xmap, bar, ci0,
-                  w0 - 1, h0 + q + dy - 1, sample);
+                  w0 - 1, h0 + q + dy - 1, row4);
     }
   };
   if (threadIdx.x == 0)
@@ -288,7 +303,8 @@ wgrad_tc_partial_kernel(const __grid_constant__ CUtensorMap xmap,
   const int tq = lane & 3;
 #pragma unroll
   for (int dx = 0; dx < 3; ++dx) {
-    float* out = partial + ((int64_t)chunk * 9 + dy * 3 + dx) * c * c;
+    float* out =
+        partial + ((int64_t)blockIdx.x * 9 + dy * 3 + dx) * c * c;
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
       const int co = co0 + wn * 32 + n * 8 + 2 * tq;
@@ -310,17 +326,22 @@ wgrad_tc_partial_kernel(const __grid_constant__ CUtensorMap xmap,
 constexpr int kThreads = 256;  // 16 x 16 threads, a 4x4 piece each
 constexpr int kRows = 32;      // K rows staged in shared memory per step
 
+// blockIdx.x is client * n_chunks + chunk, as in the bf16 kernel.
 __global__ void __launch_bounds__(kThreads)
 wgrad_f32_partial_kernel(const float* __restrict__ x,
                          const float* __restrict__ g,
                          float* __restrict__ partial, int b, int h, int w,
-                         int c) {
+                         int c, int n_chunks) {
   constexpr int VEC = 4;
   constexpr int VPR = kTile / VEC;  // 16-byte vectors per staged row
   __shared__ __align__(16) float xs[kRows][kTile];
   __shared__ __align__(16) float gs[kRows][kTile];
 
-  const int chunk = blockIdx.x;
+  const int client = blockIdx.x / n_chunks;
+  const int chunk = blockIdx.x % n_chunks;
+  const int64_t client_elems = (int64_t)b * h * w * c;
+  x += client * client_elems;
+  g += client * client_elems;
   const int tap = blockIdx.y;  // dy * 3 + dx
   const int dy = tap / 3;
   const int dx = tap % 3;
@@ -329,7 +350,7 @@ wgrad_f32_partial_kernel(const float* __restrict__ x,
   const int co0 = (blockIdx.z % n_tiles) * kTile;
   const int pairs = (h + 1) / 2;
   int u0, u1;
-  chunk_units(chunk, gridDim.x, b * pairs, u0, u1);
+  chunk_units(chunk, n_chunks, b * pairs, u0, u1);
   // Unit u starts at image row (u / pairs) * H + 2 * (u % pairs).
   const int64_t k0 = ((int64_t)(u0 / pairs) * h + 2 * (u0 % pairs)) * w;
   const int64_t k1 = ((int64_t)(u1 / pairs) * h + 2 * (u1 % pairs)) * w;
@@ -383,7 +404,7 @@ wgrad_f32_partial_kernel(const float* __restrict__ x,
     __syncthreads();
   }
 
-  float* out = partial + ((int64_t)chunk * 9 + tap) * c * c;
+  float* out = partial + ((int64_t)blockIdx.x * 9 + tap) * c * c;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int ci = ci0 + ty * 4 + i;
@@ -397,8 +418,9 @@ wgrad_f32_partial_kernel(const float* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// Both: the partials summed over the chunks in a fixed order. A block owns
-// kRedCols float4 columns of the [n_chunks][9 C C] partials; thread group q
+// Both: each client's partials summed over its chunks in a fixed order. A
+// block owns kRedCols float4 columns of one client's (blockIdx.y) [n_chunks]
+// [9 C C] partials; thread group q
 // sums chunks q, q + kRedGroups, ... in order (about n_chunks / 8 loads in
 // flight a thread instead of one n_chunks-long chain), and the groups'
 // sums are added in group order.
@@ -413,6 +435,8 @@ wgrad_reduce_kernel(const float4* __restrict__ partial,
   const int lane = threadIdx.x % kRedCols;
   const int q = threadIdx.x / kRedCols;
   const int col = blockIdx.x * kRedCols + lane;
+  partial += (int64_t)blockIdx.y * n_chunks * n4;
+  out += (int64_t)blockIdx.y * n4;
   float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
   if (col < n4) {
 #pragma unroll 4
@@ -438,15 +462,20 @@ wgrad_reduce_kernel(const float4* __restrict__ partial,
   }
 }
 
-int launch_reduce(const void* partial, void* out, int n_chunks, int c,
+// With one chunk a client the partial kernel wrote dW itself (`partial` is
+// `out`): nothing to add.
+int launch_reduce(const void* partial, void* out, int n, int n_chunks, int c,
                   cudaStream_t s) {
+  if (n_chunks == 1) return (int)cudaSuccess;
   const int n4 = 9 * c * c / 4;  // C % 8 == 0
-  wgrad_reduce_kernel<<<(n4 + kRedCols - 1) / kRedCols, kThreads, 0, s>>>(
+  const dim3 grid((n4 + kRedCols - 1) / kRedCols, n);
+  wgrad_reduce_kernel<<<grid, kThreads, 0, s>>>(
       (const float4*)partial, (float4*)out, n_chunks, n4);
   return (int)cudaGetLastError();
 }
 
-// The 4-D (C, W, H, B) tensor map of a [B, H, W, C] bf16 tensor with boxes
+// The 4-D (C, W, H, B) tensor map of a [B, H, W, C] bf16 tensor (B = N*B
+// rows of N clients) with boxes
 // of 64 channels x `box_w` columns of one image row, 128-byte swizzled;
 // out-of-bounds elements read as zero.
 cudaError_t encode_rows_map(CUtensorMap* map, const void* base, int b, int h,
@@ -484,37 +513,42 @@ cudaError_t encode_rows_map(CUtensorMap* map, const void* base, int b, int h,
 
 extern "C" {
 
+// x, g [N, B, H, W, C] -> out [N, 3, 3, C, C]; `partial` holds N x n_chunks
+// x 9 C C floats, or is `out` when n_chunks == 1.
 int dls_wgrad_bf16(const void* x, const void* g, void* partial, void* out,
-                   int b, int h, int w, int c, int n_chunks, void* stream) {
+                   int n, int b, int h, int w, int c, int n_chunks,
+                   void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   CUtensorMap xmap, gmap;
-  cudaError_t err = encode_rows_map(&xmap, x, b, h, w, c, kXSeg);
+  cudaError_t err = encode_rows_map(&xmap, x, n * b, h, w, c, kXSeg);
   if (err != cudaSuccess) return (int)err;
-  err = encode_rows_map(&gmap, g, b, h, w, c, kSeg);
+  err = encode_rows_map(&gmap, g, n * b, h, w, c, kSeg);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(wgrad_tc_partial_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kTcSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (c + kTile - 1) / kTile;
-  const dim3 grid(n_chunks, 3, n_tiles * n_tiles);
+  const dim3 grid(n * n_chunks, 3, n_tiles * n_tiles);
   wgrad_tc_partial_kernel<<<grid, kTcThreads, kTcSmemBytes, s>>>(
-      xmap, gmap, (float*)partial, b, h, w, c);
+      xmap, gmap, (float*)partial, b, h, w, c, n_chunks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_reduce(partial, out, n_chunks, c, s);
+  return launch_reduce(partial, out, n, n_chunks, c, s);
 }
 
 int dls_wgrad_f32(const void* x, const void* g, void* partial, void* out,
-                  int b, int h, int w, int c, int n_chunks, void* stream) {
+                  int n, int b, int h, int w, int c, int n_chunks,
+                  void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const int n_tiles = (c + kTile - 1) / kTile;
-  const dim3 grid(n_chunks, 9, n_tiles * n_tiles);
+  const dim3 grid(n * n_chunks, 9, n_tiles * n_tiles);
   wgrad_f32_partial_kernel<<<grid, kThreads, 0, s>>>(
-      (const float*)x, (const float*)g, (float*)partial, b, h, w, c);
+      (const float*)x, (const float*)g, (float*)partial, b, h, w, c,
+      n_chunks);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_reduce(partial, out, n_chunks, c, s);
+  return launch_reduce(partial, out, n, n_chunks, c, s);
 }
 
 }  // extern "C"

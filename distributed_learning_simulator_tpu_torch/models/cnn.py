@@ -11,6 +11,10 @@ in f32 and casts the mean back to ``dtype``; the dense head is f32 with f32
 logits (models/resnet.py ``Dense``). ``MLP`` is f32 throughout and flattens
 the NHWC sample in (h, w, c) order, as the JAX module does.
 
+The convolutions are ops/conv.py's ``conv_nhwc``: under the chunk's
+``torch.func.vmap`` they run as grouped channels-last convolutions, one for
+the whole chunk, and the biases, relus and pools act on the stacked models.
+
 The submodules are named after flax's auto-names (``Conv_0`` -> ``conv0``,
 ``Dense_0`` -> ``dense0``), which is how models/bridge.py maps the two
 parameter trees.
@@ -26,9 +30,10 @@ from torch import nn
 
 from distributed_learning_simulator_tpu_torch.models.resnet import (
     Dense,
-    _same_pads,
     resolve_dtype,
+    same_conv,
 )
+from distributed_learning_simulator_tpu_torch.ops.conv import conv_nhwc
 
 
 class Conv(nn.Module):
@@ -41,23 +46,16 @@ class Conv(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
         self.bias = nn.Parameter(torch.zeros(cout))
-        self.k, self.stride, self.padding = k, stride, padding
+        self.stride, self.padding = stride, padding
         self.dtype = None if dtype is None else resolve_dtype(dtype)
 
     def forward(self, x):
         dt = self.dtype or x.dtype
-        xc = x.to(dt).permute(0, 3, 1, 2)
-        pad = (0, 0)
         if self.padding == "SAME":
-            ph = _same_pads(xc.shape[2], self.k, self.stride)
-            pw = _same_pads(xc.shape[3], self.k, self.stride)
-            if ph[0] == ph[1] and pw[0] == pw[1]:
-                pad = (ph[0], pw[0])
-            else:
-                xc = F.pad(xc, (pw[0], pw[1], ph[0], ph[1]))
-        y = F.conv2d(xc, self.weight.to(dt), stride=self.stride, padding=pad)
-        y = y + self.bias.to(dt)[:, None, None]
-        return y.permute(0, 2, 3, 1)
+            y = same_conv(x.to(dt), self.weight.to(dt), self.stride)
+        else:
+            y = conv_nhwc(x.to(dt), self.weight.to(dt), self.stride, 0)
+        return y + self.bias.to(dt)
 
 
 def max_pool(x, k: int):

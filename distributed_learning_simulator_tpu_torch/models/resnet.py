@@ -19,13 +19,28 @@ stage 1:
   of them, 4 in ResNet-18) are ``_Conv3x3Fn``: the forward and the input
   gradient are cuDNN's, the weight gradient is the hand-written kernel
   (ops/wgrad_cuda.py ``conv3x3_wgrad``), which the JAX package prototyped
-  in Pallas for exactly these convolutions. The stem, the stride-2 and
-  projection convolutions and the later stages stay on plain autograd.
+  in Pallas for exactly these convolutions. The stem, the stride-2
+  convolutions and the later stages are cuDNN's forward and backward
+  (ops/conv.py ``conv_nhwc``); the 1x1 projection, which SAME never pads,
+  is the strided pixels times its kernel, a matmul over channels.
 
 Activations move between layers as NHWC tensors. Each convolution reads a
 ``permute`` view of its NHWC input, which is a channels-last NCHW tensor,
 so cuDNN writes its output channels-last too, and the output permuted back
 is the contiguous ``[B, HW, C]`` the GroupNorm kernels read with no copy.
+
+Both autograd functions work under ``torch.func.grad`` inside
+``torch.func.vmap``, the shape of the JAX package's vmapped local training:
+their forward and backward are vmapped as written (``generate_vmap_rule``),
+and the hand-written kernels they reach are custom ops whose vmap rules
+fold the vmapped dim into the kernel's leading axis. A vmapped ResNet-18
+forward over M models therefore launches each GroupNorm kernel 20 times in
+all, at M*B samples with the models' ``[M, C]`` scale/bias, and its
+backward launches the weight-gradient kernel 4 times, with M clients on its
+client axis; the convolutions become grouped channels-last ones
+(ops/conv.py), their outputs left with the models on the channel side,
+where the GroupNorm reads them without a copy while ``M*C`` fits its
+kernels' row (2048 bf16 channels) and folds them into its batch beyond.
 
 The W-folded stage 1 of the JAX package (``fold_stage1``) is a TPU
 lane-layout device with identical parameters and exact math, so the port
@@ -42,9 +57,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from distributed_learning_simulator_tpu_torch.ops.gn_cuda import group_norm
+from distributed_learning_simulator_tpu_torch.ops.conv import (
+    conv_nhwc,
+    conv_nhwc_dx_op,
+    conv_nhwc_op,
+)
+from distributed_learning_simulator_tpu_torch.ops.gn_cuda import (
+    group_norm_op,
+)
 from distributed_learning_simulator_tpu_torch.ops.wgrad_cuda import (
-    conv3x3_wgrad,
+    conv3x3_wgrad_op,
 )
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -83,19 +105,29 @@ def pgn_backward(x, scale, bias, mean_g, rstd_g, dy, g: int):
 
 
 class _PlainGroupNormFn(torch.autograd.Function):
-    """GroupNorm whose forward is :func:`group_norm` (the CUDA kernels on a
-    CUDA tensor, their plain versions on a CPU tensor) and whose backward
-    is :func:`pgn_backward`."""
+    """GroupNorm whose forward is ``group_norm`` (the custom op over the
+    CUDA kernels on a CUDA tensor, their plain versions on a CPU tensor) and
+    whose backward is :func:`pgn_backward`. Returns ``(y, mean_g,
+    rstd_g)``; the statistics are not differentiable. Under vmap the
+    backward runs per model, so dscale/dbias stay per client."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x, scale, bias, g, eps, out_dtype):
-        y, mean_g, rstd_g = group_norm(x, scale, bias, g, eps, out_dtype)
+    def forward(x, scale, bias, g, eps, out_dtype):
+        with torch.no_grad():
+            return group_norm_op(x, scale, bias, g, eps, out_dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, scale, bias, g, _, _ = inputs
+        _, mean_g, rstd_g = output
         ctx.save_for_backward(x, scale, bias, mean_g, rstd_g)
+        ctx.mark_non_differentiable(mean_g, rstd_g)
         ctx.g = g
-        return y
 
     @staticmethod
-    def backward(ctx, dy):
+    def backward(ctx, dy, _dmean, _drstd):
         x, scale, bias, mean_g, rstd_g = ctx.saved_tensors
         dx, dscale, dbias = pgn_backward(x, scale, bias, mean_g, rstd_g, dy,
                                          ctx.g)
@@ -120,12 +152,13 @@ class PlainGroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        # contiguous() is free on the channels-last conv outputs the model
-        # feeds here (see the module docstring).
+        # Not made contiguous here: under vmap that would move the models
+        # off the channel side where the convolutions leave them (the op
+        # makes its input contiguous itself).
         return _PlainGroupNormFn.apply(
-            x.contiguous(), self.scale, self.bias, self.num_groups,
-            self.epsilon, self.dtype,
-        )
+            x, self.scale, self.bias, self.num_groups, self.epsilon,
+            self.dtype,
+        )[0]
 
 
 def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
@@ -135,33 +168,49 @@ def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def same_conv(x, weight, stride: int):
+    """XLA's SAME convolution of NHWC ``x`` with an OIHW ``weight``
+    (ops/conv.py ``conv_nhwc``): symmetric padding as the convolution's,
+    an asymmetric one (stride 2 on an even input) as an explicit pad."""
+    k = weight.shape[2]
+    ph = _same_pads(x.shape[1], k, stride)
+    pw = _same_pads(x.shape[2], weight.shape[3], stride)
+    if ph[0] == ph[1] == pw[0] == pw[1]:
+        return conv_nhwc(x, weight, stride, ph[0])
+    x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+    return conv_nhwc(x, weight, stride, 0)
+
+
 class _Conv3x3Fn(torch.autograd.Function):
     """3x3 stride-1 SAME convolution of NHWC ``x`` with an OIHW ``weight``,
     both in the compute dtype. Forward and input gradient are cuDNN's
-    (``convolution_backward`` asked for the input gradient only); the weight
+    (ops/conv.py's ops, vmapped as grouped convolutions); the weight
     gradient is :func:`conv3x3_wgrad` (the kernel on a CUDA tensor, its
     plain version on a CPU one), f32, cast to the weight's dtype as JAX
     gives a bf16 convolution a bf16 weight cotangent."""
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, x, weight):
-        ctx.save_for_backward(x, weight)
-        y = F.conv2d(x.permute(0, 3, 1, 2), weight, padding=1)
-        return y.permute(0, 2, 3, 1)
+    def forward(x, weight):
+        with torch.no_grad():
+            return conv_nhwc_op(x, weight, 1, 1, 1)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
-        dy = dy.contiguous()
         dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = torch.ops.aten.convolution_backward(
-                dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), weight, None,
-                [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
-                [True, False, False],
-            )[0].permute(0, 2, 3, 1)
-        if ctx.needs_input_grad[1]:
-            dw = conv3x3_wgrad(x.contiguous(), dy)
+        with torch.no_grad():
+            if ctx.needs_input_grad[0]:
+                dx = conv_nhwc_dx_op(dy, weight, x.shape[1], x.shape[2], 1,
+                                     1, 1)
+            if ctx.needs_input_grad[1]:
+                dw = conv3x3_wgrad_op(x.contiguous(), dy.contiguous())
+        if dw is not None:
             dw = dw.permute(3, 2, 0, 1).to(weight.dtype)
         return dx, dw
 
@@ -187,18 +236,16 @@ class SameConv2d(nn.Conv2d):
         if self.wgrad_kernel:
             return _Conv3x3Fn.apply(x.to(self.compute_dtype),
                                     self.weight.to(self.compute_dtype))
-        xc = x.to(self.compute_dtype).permute(0, 3, 1, 2)
         k, s = self.kernel_size[0], self.stride[0]
-        ph = _same_pads(xc.shape[2], k, s)
-        pw = _same_pads(xc.shape[3], k, s)
-        if ph[0] == ph[1] and pw[0] == pw[1]:
-            padding = (ph[0], pw[0])
-        else:
-            xc = F.pad(xc, (pw[0], pw[1], ph[0], ph[1]))
-            padding = (0, 0)
-        y = F.conv2d(xc, self.weight.to(self.compute_dtype), stride=s,
-                     padding=padding)
-        return y.permute(0, 2, 3, 1)
+        if k == 1:
+            # The projection: SAME never pads a 1x1 window, so it is the
+            # strided pixels times the [cout, cin] kernel, a matmul over
+            # channels on the NHWC tensor.
+            w = self.weight.to(self.compute_dtype).reshape(
+                self.out_channels, -1)
+            return x.to(self.compute_dtype)[:, ::s, ::s] @ w.t()
+        return same_conv(x.to(self.compute_dtype),
+                         self.weight.to(self.compute_dtype), s)
 
 
 class Dense(nn.Linear):

@@ -10,6 +10,7 @@ crop_key, (b, 2), 0, 9)`` (rows, columns), replayed on the host
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -27,9 +28,23 @@ def cifar_draws(key, batch: int):
 
 def cifar_augment(x: torch.Tensor, key) -> torch.Tensor:
     """Random flip + pad-4 random crop of an NHWC batch; same shape and
-    dtype out."""
+    dtype out. ``x [B, H, W, C]`` with one key, or a chunk's ``[M, B, H, W,
+    C]`` with a list of M keys (member m's batch draws from its key), in
+    one pass either way."""
+    if isinstance(key, (list, tuple)):
+        m, b = x.shape[:2]
+        draws = [cifar_draws(k, b) for k in key]
+        flip = np.concatenate([f for f, _ in draws])
+        offsets = np.concatenate([o for _, o in draws])
+        out = _flip_crop(x.reshape((m * b,) + tuple(x.shape[2:])), flip,
+                         offsets)
+        return out.reshape(x.shape)
+    flip, offsets = cifar_draws(key, x.shape[0])
+    return _flip_crop(x, flip, offsets)
+
+
+def _flip_crop(x: torch.Tensor, flip, offsets) -> torch.Tensor:
     b, h, w, _ = x.shape
-    flip, offsets = cifar_draws(key, b)
     flip = torch.as_tensor(flip, device=x.device)
     x = torch.where(flip[:, None, None, None], x.flip(2), x)
     pad = F.pad(x, (0, 0, _PAD, _PAD, _PAD, _PAD))
@@ -44,8 +59,8 @@ _AUGMENTS = {"cifar": cifar_augment}
 
 
 def get_augment(name: str | None):
-    """Augment registry: name -> fn(batch, key) -> batch; 'none'/None ->
-    None."""
+    """Augment registry: name -> fn(batch, key) -> batch (or fn(chunk
+    batch, keys), see :func:`cifar_augment`); 'none'/None -> None."""
     if not name or name.lower() in ("none", ""):
         return None
     key = name.lower()

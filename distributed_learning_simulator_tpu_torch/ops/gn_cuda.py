@@ -20,6 +20,24 @@ Counterpart of ``distributed_learning_simulator_tpu/ops/gn_pallas.py``:
 * :func:`group_norm` is the counterpart of ``pallas_group_norm(...,
   folds=1)``: ``x [B, H, W, C] -> (y, mean_g [B, G], rstd_g [B, G])``.
 
+``scale``/``bias`` are per channel, ``[C]``, or per model, ``[M, C]``: under
+the JAX package's client vmap each client's GroupNorm has its own affine,
+and here M models' samples are stacked on the batch axis (``x [M*B, HW,
+C]``, sample ``s`` reads row ``s // B``). The statistics are per sample
+either way.
+
+``torch.func.vmap`` cannot look inside a ctypes launch, so the three
+functions the models call are also registered as ``torch.library`` custom
+ops (``torch.ops.dls.gn_stats``, ``dls.gn_normalize``, ``dls.group_norm``)
+with vmap rules that fold the vmapped dim into the kernel's leading axis:
+a vmapped ResNet forward over M models launches each kernel once per
+GroupNorm, at ``M*B`` samples, with the models' scale/bias as ``[M, C]``
+(or as one ``[C]`` where the params are shared, as under sign_SGD). Where
+the models sit on the channel side instead, as ops/conv.py's grouped
+convolutions leave them, and ``M*C`` channels fit a kernel row,
+``dls.group_norm`` reads them in place: the GroupNorm of ``[B, HW, M*C]``
+with ``M*G`` groups and the M affines side by side is each model's.
+
 Both kernels are bound by bytes on an H100 (3.35 TB/s): the stats pass must
 read ``x`` once, the normalize pass read ``x`` and write ``y`` once each.
 csrc/gn.cu says what the design does about that bound.
@@ -39,6 +57,7 @@ from typing import NamedTuple
 import torch
 
 from distributed_learning_simulator_tpu_torch.ops._build import load_library
+from distributed_learning_simulator_tpu_torch.ops._vmap import models_first
 
 _THREADS = 256  # csrc/gn.cu kThreads
 _MAX_SPLIT = 8  # the largest portable thread-block cluster
@@ -128,16 +147,29 @@ def gn_stats_plain(x: torch.Tensor, g: int, eps: float):
     return mean, torch.rsqrt(var + eps)
 
 
+def _affine_rows(t: torch.Tensor, b: int, g: int) -> torch.Tensor:
+    """``[C]`` -> ``[G, cpg]``; ``[M, C]`` -> ``[B, G, cpg]`` (model
+    ``s // (B / M)`` for sample ``s``), f32."""
+    if t.dim() == 1:
+        return t.float().reshape(g, -1)
+    return t.float().repeat_interleave(b // t.shape[0], dim=0).reshape(
+        b, g, -1)
+
+
 def gn_normalize_plain(x, mean, rstd, scale, bias, out_dtype):
     """Plain version of the normalize kernel: subtract first, then one
-    multiply by ``a = rstd * scale``, then the bias, in f32, cast once."""
+    multiply by ``a = rstd * scale``, then the bias, in f32, cast once.
+    ``scale``/``bias`` are ``[C]`` or ``[M, C]`` (module docstring)."""
     b, hw, c = x.shape
     g = mean.shape[1]
     cpg = c // g
-    a = rstd[:, :, None] * scale.float().reshape(g, cpg)       # [B, G, cpg]
+    a = rstd[:, :, None] * _affine_rows(scale, b, g)            # [B, G, cpg]
+    bi = _affine_rows(bias, b, g)
+    if bi.dim() == 3:
+        bi = bi[:, None]
     y = (x.float().reshape(b, hw, g, cpg) - mean[:, None, :, None]) * a[
         :, None
-    ] + bias.float().reshape(g, cpg)
+    ] + bi
     return y.to(out_dtype).reshape(b, hw, c)
 
 
@@ -155,7 +187,7 @@ def _lib() -> ctypes.CDLL:
         for params in _KERNEL_DTYPES.values():
             norm = getattr(lib, f"dls_gn_normalize_{suffix}_{params}")
             norm.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                             ci, vp]
+                             ci, ci, vp]
             norm.restype = ci
     return lib
 
@@ -224,8 +256,9 @@ gn_stats.launches = 0
 
 
 def gn_normalize(x, mean, rstd, scale, bias, out_dtype):
-    """``y = (x - mean) * (rstd * scale) + bias`` on ``x [B, HW, C]``: an
-    ordinary launch, so it may follow any kernel that wrote its inputs."""
+    """``y = (x - mean) * (rstd * scale) + bias`` on ``x [B, HW, C]``, with
+    ``scale``/``bias`` ``[C]`` or ``[M, C]`` (M dividing B): an ordinary
+    launch, so it may follow any kernel that wrote its inputs."""
     return _normalize(x, mean, rstd, scale, bias, out_dtype, after_stats=False)
 
 
@@ -257,13 +290,18 @@ def _normalize(x, mean, rstd, scale, bias, out_dtype, after_stats: bool,
     # bf16 local training) and widens it exactly: no conversion launches.
     if (
         scale.dtype not in _KERNEL_DTYPES or bias.dtype != scale.dtype
-        or any(t.shape != (c,) or not t.is_contiguous()
-               or t.device != x.device for t in (scale, bias))
+        or scale.shape != bias.shape
+        or scale.shape not in ((c,), (scale.shape[0], c))
+        or (scale.dim() == 2 and (scale.shape[0] < 1
+                                  or b % scale.shape[0]))
+        or any(not t.is_contiguous() or t.device != x.device
+               for t in (scale, bias))
     ):
         raise ValueError(
-            f"scale/bias must be contiguous [{c}] bfloat16 or float32 of one "
-            "dtype on x's device"
+            f"scale/bias must be contiguous [{c}] or [M, {c}] (M dividing "
+            f"B={b}) bfloat16 or float32 of one dtype and shape on x's device"
         )
+    rows_per_model = b // scale.shape[0] if scale.dim() == 2 else 0
     plan = normalize_plan(b, hw, c, x.element_size(),
                           _sm_count(x.device.index), slices)
     y = torch.empty_like(x)
@@ -273,7 +311,7 @@ def _normalize(x, mean, rstd, scale, bias, out_dtype, after_stats: bool,
     err = fn(
         x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), scale.data_ptr(),
         bias.data_ptr(), y.data_ptr(), b, hw, c, g, plan.slices,
-        plan.rows_per_slice, int(after_stats),
+        plan.rows_per_slice, rows_per_model, int(after_stats),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _raise_on_error(err, "gn_normalize_kernel")
@@ -292,7 +330,8 @@ def reset_launch_counts() -> None:
 def group_norm(x, scale, bias, g: int, eps: float, out_dtype):
     """GroupNorm forward on ``x [B, H, W, C]``; returns ``(y [B, H, W, C],
     mean_g [B, G] f32, rstd_g [B, G] f32)`` — ``pallas_group_norm`` at
-    ``folds=1``. ``scale``/``bias`` are per-channel ``[C]``."""
+    ``folds=1``. ``scale``/``bias`` are per-channel ``[C]``, or ``[M, C]``
+    for M models stacked on the batch axis."""
     b, h, w, c = x.shape
     if x.device.type != "cpu" and not x.is_contiguous():
         # A reshape would copy silently; the model keeps its activations
@@ -305,3 +344,133 @@ def group_norm(x, scale, bias, g: int, eps: float, out_dtype):
     y = _normalize(xr, mean_g, rstd_g, scale, bias, out_dtype,
                    after_stats=True)
     return y.reshape(b, h, w, c), mean_g, rstd_g
+
+
+# --- custom ops: what torch.func.vmap sees ---------------------------------
+#
+# Each op runs the wrapper above (the kernel on a CUDA tensor, the plain
+# version on a CPU one). A vmap rule folds the vmapped dim into the leading
+# (sample) axis and calls the op once: x batched at dim d becomes [M*B, ...];
+# a batched scale/bias becomes the kernel's [M, C] affine, an unbatched one
+# stays [C] (shared params). Nothing here differentiates: the models' autograd
+# functions call these ops under no_grad and give their own backward.
+
+
+def _fold(t: torch.Tensor, bdim, size: int) -> torch.Tensor:
+    """``t``'s models folded into its first dim: ``[M, B, ...] -> [M*B,
+    ...]``, contiguous."""
+    t = models_first(t, bdim, size)
+    return t.reshape((-1,) + tuple(t.shape[2:])).contiguous()
+
+
+def _samples(t: torch.Tensor, bdim) -> int:
+    """The per-model batch B of ``t``: its first dim other than the
+    vmapped one."""
+    return t.shape[1 if bdim == 0 else 0]
+
+
+def _model_rows(scale, bias, in_dims, size: int):
+    """The affine as the kernel takes it: ``[C]`` when neither is vmapped,
+    else both as contiguous ``[M, C]``."""
+    if in_dims == (None, None):
+        return scale, bias
+    return tuple(models_first(t, d, size).contiguous()
+                 for t, d in zip((scale, bias), in_dims))
+
+
+@torch.library.custom_op("dls::gn_stats", mutates_args=())
+def gn_stats_op(x: torch.Tensor, g: int, eps: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    return gn_stats(x.contiguous(), g, eps)
+
+
+@gn_stats_op.register_fake
+def _(x, g, eps):
+    out = x.new_empty((x.shape[0], g), dtype=torch.float32)
+    return out, torch.empty_like(out)
+
+
+def _gn_stats_vmap(info, in_dims, x, g, eps):
+    b = _samples(x, in_dims[0])
+    mean, rstd = gn_stats_op(_fold(x, in_dims[0], info.batch_size), g, eps)
+    return (mean.reshape(-1, b, g), rstd.reshape(-1, b, g)), (0, 0)
+
+
+torch.library.register_vmap("dls::gn_stats", _gn_stats_vmap)
+
+
+@torch.library.custom_op("dls::gn_normalize", mutates_args=())
+def gn_normalize_op(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                    scale: torch.Tensor, bias: torch.Tensor,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    return gn_normalize(x.contiguous(), mean.contiguous(),
+                        rstd.contiguous(), scale.contiguous(),
+                        bias.contiguous(), out_dtype)
+
+
+@gn_normalize_op.register_fake
+def _(x, mean, rstd, scale, bias, out_dtype):
+    return x.new_empty(x.shape, dtype=out_dtype)
+
+
+def _gn_normalize_vmap(info, in_dims, x, mean, rstd, scale, bias, out_dtype):
+    size = info.batch_size
+    xd, md, rd, sd, bd = in_dims[:5]
+    b = _samples(x, xd)
+    scale, bias = _model_rows(scale, bias, (sd, bd), size)
+    y = gn_normalize_op(_fold(x, xd, size), _fold(mean, md, size),
+                        _fold(rstd, rd, size), scale, bias, out_dtype)
+    return y.reshape((size, b) + tuple(y.shape[1:])), 0
+
+
+torch.library.register_vmap("dls::gn_normalize", _gn_normalize_vmap)
+
+
+@torch.library.custom_op("dls::group_norm", mutates_args=())
+def group_norm_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  g: int, eps: float, out_dtype: torch.dtype
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return group_norm(x.contiguous(), scale.contiguous(), bias.contiguous(),
+                      g, eps, out_dtype)
+
+
+@group_norm_op.register_fake
+def _(x, scale, bias, g, eps, out_dtype):
+    mean = x.new_empty((x.shape[0], g), dtype=torch.float32)
+    return (x.new_empty(x.shape, dtype=out_dtype), mean,
+            torch.empty_like(mean))
+
+
+def _group_norm_vmap(info, in_dims, x, scale, bias, g, eps, out_dtype):
+    # x is folded (or, below, viewed) once, then the stats -> normalize
+    # pair runs back to back inside group_norm (the programmatic dependent
+    # launch needs nothing launched between them).
+    size = info.batch_size
+    xd, sd, bd = in_dims[:3]
+    c = x.shape[-1]
+    if (xd == x.dim() - 2 and x.is_contiguous()
+            and size * c <= _THREADS * (16 // x.element_size())):
+        # The models on the channel side, as the grouped convolutions leave
+        # them (ops/conv.py): x is [B, H, W, M*C] in memory, and its
+        # GroupNorm with M*G groups and the M affines side by side is each
+        # model's GroupNorm (a group never spans two models). No copy, and
+        # the output keeps the layout for the next convolution. Only while
+        # a row fits the kernels (one 16-byte vector of it a thread).
+        wide = x.reshape(tuple(x.shape[:xd]) + (size * c,))
+        scale, bias = (models_first(t, d, size).reshape(-1).contiguous()
+                       for t, d in ((scale, sd), (bias, bd)))
+        y, mean, rstd = group_norm_op(wide, scale, bias, g * size, eps,
+                                      out_dtype)
+        b = x.shape[0]
+        return ((y.reshape(x.shape), mean.reshape(b, size, g),
+                 rstd.reshape(b, size, g)), (xd, 1, 1))
+    b = _samples(x, xd)
+    scale, bias = _model_rows(scale, bias, (sd, bd), size)
+    y, mean, rstd = group_norm_op(_fold(x, xd, size), scale, bias, g, eps,
+                                  out_dtype)
+    return ((y.reshape((size, b) + tuple(y.shape[1:])),
+             mean.reshape(size, -1, g), rstd.reshape(size, -1, g)),
+            (0, 0, 0))
+
+
+torch.library.register_vmap("dls::group_norm", _group_norm_vmap)

@@ -14,6 +14,12 @@ do one segmented pass: a min/max per leaf, then elementwise math with each
 element's leaf's scale, zero point and salt. A tensor with no segments is
 one leaf. The arithmetic is the JAX package's op for op in f32, so results
 are bit-exact given the same inputs and salts.
+
+A chunk's ``[M, P]`` stack of flat models is quantized row by row in one
+pass (each row its own extrema and salts), as the JAX package's hooks do
+under its client vmap; :func:`fake_quant` runs under ``torch.func.vmap``
+(the QAT transform inside the vmapped loss), with the hashes, which view
+the float bits as integers, kept outside it.
 """
 
 from __future__ import annotations
@@ -55,7 +61,8 @@ class Segments:
         self._ids = None  # built at first use: int64, one per element
 
     def spread(self, per_leaf: torch.Tensor) -> torch.Tensor:
-        """``[n_leaves]`` -> one value per element (broadcastable)."""
+        """``[..., n_leaves]`` -> one value per element along the last
+        dim (broadcastable)."""
         if len(self.numels) == 1:
             return per_leaf
         if self._ids is None:
@@ -63,37 +70,43 @@ class Segments:
                 torch.arange(len(self.numels), device=self.device),
                 torch.tensor(self.numels, device=self.device),
             )
-        return per_leaf[self._ids]
+        return per_leaf[..., self._ids]
 
 
 class QuantizedTensor(NamedTuple):
-    """Affine-quantized vector: ``value ~= (codes - zero_point) * scale``,
-    with one ``scale``/``zero_point`` per leaf."""
+    """Affine-quantized vector (or ``[M, P]`` stack of them): ``value ~=
+    (codes - zero_point) * scale``, with one ``scale``/``zero_point`` per
+    leaf (per row and leaf)."""
 
     codes: torch.Tensor  # f32 integer-valued codes in [0, levels-1]
-    scale: torch.Tensor  # f32 [n_leaves]
-    zero_point: torch.Tensor  # f32 [n_leaves], in the quantized domain
+    scale: torch.Tensor  # f32 [n_leaves] ([M, n_leaves])
+    zero_point: torch.Tensor  # f32 like scale, in the quantized domain
 
 
 def _segments(x: torch.Tensor, segments: Segments | None) -> Segments:
     return segments if segments is not None else Segments((x.numel(),))
 
 
-def _affine_params(x: torch.Tensor, levels: int, segments: Segments):
-    """Per-leaf ``(scale, zero_point)`` f32, from each leaf's min and max
-    taken in the leaf's own dtype (exact: min/max never round).
+def _affine_params(x: torch.Tensor, levels: int, segments: Segments,
+                   rows: bool = False):
+    """Per-leaf ``(scale, zero_point)`` f32 (``[n_leaves]``; with
+    ``rows``, ``x`` is ``[M, P]`` and they are ``[M, n_leaves]``), from each
+    leaf's min and max taken in the leaf's own dtype (exact: min/max never
+    round).
 
     ``span / (levels - 1)`` is computed as XLA compiles it in the JAX round
     program: a multiply by the f32 reciprocal of the constant."""
     if x.dtype not in (torch.float32, torch.bfloat16, torch.float16,
                        torch.float64):
         x = x.float()
-    flat = x.detach().reshape(-1)
+    flat = x.detach().reshape(x.shape[0] if rows else 1, -1)
     if flat.numel() == 0 or 0 in segments.numels:
         raise ValueError("cannot quantize a zero-size tensor")
-    extrema = [torch.aminmax(leaf) for leaf in flat.split(segments.numels)]
-    xmin = torch.stack([e.min for e in extrema]).float()
-    xmax = torch.stack([e.max for e in extrema]).float()
+    leaves = flat.split(segments.numels, dim=1)
+    xmin = torch.stack([leaf.amin(dim=1) for leaf in leaves], dim=1).float()
+    xmax = torch.stack([leaf.amax(dim=1) for leaf in leaves], dim=1).float()
+    if not rows:
+        xmin, xmax = xmin[0], xmax[0]
     span = xmax - xmin
     recip = float(np.float32(1.0) / np.float32(levels - 1))
     scale = torch.where(span > 0, span * recip, torch.ones_like(span))
@@ -110,18 +123,21 @@ def _dither_u01(x32: torch.Tensor, salt) -> torch.Tensor:
 
 
 def stochastic_quantize(x: torch.Tensor, levels: int, salts,
-                        segments: Segments | None = None) -> QuantizedTensor:
+                        segments: Segments | None = None,
+                        rows: bool = False) -> QuantizedTensor:
     """Quantize ``x`` to ``levels`` levels per leaf with stochastic rounding
     (unbiased: ``P[up] = frac``). ``salts`` holds one 32-bit salt per leaf
     (the JAX package's ``_salt_from_key`` of the leaf's key); the codes are
-    bit-exact against JAX given the same salts."""
-    seg = _segments(x, segments)
-    scale, zero_point = _affine_params(x, levels, seg)
+    bit-exact against JAX given the same salts. With ``rows``, ``x`` is an
+    ``[M, P]`` stack of flat vectors and ``salts`` is ``[M, n_leaves]``:
+    each row is quantized on its own, as it would be alone."""
+    seg = _segments(x[0] if rows else x, segments)
+    scale, zero_point = _affine_params(x, levels, seg, rows)
     salt = seg.spread(torch.as_tensor(salts, dtype=torch.int64,
-                                      device=x.device).reshape(-1))
-    normalized = x.float().reshape(-1) / seg.spread(scale) + seg.spread(
-        zero_point
-    )
+                                      device=x.device).reshape(
+        (x.shape[0], -1) if rows else (-1,)))
+    normalized = x.float().reshape((x.shape[0], -1) if rows else (-1,)) / (
+        seg.spread(scale)) + seg.spread(zero_point)
     dither = _dither_u01(normalized, salt)
     codes = torch.clamp(torch.floor(normalized + dither), 0, levels - 1)
     return QuantizedTensor(codes.reshape(x.shape), scale, zero_point)
@@ -130,8 +146,9 @@ def stochastic_quantize(x: torch.Tensor, levels: int, salts,
 def dequantize(q: QuantizedTensor,
                segments: Segments | None = None) -> torch.Tensor:
     """Inverse affine map, f32."""
-    seg = _segments(q.codes, segments)
-    codes = q.codes.reshape(-1)
+    rows = q.scale.dim() == 2  # an [M, P] stack (stochastic_quantize)
+    seg = _segments(q.codes[0] if rows else q.codes, segments)
+    codes = q.codes.reshape((q.codes.shape[0], -1) if rows else (-1,))
     out = (codes - seg.spread(q.zero_point)) * seg.spread(q.scale)
     return out.reshape(q.codes.shape)
 
@@ -140,7 +157,8 @@ def fake_quant(x: torch.Tensor, levels: int,
                segments: Segments | None = None) -> torch.Tensor:
     """Deterministic per-leaf quantize -> dequantize with a straight-through
     gradient (the gradient is the identity). Computed in f32 and cast back
-    to ``x``'s dtype, as in the JAX package."""
+    to ``x``'s dtype, as in the JAX package. Plain tensor ops: it vmaps
+    over a stack of models, each with its own per-leaf extrema."""
     seg = _segments(x, segments)
     scale, zero_point = _affine_params(x, levels, seg)
     s, z = seg.spread(scale), seg.spread(zero_point)

@@ -1,21 +1,27 @@
-"""Local training of one client, and server evaluation (parallel/engine.py
-of the JAX package).
+"""Local training over a chunk of clients, and server evaluation
+(parallel/engine.py of the JAX package).
 
 Each model is one flat tensor (models/registry.py ``ParamLayout``): the f32
 global model, a client's local copy, its gradient and its momentum trace.
 So the optimizer step, the bf16 stochastic rounding and the aggregation are
 a handful of flat tensor ops, whatever the number of parameter leaves.
 
-The JAX package vmaps ``local_train`` over the client axis. Here the client
-axis is written out: the round (algorithms/fedavg.py) calls ``local_train``
-once per client. Its randomness — each epoch's batch order and the bf16
-rounding salt — comes from the client's key of the JAX package's key chain
-(:func:`client_draws`, ops/prng.py), so it is the reference's bit for bit,
-or is handed in by the caller.
+The JAX package vmaps ``local_train`` over a chunk of clients. So does the
+port: :func:`make_chunk_train_fn` trains M clients at once, their params an
+``[M, P]`` stack, with one ``torch.func.vmap`` of ``grad_and_value`` per
+optimizer step (one forward and one backward for the whole chunk; the
+models' hand-written kernels fold the client axis into their leading axis,
+models/resnet.py). The SGD step, the lr scale, the momentum and the bf16
+stochastic rounding are elementwise ops on the stack, so each row is the
+one-client computation bit for bit. Each client's randomness — each epoch's
+batch order, the bf16 rounding salt and the augmentation key — comes from
+its key of the JAX package's key chain (:func:`client_draws`, ops/prng.py),
+so it is the reference's bit for bit, or is handed in by the caller.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import numpy as np
@@ -23,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from distributed_learning_simulator_tpu_torch.ops import prng
+from distributed_learning_simulator_tpu_torch.ops.cohort import batched_take
 from distributed_learning_simulator_tpu_torch.ops.quantize import (
     MASK32,
     Segments,
@@ -31,6 +38,21 @@ from distributed_learning_simulator_tpu_torch.ops.quantize import (
 
 #: Salt advance per rounded leaf (the JAX package's ``0x9E3779B9``).
 SALT_STEP = 0x9E3779B9
+
+
+@contextlib.contextmanager
+def no_vmap_fallback():
+    """Inside, an op with no batching rule under ``torch.func.vmap`` raises
+    instead of taking functorch's per-example loop, which it would do with
+    no more than a performance warning: a batched path that silently ran
+    client by client would still give the right numbers. The tests and
+    chip_smoke.py run the batched paths under it."""
+    was = torch._C._functorch._is_vmap_fallback_enabled()
+    torch._C._functorch._set_vmap_fallback_enabled(False)
+    try:
+        yield
+    finally:
+        torch._C._functorch._set_vmap_fallback_enabled(was)
 
 
 class SGD:
@@ -124,20 +146,42 @@ def _sr_tree_to_bf16(leaves, salt: int):
     return out, salt
 
 
+#: Elements of a stack rounded at once (int64 temporaries of 512 MB each).
+ROUND_ELEMENTS = 1 << 26
+
+
 class FlatRounder:
     """``_sr_tree_to_bf16`` over a flat parameter vector in one pass: the
     per-element salt is ``salt + leaf_index * 0x9E3779B9`` (leaves in the
     layout's order, the JAX tree's leaf order), and the salt advances by one
-    step per leaf, exactly as the leaf-by-leaf loop would."""
+    step per leaf, exactly as the leaf-by-leaf loop would.
+
+    An ``[M, P]`` stack takes one salt per row (each client's own). Its
+    int64 hash temporaries are cut to ``ROUND_ELEMENTS`` elements at a
+    time, a slice of whole rows: the hash is per element, so the result is
+    the same bits as rounding each row alone."""
 
     def __init__(self, layout, device):
         self.n_leaves = len(layout.names)
         steps = torch.arange(self.n_leaves, device=device) * SALT_STEP
         self.offsets = Segments(layout.numels, device).spread(steps & MASK32)
 
-    def __call__(self, flat32: torch.Tensor, salt: int):
-        rounded, _ = _sr_to_bf16(flat32, (self.offsets + salt) & MASK32)
-        return rounded, (salt + self.n_leaves * SALT_STEP) & MASK32
+    def __call__(self, flat32: torch.Tensor, salt):
+        """``flat32 [P]`` with an int salt, or ``[M, P]`` with M salts;
+        returns ``(bf16 of the same shape, advanced salt(s))``."""
+        if flat32.dim() == 1:
+            rounded, salts = self(flat32[None], [salt])
+            return rounded[0], salts[0]
+        step = self.n_leaves * SALT_STEP
+        salts = torch.as_tensor([int(v) for v in salt], dtype=torch.int64,
+                                device=flat32.device)
+        out = torch.empty(flat32.shape, dtype=torch.bfloat16,
+                          device=flat32.device)
+        rows = max(1, ROUND_ELEMENTS // max(1, flat32.shape[1]))
+        for r in range(0, flat32.shape[0], rows):
+            salt_rows = (self.offsets + salts[r:r + rows, None]) & MASK32
+            out[r:r + rows], _ = _sr_to_bf16(flat32[r:r + rows], salt_rows)
+        return out, [(int(v) + step) & MASK32 for v in salt]
 
 
 def client_draws(client_key, n_slots: int, epochs: int,
@@ -160,7 +204,30 @@ def client_draws(client_key, n_slots: int, epochs: int,
     return perms, salt
 
 
-def make_local_train_fn(
+def stack_draws(draws):
+    """Per-member :func:`client_draws` results -> ``(epoch_perms [M, E,
+    n_slots] int64, sr_salts [M], aug_keys [M] or None)``, the chunk form
+    :func:`make_chunk_train_fn` takes."""
+    perms = torch.stack([torch.stack([torch.as_tensor(p, dtype=torch.int64)
+                                      for p in d[0]]) for d in draws])
+    salts = [int(d[1]) for d in draws]
+    aug_keys = [d[2] for d in draws] if len(draws[0]) > 2 else None
+    return perms, salts, aug_keys
+
+
+def chunk_decoder(preprocess):
+    """``preprocess`` over a chunk's ``[M, B, ...]`` batch (it takes one
+    ``[B, ...]`` batch): fold the client axis into the batch and back."""
+
+    def decode(bx):
+        m, b = bx.shape[:2]
+        out = preprocess(bx.reshape((m * b,) + tuple(bx.shape[2:])))
+        return out.reshape((m, b) + tuple(out.shape[1:]))
+
+    return decode
+
+
+def make_chunk_train_fn(
     apply_fn: Callable,
     optimizer: SGD,
     layout,
@@ -173,67 +240,82 @@ def make_local_train_fn(
     reset_optimizer: bool = True,
     augment: Callable | None = None,
 ):
-    """Build ``local_train(global_flat, xs, ys, mask, epoch_perms, sr_salt,
-    aug_key=None, lr_scale=1.0, opt_state=None) -> (params_flat, opt_state,
-    metrics)``.
+    """Build ``train_chunk(global_flat, xs, ys, mask, epoch_perms, sr_salts,
+    aug_keys=None, lr_scale=1.0, opt_state=None) -> (params [M, P],
+    opt_state, metrics)``: M clients' local runs as one program, the JAX
+    package's ``vmap(local_train)`` over a chunk.
 
-    E epochs over the client's ``n_slots = xs.shape[0]`` slots, one batch
-    order per epoch (``epoch_perms[e]``, a permutation of the slots), batches
-    of ``batch_size``. A fully masked batch is still an optimizer step, as in
-    the JAX scan. ``metrics`` holds the last epoch's mean batch loss and
-    accuracy as device scalars.
+    ``xs, ys, mask`` are the members' ``[M, n_slots, ...]`` shards,
+    ``epoch_perms`` ``[M, E, n_slots]`` their batch orders (a permutation
+    of the slots per epoch), ``sr_salts`` their M bf16 rounding salts,
+    ``aug_keys`` their M augmentation keys. Each step gathers every
+    member's own batch of ``batch_size`` (``[M, B, ...]``), and one
+    ``torch.func.vmap(torch.func.grad_and_value(loss))`` computes the M
+    losses and gradients. A fully masked batch is still an optimizer step,
+    as in the JAX scan. ``metrics`` holds each member's last-epoch mean
+    batch loss and accuracy, ``[M]`` device tensors.
 
-    ``compute_dtype=torch.bfloat16``: the client's params, grads and
-    momentum live in bf16 for the local run. The f32 global model is cast
-    with stochastic rounding salted by ``sr_salt``, and every step adds the
-    update to the params in f32 and rounds stochastically into bf16
-    storage.
+    ``compute_dtype=torch.bfloat16``: the clients' params, grads and
+    momenta live in bf16 for the local run. The f32 global model is cast
+    with stochastic rounding salted by each member's salt, and every step
+    adds the update to the params in f32 and rounds stochastically into
+    bf16 storage.
 
     With ``reset_optimizer`` (``reset_client_optimizer``, the default) the
     optimizer starts fresh every round, the ``opt_state`` argument is
     ignored and None is returned in its place; otherwise the run starts
-    from the client's persistent ``opt_state`` (the momentum trace, f32 as
-    the JAX package initializes it from the f32 global model; None without
-    momentum) and returns its final state.
+    from the members' persistent ``opt_state`` ``[M, P]`` (the momentum
+    traces, f32 as the JAX package initializes them from the f32 global
+    model; None without momentum) and returns their final state.
 
-    ``augment(batch, key)`` (ops/augment.py) transforms each decoded batch
-    with the key ``fold_in(fold_in(aug_key, epoch), step)``, as the JAX
-    scan does.
+    ``augment(batch, keys)`` (ops/augment.py) transforms each decoded
+    ``[M, B, ...]`` batch, member m with the key ``fold_in(fold_in(
+    aug_keys[m], epoch), step)``, as the JAX scan does, in one pass.
 
     ``param_transform`` (flat -> flat, e.g. fed_quant's fake-quant) is
-    applied to the params inside the loss.
+    applied to the params inside the loss, per member.
     """
     loss_fn = make_loss_fn(
         lambda flat, x: apply_fn(layout.unflatten(flat), x), param_transform
     )
+    grad_fn = torch.func.vmap(
+        torch.func.grad_and_value(loss_fn, has_aux=True))
     sr_enabled = compute_dtype == torch.bfloat16
     rounder = FlatRounder(layout, device) if sr_enabled else None
+    decode = chunk_decoder(preprocess) if preprocess is not None else None
 
-    def local_train(global_flat, xs, ys, mask, epoch_perms, sr_salt,
-                    aug_key=None, lr_scale=1.0, opt_state=None):
-        salt = sr_salt
-        params = global_flat  # never written in place
+    def train_chunk(global_flat, xs, ys, mask, epoch_perms, sr_salts,
+                    aug_keys=None, lr_scale=1.0, opt_state=None):
+        m = xs.shape[0]
+        salts = list(sr_salts)
         with torch.no_grad():
             if sr_enabled:
-                params, salt = rounder(global_flat, salt)
+                params, salts = rounder(
+                    global_flat.expand(m, *global_flat.shape), salts)
+            else:
+                # Never written in place: every step makes a new stack.
+                params = global_flat.expand(m, *global_flat.shape)
             if reset_optimizer:
                 opt_state = optimizer.init(params)
-        steps = xs.shape[0] // batch_size
+        steps = xs.shape[1] // batch_size
+        epoch_perms = epoch_perms.to(xs.device)
         epoch_loss = epoch_acc = None
-        for epoch, perm in enumerate(epoch_perms):
-            perm = perm.to(xs.device)
+        for epoch in range(epoch_perms.shape[1]):
             losses, accs = [], []
             for step in range(steps):
-                idx = perm[step * batch_size:(step + 1) * batch_size]
-                bx, by, bm = xs[idx], ys[idx], mask[idx]
-                if preprocess is not None:
-                    bx = preprocess(bx)
+                idx = epoch_perms[:, epoch,
+                                  step * batch_size:(step + 1) * batch_size]
+                bx = batched_take(xs, idx)
+                by = batched_take(ys, idx)
+                bm = batched_take(mask, idx)
+                if decode is not None:
+                    bx = decode(bx)
                 if augment is not None:
-                    bx = augment(bx, prng.fold_in(
-                        prng.fold_in(aug_key, epoch), step))
-                p = params.detach().requires_grad_(True)
-                loss, acc = loss_fn(p, bx, by, bm)
-                (grads,) = torch.autograd.grad(loss, p)
+                    bx = augment(bx, [
+                        prng.fold_in(prng.fold_in(k, epoch), step)
+                        for k in aug_keys
+                    ])
+                grads, (loss, acc) = grad_fn(params, bx, by, bm)
                 with torch.no_grad():
                     updates, opt_state = optimizer.update(
                         grads, opt_state, params
@@ -245,17 +327,45 @@ def make_local_train_fn(
                             updates.dtype
                         )
                     if sr_enabled:
-                        params, salt = rounder(
-                            params.float() + updates.float(), salt
+                        params, salts = rounder(
+                            params.float() + updates.float(), salts
                         )
                     else:
                         params = params + updates
                 losses.append(loss.detach())
                 accs.append(acc.detach())
-            epoch_loss = torch.stack(losses).mean()
-            epoch_acc = torch.stack(accs).mean()
+            epoch_loss = torch.stack(losses).mean(dim=0)
+            epoch_acc = torch.stack(accs).mean(dim=0)
+        if not params.is_contiguous():  # no step ran: the broadcast view
+            params = params.contiguous()
         return (params, None if reset_optimizer else opt_state,
                 {"loss": epoch_loss, "accuracy": epoch_acc})
+
+    return train_chunk
+
+
+def make_local_train_fn(apply_fn: Callable, optimizer: SGD, layout,
+                        local_epochs: int, batch_size: int, **kwargs):
+    """One client's run: ``local_train(global_flat, xs, ys, mask,
+    epoch_perms, sr_salt, aug_key=None, lr_scale=1.0, opt_state=None) ->
+    (params_flat, opt_state, metrics)``, :func:`make_chunk_train_fn` on a
+    chunk of one (the JAX package's ``client_chunk_size=1``). Keyword
+    arguments are :func:`make_chunk_train_fn`'s."""
+    train_chunk = make_chunk_train_fn(apply_fn, optimizer, layout,
+                                      local_epochs, batch_size, **kwargs)
+
+    def local_train(global_flat, xs, ys, mask, epoch_perms, sr_salt,
+                    aug_key=None, lr_scale=1.0, opt_state=None):
+        perms = torch.stack([torch.as_tensor(p, dtype=torch.int64)
+                             for p in epoch_perms])[None]
+        params, state, metrics = train_chunk(
+            global_flat, xs[None], ys[None], mask[None], perms, [sr_salt],
+            aug_keys=None if aug_key is None else [aug_key],
+            lr_scale=lr_scale,
+            opt_state=None if opt_state is None else opt_state[None],
+        )
+        return (params[0], None if state is None else state[0],
+                {k: v[0] for k, v in metrics.items()})
 
     return local_train
 
@@ -282,7 +392,12 @@ def pad_eval_set(x, y, batch_size: int, flatten: bool = False):
 def make_eval_fn(apply_fn: Callable, preprocess: Callable | None = None):
     """Build ``evaluate(params, xb, yb, mb) -> {"loss", "accuracy"}`` over
     pre-padded batches ``[n_batches, batch_size, ...]``; the sums are f32
-    device scalars, fetched by the caller once."""
+    device scalars, fetched by the caller once.
+
+    ``evaluate`` is plain tensor code over the model, so it vmaps over
+    stacked models with the batches shared (:func:`make_models_eval_fn`):
+    the JAX package's ``vmap(eval_one)`` of client eval and of the Shapley
+    subset models."""
 
     @torch.no_grad()
     def evaluate(params, xb, yb, mb):
@@ -302,3 +417,24 @@ def make_eval_fn(apply_fn: Callable, preprocess: Callable | None = None):
         return {"loss": loss_sum / count, "accuracy": correct_sum / count}
 
     return evaluate
+
+
+def make_models_eval_fn(eval_fn: Callable, layout,
+                        transform: Callable | None = None):
+    """``evaluate_models(models [K, P], xb, yb, mb) -> {"loss": [K],
+    "accuracy": [K]}``: ``eval_fn`` (:func:`make_eval_fn`) over K flat
+    models in one vmapped forward per eval batch, each model through
+    ``transform`` first (fed_quant's fake-quant) when given."""
+
+    def one(flat, xb, yb, mb):
+        if transform is not None:
+            flat = transform(flat)
+        return eval_fn(layout.unflatten(flat), xb, yb, mb)
+
+    batched = torch.func.vmap(one, in_dims=(0, None, None, None))
+
+    @torch.no_grad()
+    def evaluate_models(models, xb, yb, mb):
+        return batched(models, xb, yb, mb)
+
+    return evaluate_models

@@ -10,6 +10,11 @@ data, client data, init, per-client state, rounds, one server eval per round.
 
 Runs on the card by default (``--device cuda``); with no card it raises
 rather than carry on on the CPU. ``--device cpu`` is for tests.
+
+``--client_chunk_size C`` trains C clients at once, one vmapped forward and
+backward per step for the whole chunk (``0``: the footprint model picks C;
+unset: the whole cohort at once; ``1``: one client at a time), as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -144,7 +149,11 @@ def _auto_chunk_size(config, n_params: int, n_clients: int,
     """``client_chunk_size=0``: in-flight clients from the JAX package's
     footprint model (``_auto_chunk_size``): ~4x the f32 param bytes of
     transient state per in-flight client against the device budget, less
-    the persistent per-client state, capped at the cohort."""
+    the persistent per-client state, capped at the cohort. The chunk is
+    what the round trains at once (parallel/engine.py
+    ``make_chunk_train_fn``: the chunk's params, gradients, momenta and
+    activations are in flight together), so the model sizes the port's
+    memory as it does the JAX package's."""
     param_bytes = 4 * n_params
     budget = (
         _device_budget_bytes(config, device)

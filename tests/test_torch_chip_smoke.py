@@ -72,3 +72,17 @@ def test_refuses_without_a_gpu_or_outside_the_repo(tmp_path):
             cwd=cwd, capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def test_chunk_steps_bounds_the_batched_forwards():
+    """The gate that a path trained a chunk at a time: at most rounds x
+    epochs x steps x chunks training forwards (the flagship's paths: 2
+    rounds x 4 steps x 2 chunks of 40 for 50 clients; the headline: 2 x 2
+    steps x 4 chunks of 250), where one client at a time would run about
+    chunk times more."""
+    paths = chip_smoke.path_configs(50, 5000, 2000, "WARNING")
+    assert {n: chip_smoke.chunk_steps(c, 5000) for n, c in paths.items()} \
+        == {"fed": 16, "sign_SGD": 16, "fed_quant": 16}
+    headline = chip_smoke.headline_config(1000, None, None, 10000)
+    assert chip_smoke.chunk_steps(headline, 50000) == 2 * 2 * 4
+    assert chip_smoke.FLAGSHIP_CHUNK == paths["fed"].client_chunk_size

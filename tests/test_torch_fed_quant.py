@@ -278,10 +278,12 @@ def test_round_matches_jax():
     raw = {}
     upload = algo.process_client_payload
 
-    def recording_upload(params, client_salts):
-        i = next(k for k, v in salts.items() if v is client_salts)
-        raw[i] = params.clone()
-        return upload(params, client_salts)
+    def recording_upload(chunk, chunk_salts):
+        # The hook takes a chunk's uploads with one salt list per member.
+        for params, client_salts in zip(chunk, chunk_salts):
+            i = next(k for k, v in salts.items() if v is client_salts)
+            raw[i] = params.clone()
+        return upload(chunk, chunk_salts)
 
     algo.process_client_payload = recording_upload
     flat = layout.flatten(params)
@@ -310,7 +312,8 @@ def test_round_matches_jax():
     # the JAX hooks compiled, as they run in the round program).
     j_up = jax.jit(jalgo.process_client_payload)(j_raw, payload_key)[0]
     for i in range(n):
-        got, _ = algo.process_client_payload(j_raw_flat[i], salts[i])
+        got, _ = algo.process_client_payload(j_raw_flat[i][None], [salts[i]])
+        got = got[0]
         tree = jax.tree_util.tree_map(lambda a: a[i], j_up)
         assert torch.equal(
             got, layout.flatten(params_from_jax(jax.device_get(tree))))

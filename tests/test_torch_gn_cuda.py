@@ -228,9 +228,40 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     y = torch.empty_like(x)
     err = gn_cuda._lib().dls_gn_normalize_bf16_f32(
         x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), scale.data_ptr(),
-        bias.data_ptr(), y.data_ptr(), 4, 16, 64, G, 1, 32 * 8 + 1, 0,
+        bias.data_ptr(), y.data_ptr(), 4, 16, 64, G, 1, 32 * 8 + 1, 0, 0,
         torch.cuda.current_stream().cuda_stream)
     assert err != 0
+    # A per-model affine must have a row count that divides the batch.
+    for s, b in ((scale.expand(3, 64).contiguous(),
+                  bias.expand(3, 64).contiguous()),
+                 (scale.expand(2, 64).contiguous(), bias)):
+        with pytest.raises(ValueError, match="scale/bias"):
+            gn_cuda.gn_normalize(x, mean, rstd, s, b, torch.bfloat16)
+
+
+@pytest.mark.parametrize("hw,c", [(1024, 64), (16, 512)])
+@pytest.mark.parametrize("params", [torch.float32, torch.bfloat16])
+def test_model_affine_is_bitwise_per_model_calls(cuda, hw, c, params):
+    """x of 8 models x 5 samples with an ``[8, C]`` affine: bitwise the 8
+    ``[C]`` calls and the plain version, alone and inside group_norm."""
+    m, b = 8, 5
+    x, _, _ = _inputs(m * b, hw, c, torch.bfloat16, cuda, seed=4)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    scale = torch.randn(m, c, device=cuda, generator=gen).to(params)
+    bias = torch.randn(m, c, device=cuda, generator=gen).to(params)
+    mean, rstd = gn_cuda.gn_stats_plain(x, G, EPS)
+    got = gn_cuda.gn_normalize(x, mean, rstd, scale, bias, torch.bfloat16)
+    assert torch.equal(got, gn_cuda.gn_normalize_plain(
+        x, mean, rstd, scale, bias, torch.bfloat16))
+    for k in range(m):
+        rows = slice(k * b, (k + 1) * b)
+        assert torch.equal(got[rows], gn_cuda.gn_normalize(
+            x[rows], mean[rows], rstd[rows], scale[k], bias[k],
+            torch.bfloat16))
+    y, m_k, r_k = gn_cuda.group_norm(x.view(m * b, hw, 1, c), scale, bias,
+                                     G, EPS, torch.bfloat16)
+    assert torch.equal(y.view(m * b, hw, c), gn_cuda.gn_normalize(
+        x, m_k, r_k, scale, bias, torch.bfloat16))
 
 
 @pytest.mark.parametrize("params", [torch.float32, torch.bfloat16])

@@ -195,9 +195,10 @@ def test_fed_quant_payload_salts_follow_the_jax_chain(case):
     got = []
     upload, down = algo.process_client_payload, algo.process_aggregated
 
-    def record_upload(flat, salts):
-        got.append(list(salts))
-        return upload(flat, salts)
+    def record_upload(chunk, salts):
+        # The hook takes a chunk's uploads with one salt list per member.
+        got.extend(list(s) for s in salts)
+        return upload(chunk, salts)
 
     def record_down(flat, salts):
         got.append(list(salts))

@@ -97,3 +97,28 @@ def test_rejects_what_the_kernel_does_not_take(cuda):
     x, g = _inputs((2, 4, 4, 16), torch.float32, cuda)
     with pytest.raises(ValueError, match="contiguous"):
         wgrad_cuda.conv3x3_wgrad(x.transpose(1, 2), g.transpose(1, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,shape", [
+    (40, (25, 32, 32, 64)),  # the flagship's chunk: one chunk a client
+    (4, (25, 32, 32, 64)),   # 11 chunks a client, reduced per client
+    (3, (4, 28, 28, 64)),    # ragged rows, zero fill
+])
+def test_client_axis_is_bitwise_one_client_calls(cuda, n, shape, dtype):
+    """``[N, B, H, W, C]``: each client's dW bitwise equal to a one-client
+    call given the batched plan, and within the tolerance of the plain
+    version."""
+    x, g = _inputs((n,) + shape, dtype, cuda, seed=2)
+    k = wgrad_cuda.conv3x3_wgrad(x, g)
+    assert k.shape == (n, 3, 3, shape[3], shape[3])
+    plan = wgrad_cuda.chunking(*shape, n)
+    for i in range(n):
+        assert torch.equal(k[i], wgrad_cuda.conv3x3_wgrad(x[i], g[i],
+                                                          plan=plan))
+    p = wgrad_cuda.conv3x3_wgrad_plain(x, g)
+    assert (k - p).abs().max().item() <= 1e-4 * p.abs().max().item()
+    assert _bf16_ulps(k, p, x, g) <= 1.0
+    with pytest.raises(ValueError, match="plan"):
+        wgrad_cuda.conv3x3_wgrad(x[0][:, :8].contiguous(),
+                                 g[0][:, :8].contiguous(), plan=plan)
