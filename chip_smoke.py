@@ -34,8 +34,14 @@ together), then runs these phases and exits non-zero if any of them fails:
      equal to 40 calls with ``[C]`` affines and to its plain version; the
      stats kernel at those 1000 samples within rtol 1e-5 of its plain
      version. Timed beside their bounds, their plain versions, cuDNN's
-     weight-only convolution_backward of the grouped convolution (wgrad)
-     and the 40 one-client calls (wgrad, the one-client path).
+     weight-only convolution_backward of the grouped convolution (wgrad),
+     the 40 one-client calls (wgrad, the one-client path) and one
+     F.group_norm of the 40 models side by side on the channel axis (GN);
+   * the GroupNorm kernels with the models on the channel side
+     (``check_channel_side``), as ``group_norm``'s vmap rule reads the
+     grouped convolutions' output while M*C fits a kernel row: M = 10, 16,
+     32 at every stage where that holds, B = 25 and 1000, bf16 and f32,
+     against the plain versions and M per-model calls.
    Times each kernel (CUDA-graph replay, median) beside its bound, its
    plain version and one PyTorch call computing the same function as a
    yardstick (F.group_norm; cuDNN's weight-only convolution_backward), the
@@ -98,8 +104,17 @@ together), then runs these phases and exits non-zero if any of them fails:
    atol 1e-5 and the test losses at rtol 1e-4.
 3. A profiler pass per algorithm (5 clients, 2 rounds) and one of the
    headline (10 clients, 2 rounds): device busy time, idle share, and the
-   host operators with the most self time. Each phase's wall seconds are
-   logged and kept.
+   host operators with the most self time. Then the batched layers alone
+   (``vmap_layers``): a training step at chunks of 1, 8 and 40, and the
+   Shapley eval forward of M = 1, 4, 10, 16 subset models vmapped against
+   M one-model forwards (at M = 16 also under cuDNN's autotuner), with
+   device time and the layout copies' (``aten::copy_``) share at chunk 40
+   and M = 16. Then an end-to-end A/B
+   of the batched layouts (``layout_ab``): ``fed`` and multi-round Shapley
+   with the port's vmap rules, with GroupNorm always folding the models
+   into its batch, and with functorch's own convolution rule in place of
+   ops/conv.py's, in the order A B C C B A after a run of each path that
+   is not kept. Each phase's wall seconds are logged and kept.
 4. Prints the kernels' JSON line, the card's name and power limit, and as
    its last line ``{"ok": true, "device": {...}}``.
 
@@ -620,8 +635,15 @@ def check_batched(torch, gn, wg):
                 fail(f"gn_stats {name} at {(rows, hw, c)}: max rel err "
                      f"{rel:.3e} > 1e-5")
             stats_err = max(stats_err, (kk - pp).abs().max().item())
-        x4 = x.view(rows, int(math.isqrt(hw)), -1, c)
-        xr4 = x4.permute(0, 3, 1, 2)
+        side = int(math.isqrt(hw))
+        x4 = x.view(rows, side, side, c)
+        # The yardstick: each model's GroupNorm in one F.group_norm call,
+        # the models on the channel side ([B, M*C, H, W] channels-last,
+        # M*G groups, the M affines flattened to [M*C]).
+        x_wide = (x.view(m, rows_per, hw, c).permute(1, 2, 0, 3)
+                  .reshape(rows_per, side, side, m * c).permute(0, 3, 1, 2))
+        library_ms = time_ms(torch, lambda: torch.nn.functional.group_norm(
+            x_wide, m * GROUPS, scale.reshape(-1), bias.reshape(-1), EPS))
         x_bytes = rows * hw * c * 2
         stat_bytes = 2 * rows * GROUPS * 4
         row = {
@@ -631,12 +653,7 @@ def check_batched(torch, gn, wg):
                 "plain_ms": time_ms(
                     torch, lambda: gn.gn_stats_plain(x, GROUPS, EPS)),
                 "bytes": x_bytes + stat_bytes, "ops": 3 * rows * hw * c,
-                "max_abs_err": stats_err,
-                # The whole GroupNorm forward in one PyTorch call (one
-                # affine for every sample): the yardstick, as at B=25.
-                "library_ms": time_ms(torch, lambda: torch.nn.functional
-                                      .group_norm(xr4, GROUPS, scale[0],
-                                                  bias[0], EPS)),
+                "max_abs_err": stats_err, "library_ms": library_ms,
             },
             "normalize": {
                 "ms": time_ms(torch, lambda: gn.gn_normalize(
@@ -645,8 +662,7 @@ def check_batched(torch, gn, wg):
                     x, mean_k, rstd_k, scale, bias, torch.bfloat16)),
                 "bytes": 2 * x_bytes + stat_bytes + 2 * m * c * 2,
                 "ops": 4 * rows * hw * c, "max_abs_err": 0.0,
-                # No PyTorch call normalizes with a per-sample affine.
-                "library_ms": None,
+                "library_ms": library_ms,
             },
             "pair_ms": time_ms(torch, lambda: gn.group_norm(
                 x4, scale, bias, GROUPS, EPS, torch.bfloat16)),
@@ -664,11 +680,105 @@ def check_batched(torch, gn, wg):
             f"{row['normalize']['ms']:.4f} ms (bound "
             f"{row['normalize']['bound_ms']:.4f}, plain "
             f"{row['normalize']['plain_ms']:.4f}); pair {row['pair_ms']:.4f}"
-            f" ms; F.group_norm {row['stats']['library_ms']:.4f} ms; "
-            "normalize bitwise equal to the per-model calls and the plain "
-            "version")
+            f" ms; F.group_norm over the models on the channel side "
+            f"{library_ms:.4f} ms; normalize bitwise equal to the per-model "
+            "calls and the plain version")
         norm_rows.append(row)
-    return {"wgrad": wrow, "gn": norm_rows}
+    return {"wgrad": wrow, "gn": norm_rows,
+            "channel_side": check_channel_side(torch, gn, gen)}
+
+
+#: Models on the channel side that the paths give the GroupNorm: the
+#: Shapley batches of 10 and 16 subset models, a chunk of up to 32 clients
+#: (the remainder of a cohort, a bucketed group, a client_eval chunk).
+CHANNEL_SIDE_MODELS = (10, 16, 32)
+
+
+def check_channel_side(torch, gn, gen):
+    """Phase 1d, continued: the GroupNorm kernels where ``group_norm``'s
+    vmap rule reads the models on the channel side (ops/gn_cuda.py
+    ``channel_side``): x ``[B, HW, M*C]`` with M*G groups and the M
+    affines flattened to ``[M*C]``, for M in ``CHANNEL_SIDE_MODELS`` at
+    every stage where M*C fits a kernel row, at B=25 and B=1000, in bf16
+    and f32 (C or G not a power of two takes the stats kernel's general
+    branch). Stats within rtol 1e-5 of the plain version, and of M
+    per-model calls; normalize bitwise equal to its plain version and, on
+    the same statistics, to M per-model calls with ``[C]`` affines;
+    ``group_norm`` bitwise equal to the two kernels called alone."""
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        width = gn._THREADS * (16 // torch.tensor([], dtype=dtype)
+                               .element_size())
+        for hw, c, _ in STAGES:
+            for m, b in ((m, b) for m in CHANNEL_SIDE_MODELS
+                         for b in (TRAIN_BATCH, EVAL_BATCH)):
+                if m * c > width:
+                    continue
+                shape, g = (b, hw, m * c), m * GROUPS
+                side = int(math.isqrt(hw))
+                x = (torch.randn(shape, device="cuda", generator=gen) * 2
+                     + 1.5).to(dtype)
+                scale = torch.randn(m, c, device="cuda",
+                                    generator=gen).to(dtype)
+                bias = torch.randn(m, c, device="cuda",
+                                   generator=gen).to(dtype)
+                sf, bf = scale.reshape(-1), bias.reshape(-1)
+                mean_k, rstd_k = gn.gn_stats(x, g, EPS)
+                mean_p, rstd_p = gn.gn_stats_plain(x, g, EPS)
+                y_k = gn.gn_normalize(x, mean_k, rstd_k, sf, bf, dtype)
+                y_p = gn.gn_normalize_plain(x, mean_k, rstd_k, sf, bf, dtype)
+                y_pair, mean_pair, rstd_pair = gn.group_norm(
+                    x.view(b, side, side, m * c), sf, bf, g, EPS, dtype)
+                stats_err = 0.0
+                for name, kk, pp in (("mean", mean_k, mean_p),
+                                     ("rstd", rstd_k, rstd_p)):
+                    rel = ((kk - pp).abs() / pp.abs().clamp(min=1e-30)
+                           ).max().item()
+                    if not rel <= 1e-5:
+                        fail(f"gn_stats {name} at {shape} {dtype}, {g} "
+                             f"groups: max rel err {rel:.3e} > 1e-5")
+                    stats_err = max(stats_err, (kk - pp).abs().max().item())
+                model_rel = 0.0
+                for k in range(m):
+                    cols, grp = slice(k * c, (k + 1) * c), slice(
+                        k * GROUPS, (k + 1) * GROUPS)
+                    xk = x[:, :, cols].contiguous()
+                    mk, rk = gn.gn_stats(xk, GROUPS, EPS)
+                    for kk, wide in ((mk, mean_k), (rk, rstd_k)):
+                        model_rel = max(model_rel, (
+                            (kk - wide[:, grp]).abs()
+                            / kk.abs().clamp(min=1e-30)).max().item())
+                    yk = gn.gn_normalize(
+                        xk, mean_k[:, grp].contiguous(),
+                        rstd_k[:, grp].contiguous(), scale[k], bias[k],
+                        dtype)
+                    if not torch.equal(yk, y_k[:, :, cols]):
+                        fail(f"gn_normalize at {shape} {dtype}: model {k} "
+                             "differs from its own call with a [C] affine")
+                if not model_rel <= 1e-5:
+                    fail(f"gn_stats at {shape} {dtype}: per-model calls off "
+                         f"by rtol {model_rel:.3e} > 1e-5")
+                pair_equal = (torch.equal(y_pair.view(shape), y_k)
+                              and torch.equal(mean_pair, mean_k)
+                              and torch.equal(rstd_pair, rstd_k))
+                if not (torch.equal(y_k, y_p) and pair_equal):
+                    fail(f"GroupNorm at {shape} {dtype}, {g} groups: "
+                         f"normalize vs plain {torch.equal(y_k, y_p)}, "
+                         f"group_norm vs its kernels {pair_equal}")
+                rows.append({"shape": list(shape), "models": m,
+                             "dtype": str(dtype).split(".")[-1],
+                             "stats_max_abs_err": stats_err,
+                             "per_model_stats_rel": model_rel})
+                del x, y_k, y_p, y_pair
+                torch.cuda.empty_cache()
+    log(f"GroupNorm with the models on the channel side: {len(rows)} shapes "
+        "(M in " + ", ".join(map(str, CHANNEL_SIDE_MODELS)) + ", B = 25 and "
+        "1000, bf16 and f32): stats within rtol 1e-5 of plain and of the "
+        "per-model calls (worst "
+        f"{max(r['per_model_stats_rel'] for r in rows):.2e}); normalize and "
+        "group_norm bitwise equal to plain, to the per-model calls and to "
+        "the two kernels alone")
+    return rows
 
 
 def check_model_forward(torch):
@@ -1352,6 +1462,234 @@ def profile_rounds(torch, name, config):
     return out
 
 
+def wall_ms(torch, fn, repeats: int = 3) -> float:
+    """Median synchronized wall ms of ``fn`` after one warm-up call: what
+    a call costs the main path, host included."""
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(repeats):
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        samples.append(1e3 * (time.perf_counter() - start))
+    return statistics.median(samples)
+
+
+def device_ops(torch, fn, top: int = 8) -> dict:
+    """Device ms of one call of ``fn`` by operator (torch.profiler), and
+    the share of the layout copies (``aten::copy_``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = sorted(((e.key, e.self_device_time_total / 1e3)
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.self_device_time_total > 0), key=lambda r: -r[1])
+    total = sum(t for _, t in ops)
+    copy = sum(t for k, t in ops if k == "aten::copy_")
+    return {"device_ms": total, "copy_ms": copy,
+            "copy_share": copy / total if total else None,
+            "top": [{"op": k, "device_ms": t} for k, t in ops[:top]]}
+
+
+def vmap_layers(torch):
+    """Phase 3b (informational): the batched layers alone at the main
+    paths' shapes, ResNet-18 at full width, bf16, the replayed init of seed
+    0. One training step of ``make_chunk_train_fn`` (batch 25, bf16 local
+    state, momentum 0.9) at chunks of 1, 8 and 40; one Shapley eval
+    forward (``make_models_eval_fn``, B=1000, f32 subset models as the
+    evaluator holds them) of M = 1, 4, 10, 16 models, vmapped and as M
+    one-model forwards; device time by operator at chunk 40 and M = 16."""
+    from distributed_learning_simulator_tpu_torch.models.bridge import (
+        jax_leaf_order,
+    )
+    from distributed_learning_simulator_tpu_torch.models.registry import (
+        ParamLayout,
+        get_model,
+        init_params,
+    )
+    from distributed_learning_simulator_tpu_torch.parallel import engine
+
+    model = get_model("resnet18").cuda()
+    params = init_params(model, (32, 32), seed=0)
+    layout = ParamLayout.from_params(params, jax_leaf_order(model, (32, 32)))
+    flat = layout.flatten(params).cuda()
+
+    def apply_fn(views, x):
+        return torch.func.functional_call(model, views, (x,))
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {"eval": [], "train": []}
+    evaluate = engine.make_eval_fn(apply_fn)
+    evaluate_models = engine.make_models_eval_fn(evaluate, layout)
+    xb = torch.rand(1, EVAL_BATCH, 32, 32, 3, device="cuda", generator=gen)
+    yb = torch.randint(0, 10, (1, EVAL_BATCH), device="cuda", generator=gen)
+    mb = torch.ones(1, EVAL_BATCH, device="cuda")
+    for m in (1, 4, 10, 16):
+        models = flat + 1e-3 * torch.randn(m, flat.numel(), device="cuda",
+                                           generator=gen)
+        row = {
+            "models": m,
+            "vmapped_ms": wall_ms(torch, lambda: evaluate_models(
+                models, xb, yb, mb)),
+            "one_at_a_time_ms": wall_ms(torch, lambda: [
+                evaluate(layout.unflatten(models[i]), xb, yb, mb)
+                for i in range(m)]),
+        }
+        if m == 16:
+            row["profile"] = device_ops(
+                torch, lambda: evaluate_models(models, xb, yb, mb))
+            # Whether cuDNN's autotuner (off in the port: it may pick
+            # another algorithm in each run) finds faster grouped
+            # convolutions: the next slice's question, not a setting.
+            with torch.backends.cudnn.flags(enabled=True, benchmark=True,
+                                            deterministic=False,
+                                            allow_tf32=False):
+                row["cudnn_benchmark"] = {
+                    "vmapped_ms": wall_ms(torch, lambda: evaluate_models(
+                        models, xb, yb, mb)),
+                    "one_at_a_time_ms": wall_ms(torch, lambda: [
+                        evaluate(layout.unflatten(models[i]), xb, yb, mb)
+                        for i in range(m)])}
+            log(f"eval forward of {m} models with cuDNN's autotuner: "
+                f"vmapped {row['cudnn_benchmark']['vmapped_ms']:.1f} ms, one "
+                f"at a time {row['cudnn_benchmark']['one_at_a_time_ms']:.1f}"
+                " ms")
+        out["eval"].append(row)
+        log(f"eval forward of {m} models at B={EVAL_BATCH}: vmapped "
+            f"{row['vmapped_ms']:.1f} ms, one at a time "
+            f"{row['one_at_a_time_ms']:.1f} ms")
+    for m in (1, 8, FLAGSHIP_CHUNK):
+        train = engine.make_chunk_train_fn(
+            apply_fn, engine.make_optimizer("sgd", 0.02, 0.9), layout, 1,
+            TRAIN_BATCH, compute_dtype=torch.bfloat16, device="cuda")
+        xs = torch.rand(m, TRAIN_BATCH, 32, 32, 3, device="cuda",
+                        generator=gen)
+        ys = torch.randint(0, 10, (m, TRAIN_BATCH), device="cuda",
+                           generator=gen)
+        ms = torch.ones(m, TRAIN_BATCH, device="cuda")
+        perms = torch.arange(TRAIN_BATCH).expand(m, 1, TRAIN_BATCH)
+
+        def step():
+            return train(flat, xs, ys, ms, perms, list(range(m)))
+
+        row = {"chunk": m, "step_ms": wall_ms(torch, step)}
+        row["ms_a_client"] = row["step_ms"] / m
+        if m == FLAGSHIP_CHUNK:
+            row["profile"] = device_ops(torch, step)
+        out["train"].append(row)
+        log(f"training step at chunk {m}: {row['step_ms']:.1f} ms "
+            f"({row['ms_a_client']:.2f} a client)")
+    for name, rows in out.items():
+        for row in rows:
+            p = row.get("profile")
+            if p:
+                log(f"{name} profile: device {p['device_ms']:.1f} ms, "
+                    f"aten::copy_ {p['copy_ms']:.1f} ms; most: " + ", ".join(
+                        f"{r['op']} {r['device_ms']:.1f}"
+                        for r in p["top"][:6]))
+    return out
+
+
+@contextlib.contextmanager
+def layout_arm(torch, arm: str):
+    """The batched layouts of one A/B arm (``layout_ab``): ``port`` as
+    committed; ``gn_folded``, where ``dls::group_norm``'s vmap rule always
+    folds the models into the batch (ops/gn_cuda.py ``_group_norm_folded``)
+    and never reads them on the channel side; ``functorch_conv``, where
+    ResNet's convolutions run the ``dls::conv_nhwc*`` ops' one-model bodies
+    as plain PyTorch code, which functorch vmaps with its own convolution
+    rules instead of ops/conv.py's grouped channels-last ones."""
+    from distributed_learning_simulator_tpu_torch.models import resnet
+    from distributed_learning_simulator_tpu_torch.ops import conv
+    from distributed_learning_simulator_tpu_torch.ops import gn_cuda
+
+    rules, names = {}, {}
+    if arm == "gn_folded":
+        rules["dls::group_norm"] = (gn_cuda._group_norm_folded,
+                                    gn_cuda._group_norm_vmap)
+    elif arm == "functorch_conv":
+        body = conv.conv_nhwc_op._init_fn
+
+        def conv_nhwc(x, w, stride=1, padding=0):
+            padding = [padding] * 4 if isinstance(padding, int) else padding
+            return body(x, w, stride, list(padding), 1)
+
+        names = {"conv_nhwc": conv_nhwc, "conv_nhwc_op": body,
+                 "conv_nhwc_dx_op": conv.conv_nhwc_dx_op._init_fn}
+    elif arm != "port":
+        raise ValueError(arm)
+    saved = {name: getattr(resnet, name) for name in names}
+    for name, (rule, _) in rules.items():
+        torch.library.register_vmap(name, rule)
+    for name, fn in names.items():
+        setattr(resnet, name, fn)
+    try:
+        yield
+    finally:
+        for name, (_, rule) in rules.items():
+            torch.library.register_vmap(name, rule)
+        for name, fn in saved.items():
+            setattr(resnet, name, fn)
+
+
+LAYOUT_ARMS = ("port", "gn_folded", "functorch_conv")
+
+
+def layout_ab(torch, gn, wg, log_root: str):
+    """Phase 3c: an end-to-end A/B of the batched layouts (``layout_arm``)
+    on ``fed`` (the main path's configuration: chunks of 40 and 10) and on
+    multi-round Shapley (N=4: one batch of 16 subset models a round), each
+    run through run_path's gates, the arms in the order A B C C B A after
+    one run of each path that is not kept (without it, the arm at the ends
+    of the order was the slowest on ``fed`` in three calls, once while
+    running the same training code as another arm). Keeps each run's
+    second-round seconds and its subset evaluations per second
+    (informational: host variance moves round times between runs)."""
+    configs = {
+        "fed": path_configs(50, 5000, 2000, "WARNING")["fed"],
+        "multiround_shapley_value":
+            extra_path_configs(log_root)["multiround_shapley_value"],
+    }
+    for name, config in configs.items():
+        run_path(torch, gn, wg, f"{name} [warm-up, not kept]", config,
+                 post_round_probe=[] if "shapley" in name else None)
+    runs = []
+    for arm in LAYOUT_ARMS + LAYOUT_ARMS[::-1]:
+        for name, config in configs.items():
+            probes = [] if "shapley" in name else None
+            with layout_arm(torch, arm):
+                res = run_path(torch, gn, wg, f"{name} [{arm}]", config,
+                               post_round_probe=probes)
+            run = {"arm": arm, "path": name,
+                   "round_seconds": res["round_seconds"]}
+            if probes:
+                run["subset_evals_per_s"] = [
+                    p["models"] / p["seconds"] for p in probes]
+            runs.append(run)
+    summary = {}
+    for name in configs:
+        for arm in LAYOUT_ARMS:
+            mine = [r for r in runs if r["arm"] == arm and r["path"] == name]
+            summary[f"{name} [{arm}]"] = {
+                "second_round_seconds": [r["round_seconds"][1]
+                                         for r in mine],
+                "subset_evals_per_s": [r.get("subset_evals_per_s")
+                                       for r in mine],
+            }
+            log(f"layout A/B {name} [{arm}]: second-round seconds "
+                f"{summary[f'{name} [{arm}]']['second_round_seconds']}"
+                + ("" if "shapley" not in name else
+                   f", subset evals/s {[r['subset_evals_per_s'] for r in mine]}"))
+    return {"runs": runs, "summary": summary}
+
+
 def redesign_lines(rows, wgrad_rows):
     """Prints the kernels redesigned for Hopper beside their yardsticks,
     bounds and earlier times (EARLIER_MS: PERF.md constants, not this
@@ -1493,6 +1831,9 @@ def main() -> None:
     profiles = phase("profiles", lambda: [
         profile_rounds(torch, name, config)
         for name, config in profile_configs.items()])
+    layers = phase("vmap_layers", vmap_layers, torch)
+    ab = phase("layout_ab", layout_ab, torch, gn, wg,
+               os.path.join(args.out, "log"))
     # Launches over every main path (each counted from 0).
     launches = {
         k: sum(p["launches"][k] for p in paths.values())
@@ -1552,7 +1893,8 @@ def main() -> None:
                    "earlier_ms": EARLIER_MS,
                    "kernels": kernels, "main_paths": paths,
                    "plain_models": plain_models,
-                   "profiles": profiles, "phase_seconds": phase_seconds},
+                   "profiles": profiles, "vmap_layers": layers,
+                   "layout_ab": ab, "phase_seconds": phase_seconds},
                   f, indent=1)
     if "jax" in sys.modules:
         fail("the port imported jax")

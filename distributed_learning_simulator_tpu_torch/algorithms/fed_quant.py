@@ -29,7 +29,7 @@ from distributed_learning_simulator_tpu_torch.ops.quantize import (
     stochastic_quantize,
 )
 from distributed_learning_simulator_tpu_torch.parallel.engine import (
-    ROUND_ELEMENTS,
+    row_slices,
 )
 
 
@@ -54,20 +54,16 @@ class FedQuant(FedAvg):
 
     def process_client_payload(self, client_params, salts):
         """The quantized uplink of a chunk: each row stochastically
-        quantized with its own salts, then dequantized (f32). The stack is
-        cut into row slices so the int64 hash temporaries stay bounded
-        (``ROUND_ELEMENTS``); each row's codes are those of a call on the
-        row alone."""
+        quantized with its own salts, then dequantized (f32), a
+        ``row_slices`` slice of the stack at a time (the int64 hash
+        temporaries stay bounded)."""
         salts = torch.as_tensor(salts, dtype=torch.int64)
         out = torch.empty(client_params.shape, dtype=torch.float32,
                           device=client_params.device)
-        n = client_params.shape[0]
-        step = max(1, ROUND_ELEMENTS // max(1, client_params.shape[1]))
-        for r in range(0, n, step):
-            q = stochastic_quantize(client_params[r:r + step], self.levels,
-                                    salts[r:r + step], self.segments,
-                                    rows=True)
-            out[r:r + step] = dequantize(q, self.segments)
+        for rows in row_slices(client_params):
+            q = stochastic_quantize(client_params[rows], self.levels,
+                                    salts[rows], self.segments, rows=True)
+            out[rows] = dequantize(q, self.segments)
         return out, {}
 
     def process_aggregated(self, global_params, salts):

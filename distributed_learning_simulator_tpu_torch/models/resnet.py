@@ -20,9 +20,8 @@ stage 1:
   gradient are cuDNN's, the weight gradient is the hand-written kernel
   (ops/wgrad_cuda.py ``conv3x3_wgrad``), which the JAX package prototyped
   in Pallas for exactly these convolutions. The stem, the stride-2
-  convolutions and the later stages are cuDNN's forward and backward
-  (ops/conv.py ``conv_nhwc``); the 1x1 projection, which SAME never pads,
-  is the strided pixels times its kernel, a matmul over channels.
+  convolutions, the 1x1 projections and the later stages are cuDNN's
+  forward and backward (ops/conv.py ``conv_nhwc``).
 
 Activations move between layers as NHWC tensors. Each convolution reads a
 ``permute`` view of its NHWC input, which is a channels-last NCHW tensor,
@@ -41,6 +40,9 @@ client axis; the convolutions become grouped channels-last ones
 (ops/conv.py), their outputs left with the models on the channel side,
 where the GroupNorm reads them without a copy while ``M*C`` fits its
 kernels' row (2048 bf16 channels) and folds them into its batch beyond.
+With gradients off (an eval forward) the layers call the custom ops
+directly: under vmap an autograd function costs host time for each call
+even when nothing is differentiated.
 
 The W-folded stage 1 of the JAX package (``fold_stage1``) is a TPU
 lane-layout device with identical parameters and exact math, so the port
@@ -155,10 +157,11 @@ class PlainGroupNorm(nn.Module):
         # Not made contiguous here: under vmap that would move the models
         # off the channel side where the convolutions leave them (the op
         # makes its input contiguous itself).
-        return _PlainGroupNormFn.apply(
-            x, self.scale, self.bias, self.num_groups, self.epsilon,
-            self.dtype,
-        )[0]
+        args = (x, self.scale, self.bias, self.num_groups, self.epsilon,
+                self.dtype)
+        if not torch.is_grad_enabled():
+            return group_norm_op(*args)[0]
+        return _PlainGroupNormFn.apply(*args)[0]
 
 
 def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
@@ -170,15 +173,10 @@ def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
 
 def same_conv(x, weight, stride: int):
     """XLA's SAME convolution of NHWC ``x`` with an OIHW ``weight``
-    (ops/conv.py ``conv_nhwc``): symmetric padding as the convolution's,
-    an asymmetric one (stride 2 on an even input) as an explicit pad."""
-    k = weight.shape[2]
-    ph = _same_pads(x.shape[1], k, stride)
+    (ops/conv.py ``conv_nhwc``, which pads an asymmetric split itself)."""
+    ph = _same_pads(x.shape[1], weight.shape[2], stride)
     pw = _same_pads(x.shape[2], weight.shape[3], stride)
-    if ph[0] == ph[1] == pw[0] == pw[1]:
-        return conv_nhwc(x, weight, stride, ph[0])
-    x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
-    return conv_nhwc(x, weight, stride, 0)
+    return conv_nhwc(x, weight, stride, ph + pw)
 
 
 class _Conv3x3Fn(torch.autograd.Function):
@@ -194,7 +192,7 @@ class _Conv3x3Fn(torch.autograd.Function):
     @staticmethod
     def forward(x, weight):
         with torch.no_grad():
-            return conv_nhwc_op(x, weight, 1, 1, 1)
+            return conv_nhwc_op(x, weight, 1, [1] * 4, 1)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -207,7 +205,7 @@ class _Conv3x3Fn(torch.autograd.Function):
         with torch.no_grad():
             if ctx.needs_input_grad[0]:
                 dx = conv_nhwc_dx_op(dy, weight, x.shape[1], x.shape[2], 1,
-                                     1, 1)
+                                     [1] * 4, 1)
             if ctx.needs_input_grad[1]:
                 dw = conv3x3_wgrad_op(x.contiguous(), dy.contiguous())
         if dw is not None:
@@ -233,19 +231,13 @@ class SameConv2d(nn.Conv2d):
         self.wgrad_kernel = wgrad_kernel
 
     def forward(self, x):
-        if self.wgrad_kernel:
-            return _Conv3x3Fn.apply(x.to(self.compute_dtype),
-                                    self.weight.to(self.compute_dtype))
-        k, s = self.kernel_size[0], self.stride[0]
-        if k == 1:
-            # The projection: SAME never pads a 1x1 window, so it is the
-            # strided pixels times the [cout, cin] kernel, a matmul over
-            # channels on the NHWC tensor.
-            w = self.weight.to(self.compute_dtype).reshape(
-                self.out_channels, -1)
-            return x.to(self.compute_dtype)[:, ::s, ::s] @ w.t()
-        return same_conv(x.to(self.compute_dtype),
-                         self.weight.to(self.compute_dtype), s)
+        x = x.to(self.compute_dtype)
+        w = self.weight.to(self.compute_dtype)
+        if not self.wgrad_kernel:
+            return same_conv(x, w, self.stride[0])
+        if not torch.is_grad_enabled():
+            return conv_nhwc_op(x, w, 1, [1] * 4, 1)
+        return _Conv3x3Fn.apply(x, w)
 
 
 class Dense(nn.Linear):

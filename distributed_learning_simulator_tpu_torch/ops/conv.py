@@ -20,6 +20,12 @@ convolution in channels-last layout:
   instead, and a shared input (the eval forward's first layer) runs one
   ungrouped convolution with the M models' filters side by side.
 
+Padding is ``[top, bottom, left, right]``. cuDNN pads symmetrically; an
+asymmetric padding (XLA's SAME at stride 2 on an even input pads only the
+high end) is applied inside the op, to the tensor as the op receives it. A
+pad outside, under vmap, would move the models in front of the batch and
+cost a second copy to bring them back to the channel side.
+
 :func:`conv_nhwc` is the differentiable entry point: its forward and its
 input and weight gradients are the three ops below, so a vmapped training
 step runs each convolution's forward and backward once for the chunk. The
@@ -40,33 +46,54 @@ def _nchw(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().permute(0, 3, 1, 2)
 
 
+def _padded(x: torch.Tensor, padding) -> tuple[torch.Tensor, int]:
+    """``(x, p)`` for a convolution with symmetric padding ``p``: ``x``
+    itself when ``padding`` is symmetric, else ``x`` padded here (p = 0)."""
+    top, bottom, left, right = padding
+    if top == bottom == left == right:
+        return x, top
+    return F.pad(x, (0, 0, left, right, top, bottom)), 0
+
+
+def _out_size(size: int, k: int, stride: int, lo: int, hi: int) -> int:
+    return (size + lo + hi - k) // stride + 1
+
+
 @torch.library.custom_op("dls::conv_nhwc", mutates_args=())
 def conv_nhwc_op(x: torch.Tensor, w: torch.Tensor, stride: int,
-                 padding: int, groups: int) -> torch.Tensor:
+                 padding: list[int], groups: int) -> torch.Tensor:
     """``y [B, H', W', O]`` of ``x [B, H, W, C]`` and OIHW ``w``."""
-    return F.conv2d(_nchw(x), w, stride=stride, padding=padding,
+    x, p = _padded(x, padding)
+    return F.conv2d(_nchw(x), w, stride=stride, padding=p,
                     groups=groups).permute(0, 2, 3, 1)
 
 
 @conv_nhwc_op.register_fake
 def _(x, w, stride, padding, groups):
-    h = (x.shape[1] + 2 * padding - w.shape[2]) // stride + 1
-    wd = (x.shape[2] + 2 * padding - w.shape[3]) // stride + 1
+    h = _out_size(x.shape[1], w.shape[2], stride, padding[0], padding[1])
+    wd = _out_size(x.shape[2], w.shape[3], stride, padding[2], padding[3])
     return x.new_empty((x.shape[0], h, wd, w.shape[0]))
 
 
 @torch.library.custom_op("dls::conv_nhwc_dx", mutates_args=())
 def conv_nhwc_dx_op(dy: torch.Tensor, w: torch.Tensor, in_h: int,
-                    in_w: int, stride: int, padding: int,
+                    in_w: int, stride: int, padding: list[int],
                     groups: int) -> torch.Tensor:
     """The input gradient ``[B, in_h, in_w, C]`` of :func:`conv_nhwc_op`
     (the input's values do not enter it, only its shape)."""
-    shape = (dy.shape[0], in_h, in_w, w.shape[1] * groups)
-    inp = dy.new_empty(shape).permute(0, 3, 1, 2)
+    top, bottom, left, right = padding
+    symmetric = top == bottom == left == right
+    p = top if symmetric else 0
+    ph, pw = (in_h, in_w) if symmetric else (in_h + top + bottom,
+                                             in_w + left + right)
+    inp = dy.new_empty((dy.shape[0], ph, pw, w.shape[1] * groups)).permute(
+        0, 3, 1, 2)
     dx = torch.ops.aten.convolution_backward(
-        _nchw(dy), inp, w, None, [stride] * 2, [padding] * 2, [1, 1],
-        False, [0, 0], groups, [True, False, False])[0]
-    return dx.permute(0, 2, 3, 1)
+        _nchw(dy), inp, w, None, [stride] * 2, [p] * 2, [1, 1],
+        False, [0, 0], groups, [True, False, False])[0].permute(0, 2, 3, 1)
+    if not symmetric:  # the padded input's gradient, cut to the input's
+        dx = dx[:, top:top + in_h, left:left + in_w].contiguous()
+    return dx
 
 
 @conv_nhwc_dx_op.register_fake
@@ -76,13 +103,14 @@ def _(dy, w, in_h, in_w, stride, padding, groups):
 
 @torch.library.custom_op("dls::conv_nhwc_dw", mutates_args=())
 def conv_nhwc_dw_op(dy: torch.Tensor, x: torch.Tensor, kh: int, kw: int,
-                    stride: int, padding: int,
+                    stride: int, padding: list[int],
                     groups: int) -> torch.Tensor:
     """The weight gradient ``[O, C / groups, kh, kw]`` of
     :func:`conv_nhwc_op`, in the output gradient's dtype."""
     weight = dy.new_empty((dy.shape[-1], x.shape[-1] // groups, kh, kw))
+    x, p = _padded(x, padding)
     return torch.ops.aten.convolution_backward(
-        _nchw(dy), _nchw(x), weight, None, [stride] * 2, [padding] * 2,
+        _nchw(dy), _nchw(x), weight, None, [stride] * 2, [p] * 2,
         [1, 1], False, [0, 0], groups, [False, True, False])[1]
 
 
@@ -165,7 +193,7 @@ class _ConvNHWCFn(torch.autograd.Function):
     @staticmethod
     def forward(x, w, stride, padding):
         with torch.no_grad():
-            return conv_nhwc_op(x, w, stride, padding, 1)
+            return conv_nhwc_op(x, w, stride, list(padding), 1)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -180,16 +208,22 @@ class _ConvNHWCFn(torch.autograd.Function):
         with torch.no_grad():
             if ctx.needs_input_grad[0]:
                 dx = conv_nhwc_dx_op(dy, w, x.shape[1], x.shape[2],
-                                     ctx.stride, ctx.padding, 1)
+                                     ctx.stride, list(ctx.padding), 1)
             if ctx.needs_input_grad[1]:
                 dw = conv_nhwc_dw_op(dy, x, w.shape[2], w.shape[3],
-                                     ctx.stride, ctx.padding, 1)
+                                     ctx.stride, list(ctx.padding), 1)
         return dx, dw, None, None
 
 
 def conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
-              padding: int = 0) -> torch.Tensor:
-    """``[B, H, W, C]`` NHWC convolution with OIHW ``w``, symmetric
-    ``padding``; differentiable, and vmapped as grouped channels-last
-    convolutions (module docstring)."""
+              padding=0) -> torch.Tensor:
+    """``[B, H, W, C]`` NHWC convolution with OIHW ``w``; ``padding`` is
+    one int for every side or ``(top, bottom, left, right)``.
+    Differentiable, and vmapped as grouped channels-last convolutions
+    (module docstring). With gradients off (an eval forward) it is the op
+    alone, without the autograd function's costs under vmap."""
+    padding = ((padding,) * 4 if isinstance(padding, int)
+               else tuple(padding))
+    if not torch.is_grad_enabled():
+        return conv_nhwc_op(x, w, stride, list(padding), 1)
     return _ConvNHWCFn.apply(x, w, stride, padding)

@@ -441,29 +441,11 @@ def _(x, scale, bias, g, eps, out_dtype):
             torch.empty_like(mean))
 
 
-def _group_norm_vmap(info, in_dims, x, scale, bias, g, eps, out_dtype):
-    # x is folded (or, below, viewed) once, then the stats -> normalize
-    # pair runs back to back inside group_norm (the programmatic dependent
-    # launch needs nothing launched between them).
+def _group_norm_folded(info, in_dims, x, scale, bias, g, eps, out_dtype):
+    """The models folded into the batch: ``[M*B, HW, C]`` with the
+    ``[M, C]`` affine (or the shared ``[C]`` one)."""
     size = info.batch_size
     xd, sd, bd = in_dims[:3]
-    c = x.shape[-1]
-    if (xd == x.dim() - 2 and x.is_contiguous()
-            and size * c <= _THREADS * (16 // x.element_size())):
-        # The models on the channel side, as the grouped convolutions leave
-        # them (ops/conv.py): x is [B, H, W, M*C] in memory, and its
-        # GroupNorm with M*G groups and the M affines side by side is each
-        # model's GroupNorm (a group never spans two models). No copy, and
-        # the output keeps the layout for the next convolution. Only while
-        # a row fits the kernels (one 16-byte vector of it a thread).
-        wide = x.reshape(tuple(x.shape[:xd]) + (size * c,))
-        scale, bias = (models_first(t, d, size).reshape(-1).contiguous()
-                       for t, d in ((scale, sd), (bias, bd)))
-        y, mean, rstd = group_norm_op(wide, scale, bias, g * size, eps,
-                                      out_dtype)
-        b = x.shape[0]
-        return ((y.reshape(x.shape), mean.reshape(b, size, g),
-                 rstd.reshape(b, size, g)), (xd, 1, 1))
     b = _samples(x, xd)
     scale, bias = _model_rows(scale, bias, (sd, bd), size)
     y, mean, rstd = group_norm_op(_fold(x, xd, size), scale, bias, g, eps,
@@ -471,6 +453,39 @@ def _group_norm_vmap(info, in_dims, x, scale, bias, g, eps, out_dtype):
     return ((y.reshape((size, b) + tuple(y.shape[1:])),
              mean.reshape(size, -1, g), rstd.reshape(size, -1, g)),
             (0, 0, 0))
+
+
+def channel_side(x: torch.Tensor, xd, size: int) -> bool:
+    """Whether ``group_norm``'s vmap rule reads ``x`` (vmapped at ``xd``
+    over ``size`` models) in place with the models on the channel side:
+    ``[B, H, W, M, C]`` as the grouped convolutions leave it, contiguous,
+    and ``M*C`` within a kernel row (one 16-byte vector a thread: 2048
+    bf16 or 1024 f32 channels)."""
+    return (xd == x.dim() - 2 and x.is_contiguous()
+            and size * x.shape[-1] <= _THREADS * (16 // x.element_size()))
+
+
+def _group_norm_vmap(info, in_dims, x, scale, bias, g, eps, out_dtype):
+    # x is folded (or, below, viewed) once, then the stats -> normalize
+    # pair runs back to back inside group_norm (the programmatic dependent
+    # launch needs nothing launched between them).
+    size = info.batch_size
+    xd, sd, bd = in_dims[:3]
+    if not channel_side(x, xd, size):
+        return _group_norm_folded(info, in_dims, x, scale, bias, g, eps,
+                                  out_dtype)
+    # x is [B, H, W, M*C] in memory, and its GroupNorm with M*G groups and
+    # the M affines side by side is each model's GroupNorm (a group never
+    # spans two models). No copy, and the output keeps the layout for the
+    # next convolution.
+    wide = x.reshape(tuple(x.shape[:xd]) + (size * x.shape[-1],))
+    scale, bias = (models_first(t, d, size).reshape(-1).contiguous()
+                   for t, d in ((scale, sd), (bias, bd)))
+    y, mean, rstd = group_norm_op(wide, scale, bias, g * size, eps,
+                                  out_dtype)
+    b = x.shape[0]
+    return ((y.reshape(x.shape), mean.reshape(b, size, g),
+             rstd.reshape(b, size, g)), (xd, 1, 1))
 
 
 torch.library.register_vmap("dls::group_norm", _group_norm_vmap)

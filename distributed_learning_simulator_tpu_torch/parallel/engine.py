@@ -150,16 +150,24 @@ def _sr_tree_to_bf16(leaves, salt: int):
 ROUND_ELEMENTS = 1 << 26
 
 
+def row_slices(stack: torch.Tensor) -> list[slice]:
+    """Slices of whole rows of an ``[M, P]`` stack, each at most
+    ``ROUND_ELEMENTS`` elements (one row at least): how a per-element hash
+    over the stack is cut so that its int64 temporaries stay bounded. The
+    hash is per element, so each row's result is that of a call on the row
+    alone."""
+    rows = max(1, ROUND_ELEMENTS // max(1, stack.shape[1]))
+    return [slice(r, r + rows) for r in range(0, stack.shape[0], rows)]
+
+
 class FlatRounder:
     """``_sr_tree_to_bf16`` over a flat parameter vector in one pass: the
     per-element salt is ``salt + leaf_index * 0x9E3779B9`` (leaves in the
     layout's order, the JAX tree's leaf order), and the salt advances by one
     step per leaf, exactly as the leaf-by-leaf loop would.
 
-    An ``[M, P]`` stack takes one salt per row (each client's own). Its
-    int64 hash temporaries are cut to ``ROUND_ELEMENTS`` elements at a
-    time, a slice of whole rows: the hash is per element, so the result is
-    the same bits as rounding each row alone."""
+    An ``[M, P]`` stack takes one salt per row (each client's own), and is
+    rounded a :func:`row_slices` slice at a time."""
 
     def __init__(self, layout, device):
         self.n_leaves = len(layout.names)
@@ -177,10 +185,9 @@ class FlatRounder:
                                 device=flat32.device)
         out = torch.empty(flat32.shape, dtype=torch.bfloat16,
                           device=flat32.device)
-        rows = max(1, ROUND_ELEMENTS // max(1, flat32.shape[1]))
-        for r in range(0, flat32.shape[0], rows):
-            salt_rows = (self.offsets + salts[r:r + rows, None]) & MASK32
-            out[r:r + rows], _ = _sr_to_bf16(flat32[r:r + rows], salt_rows)
+        for rows in row_slices(flat32):
+            salt_rows = (self.offsets + salts[rows, None]) & MASK32
+            out[rows], _ = _sr_to_bf16(flat32[rows], salt_rows)
         return out, [(int(v) + step) & MASK32 for v in salt]
 
 

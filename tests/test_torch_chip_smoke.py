@@ -86,3 +86,56 @@ def test_chunk_steps_bounds_the_batched_forwards():
     headline = chip_smoke.headline_config(1000, None, None, 10000)
     assert chip_smoke.chunk_steps(headline, 50000) == 2 * 2 * 4
     assert chip_smoke.FLAGSHIP_CHUNK == paths["fed"].client_chunk_size
+
+
+@pytest.mark.parametrize("arm", chip_smoke.LAYOUT_ARMS)
+def test_layout_arms_compute_the_same_function(monkeypatch, arm):
+    """Each arm of chip_smoke's layout A/B swaps only vmap rules: through a
+    stride-2 SAME convolution (padded inside the op) and a GroupNorm whose
+    models fit the channel side, a vmapped grad (the training forward) and
+    a vmapped eval forward give every model's own loss, gradients and
+    output, at f32 rtol 1e-5 / atol 1e-6 of the largest; after the arm the
+    port's rules are back (one grouped convolution, and the eval forward's
+    GroupNorm read on the channel side)."""
+    from distributed_learning_simulator_tpu_torch.models import resnet
+    from distributed_learning_simulator_tpu_torch.ops import gn_cuda
+
+    gen = torch.Generator().manual_seed(5)
+    m = 3
+    x = torch.randn(m, 2, 8, 8, 16, generator=gen)
+    w = torch.randn(m, 64, 16, 3, 3, generator=gen) * 0.1
+    scale = torch.randn(m, 64, generator=gen)
+
+    def loss(ww, ss, xx):
+        y = resnet.same_conv(xx, ww, 2)
+        y = resnet._PlainGroupNormFn.apply(y, ss, torch.zeros_like(ss), 32,
+                                           1e-6, torch.float32)[0]
+        return (y * y.tanh()).sum()
+
+    def forward(ww, ss, xx):
+        return gn_cuda.group_norm_op(resnet.same_conv(xx, ww, 2), ss, ss, 32,
+                                     1e-6, torch.float32)[0]
+
+    step = torch.func.vmap(torch.func.grad_and_value(loss, argnums=(0, 1)))
+    with chip_smoke.layout_arm(torch, arm):
+        (gw, gs), value = step(w, scale, x)
+        with torch.no_grad():
+            y = torch.func.vmap(forward)(w, scale, x)
+    for k in range(m):
+        (gwk, gsk), vk = torch.func.grad_and_value(loss, argnums=(0, 1))(
+            w[k], scale[k], x[k])
+        with torch.no_grad():
+            yk = forward(w[k], scale[k], x[k])
+        for got, want in ((value[k], vk), (gw[k], gwk), (gs[k], gsk),
+                          (y[k], yk)):
+            torch.testing.assert_close(
+                got, want, rtol=1e-5, atol=1e-6 * want.abs().max().item())
+    groups, stats = [], []
+    conv2d, plain = torch.nn.functional.conv2d, gn_cuda.gn_stats_plain
+    monkeypatch.setattr(torch.nn.functional, "conv2d", lambda *a, **k: (
+        groups.append(k.get("groups", 1)) or conv2d(*a, **k)))
+    monkeypatch.setattr(gn_cuda, "gn_stats_plain", lambda xx, g, eps: (
+        stats.append(tuple(xx.shape)) or plain(xx, g, eps)))
+    with torch.no_grad():
+        torch.func.vmap(forward)(w, scale, x)
+    assert groups == [m] and stats == [(2, 16, m * 64)]

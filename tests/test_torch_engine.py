@@ -182,3 +182,42 @@ def test_pad_eval_set_matches_jax():
         for got, want in zip(engine.pad_eval_set(x, y, 16, flatten),
                              jengine.pad_eval_set(x, y, 16, flatten)):
             np.testing.assert_array_equal(got, want)
+
+
+def test_stacks_are_rounded_and_quantized_a_row_slice_at_a_time(monkeypatch):
+    """With ``ROUND_ELEMENTS`` below a row, ``row_slices`` cuts a stack
+    into one-row slices, and the stochastic rounding and fed_quant's uplink
+    of a 5-row stack give each row exactly the bits of a call on that row
+    alone."""
+    import types
+
+    from distributed_learning_simulator_tpu_torch.algorithms.fed_quant import (
+        FedQuant,
+    )
+    from distributed_learning_simulator_tpu_torch.models.registry import (
+        ParamLayout,
+    )
+    from distributed_learning_simulator_tpu_torch.ops.quantize import Segments
+
+    gen = torch.Generator().manual_seed(3)
+    params = {"a": torch.randn(7, 3, generator=gen),
+              "b": torch.randn(11, generator=gen)}
+    layout = ParamLayout.from_params(params, ["a", "b"])
+    size = sum(layout.numels)
+    stack = torch.randn(5, size, generator=gen)
+    salts = [11, 2**31 + 5, 7, 0, 99]
+    monkeypatch.setattr(engine, "ROUND_ELEMENTS", size - 1)
+    assert engine.row_slices(stack) == [slice(r, r + 1) for r in range(5)]
+    rounder = engine.FlatRounder(layout, "cpu")
+    rounded, advanced = rounder(stack, salts)
+    algo = FedQuant.__new__(FedQuant)
+    algo.config = types.SimpleNamespace(quant_levels=256)
+    algo.segments = Segments(layout.numels, "cpu")
+    leaf_salts = torch.randint(0, 2**32, (5, 2), generator=gen)
+    uplink, _ = algo.process_client_payload(stack, leaf_salts)
+    for r in range(5):
+        one, salt = rounder(stack[r], salts[r])
+        assert torch.equal(rounded[r], one) and advanced[r] == salt
+        alone, _ = algo.process_client_payload(stack[r:r + 1],
+                                               leaf_salts[r:r + 1])
+        assert torch.equal(uplink[r], alone[0])

@@ -273,3 +273,51 @@ def test_model_forward_launches_each_kernel_once_per_group_norm(cuda, params):
     torch.cuda.synchronize()
     assert logits.shape == (2, 10) and torch.isfinite(logits).all()
     assert gn_cuda.gn_stats.launches == gn_cuda.gn_normalize.launches == 20
+
+
+# The models on the channel side (ops/gn_cuda.py ``channel_side``): x
+# [B, HW, M*C] with M*G groups, each stage's (HW, C) for M in 10, 16, 32
+# where M*C fits a kernel row (2048 bf16 / 1024 f32 channels), at the
+# training batch and the eval batch. M*C = 640 or 1280 is no power of two
+# (the stats kernel's general branch); M*G > 256 groups loops over groups.
+_CHANNEL_SIDE = [
+    (b, hw, c, m, dtype)
+    for dtype, width in ((torch.bfloat16, 2048), (torch.float32, 1024))
+    for hw, c in ((1024, 64), (256, 128), (64, 256), (16, 512))
+    for m in (10, 16, 32) if m * c <= width
+    for b in (25, 1000)
+]
+
+
+@pytest.mark.parametrize("b,hw,c,m,dtype", _CHANNEL_SIDE)
+def test_channel_side_matches_plain_and_per_model_calls(cuda, b, hw, c, m,
+                                                        dtype):
+    """Stats within rtol 1e-5 of the plain version and of the M per-model
+    calls; normalize (bf16 affine) bitwise equal to its plain version and,
+    on the same statistics, to M per-model calls with ``[C]`` affines;
+    ``group_norm`` bitwise equal to its two kernels called alone."""
+    x, _, _ = _inputs(b, hw, m * c, dtype, cuda, seed=6)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    scale = torch.randn(m, c, device=cuda, generator=gen).bfloat16()
+    bias = torch.randn(m, c, device=cuda, generator=gen).bfloat16()
+    flat_s, flat_b = scale.reshape(-1), bias.reshape(-1)
+    mean, rstd = gn_cuda.gn_stats(x, m * G, EPS)
+    mean_p, rstd_p = gn_cuda.gn_stats_plain(x, m * G, EPS)
+    torch.testing.assert_close(mean, mean_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(rstd, rstd_p, rtol=1e-5, atol=0)
+    y = gn_cuda.gn_normalize(x, mean, rstd, flat_s, flat_b, dtype)
+    assert torch.equal(y, gn_cuda.gn_normalize_plain(
+        x, mean, rstd, flat_s, flat_b, dtype))
+    for k in range(m):
+        cols, grp = slice(k * c, (k + 1) * c), slice(k * G, (k + 1) * G)
+        xk = x[:, :, cols].contiguous()
+        mk, rk = gn_cuda.gn_stats(xk, G, EPS)
+        torch.testing.assert_close(mean[:, grp], mk, rtol=1e-5, atol=0)
+        torch.testing.assert_close(rstd[:, grp], rk, rtol=1e-5, atol=0)
+        assert torch.equal(y[:, :, cols], gn_cuda.gn_normalize(
+            xk, mean[:, grp].contiguous(), rstd[:, grp].contiguous(),
+            scale[k], bias[k], dtype))
+    y_pair, m_pair, r_pair = gn_cuda.group_norm(
+        x.view(b, hw, 1, m * c), flat_s, flat_b, m * G, EPS, dtype)
+    assert torch.equal(m_pair, mean) and torch.equal(r_pair, rstd)
+    assert torch.equal(y_pair.view(b, hw, m * c), y)
