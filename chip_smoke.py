@@ -102,6 +102,24 @@ together), then runs these phases and exits non-zero if any of them fails:
    chunk 4
    (``compare_chunks``): the two global models must agree at rtol 1e-4 /
    atol 1e-5 and the test losses at rtol 1e-4.
+   Then the robustness phases (``robustness_configs``: ResNet-18 at full
+   width, cut like the main paths, 3 rounds): ``fedopt_dropout`` (50
+   clients, chunk 40, bf16, client adamw and FedAdam, dropout at 0.2
+   with correlation 0.5, a quorum of 30, a checkpoint every round, the
+   last 2 kept) through run_path's gates, printing survivors, checkpoint
+   seconds and bytes; ``fedavgm_reject`` (20 clients, f32, FedAvgM,
+   corrupt_nan at 0.3 under the plain mean): a round must be rejected,
+   and every rejected round must leave the global params and the server
+   momentum bitwise as they were; ``crash_resume`` (``fedopt_dropout`` at
+   20 clients, chunk 10, quorum 12): two straight runs, a child process
+   killed with SIGKILL after round 1 and resumed here (bitwise equal to
+   the straight runs when they are bitwise equal to each other, else
+   within twice their spread), and a child that gets SIGTERM after round
+   1 (exit 0, ``preempted_at``, its final checkpoint on disk);
+   ``gn_autodiff``: a chunk-40 bf16 training step with
+   ``gn_custom_backward`` False and True, the forward bitwise equal, the
+   gradients within 2**-8 of the largest element, the launch counts
+   equal, each step's ms.
 3. A profiler pass per algorithm (5 clients, 2 rounds) and one of the
    headline (10 clients, 2 rounds): device busy time, idle share, and the
    host operators with the most self time. Then the batched layers alone
@@ -138,6 +156,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1397,6 +1416,410 @@ def run_extra_paths(torch, gn, wg, log_root: str):
     return results
 
 
+def robustness_configs(work: str):
+    """The configurations of the robustness phases (ResNet-18 at full width
+    on the cifar10 surrogate, cut like the main paths: Dirichlet(0.1),
+    shard cap 100, batch 25, 5000 train and 2000 test samples):
+
+    * ``fedopt_dropout``: 50 clients, chunk 40, bf16 local state, 3 rounds,
+      client adamw (lr 1e-3, weight decay 1e-4) and FedAdam (server adam,
+      lr 1e-2), dropout at 0.2 with correlation 0.5 and a quorum of 30,
+      a checkpoint every round, the last 2 kept;
+    * ``fedavgm_reject``: 20 clients, f32 local state, SGD momentum 0.9,
+      FedAvgM (server sgd, lr 1.0, momentum 0.9), corrupt_nan at 0.3 under
+      the plain mean, 3 rounds;
+    * ``crash_resume``: ``fedopt_dropout`` cut to 20 clients, chunk 10 and
+      a quorum of 12."""
+    from distributed_learning_simulator_tpu_torch.config import (
+        ExperimentConfig,
+    )
+
+    common = dict(
+        dataset_name="cifar10", model_name="resnet18",
+        distributed_algorithm="fed", epoch=1, batch_size=25,
+        partition="dirichlet", dirichlet_alpha=0.1, max_shard_size=100,
+        n_train=5000, n_test=2000, eval_batch_size=1000, round=3,
+        log_level="WARNING", device="cuda")
+    fedopt = dict(
+        common, worker_number=50, client_chunk_size=40,
+        local_compute_dtype="bfloat16", optimizer_name="adamw",
+        learning_rate=1e-3, weight_decay=1e-4, server_optimizer_name="adam",
+        server_learning_rate=1e-2, failure_mode="dropout",
+        failure_prob=0.2, failure_correlation=0.5, min_survivors=30,
+        checkpoint_dir=os.path.join(work, "fedopt_dropout_ckpt"),
+        checkpoint_every=1, checkpoint_keep_last=2)
+    crash = dict(fedopt, worker_number=20, client_chunk_size=10,
+                 min_survivors=12, checkpoint_dir=None, checkpoint_every=0,
+                 checkpoint_keep_last=None)
+    return {
+        "fedopt_dropout": ExperimentConfig(**fedopt),
+        "fedavgm_reject": ExperimentConfig(
+            **common, worker_number=20, client_chunk_size=40,
+            local_compute_dtype="float32", learning_rate=0.02,
+            momentum=0.9, server_optimizer_name="sgd",
+            server_learning_rate=1.0, server_momentum=0.9,
+            failure_mode="corrupt_nan", failure_prob=0.3,
+            aggregation="mean"),
+        "crash_resume": ExperimentConfig(**crash),
+    }
+
+
+def run_fedopt_dropout(torch, gn, wg, config):
+    """Phase 2e: ``fedopt_dropout`` through run_path (counts from 0, 20
+    GroupNorm launches per forward, 4 wgrad launches per training step, so
+    neither is 0), with its own gates: every record reports its survivors
+    and the quorum verdict, and the run leaves exactly its last 2
+    checkpoints on disk. Prints round seconds, peak memory, survivors per
+    round, and each checkpoint's write seconds and bytes."""
+    from distributed_learning_simulator_tpu_torch import simulator
+
+    saves = []
+    original = simulator.save_checkpoint
+
+    def timed(path, *args, **kwargs):
+        start = time.perf_counter()
+        out = original(path, *args, **kwargs)
+        saves.append({"path": os.path.basename(path),
+                      "seconds": time.perf_counter() - start,
+                      "bytes": os.path.getsize(path)})
+        return out
+
+    simulator.save_checkpoint = timed
+    try:
+        res = run_path(torch, gn, wg, "fedopt_dropout", config)
+    finally:
+        simulator.save_checkpoint = original
+    history = res["history"]
+    survivors = [rec.get("survivor_count") for rec in history]
+    if None in survivors or any("round_rejected" not in r for r in history):
+        fail(f"fedopt_dropout: records lack the quorum fields {survivors}")
+    left = sorted(f for f in os.listdir(config.checkpoint_dir)
+                  if f.endswith(".ckpt"))
+    if len(saves) != config.round or left != [
+            f"round_{r}.ckpt" for r in range(config.round - 2, config.round)]:
+        fail(f"fedopt_dropout: {len(saves)} checkpoint writes, {left} kept")
+    if not all(res["launches"].values()):
+        fail(f"fedopt_dropout: a kernel never launched {res['launches']}")
+    res.update(survivors=survivors,
+               rejected=[rec["round_rejected"] for rec in history],
+               checkpoints=saves)
+    log(f"fedopt_dropout: round seconds {res['round_seconds']}, peak "
+        f"device memory {res['peak_memory_bytes'] / 2**30:.2f} GiB, "
+        f"survivors {survivors} (quorum {config.min_survivors}), rejected "
+        f"{res['rejected']}, checkpoint seconds "
+        f"{[round(c['seconds'], 3) for c in saves]} of "
+        f"{saves[-1]['bytes'] / 2**20:.1f} MiB each, launches "
+        f"{res['launches']}")
+    return res
+
+
+def _same_tree(a, b) -> bool:
+    """Bitwise equality of two tensors or dicts of tensors (None allowed)."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_same_tree(a[k], b[k]) for k in a)
+    if a is None or b is None:
+        return a is b
+    return bool(a.shape == b.shape and a.dtype == b.dtype
+                and (a.view(-1) == b.view(-1)).all())
+
+
+def _clone_tree(t):
+    if isinstance(t, dict):
+        return {k: _clone_tree(v) for k, v in t.items()}
+    return None if t is None else t.clone()
+
+
+def run_fedavgm_reject(torch, gn, wg, config):
+    """Phase 2f: ``fedavgm_reject`` through run_path. The server update is
+    wrapped to keep, every round, the global params and the server momentum
+    before and after it; the phase fails unless a round was rejected and,
+    for every rejected round, both after equal both before, bitwise."""
+    from distributed_learning_simulator_tpu_torch.algorithms.fedavg import (
+        FedAvg,
+    )
+
+    events = []
+    original = FedAvg.make_server_update
+
+    def watched(self):
+        init, update = original(self)
+
+        def update_watched(prev, aggregate, state, rejected=None):
+            before = (prev.clone(), _clone_tree(state))
+            new, new_state = update(prev, aggregate, state, rejected)
+            events.append({
+                "rejected": bool(rejected),
+                "params_unchanged": _same_tree(new, before[0]),
+                "momentum_unchanged": _same_tree(new_state, before[1]),
+            })
+            return new, new_state
+
+        return init, update_watched
+
+    FedAvg.make_server_update = watched
+    try:
+        res = run_path(torch, gn, wg, "fedavgm_reject", config)
+    finally:
+        FedAvg.make_server_update = original
+    rejected = [rec.get("round_rejected") for rec in res["history"]]
+    if rejected != [e["rejected"] for e in events] or not any(rejected):
+        fail(f"fedavgm_reject: rejected rounds {rejected}, server updates "
+             f"{events}")
+    for rec, event in zip(res["history"], events):
+        if event["rejected"] and not (event["params_unchanged"]
+                                      and event["momentum_unchanged"]):
+            fail(f"fedavgm_reject round {rec['round']}: rejected, but "
+                 f"{event}")
+    res["server_updates"] = events
+    log(f"fedavgm_reject: survivors "
+        f"{[rec['survivor_count'] for rec in res['history']]}, rejected "
+        f"{rejected}; every rejected round kept the global params and the "
+        "server momentum bitwise; round seconds "
+        f"{res['round_seconds']}")
+    return res
+
+
+def _flat_params(torch, params) -> "torch.Tensor":
+    return torch.cat([v.float().reshape(-1) for _, v in
+                      sorted(params.items())])
+
+
+def _nondeterministic_ops(torch, config) -> list[str]:
+    """The ops PyTorch names as nondeterministic while one training round
+    of ``config`` runs with ``use_deterministic_algorithms(warn_only)``
+    (a diagnostic run whose numbers are not kept)."""
+    import dataclasses
+    import warnings
+
+    from distributed_learning_simulator_tpu_torch.simulator import (
+        run_simulation,
+    )
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run_simulation(dataclasses.replace(config, round=1),
+                           setup_logging=False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(" does not have a deterministic")[0]
+                   for w in caught if "deterministic" in str(w.message)})
+
+
+def crash_resume(torch, gn, wg, config, work: str):
+    """Phase 2g: ``crash_resume``. The configuration runs straight twice in
+    this process while a child process runs it with a checkpoint every
+    round and is killed with SIGKILL right after round 1; it is then
+    resumed here, and the stitched history and final params are compared
+    with the straight runs. If the
+    two straight runs are bitwise equal, the stitched run must be too;
+    if not, the stitched run must differ from the first straight run by
+    no more than twice what the second does, and the phase prints the
+    largest difference and the ops PyTorch names as nondeterministic. A
+    second child, at the same time, gets SIGTERM after round 1 (no
+    checkpoint cadence): it must exit 0 with ``preempted_at`` set and its
+    final checkpoint on disk."""
+    import dataclasses
+
+    from distributed_learning_simulator_tpu_torch.robustness import (
+        chaos_resume as chaos,
+    )
+    from distributed_learning_simulator_tpu_torch.simulator import (
+        run_simulation,
+    )
+
+    cfg = dataclasses.replace(
+        config, log_root=os.path.join(work, "crash_resume", "log"),
+        checkpoint_dir=os.path.join(work, "crash_resume", "ckpt"),
+        checkpoint_every=1)
+    term = dataclasses.replace(
+        cfg, log_root=os.path.join(work, "crash_sigterm", "log"),
+        checkpoint_dir=os.path.join(work, "crash_sigterm", "ckpt"),
+        checkpoint_every=0)
+    # The two children (each pays its own start-up and the init replay) run
+    # while this process runs the straight ones.
+    start = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        kill_leg = pool.submit(chaos.run_crashed_subprocess, cfg, 1,
+                               "sigkill", timeout=600)
+        term_leg = pool.submit(chaos.run_crashed_subprocess, term, 1,
+                               "sigterm", timeout=600)
+        gn.reset_launch_counts()
+        wg.reset_launch_counts()
+        straight = []
+        for _ in range(2):
+            res = run_simulation(config, setup_logging=False)
+            straight.append((chaos.normalize(res["history"]),
+                             _flat_params(torch, res["global_params"])))
+        launches = {"gn_stats": gn.gn_stats.launches,
+                    "gn_normalize": gn.gn_normalize.launches,
+                    "conv3x3_wgrad": wg.conv3x3_wgrad.launches}
+        proc, term_proc = kill_leg.result(), term_leg.result()
+    child_seconds = time.perf_counter() - start
+    if not all(launches.values()):
+        fail(f"crash_resume: a kernel never launched {launches}")
+    if proc.returncode != -9:
+        fail(f"crash_resume: the SIGKILL child exited {proc.returncode}: "
+             f"{proc.stderr[-1500:]}")
+    crashed = chaos.read_metrics_jsonl(cfg.log_root)
+    resumed = run_simulation(dataclasses.replace(cfg, resume=True),
+                             setup_logging=False)
+    stitched_params = _flat_params(torch, resumed["global_params"])
+    verdict = chaos.stitch_and_compare(straight[0][0], crashed,
+                                       chaos.normalize(resumed["history"]))
+    if verdict.get("resume_start_round") != 2:
+        fail(f"crash_resume: resumed at {verdict}")
+    (hist_a, params_a), (hist_b, params_b) = straight
+    straight_equal = hist_a == hist_b and torch.equal(params_a, params_b)
+    stitched = [r for r in crashed if r["round"] < 2] + chaos.normalize(
+        resumed["history"])
+
+    def loss_gap(h):
+        return max(abs(x["test_loss"] - y["test_loss"])
+                   for x, y in zip(hist_a, h))
+
+    gaps = {
+        "straight_params": (params_b - params_a).abs().max().item(),
+        "straight_test_loss": loss_gap(hist_b),
+        "stitched_params": (stitched_params - params_a).abs().max().item(),
+        "stitched_test_loss": loss_gap(stitched),
+    }
+    out = {"straight_bitwise_equal": straight_equal, "verdict": verdict,
+           "gaps": gaps, "children_and_straight_seconds": child_seconds,
+           "launches_two_straight_runs": launches}
+    if straight_equal:
+        if not (verdict["bit_identical"]
+                and torch.equal(stitched_params, params_a)):
+            fail(f"crash_resume: the straight runs are bitwise equal but "
+                 f"the stitched run is not: {verdict}, {gaps}")
+    else:
+        ops = _nondeterministic_ops(torch, config)
+        out["nondeterministic_ops"] = ops
+        for what in ("params", "test_loss"):
+            if gaps[f"stitched_{what}"] > 2 * gaps[f"straight_{what}"]:
+                fail(f"crash_resume: stitched {what} off by "
+                     f"{gaps[f'stitched_{what}']:.3e}, beyond twice the "
+                     f"straight runs' {gaps[f'straight_{what}']:.3e}")
+        log(f"crash_resume: the two straight runs differ (largest params "
+            f"difference {gaps['straight_params']:.3e}, test loss "
+            f"{gaps['straight_test_loss']:.3e}); ops named nondeterministic: "
+            f"{ops}")
+    # The SIGTERM leg: finish the round, write the final checkpoint, exit 0.
+    proc = term_proc
+    child = (json.loads(proc.stdout.strip().splitlines()[-1])
+             if proc.returncode == 0 and proc.stdout.strip() else {})
+    left = (sorted(os.listdir(term.checkpoint_dir))
+            if os.path.isdir(term.checkpoint_dir) else [])
+    if (proc.returncode != 0 or child.get("preempted_at") != 1
+            or "preempted at round 1" not in proc.stderr
+            or left != ["round_1.ckpt"]):
+        fail(f"crash_resume: SIGTERM child exited {proc.returncode}, "
+             f"result {child}, checkpoints {left}: {proc.stderr[-1500:]}")
+    out["sigterm"] = {"preempted_at": child["preempted_at"],
+                      "checkpoints": left}
+    log(f"crash_resume: straight runs bitwise equal: {straight_equal}; "
+        f"SIGKILL after round 1 then resume: stitched history "
+        f"bit-identical {verdict['bit_identical']}, largest params "
+        f"difference {gaps['stitched_params']:.3e}; SIGTERM child exited 0, "
+        f"preempted_at {child['preempted_at']}, checkpoints {left}")
+    return out
+
+
+def gn_autodiff(torch, gn, wg):
+    """Phase 2h: one chunk-40 training step of ResNet-18 at full width in
+    bf16 (25 samples a client, the models a seeded perturbation of the
+    replayed init), with ``gn_custom_backward`` False and True, after one
+    warm-up step each. The losses (the forward) must be bitwise equal, the
+    gradients within 2**-8 of the largest gradient element (bf16 keeps 8
+    significant bits, so two roundings of one gradient differ by up to a
+    step of that size, 3.9e-3 relative), and the launch counts of every
+    kernel equal in both; prints the largest difference (also as a share
+    of the largest element, against 1e-3), the relative L2 difference and
+    each step's ms (median of 3)."""
+    from distributed_learning_simulator_tpu_torch.models.bridge import (
+        jax_leaf_order,
+    )
+    from distributed_learning_simulator_tpu_torch.models.registry import (
+        ParamLayout,
+        get_model,
+        init_params,
+    )
+    from distributed_learning_simulator_tpu_torch.parallel.engine import (
+        make_loss_fn,
+    )
+
+    m, b, hw = FLAGSHIP_CHUNK, TRAIN_BATCH, (32, 32)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.rand((m, b) + hw + (3,), device="cuda", generator=gen)
+    y = torch.randint(0, 10, (m, b), device="cuda", generator=gen)
+    mask = torch.ones(m, b, device="cuda")
+    stack = None
+    out = {}
+    for custom in (True, False):
+        model = get_model("resnet18", num_classes=10, input_shape=hw + (3,),
+                          gn_custom_backward=custom).cuda()
+        params = init_params(model, hw, seed=0)
+        layout = ParamLayout.from_params(params,
+                                         jax_leaf_order(model, hw))
+        if stack is None:
+            flat = layout.flatten(params).cuda()
+            stack = (flat + 0.01 * torch.randn(
+                (m,) + flat.shape, device="cuda", generator=gen)
+                     ).to(torch.bfloat16)
+        loss = make_loss_fn(lambda f, xx, model=model, layout=layout:
+                            torch.func.functional_call(
+                                model, layout.unflatten(f), (xx,)))
+        step = torch.func.vmap(torch.func.grad_and_value(loss,
+                                                         has_aux=True))
+        step(stack, x, y, mask)
+        torch.cuda.synchronize()
+        gn.reset_launch_counts()
+        wg.reset_launch_counts()
+        grads, (losses, _) = step(stack, x, y, mask)
+        torch.cuda.synchronize()
+        launches = {"gn_stats": gn.gn_stats.launches,
+                    "gn_normalize": gn.gn_normalize.launches,
+                    "conv3x3_wgrad": wg.conv3x3_wgrad.launches}
+        times = []
+        for _ in range(3):
+            start = time.perf_counter()
+            step(stack, x, y, mask)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - start))
+        out[custom] = {"grads": grads.float(), "losses": losses,
+                       "launches": launches,
+                       "step_ms": statistics.median(times)}
+        del model, step
+    want, got = out[True]["grads"], out[False]["grads"]
+    largest = want.abs().max().item()
+    max_diff = (got - want).abs().max().item()
+    rel_l2 = ((got - want).norm() / want.norm()).item()
+    forward_equal = torch.equal(out[True]["losses"], out[False]["losses"])
+    if not forward_equal:
+        fail("gn_autodiff: the losses of the two backward choices differ")
+    if not max_diff <= 2.0 ** -8 * largest:
+        fail(f"gn_autodiff: gradients differ by {max_diff:.3e}, beyond "
+             f"2**-8 of the largest element {largest:.3e}")
+    if out[True]["launches"] != out[False]["launches"] or not all(
+            out[False]["launches"].values()):
+        fail(f"gn_autodiff: launches {out[True]['launches']} with the "
+             f"closed form, {out[False]['launches']} with autodiff")
+    res = {"forward_bitwise_equal": forward_equal,
+           "grad_max_abs_diff": max_diff, "grad_largest": largest,
+           "grad_rel_l2": rel_l2,
+           "launches": out[False]["launches"],
+           "step_ms": {"custom_backward": out[True]["step_ms"],
+                       "autodiff": out[False]["step_ms"]}}
+    side = "within" if max_diff <= 1e-3 * largest else "beyond"
+    log(f"gn_autodiff: chunk-40 bf16 step, forward bitwise equal; gradients "
+        f"max abs diff {max_diff:.3e} ({max_diff / largest:.2e} of the "
+        f"largest {largest:.3e}: {side} 1e-3, within 2**-8; relative L2 "
+        f"{rel_l2:.2e}); launches per step "
+        f"{res['launches']} in both; step ms {res['step_ms']}")
+    return res
+
+
 def profile_rounds(torch, name, config):
     """Phase 3, where a round's time goes (informational, not a check): one
     algorithm at 10 clients, 2 rounds, under torch.profiler (whose trace
@@ -1822,6 +2245,19 @@ def main() -> None:
         "headline", run_headline, torch, gn, wg,
         os.path.join(args.out, "log"))
     chunks = phase("chunk_compare", compare_chunks, torch, gn, wg)
+    work = os.path.join(os.path.abspath(args.out), "robustness")
+    shutil.rmtree(work, ignore_errors=True)
+    robust = robustness_configs(work)
+    paths["fedopt_dropout"] = phase(
+        "fedopt_dropout", run_fedopt_dropout, torch, gn, wg,
+        robust["fedopt_dropout"])
+    paths["fedavgm_reject"] = phase(
+        "fedavgm_reject", run_fedavgm_reject, torch, gn, wg,
+        robust["fedavgm_reject"])
+    resume = phase("crash_resume", crash_resume, torch, gn, wg,
+                   robust["crash_resume"], work)
+    autodiff = phase("gn_autodiff", gn_autodiff, torch, gn, wg)
+    shutil.rmtree(work)  # the phases' checkpoints, ~128 MiB each
     # The ResNet paths at 5 clients (10 before the headline path: the
     # profiler's trace processing took most of the run), the headline at
     # 10 (50 samples each, as at 1000) with a 1000-sample eval.
@@ -1894,7 +2330,8 @@ def main() -> None:
                    "kernels": kernels, "main_paths": paths,
                    "plain_models": plain_models,
                    "profiles": profiles, "vmap_layers": layers,
-                   "layout_ab": ab, "phase_seconds": phase_seconds},
+                   "layout_ab": ab, "crash_resume": resume,
+                   "gn_autodiff": autodiff, "phase_seconds": phase_seconds},
                   f, indent=1)
     if "jax" in sys.modules:
         fail("the port imported jax")

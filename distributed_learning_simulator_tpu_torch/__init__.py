@@ -9,8 +9,9 @@ by hand for Hopper here (csrc/, ops/gn_cuda.py); what the JAX package left
 to XLA, the port leaves to PyTorch.
 
 The port imports torch and numpy, never jax and nothing of the JAX package.
-Ported so far: synchronous FedAvg, sign_SGD and fed_quant on ResNet-18/34
-(ROADMAP.md).
+Ported so far: the five algorithms, the eight models, partial
+participation, the robust rules, the client and server optimizers, the
+failure model with its quorum, and checkpoints with resume (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

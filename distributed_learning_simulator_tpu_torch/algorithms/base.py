@@ -11,6 +11,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
+from distributed_learning_simulator_tpu_torch.ops.cohort import tree_map
+
 
 @dataclass
 class RoundContext:
@@ -64,18 +66,19 @@ class Algorithm:
     def init_client_state(self, optimizer, global_flat, n_clients: int):
         """Initial per-client persistent state: None when client optimizers
         reset every round (the default), else each client's fresh optimizer
-        state for the f32 global model stacked ``[n_clients, P]`` (None for
-        an optimizer without state, SGD without momentum)."""
+        state for the f32 global model, each leaf stacked ``[n_clients,
+        ...]`` (None for an optimizer without state, SGD without
+        momentum)."""
         if self.config.reset_client_optimizer:
             return None
-        state = optimizer.init(global_flat)
-        if state is None:
-            return None
-        return state[None].expand((n_clients,) + state.shape).clone()
+        return tree_map(
+            lambda t: t[None].expand((n_clients,) + t.shape).clone(),
+            optimizer.init(global_flat))
 
     def make_server_update(self):
-        """Optional server-side optimizer; None means the round aggregate
-        becomes the next global model unchanged."""
+        """Optional server-side optimizer ``(init_fn, update_fn)``; None
+        means the round aggregate becomes the next global model
+        unchanged."""
         return None
 
     def prepare(self, apply_fn, eval_fn, eval_batches=None) -> None:

@@ -4,7 +4,8 @@ the JAX package).
 One round: the cohort trains from the global model, and the server combines
 the uploads. The round takes the round key of the JAX package's key chain
 and derives every draw from it as the JAX program does (ops/prng.py):
-``round_key_splits`` gives ``(part_key, train_key, payload_key, agg_key)``;
+``round_key_splits`` gives ``(part_key, train_key, payload_key, agg_key)``,
+and with a failure model a fifth, the failure draws' key;
 the cohort comes from ``part_key`` (ops/sampling.py); the client at cohort
 position p trains with ``split(train_key, cohort)[p]`` (its batch orders
 and bf16 rounding salt, parallel/engine.py ``client_draws``); the payload
@@ -43,6 +44,17 @@ Two ways to combine the uploads:
 
 A round whose cohort weight is 0 keeps the previous global model.
 
+With a failure model (robustness/faults.py) a failed client's upload
+weighs nothing (dropout, straggler) or is garbage at full weight (the
+corrupt modes, applied to its raw params before the payload hooks), and a
+dropout's persistent state stays as it was; the clients still train in
+their chunks as before. The quorum guard (a failure model, or
+``min_survivors > 0``) rejects a round whose survivors fall below
+``min_survivors`` or whose aggregate is not finite: the round returns the
+previous global model, after ``process_aggregated``, and reports
+``survivor_count`` and ``round_rejected``. ``make_server_update`` gives
+the FedOpt server step (FedAvgM, FedAdam) the simulator applies.
+
 Template hooks for subclasses (fed_quant): ``client_param_transform``
 (applied to the params inside the loss and in client eval),
 ``process_client_payload`` (each client's upload, before it is weighted)
@@ -72,27 +84,37 @@ from distributed_learning_simulator_tpu_torch.ops.augment import get_augment
 from distributed_learning_simulator_tpu_torch.ops.cohort import (
     cohort_scatter,
     cohort_take,
+    set_rows,
 )
 from distributed_learning_simulator_tpu_torch.ops.quantize import Segments
 from distributed_learning_simulator_tpu_torch.ops.sampling import (
     draw_cohort_host,
 )
 from distributed_learning_simulator_tpu_torch.parallel.engine import (
+    Adam,
     client_draws,
+    fma,
     make_chunk_train_fn,
     make_models_eval_fn,
     stack_draws,
 )
+from distributed_learning_simulator_tpu_torch.robustness.faults import (
+    FailureModel,
+    all_finite,
+)
 from distributed_learning_simulator_tpu_torch.utils.logging import get_logger
 
 
-def round_key_splits(key):
+def round_key_splits(key, with_faults: bool = False):
     """The round key's split chain, as the JAX package's
-    ``round_key_splits(key, with_faults=False)``: ``(part_key, train_key,
-    payload_key, agg_key)``. (Its 5-way split with a fault key comes with
-    the failure models, ROADMAP.md queue 1 item 12.)"""
+    ``round_key_splits(key, with_faults)``: ``(part_key, train_key,
+    payload_key, agg_key, fault_key)``. The fault split is made only with a
+    failure model, so a run without one keeps the exact 4-way stream
+    (``fault_key`` is then None)."""
+    if with_faults:
+        return tuple(prng.split(key, 5))
     part_key, train_key, payload_key, agg_key = prng.split(key, 4)
-    return part_key, train_key, payload_key, agg_key
+    return part_key, train_key, payload_key, agg_key, None
 
 
 def chunk_keys(group_key, n_members: int, chunk: int | None):
@@ -148,9 +170,10 @@ class FedAvg(Algorithm):
         n_participants = cfg.cohort_size(n_clients)
         if n_participants == n_clients:
             return None
+        with_faults = FailureModel.from_config(cfg) is not None
         return draw_cohort_host(
-            round_key_splits(round_key)[0], n_clients, n_participants,
-            cfg.participation_sampler.lower(),
+            round_key_splits(round_key, with_faults)[0], n_clients,
+            n_participants, cfg.participation_sampler.lower(),
         )
 
     # Template hooks (identity here; fed_quant overrides them). The payload
@@ -186,6 +209,12 @@ class FedAvg(Algorithm):
         aggregation = cfg.aggregation.lower()
         n_participants = cfg.cohort_size(n_clients)
         sampled = n_participants < n_clients
+        # Failure model + quorum policy (robustness/faults.py): without a
+        # failure model and with min_survivors=0 nothing below changes the
+        # round. min_survivors alone still turns the quorum guard on.
+        fm = FailureModel.from_config(cfg)
+        min_survivors = cfg.min_survivors
+        quorum = fm is not None or min_survivors > 0
         if client_eval and self._eval_fn is None:
             raise RuntimeError(
                 "client_eval needs prepare(apply_fn, eval_fn, eval_batches) "
@@ -276,8 +305,19 @@ class FedAvg(Algorithm):
             theirs). ``client_rng(client, n_slots) -> (epoch_perms,
             sr_salt[, aug_key])`` and ``payload_salts(client) -> [n_leaves]
             salts`` (``client=None``: the broadcast's) optionally replace
-            the key chain's draws (tests)."""
-            _, train_key, payload_key, agg_key = round_key_splits(key)
+            the key chain's draws (tests).
+
+            With a failure model, ``failed`` (bool per cohort position, from
+            the fault key) zeroes a dropout's or straggler's weight, turns a
+            corrupt client's raw upload into garbage, and freezes a
+            dropout's persistent state. With the quorum guard,
+            ``aux["survivor_count"]`` and ``aux["round_rejected"]`` report
+            the round, and a rejected round returns the previous global
+            model exactly."""
+            _, train_key, payload_key, agg_key, fault_key = round_key_splits(
+                key, fm is not None)
+            failed = (fm.draw_failed(fault_key, n_participants)
+                      if fm is not None else None)
             ids = self.cohort_indices(key, n_clients)
             if ids is None:
                 ids = np.arange(n_clients)
@@ -306,6 +346,10 @@ class FedAvg(Algorithm):
                 def payload_salts(i):
                     return None
             part_sizes = np.asarray(sizes, dtype=np.float32)[ids]
+            if failed is not None and fm.excludes_update:
+                # The weighted mean renormalizes over the survivors; the
+                # robust rules' weight > 0 mask leaves the failed out.
+                part_sizes = part_sizes * (~failed).astype(np.float32)
             total = part_sizes.sum(dtype=np.float32)
             norm_w = part_sizes / np.maximum(total, np.float32(1e-12))
             losses = torch.zeros(n_participants, device=global_flat.device)
@@ -322,19 +366,27 @@ class FedAvg(Algorithm):
                                        device=cx.device)
                 perms, salts, aug_keys = stack_draws(
                     [client_rng(int(ids[p]), slots) for p in members])
+                old_state = cohort_take(state_k, pos)
                 params, state, metrics = train_chunk(
                     global_flat, cx[rows, :slots], cy[rows, :slots],
                     cmask[rows, :slots], perms, salts, aug_keys=aug_keys,
-                    lr_scale=lr_scale,
-                    opt_state=None if state_k is None else state_k[pos],
+                    lr_scale=lr_scale, opt_state=old_state,
                 )
                 if state_k is not None:
-                    state_k[pos] = state
+                    if failed is not None and fm.freezes_client_state:
+                        state = fm.freeze_failed_state(failed[members],
+                                                       old_state, state)
+                    set_rows(state_k, pos, state)
                 losses[pos] = metrics["loss"]
                 accs[pos] = metrics["accuracy"]
                 return params
 
             def payload(members, params):
+                """The members' uploads: the corrupt modes damage the raw
+                params first, as the client's own payload transform would
+                see them."""
+                if failed is not None and fm.corrupts_upload:
+                    params = fm.corrupt_stack(params, failed[members])
                 salts = [payload_salts(int(ids[p])) for p in members]
                 if salts[0] is None:
                     salts = None
@@ -359,9 +411,10 @@ class FedAvg(Algorithm):
                                                                 params)
                 new_global = aggregate(stack, part_sizes, aggregation,
                                        cfg.trim_ratio)
-                if (aggregation != "mean"
-                        and not bool(torch.isfinite(new_global).all())):
-                    # Every candidate diverged: keep the previous model.
+                if (aggregation != "mean" and not quorum
+                        and not all_finite(new_global)):
+                    # Every candidate diverged: keep the previous model (the
+                    # quorum guard, when on, rejects such a round instead).
                     new_global = global_flat.to(new_global.dtype)
                 if keep_stack:
                     aux["client_params"] = stack
@@ -380,9 +433,25 @@ class FedAvg(Algorithm):
             # Empty effective cohort: keep the previous global model.
             if not total > 0:
                 new_global = global_flat
+            rejected = False
+            if quorum:
+                # Rejected when the survivors fall below min_survivors or the
+                # aggregate is not finite (the plain mean would carry a NaN
+                # upload into the global model for good).
+                survivor_count = (int((~failed).sum()) if failed is not None
+                                  else n_participants)
+                rejected = (not all_finite(new_global)
+                            or survivor_count < min_survivors)
+                aux["survivor_count"] = survivor_count
+                aux["round_rejected"] = rejected
             new_global, agg_aux = self.process_aggregated(
                 new_global, payload_salts(None)
             )
+            if rejected:
+                # After the downlink transform, so that a rejected round
+                # keeps the previous global model exactly (fed_quant would
+                # otherwise re-quantize it with fresh noise).
+                new_global = global_flat.to(new_global.dtype)
             aux.update({
                 "client_loss": losses,
                 "client_accuracy": accs,
@@ -427,9 +496,51 @@ class FedAvg(Algorithm):
         }
 
     def make_server_update(self):
-        if self.config.server_optimizer_name.lower() in ("none", ""):
+        """Optional server-side optimizer step on the round aggregate:
+        ``(init_fn, update_fn)``, or None (plain FedAvg: the aggregate is
+        the next global model).
+
+        The pseudo-gradient ``prev_global - aggregate`` takes an optimizer
+        step: ``sgd`` with ``server_momentum`` is FedAvgM, ``adam`` FedAdam
+        (sgd at lr 1 without momentum is FedAvg again). The arithmetic is
+        the JAX package's jitted update on the f32 global model:
+        ``trace = fma(trace, momentum, g)`` and ``params = fma(direction,
+        -lr, prev)`` (parallel/engine.fma; Adam's direction as
+        :class:`Adam` computes it). ``update_fn(prev, aggregate, state,
+        rejected=None)``: a rejected round returns ``prev`` and ``state``
+        unchanged, so momentum or Adam's moments from earlier rounds move
+        nothing."""
+        cfg = self.config
+        name = cfg.server_optimizer_name.lower()
+        if name in ("none", ""):
             return None
-        raise NotImplementedError(
-            "server optimizers are not ported to the PyTorch package yet "
-            "(ROADMAP.md queue 1 item 19)"
-        )
+        lr = cfg.server_learning_rate
+        if name == "sgd":
+            momentum = cfg.server_momentum
+
+            def init(params):
+                # No momentum keeps an empty state (optax's EmptyState), so
+                # that a checkpoint still records a server optimizer.
+                return torch.zeros_like(params) if momentum else {}
+
+            def direction(grads, state, params):
+                if not momentum:
+                    return grads, state
+                trace = fma(state, momentum, grads)
+                return trace, trace
+        elif name == "adam":
+            tx = Adam(lr, server=True)
+            init, direction = tx.init, tx.direction
+        else:  # validated by ExperimentConfig.validate
+            raise ValueError(
+                f"unknown server optimizer {name!r}; known: none, sgd, adam"
+            )
+
+        def update(prev_global, aggregate, opt_state, rejected=None):
+            if rejected:
+                return prev_global, opt_state
+            pseudo_grad = prev_global - aggregate.to(prev_global.dtype)
+            d, new_state = direction(pseudo_grad, opt_state, prev_global)
+            return fma(d, -lr, prev_global), new_state
+
+        return init, update

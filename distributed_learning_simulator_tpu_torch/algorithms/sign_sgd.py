@@ -26,6 +26,14 @@ epoch e is ``permutation(split(split(key, epochs)[e], n_clients)[c],
 shard)``. Each step gathers every client's own minibatch rows
 (ops/cohort.py ``batched_take``). The SGD optimizer is required, as in the
 reference.
+
+With a failure model (dropout or straggler; the corrupt modes are
+refused, a 1-bit vote has no parameter payload to corrupt) the round's
+first key split draws which clients fail: a failed client's votes are left
+out of every step (the majority counts the survivors), and its momentum
+and step count stay as they were. The quorum guard rejects a round whose
+survivors fall below ``min_survivors`` or whose voted params are not
+finite, returning the round-start params.
 """
 
 from __future__ import annotations
@@ -49,6 +57,10 @@ from distributed_learning_simulator_tpu_torch.ops.sign import (
 from distributed_learning_simulator_tpu_torch.parallel.engine import (
     chunk_decoder,
     make_loss_fn,
+)
+from distributed_learning_simulator_tpu_torch.robustness.faults import (
+    FailureModel,
+    all_finite,
 )
 
 
@@ -82,9 +94,8 @@ class SignSGD(Algorithm):
                 "sign_SGD votes over every client each step; "
                 "participation_fraction < 1 is not supported"
             )
-        if (
+        if FailureModel.from_config(config) is not None and (
             config.failure_mode in ("corrupt_nan", "corrupt_scale")
-            and config.failure_prob > 0.0
         ):
             raise ValueError(
                 "sign_SGD supports failure_mode dropout/straggler only "
@@ -124,6 +135,13 @@ class SignSGD(Algorithm):
             torch.func.grad_and_value(loss_fn, has_aux=True),
             in_dims=(None, 0, 0, 0))
         decode = chunk_decoder(preprocess) if preprocess is not None else None
+        # Failure model (dropout/straggler; the constructor refuses the
+        # corrupt modes), drawn once a round: a failed client misses the
+        # whole round, its votes are left out (the majority counts the
+        # survivors), and its momentum and step count freeze.
+        fm = FailureModel.from_config(cfg)
+        min_survivors = cfg.min_survivors
+        quorum = fm is not None or min_survivors > 0
 
         def round_fn(global_flat, client_state, cx, cy, cmask, sizes,
                      key, lr_scale=1.0, client_rng=None,
@@ -134,6 +152,13 @@ class SignSGD(Algorithm):
             schedules for sign_SGD) and ``payload_salts`` are not read."""
             shard = cx.shape[1]
             steps = shard // bsz
+            surv = None
+            if fm is not None:
+                key, fault_key = prng.split(key)
+                failed = fm.draw_failed(fault_key, n_clients)
+                n_surv = int((~failed).sum())
+                surv = torch.as_tensor(~failed, dtype=torch.float32,
+                                       device=global_flat.device)
             if client_rng is None:
                 perm_keys = [prng.split(ek, n_clients)
                              for ek in prng.split(key, epochs)]
@@ -179,21 +204,49 @@ class SignSGD(Algorithm):
                                     momenta[rows], grads,
                                     is_first[rows, None], mu, dampening,
                                 )
-                                momenta[rows] = m_new
                                 direction = direction_leaf(grads, m_new, mu,
                                                            nesterov)
-                            vote += torch.sign(direction).sum(dim=0)
+                            signs = torch.sign(direction)
+                            if surv is not None:
+                                s_c = surv[rows]
+                                signs = signs * s_c[:, None]
+                                losses = losses * s_c
+                                if has_momentum:
+                                    m_new = torch.where(s_c[:, None] > 0,
+                                                        m_new, momenta[rows])
+                            if has_momentum:
+                                momenta[rows] = m_new
+                            vote += signs.sum(dim=0)
                             loss_sum += losses.sum()
                     with torch.no_grad():
-                        params = vote_apply_leaf(params, torch.sign(vote), lr,
-                                                 wd)
-                    step_counts = step_counts + 1
-                    step_losses.append(loss_sum / n_clients)
+                        if surv is None or n_surv > 0:
+                            # No survivor, no step (not even weight decay).
+                            params = vote_apply_leaf(
+                                params, torch.sign(vote), lr, wd)
+                    if surv is None:
+                        step_counts = step_counts + 1
+                        denom = n_clients
+                    else:
+                        step_counts = step_counts + surv.to(torch.int32)
+                        denom = float(max(n_surv, 1))
+                    step_losses.append(loss_sum / denom)
                 epoch_loss = torch.stack(step_losses).mean()
             aux = {
                 "mean_client_loss": epoch_loss,
                 "sync_steps": epochs * steps,
             }
+            if quorum:
+                # Reject the round (back to the round-start params) when
+                # the survivors fall below min_survivors or the voted
+                # params are not finite. The per-client momentum and step
+                # state keeps its per-client freeze.
+                survivor_count = n_surv if fm is not None else n_clients
+                rejected = (not all_finite(params)
+                            or survivor_count < min_survivors)
+                if rejected:
+                    params = global_flat.to(params.dtype)
+                aux["survivor_count"] = survivor_count
+                aux["round_rejected"] = rejected
             new_state = (
                 {"momenta": momenta, "steps": step_counts}
                 if has_momentum else None

@@ -174,3 +174,23 @@ def jax_leaf_order(model, input_hw: tuple[int, int]) -> list[str]:
     the JAX package builds for the same model and input size."""
     paths = jax_paths(model, input_hw)
     return sorted(paths, key=paths.__getitem__)
+
+
+def params_to_jax(params: dict[str, torch.Tensor],
+                  paths: dict[str, tuple[str, ...]]) -> dict:
+    """A state_dict -> the JAX tree (nested dicts of f32 numpy arrays in the
+    JAX layout) at ``paths`` (:func:`jax_paths`): the inverse of
+    :func:`params_from_jax`, as checkpoints store the global model."""
+    tree: dict = {}
+    for name, path in paths.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = to_jax_layout(
+            params[name].detach().float().cpu().numpy())
+    return tree
+
+
+def tree_paths(tree) -> list[tuple[str, ...]]:
+    """The leaf paths of a nested-dict tree, in the JAX leaf order."""
+    return [path for path, _ in _flatten(tree)]

@@ -12,7 +12,8 @@ stage 1:
   subtract-first normalize, eps 1e-6, ``min(32, C)`` groups. Its forward is
   the hand-written CUDA kernel pair (ops/gn_cuda.py ``group_norm``); its
   backward is the closed form ``_pgn_bwd`` in plain PyTorch, consuming the
-  forward's per-group mean and rstd;
+  forward's per-group mean and rstd, or with ``gn_custom_backward=False``
+  autodiff of the plain forward (the kernels still run the forward);
 * residual add and relu run in the model dtype, the mean pool returns the
   model dtype, and the classifier head is f32 with f32 logits;
 * stage 0's 3x3 stride-1 width->width convolutions (``2 * stage_sizes[0]``
@@ -136,11 +137,61 @@ class _PlainGroupNormFn(torch.autograd.Function):
         return dx, dscale, dbias, None, None, None
 
 
+def gn_forward_plain(x, scale, bias, g: int, eps: float, out_dtype):
+    """The JAX package's plain GroupNorm forward (``_gn_forward`` without
+    Pallas) on NHWC ``x``: one-pass ``E[x^2] - E[x]^2`` statistics in f32,
+    ``max(var, 0)``, subtract first, and one cast at the end."""
+    b, h, w, c = x.shape
+    cpg = c // g
+    x5 = x.reshape(b, h, w, g, cpg)
+    x32 = x5.float()
+    mean = x32.mean(dim=(1, 2, 4), keepdim=True)
+    mean2 = (x32 * x32).mean(dim=(1, 2, 4), keepdim=True)
+    rstd = torch.rsqrt(torch.clamp(mean2 - mean * mean, min=0.0) + eps)
+    a = rstd * scale.reshape(g, cpg)
+    y = ((x5 - mean) * a + bias.reshape(g, cpg)).to(out_dtype)
+    return y.reshape(b, h, w, c)
+
+
+class _AutodiffGroupNormFn(torch.autograd.Function):
+    """GroupNorm with ``gn_custom_backward=False``: the forward is the same
+    ``group_norm`` as :class:`_PlainGroupNormFn`'s (the CUDA kernels on a
+    CUDA tensor), and the backward is autodiff of
+    :func:`gn_forward_plain`, recomputed from the saved ``x`` by
+    ``torch.func.vjp``, as the JAX package differentiates its plain
+    forward when the closed form is off. Under vmap the recomputation is
+    vmapped with the rest of the backward."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, scale, bias, g, eps, out_dtype):
+        with torch.no_grad():
+            return group_norm_op(x, scale, bias, g, eps, out_dtype)[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, scale, bias, g, eps, out_dtype = inputs
+        ctx.save_for_backward(x, scale, bias)
+        ctx.args = (g, eps, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, bias = ctx.saved_tensors
+        _, vjp = torch.func.vjp(
+            lambda x, s, b: gn_forward_plain(x, s, b, *ctx.args),
+            x, scale, bias)
+        return (*vjp(dy), None, None, None)
+
+
 class PlainGroupNorm(nn.Module):
-    """GroupNorm over the channels of an NHWC tensor (``PlainGroupNorm``)."""
+    """GroupNorm over the channels of an NHWC tensor (``PlainGroupNorm``);
+    ``custom_backward=False`` differentiates the forward by autodiff
+    (:class:`_AutodiffGroupNormFn`) instead of the closed form."""
 
     def __init__(self, channels: int, num_groups: int,
-                 dtype=torch.bfloat16, epsilon: float = 1e-6):
+                 dtype=torch.bfloat16, epsilon: float = 1e-6,
+                 custom_backward: bool = True):
         super().__init__()
         if channels % num_groups:
             raise ValueError(
@@ -150,6 +201,7 @@ class PlainGroupNorm(nn.Module):
         self.num_groups = num_groups
         self.dtype = resolve_dtype(dtype)
         self.epsilon = epsilon
+        self.custom_backward = custom_backward
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
@@ -161,6 +213,8 @@ class PlainGroupNorm(nn.Module):
                 self.dtype)
         if not torch.is_grad_enabled():
             return group_norm_op(*args)[0]
+        if not self.custom_backward:
+            return _AutodiffGroupNormFn.apply(*args)
         return _PlainGroupNormFn.apply(*args)[0]
 
 
@@ -252,18 +306,24 @@ class ResidualBlock(nn.Module):
     weight gradients through the hand-written kernel."""
 
     def __init__(self, cin: int, features: int, strides: int = 1,
-                 dtype=torch.bfloat16, wgrad_kernel: bool = False):
+                 dtype=torch.bfloat16, wgrad_kernel: bool = False,
+                 gn_custom_backward: bool = True):
         super().__init__()
         groups = min(32, features)
+
+        def norm():
+            return PlainGroupNorm(features, groups, dtype,
+                                  custom_backward=gn_custom_backward)
+
         self.conv1 = SameConv2d(cin, features, 3, strides, dtype,
                                 wgrad_kernel)
-        self.norm1 = PlainGroupNorm(features, groups, dtype)
+        self.norm1 = norm()
         self.conv2 = SameConv2d(features, features, 3, 1, dtype, wgrad_kernel)
-        self.norm2 = PlainGroupNorm(features, groups, dtype)
+        self.norm2 = norm()
         self.proj = self.proj_norm = None
         if strides != 1 or cin != features:
             self.proj = SameConv2d(cin, features, 1, strides, dtype)
-            self.proj_norm = PlainGroupNorm(features, groups, dtype)
+            self.proj_norm = norm()
 
     def forward(self, x):
         y = F.relu(self.norm1(self.conv1(x)))
@@ -279,33 +339,32 @@ class ResNet18(nn.Module):
 
     ``in_channels`` is the input's channel count (the JAX module infers it
     from its first input). ``fold_stage1`` changes nothing here (module
-    docstring); ``gn_custom_backward=False`` is not ported yet."""
+    docstring); ``gn_custom_backward=False`` differentiates every
+    GroupNorm by autodiff of its plain forward (:class:`PlainGroupNorm`)."""
 
     def __init__(self, num_classes: int = 10,
                  stage_sizes: Sequence[int] = (2, 2, 2, 2), width: int = 64,
                  dtype=torch.bfloat16, fold_stage1: bool = True,
                  gn_custom_backward: bool = True, in_channels: int = 3):
         super().__init__()
-        if not gn_custom_backward:
-            raise NotImplementedError(
-                "gn_custom_backward=False is not ported to the PyTorch "
-                "package yet (ROADMAP.md queue 1 item 20)"
-            )
         self.stage_sizes = tuple(stage_sizes)
         self.width = width
         self.fold_stage1 = fold_stage1
         self.dtype = resolve_dtype(dtype)
         # CIFAR-style stem (3x3, no initial downsample).
         self.stem = SameConv2d(in_channels, width, 3, 1, self.dtype)
-        self.stem_norm = PlainGroupNorm(width, min(32, width), self.dtype)
+        self.stem_norm = PlainGroupNorm(width, min(32, width), self.dtype,
+                                        custom_backward=gn_custom_backward)
         blocks = []
         cin = width
         for stage, n_blocks in enumerate(self.stage_sizes):
             features = width * 2**stage
             for block in range(n_blocks):
                 strides = 2 if stage > 0 and block == 0 else 1
-                blocks.append(ResidualBlock(cin, features, strides, self.dtype,
-                                            wgrad_kernel=stage == 0))
+                blocks.append(ResidualBlock(
+                    cin, features, strides, self.dtype,
+                    wgrad_kernel=stage == 0,
+                    gn_custom_backward=gn_custom_backward))
                 cin = features
         self.blocks = nn.Sequential(*blocks)
         self.head = Dense(cin, num_classes)

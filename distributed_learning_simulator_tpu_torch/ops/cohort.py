@@ -1,31 +1,55 @@
 """Gather and scatter over the client axis (ops/cohort.py of the JAX
 package): a cohort's rows of a client-stacked tensor, writing them back,
-and each client's own minibatch rows."""
+and each client's own minibatch rows.
+
+Per-client state is a tensor or a dict of tensors (Adam's count and
+moments), each with the clients on its leading axis; :func:`tree_map`
+applies a function leaf by leaf, as ``jax.tree_util.tree_map`` does."""
 
 from __future__ import annotations
 
 import torch
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of a tensor or a dict of tensors (and the
+    matching leaves of ``rest``); None passes through."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _index(idx, t: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(idx, dtype=torch.long, device=t.device)
+
+
 def cohort_take(stacked, idx):
     """Rows ``idx`` of ``stacked`` along axis 0 (None passes through)."""
-    if stacked is None:
-        return None
-    return stacked[torch.as_tensor(idx, dtype=torch.long,
-                                   device=stacked.device)]
+    return tree_map(lambda t: t[_index(idx, t)], stacked)
 
 
 def cohort_scatter(stacked, idx, update):
     """``stacked`` with rows ``idx`` replaced by ``update`` (a new tensor;
     the other rows keep their values). ``idx`` must be duplicate-free, as a
     cohort drawn without replacement is. None passes through."""
-    if stacked is None:
-        return None
-    out = stacked.clone()
-    out[torch.as_tensor(idx, dtype=torch.long, device=stacked.device)] = (
-        update
-    )
-    return out
+
+    def scatter(t, u):
+        out = t.clone()
+        out[_index(idx, t)] = u
+        return out
+
+    return tree_map(scatter, stacked, update)
+
+
+def set_rows(stacked, idx, update) -> None:
+    """Write ``update`` into rows ``idx`` of ``stacked`` in place."""
+
+    def write(t, u):
+        t[_index(idx, t)] = u
+
+    tree_map(write, stacked, update)
 
 
 def batched_take(stacked: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

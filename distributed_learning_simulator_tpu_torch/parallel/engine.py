@@ -11,9 +11,10 @@ port: :func:`make_chunk_train_fn` trains M clients at once, their params an
 ``[M, P]`` stack, with one ``torch.func.vmap`` of ``grad_and_value`` per
 optimizer step (one forward and one backward for the whole chunk; the
 models' hand-written kernels fold the client axis into their leading axis,
-models/resnet.py). The SGD step, the lr scale, the momentum and the bf16
-stochastic rounding are elementwise ops on the stack, so each row is the
-one-client computation bit for bit. Each client's randomness — each epoch's
+models/resnet.py). The optimizer step (SGD with momentum, or Adam / AdamW
+with a step count per client), the lr scale and the bf16 stochastic
+rounding are elementwise ops on the stack, so each row is the one-client
+computation bit for bit. Each client's randomness — each epoch's
 batch order, the bf16 rounding salt and the augmentation key — comes from
 its key of the JAX package's key chain (:func:`client_draws`, ops/prng.py),
 so it is the reference's bit for bit, or is handed in by the caller.
@@ -29,7 +30,10 @@ import torch
 import torch.nn.functional as F
 
 from distributed_learning_simulator_tpu_torch.ops import prng
-from distributed_learning_simulator_tpu_torch.ops.cohort import batched_take
+from distributed_learning_simulator_tpu_torch.ops.cohort import (
+    batched_take,
+    tree_map,
+)
 from distributed_learning_simulator_tpu_torch.ops.quantize import (
     MASK32,
     Segments,
@@ -80,15 +84,123 @@ class SGD:
         return updates * -self.learning_rate, state
 
 
+def fma(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
+    """f32 fused multiply-add ``a * b + c`` as XLA's fused programs compute
+    it: the product of two f32 values is exact in f64, and the f64 sum
+    rounded to f32 is the fused result (ops/sign.vote_apply_leaf)."""
+    return (a.double() * float(np.float32(b)) + c.double()).float()
+
+
+def _powf(base: float, exponent: np.ndarray) -> np.ndarray:
+    """f32 ``base ** exponent`` for an integer exponent as XLA computes it
+    on the CPU: the f64 power of the f32 base, rounded to f32 (torch's and
+    libm's f32 powers differ in the last bit for some exponents)."""
+    return (np.float64(np.float32(base)) ** exponent.astype(np.float64)
+            ).astype(np.float32)
+
+
+class Adam:
+    """optax's ``adam`` (``adamw=False``) or ``adamw`` on flat tensors:
+    ``scale_by_adam(b1=0.9, b2=0.999, eps=1e-8, eps_root=0)``, then for
+    adamw ``add_decayed_weights(weight_decay)``, then ``scale(-lr)``.
+
+    The state is ``{"count", "mu", "nu"}``: the moments in the params'
+    dtype (optax's ``mu_dtype=None``, so bf16 under bf16 local state) and
+    an int32 step count per model, which lives on the host: the bias
+    corrections ``1 - b**count`` are computed there exactly as XLA computes
+    them. Params ``[P]`` take a scalar count,
+    a chunk's ``[M, P]`` stack an ``[M]`` one, so clients whose state was
+    frozen (a dropout) keep their own count.
+
+    In bf16 every operation rounds to bf16 as JAX's does, the Python
+    constants included (a weak-typed scalar takes the array's dtype before
+    the operation). In f32 the arithmetic is that of XLA's fused program:
+    ``mu = fma(g, 1 - b1, b1 * mu)``, ``nu = fma(g * g, 1 - b2, b2 * nu)``,
+    the two bias-correction divisions merged into one, ``mu / (bc1 *
+    (sqrt(nu / bc2) + eps))``, and adamw's ``fma(p, wd, update)``, each
+    fused multiply-add computed in f64 and rounded once (:func:`fma`).
+    ``server=True`` is the JAX server update's fusion, which contracts the
+    other product of nu's sum: ``nu = fma(nu, b2, g * g * (1 - b2))``."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+
+    def __init__(self, learning_rate: float, weight_decay: float = 0.0,
+                 adamw: bool = False, server: bool = False):
+        self.learning_rate = learning_rate
+        self.weight_decay = weight_decay
+        self.adamw = adamw
+        self.server = server
+
+    def init(self, params: torch.Tensor):
+        return {
+            "count": torch.zeros(params.shape[:-1], dtype=torch.int32),
+            "mu": torch.zeros_like(params),
+            "nu": torch.zeros_like(params),
+        }
+
+    def update(self, grads, state, params):
+        direction, state = self.direction(grads, state, params)
+        lr = torch.tensor(-self.learning_rate, dtype=direction.dtype,
+                          device=direction.device)
+        return lr * direction, state
+
+    def direction(self, grads, state, params):
+        """The update before its ``scale(-lr)``, and the new state."""
+        dtype = grads.dtype
+        count = np.asarray(np.minimum(
+            state["count"].numpy().astype(np.int64) + 1,
+            np.iinfo(np.int32).max), dtype=np.int32)
+
+        def const(v):
+            return torch.tensor(v, dtype=dtype, device=grads.device)
+
+        def correction(decay):
+            """``1 - decay**count`` in f32, cast to the moments' dtype, as
+            a column over the models."""
+            bc = (np.float32(1) - _powf(decay, count)).astype(np.float32)
+            return torch.as_tensor(bc, device=grads.device).to(dtype)[
+                ..., None]
+
+        def sqrt(x):
+            # The f32 square root correctly rounded (torch's vectorized CPU
+            # sqrt is not), then cast to the moments' dtype.
+            return torch.sqrt(x.double()).float().to(dtype)
+
+        if dtype == torch.float32:
+            mu = fma(grads, 1 - self.B1, const(self.B1) * state["mu"])
+            if self.server:
+                nu = fma(state["nu"], self.B2,
+                         grads * grads * const(1 - self.B2))
+            else:
+                nu = fma(grads * grads, 1 - self.B2,
+                         const(self.B2) * state["nu"])
+            updates = mu / (correction(self.B1) * (
+                sqrt(nu / correction(self.B2)) + const(self.EPS)))
+            if self.adamw:
+                updates = fma(params, self.weight_decay, updates)
+        else:
+            mu = const(1 - self.B1) * grads + const(self.B1) * state["mu"]
+            nu = (const(1 - self.B2) * (grads * grads)
+                  + const(self.B2) * state["nu"])
+            updates = (mu / correction(self.B1)) / (
+                sqrt(nu / correction(self.B2)) + const(self.EPS))
+            if self.adamw:
+                updates = updates + const(self.weight_decay) * params
+        return updates, {"count": torch.from_numpy(count), "mu": mu,
+                         "nu": nu}
+
+
 def make_optimizer(name: str, learning_rate: float, momentum: float = 0.0,
-                   weight_decay: float = 0.0) -> SGD:
-    """Optimizer registry (sgd only in this port so far)."""
-    if name.lower() != "sgd":
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported to the PyTorch package yet "
-            "(ROADMAP.md queue 1 item 19)"
-        )
-    return SGD(learning_rate, momentum, weight_decay)
+                   weight_decay: float = 0.0):
+    """Optimizer registry, the JAX package's ``make_optimizer``: ``sgd``
+    (weight decay chained before it), ``adam`` (which, as there, takes no
+    weight decay) and ``adamw``."""
+    key = name.lower()
+    if key == "sgd":
+        return SGD(learning_rate, momentum, weight_decay)
+    if key in ("adam", "adamw"):
+        return Adam(learning_rate, weight_decay, adamw=key == "adamw")
+    raise ValueError(f"unknown optimizer {name!r}")
 
 
 def make_loss_fn(apply_fn: Callable, param_transform: Callable | None = None):
@@ -236,7 +348,7 @@ def chunk_decoder(preprocess):
 
 def make_chunk_train_fn(
     apply_fn: Callable,
-    optimizer: SGD,
+    optimizer: SGD | Adam,
     layout,
     local_epochs: int,
     batch_size: int,
@@ -271,9 +383,10 @@ def make_chunk_train_fn(
     With ``reset_optimizer`` (``reset_client_optimizer``, the default) the
     optimizer starts fresh every round, the ``opt_state`` argument is
     ignored and None is returned in its place; otherwise the run starts
-    from the members' persistent ``opt_state`` ``[M, P]`` (the momentum
-    traces, f32 as the JAX package initializes them from the f32 global
-    model; None without momentum) and returns their final state.
+    from the members' persistent ``opt_state`` (SGD's momentum traces
+    ``[M, P]``, or Adam's ``{"count" [M], "mu", "nu" [M, P]}``; f32, as the
+    JAX package initializes them from the f32 global model; None for SGD
+    without momentum) and returns their final state.
 
     ``augment(batch, keys)`` (ops/augment.py) transforms each decoded
     ``[M, B, ...]`` batch, member m with the key ``fold_in(fold_in(
@@ -351,7 +464,7 @@ def make_chunk_train_fn(
     return train_chunk
 
 
-def make_local_train_fn(apply_fn: Callable, optimizer: SGD, layout,
+def make_local_train_fn(apply_fn: Callable, optimizer: SGD | Adam, layout,
                         local_epochs: int, batch_size: int, **kwargs):
     """One client's run: ``local_train(global_flat, xs, ys, mask,
     epoch_perms, sr_salt, aug_key=None, lr_scale=1.0, opt_state=None) ->
@@ -369,9 +482,9 @@ def make_local_train_fn(apply_fn: Callable, optimizer: SGD, layout,
             global_flat, xs[None], ys[None], mask[None], perms, [sr_salt],
             aug_keys=None if aug_key is None else [aug_key],
             lr_scale=lr_scale,
-            opt_state=None if opt_state is None else opt_state[None],
+            opt_state=tree_map(lambda t: t[None], opt_state),
         )
-        return (params[0], None if state is None else state[0],
+        return (params[0], tree_map(lambda t: t[0], state),
                 {k: v[0] for k, v in metrics.items()})
 
     return local_train

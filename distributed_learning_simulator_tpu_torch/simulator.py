@@ -23,6 +23,8 @@ import dataclasses
 import json
 import math
 import os
+import signal
+import threading
 import time
 
 import numpy as np
@@ -46,6 +48,10 @@ from distributed_learning_simulator_tpu_torch.data.registry import (
 from distributed_learning_simulator_tpu_torch.factory import get_algorithm
 from distributed_learning_simulator_tpu_torch.models.bridge import (
     jax_leaf_order,
+    jax_paths,
+    params_from_jax,
+    params_to_jax,
+    tree_paths,
 )
 from distributed_learning_simulator_tpu_torch.models.registry import (
     ParamLayout,
@@ -58,6 +64,14 @@ from distributed_learning_simulator_tpu_torch.parallel.engine import (
     make_eval_fn,
     make_optimizer,
     pad_eval_set,
+)
+from distributed_learning_simulator_tpu_torch.robustness.chaos import (
+    maybe_crash,
+)
+from distributed_learning_simulator_tpu_torch.utils.checkpoint import (
+    gc_checkpoints,
+    load_latest_valid_checkpoint,
+    save_checkpoint,
 )
 from distributed_learning_simulator_tpu_torch.utils.logging import (
     get_logger,
@@ -211,10 +225,11 @@ def lr_factors(config, start: int, k: int) -> np.ndarray:
 
 
 def build_base_round_record(config, round_idx: int, metrics: dict,
-                            mean_client_loss: float, extra: dict,
+                            mean_client_loss: float, aux: dict, extra: dict,
                             round_seconds: float) -> dict:
     """The v1-layout base of one round's metrics record, fields and insert
-    order as in the JAX package."""
+    order as in the JAX package: the quorum fields and the sampled
+    cohort's CRC come from the round's ``aux``."""
     record = {
         "round": round_idx,
         "test_accuracy": metrics["accuracy"],
@@ -228,7 +243,121 @@ def build_base_round_record(config, round_idx: int, metrics: dict,
     }
     if config.lr_schedule.lower() != "constant":
         record["lr_factor"] = _lr_factor(config, round_idx)
+    if "survivor_count" in aux:
+        record["survivor_count"] = int(aux["survivor_count"])
+    if "round_rejected" in aux:
+        record["round_rejected"] = bool(aux["round_rejected"])
+    if "participants" in aux:
+        # CRC of the sampled cohort, as the JAX package's records.
+        record["cohort_hash"] = cohort_crc(aux["participants"],
+                                           config.worker_number)
     return record
+
+
+def _algo_checkpoint_state(algorithm, metrics, server_state) -> dict:
+    """The checkpoint's ``algo_state``: the last round's metrics, the
+    Shapley values so far, and the server optimizer's state when there is
+    one (JAX simulator.py ``_algo_checkpoint_state``)."""
+    algo_state = {"prev_metrics": metrics}
+    if hasattr(algorithm, "shapley_values"):
+        algo_state["shapley_values"] = algorithm.shapley_values
+    if server_state is not None:
+        algo_state["server_opt_state"] = server_state
+    return algo_state
+
+
+def _structure(tree):
+    """A tree's structure without its values (None, a leaf, or the dict of
+    its keys' structures), for the resume checks."""
+    if isinstance(tree, dict):
+        return {k: _structure(v) for k, v in tree.items()}
+    return None if tree is None else "leaf"
+
+
+def _n_leaves(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_n_leaves(v) for v in tree.values())
+    return 0 if tree is None else 1
+
+
+def _restore_like(template, saved):
+    """``saved`` (host arrays) as tensors on the devices and in the dtypes
+    of ``template``'s leaves (Adam's step count stays on the host)."""
+    if isinstance(template, dict):
+        return {k: _restore_like(template[k], saved[k]) for k in template}
+    if template is None:
+        return None
+    return torch.as_tensor(np.asarray(saved)).to(template.device,
+                                                 template.dtype).clone()
+
+
+def _resume(config, algorithm, model, sample_hw, layout, device,
+            client_state, server_state):
+    """Restore a run from the newest valid checkpoint in
+    ``config.checkpoint_dir``, with the JAX package's structure and
+    configuration checks. Returns ``(start_round, global_flat or None,
+    client_state, server_state, prev_metrics, key or None)``."""
+    logger = get_logger()
+    ckpt_path, ckpt = load_latest_valid_checkpoint(config.checkpoint_dir)
+    if ckpt_path is None:
+        return 0, None, client_state, server_state, None, None
+    paths = jax_paths(model, sample_hw)
+    if sorted(paths.values()) != tree_paths(ckpt["global_params"]):
+        raise ValueError(
+            "checkpoint global_params do not match this model's "
+            f"parameter structure ({config.model_name!r}); the "
+            "checkpoint was written with a different model or "
+            "model version — resume with the configuration it was "
+            "written with"
+        )
+    global_flat = layout.flatten(
+        params_from_jax(ckpt["global_params"])).to(device)
+    saved_cs = ckpt["client_state"]
+    if _structure(client_state) != _structure(saved_cs):
+        def describe(tree) -> str:
+            n = _n_leaves(tree)
+            return "no per-client state" if n == 0 else (
+                f"per-client state with {n} leaves")
+
+        raise ValueError(
+            "checkpoint client_state does not match this "
+            "configuration (e.g. momentum / reset_client_optimizer "
+            "changed since the checkpoint was written): checkpoint "
+            f"has {describe(saved_cs)}, config expects "
+            f"{describe(client_state)}; resume with the configuration "
+            "the checkpoint was written with"
+        )
+    client_state = _restore_like(client_state, saved_cs)
+    algo_state = ckpt["algo_state"]
+    saved_ss = algo_state.get("server_opt_state")
+    if server_state is None and saved_ss is not None:
+        raise ValueError(
+            "checkpoint was written with a server optimizer but "
+            "server_optimizer_name='none' now; resume with the "
+            "configuration the checkpoint was written with"
+        )
+    if server_state is not None:
+        if saved_ss is None:
+            logger.warning(
+                "checkpoint has no server optimizer state (written "
+                "before the feature or with a different config); "
+                "server optimizer restarts from fresh state"
+            )
+        elif _structure(server_state) != _structure(saved_ss):
+            raise ValueError(
+                "checkpoint server optimizer state does not match "
+                f"server_optimizer_name="
+                f"{config.server_optimizer_name!r}; resume with "
+                "the configuration the checkpoint was written with"
+            )
+        else:
+            server_state = _restore_like(server_state, saved_ss)
+    if hasattr(algorithm, "shapley_values"):
+        algorithm.shapley_values.update(algo_state.get("shapley_values", {}))
+    start_round = ckpt["round_idx"] + 1
+    logger.info("resumed from %s at round %d", ckpt_path, start_round)
+    return (start_round, global_flat, client_state, server_state,
+            algo_state.get("prev_metrics"), ckpt.get("rng_key"))
 
 
 def run_simulation(
@@ -245,6 +374,12 @@ def run_simulation(
     the reference's cohorts, batch orders and salts.
     ``client_rng_fn(round_idx)`` optionally returns the round's
     ``client_rng(client, n_slots) -> (epoch_perms, sr_salt)`` override.
+
+    With ``checkpoint_dir`` and ``checkpoint_every`` a checkpoint is written
+    every that many rounds (utils/checkpoint.py; ``checkpoint_keep_last``
+    prunes older ones), and ``resume`` continues from the newest valid one.
+    SIGTERM finishes the round in flight, writes a final checkpoint and
+    returns with ``preempted_at`` set.
     """
     config.validate()
     device = resolve_device(config.device)
@@ -326,56 +461,157 @@ def run_simulation(
         client_sizes=client_data.sizes,
         device=device,
     )
+    # Optional server-side optimizer (FedAvgM / FedAdam) on the aggregate.
+    server_state = server_update = None
+    server = algorithm.make_server_update()
+    if (
+        server is None
+        and config.server_optimizer_name.lower() not in ("none", "")
+    ):
+        raise ValueError(
+            f"algorithm {config.distributed_algorithm!r} does not support a "
+            "server optimizer; set server_optimizer_name='none'"
+        )
+    if server is not None:
+        server_init, server_update = server
+        server_state = server_init(global_flat)
     client_state = algorithm.init_client_state(optimizer, global_flat,
                                                n_clients)
     key = prng.key(config.seed + 1)
+    start_round = 0
+    prev_metrics = None
+    if config.resume and config.checkpoint_dir:
+        (start_round, resumed_global, client_state, server_state,
+         prev_metrics, resumed_key) = _resume(
+            config, algorithm, model, sample_shape[:2], layout, device,
+            client_state, server_state)
+        if resumed_global is not None:
+            global_flat = resumed_global
+        if resumed_key is not None:
+            key = resumed_key
+    checkpointing = bool(config.checkpoint_dir and config.checkpoint_every)
+
+    def save(round_idx: int, metrics) -> str:
+        path = os.path.join(config.checkpoint_dir, f"round_{round_idx}.ckpt")
+        save_checkpoint(
+            path, round_idx,
+            params_to_jax(layout.unflatten(global_flat),
+                          jax_paths(model, sample_shape[:2])),
+            client_state,
+            _algo_checkpoint_state(algorithm, metrics, server_state), key,
+        )
+        gc_checkpoints(config.checkpoint_dir, config.checkpoint_keep_last)
+        return path
+
+    # SIGTERM (a preemption notice): the handler only sets a flag; the loop
+    # finishes the round in flight, writes a final checkpoint and returns.
+    # Installed in the main thread only, and the previous handler restored.
+    preempt = {"flag": False}
+    installed = threading.current_thread() is threading.main_thread()
+    if installed:
+        def on_sigterm(signum, frame):
+            preempt["flag"] = True
+
+        prev_sigterm = signal.signal(signal.SIGTERM, on_sigterm)
 
     # --- round loop ---------------------------------------------------------
     history: list[dict] = []
-    prev_metrics = None
+    rounds_rejected = 0
+    survivor_counts: list[int] = []
     metrics_path = os.path.join(log_dir, "metrics.jsonl") if log_dir else None
+    completed_round = start_round - 1
     t_start = time.perf_counter()
     t_prev_done = t_start
-    for round_idx in range(config.round):
-        lr_scale = float(lr_factors(config, round_idx, 1)[0])
-        key, round_key = prng.split(key)
-        new_global, client_state, aux = round_fn(
-            global_flat, client_state, cx, cy, cmask, client_data.sizes,
-            round_key,
-            lr_scale=lr_scale,
-            client_rng=client_rng_fn(round_idx) if client_rng_fn else None,
-        )
-        metrics_dev = evaluate(layout.unflatten(new_global), *eval_batches)
-        metrics = {k: float(v) for k, v in metrics_dev.items()}
-        mean_client_loss = float(aux["mean_client_loss"])
-        extra = algorithm.post_round(RoundContext(
-            round_idx=round_idx, global_params=new_global,
-            prev_global_params=global_flat, sizes=client_data.sizes,
-            aux=aux, metrics=metrics, prev_metrics=prev_metrics,
-            eval_batches=eval_batches, log_dir=log_dir, layout=layout,
-        )) or {}
-        global_flat, prev_metrics = new_global, metrics
-        now = time.perf_counter()
-        base = build_base_round_record(
-            config, round_idx, metrics, mean_client_loss, extra,
-            round_seconds=now - t_prev_done,
-        )
-        if "participants" in aux:
-            # CRC of the sampled cohort, as the JAX package's records.
-            base["cohort_hash"] = cohort_crc(aux["participants"], n_clients)
-        record = build_round_record(base)
-        t_prev_done = now
-        history.append(record)
-        if metrics_path:
-            with open(metrics_path, "a") as f:
-                f.write(json.dumps(record) + "\n")
-        logger.info(
-            "round %d: test_acc=%.4f test_loss=%.4f (%.2fs)",
-            round_idx, metrics["accuracy"], metrics["loss"],
-            record["round_seconds"],
-        )
+    try:
+        for round_idx in range(start_round, config.round):
+            lr_scale = float(lr_factors(config, round_idx, 1)[0])
+            key, round_key = prng.split(key)
+            new_global, client_state, aux = round_fn(
+                global_flat, client_state, cx, cy, cmask, client_data.sizes,
+                round_key,
+                lr_scale=lr_scale,
+                client_rng=client_rng_fn(round_idx) if client_rng_fn
+                else None,
+            )
+            if server_update is not None:
+                # A rejected round leaves the params and the server
+                # optimizer's state as they were.
+                new_global, server_state = server_update(
+                    global_flat, new_global, server_state,
+                    aux.get("round_rejected"))
+            metrics_dev = evaluate(layout.unflatten(new_global),
+                                   *eval_batches)
+            metrics = {k: float(v) for k, v in metrics_dev.items()}
+            mean_client_loss = float(aux["mean_client_loss"])
+            extra = algorithm.post_round(RoundContext(
+                round_idx=round_idx, global_params=new_global,
+                prev_global_params=global_flat, sizes=client_data.sizes,
+                aux=aux, metrics=metrics, prev_metrics=prev_metrics,
+                eval_batches=eval_batches, log_dir=log_dir, layout=layout,
+            )) or {}
+            global_flat, prev_metrics = new_global, metrics
+            now = time.perf_counter()
+            record = build_round_record(build_base_round_record(
+                config, round_idx, metrics, mean_client_loss, aux, extra,
+                round_seconds=now - t_prev_done,
+            ))
+            if "survivor_count" in record:
+                survivor_counts.append(record["survivor_count"])
+            if record.get("round_rejected"):
+                rounds_rejected += 1
+                logger.warning(
+                    "round %d REJECTED by quorum policy (survivors=%s, "
+                    "min_survivors=%d): previous global model retained",
+                    round_idx, record.get("survivor_count"),
+                    config.min_survivors,
+                )
+            t_prev_done = now
+            history.append(record)
+            if metrics_path:
+                with open(metrics_path, "a") as f:
+                    f.write(json.dumps(record) + "\n")
+            logger.info(
+                "round %d: test_acc=%.4f test_loss=%.4f (%.2fs)",
+                round_idx, metrics["accuracy"], metrics["loss"],
+                record["round_seconds"],
+            )
+            if checkpointing and (
+                    (round_idx + 1) % config.checkpoint_every == 0):
+                save(round_idx, metrics)
+            # Chaos-harness hook (robustness/chaos.py), after the round's
+            # record and checkpoint are on disk.
+            maybe_crash(round_idx)
+            completed_round = round_idx
+            if preempt["flag"]:
+                break
+    finally:
+        if installed:
+            signal.signal(signal.SIGTERM, prev_sigterm)
+
+    preempted_at = None
+    if preempt["flag"]:
+        # Persist the finished round even off the checkpoint_every cadence,
+        # so that the resumed run loses nothing.
+        preempted_at = completed_round
+        if config.checkpoint_dir and completed_round >= start_round:
+            forced_path = os.path.join(config.checkpoint_dir,
+                                       f"round_{completed_round}.ckpt")
+            if not os.path.exists(forced_path):
+                save(completed_round, prev_metrics)
+            logger.warning(
+                "preempted at round %d (SIGTERM): final checkpoint %s "
+                "written; exiting cleanly — resume with config.resume=True",
+                completed_round, forced_path,
+            )
+        else:
+            logger.warning(
+                "preempted at round %d (SIGTERM): no checkpoint_dir "
+                "configured, exiting cleanly without persisting",
+                completed_round,
+            )
 
     total = time.perf_counter() - t_start
+    # This run's rounds (a resumed or preempted run runs fewer).
     n_rounds = len(history)
     logger.info(
         "finished %d rounds x %d clients in %.2fs (%.1f client-rounds/sec)",
@@ -394,10 +630,12 @@ def run_simulation(
         # The JAX package's other keys, at the values its run gives them
         # with each feature off (the port has none of these features yet).
         "mesh": None,
-        "rounds_rejected": 0,
+        "rounds_rejected": rounds_rejected,
         "telemetry_level": config.telemetry_level.lower(),
         "post_warmup_compiles": None,
-        "mean_survivor_count": None,
+        "mean_survivor_count": (
+            float(np.mean(survivor_counts)) if survivor_counts else None
+        ),
         "clients_flagged": None,
         "async_speedup_ratio": None,
         "sim_clock_seconds": None,
@@ -419,7 +657,7 @@ def run_simulation(
         "population_summary": None,
         "span_trace": config.span_trace,
         "span_summary": None,
-        "preempted_at": None,
+        "preempted_at": preempted_at,
         "device": str(device),
     }
 

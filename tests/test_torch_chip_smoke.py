@@ -139,3 +139,28 @@ def test_layout_arms_compute_the_same_function(monkeypatch, arm):
     with torch.no_grad():
         torch.func.vmap(forward)(w, scale, x)
     assert groups == [m] and stats == [(2, 16, m * 64)]
+
+
+def test_robustness_phase_configs(tmp_path):
+    """The robustness phases' configurations validate, and are cut as the
+    chip run's gates assume: FedAdam + adamw + dropout + quorum with the
+    last two checkpoints kept at 50 clients; FedAvgM + corrupt_nan under
+    the plain mean at 20; the crash-resume run at 20 clients, chunk 10,
+    with no checkpoint cadence of its own."""
+    cfgs = chip_smoke.robustness_configs(str(tmp_path))
+    for cfg in cfgs.values():
+        cfg.validate()
+        assert (cfg.model_name, cfg.round, cfg.max_shard_size) == (
+            "resnet18", 3, 100)
+    fedopt, reject, crash = (cfgs[k] for k in (
+        "fedopt_dropout", "fedavgm_reject", "crash_resume"))
+    assert (fedopt.worker_number, fedopt.client_chunk_size,
+            fedopt.min_survivors, fedopt.checkpoint_keep_last) == (
+        50, 40, 30, 2)
+    assert (fedopt.optimizer_name, fedopt.server_optimizer_name,
+            fedopt.failure_mode) == ("adamw", "adam", "dropout")
+    assert (reject.server_momentum, reject.failure_mode,
+            reject.aggregation) == (0.9, "corrupt_nan", "mean")
+    assert (crash.worker_number, crash.client_chunk_size,
+            crash.min_survivors, crash.checkpoint_dir) == (20, 10, 12, None)
+    assert chip_smoke.chunk_steps(fedopt, 5000) == 3 * 4 * 2

@@ -135,11 +135,9 @@ def test_probes_raise_as_in_jax():
     (["--client_residency", "streamed"], "item 15"),
     (["--mesh_devices", "2"], "item 17"),
     (["--telemetry_level", "basic"], "item 13"),
-    (["--optimizer_name", "adam"], "item 19"),
-    (["--checkpoint_dir", "ckpt", "--checkpoint_every", "1"], "item 12"),
-    (["--model_args",
-      '{"stage_sizes": [1, 1], "width": 8, "gn_custom_backward": false}'],
-     "item 20"),
+    (["--execution_mode", "threaded"], "item 12"),
+    (["--rounds_per_dispatch", "2"], "item 14"),
+    (["--sweep_seeds", "0,1"], "item 16"),
 ])
 def test_unported_features_refuse(flags, item):
     with pytest.raises(NotImplementedError, match=item):
