@@ -120,6 +120,22 @@ together), then runs these phases and exits non-zero if any of them fails:
    ``gn_custom_backward`` False and True, the forward bitwise equal, the
    gradients within 2**-8 of the largest element, the launch counts
    equal, each step's ms.
+   Then the telemetry and the threaded oracle, cut like the main paths:
+   ``telemetry_fed`` (the ``fed`` main path for 3 rounds with
+   ``telemetry_level='basic'`` and ``client_stats='on'``: no compile
+   after round 0, ``round_fn`` among round 0's, schema-v3 records with the
+   four phases and a positive ``peak_hbm_bytes``, round seconds beside the
+   plain path's; then one round at 'detailed' whose phases sum to at most
+   its seconds); ``client_stats_detect`` (20 clients, f32, median, 2
+   rounds under ``corrupt_scale`` and ``corrupt_nan`` at 0.2: the flagged
+   ids are the injected ids every round, with reasons ``update_norm`` and
+   ``non_finite``); ``threaded_fed`` (the oracle on ResNet-18, f32, 8
+   client threads, 2 rounds, telemetry and client stats on: the GroupNorm
+   and wgrad kernels launched, schema-v3 records, and a second run bitwise
+   equal; the queue's bytes, pickling, training and rendezvous seconds);
+   ``threaded_algos`` (sign_SGD, fed_quant and both Shapley algorithms
+   through the oracle on ``cnn_tpu``, 4 clients, 1 round: finite
+   accuracies, one record a round, sign_SGD's vote rendezvous time).
 3. A profiler pass per algorithm (5 clients, 2 rounds) and one of the
    headline (10 clients, 2 rounds): device busy time, idle share, and the
    host operators with the most self time. Then the batched layers alone
@@ -1055,6 +1071,8 @@ def run_path(torch, gn, wg, name, config, post_round_probe=None,
         "client_rounds_per_sec": result["client_rounds_per_sec"],
         "history": history, "result_keys": sorted(result),
         "chunk_steps_bound": bound, "peak_memory_bytes": peak_bytes,
+        "telemetry": {k: result[k] for k in (
+            "telemetry_level", "post_warmup_compiles", "clients_flagged")},
     }
     if keep_params:
         out["global_params"] = result["global_params"]
@@ -1820,6 +1838,336 @@ def gn_autodiff(torch, gn, wg):
     return res
 
 
+def _schema():
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           SCHEMA)) as f:
+        return json.load(f)
+
+
+def _check_records(name, records, schema, version):
+    """Every record valid against the checked-in schema at ``version``."""
+    for rec in records:
+        errs = schema_errors(rec, schema)
+        if errs or rec.get("schema_version") != version:
+            fail(f"{name} round {rec['round']}: schema_version "
+                 f"{rec.get('schema_version')} (expected {version}), "
+                 f"invalid against {SCHEMA}: {errs[:3]}")
+
+
+TELEMETRY_PHASES = {"client_step", "eval", "host_sync", "post_round"}
+
+
+def telemetry_fed(torch, gn, wg, log_root, plain):
+    """Phase 2i: the ``fed`` main path (ResNet-18 at full width, 50 clients,
+    chunk 40, bf16 local state, cut like the main paths) for 3 rounds with
+    ``telemetry_level='basic'`` and ``client_stats='on'``, through run_path.
+    Fails unless no round after the first counts a compile
+    (``post_warmup_compiles`` 0), round 0's ``compiled`` names
+    ``round_fn``, every metrics.jsonl record validates at schema_version 3
+    with ``phase_seconds`` holding client_step, eval, host_sync and
+    post_round and a positive ``peak_hbm_bytes``. Prints its round seconds
+    beside ``plain``'s (the same path without telemetry in this call).
+    Then one round at ``telemetry_level='detailed'``: prints the per-phase
+    split and fails unless the phases sum to no more than the round's
+    seconds."""
+    import dataclasses
+
+    base = dataclasses.replace(
+        path_configs(50, 5000, 2000, "INFO")["fed"], round=3,
+        telemetry_level="basic", client_stats="on", log_root=log_root)
+    res = run_path(torch, gn, wg, "telemetry_fed", base, setup_logging=True)
+    with open(os.path.join(_newest_artifacts(base), "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    if records != res["history"]:
+        fail("telemetry_fed: metrics.jsonl differs from the history")
+    _check_records("telemetry_fed", records, _schema(), 3)
+    if res["telemetry"]["post_warmup_compiles"] != 0:
+        fail(f"telemetry_fed: post_warmup_compiles "
+             f"{res['telemetry']['post_warmup_compiles']}")
+    if "round_fn" not in records[0]["telemetry"].get("compiled", []):
+        fail(f"telemetry_fed: round 0 compiled "
+             f"{records[0]['telemetry'].get('compiled')}, no round_fn")
+    for rec in records:
+        tel = rec["telemetry"]
+        if not TELEMETRY_PHASES <= set(tel["phase_seconds"]):
+            fail(f"telemetry_fed round {rec['round']}: phases "
+                 f"{sorted(tel['phase_seconds'])}")
+        if not tel.get("peak_hbm_bytes", 0) > 0:
+            fail(f"telemetry_fed round {rec['round']}: peak_hbm_bytes "
+                 f"{tel.get('peak_hbm_bytes')}")
+    detailed = run_path(
+        torch, gn, wg, "telemetry_fed_detailed", dataclasses.replace(
+            base, round=1, telemetry_level="detailed", client_stats="off"))
+    (rec,) = detailed["history"]
+    split = rec["telemetry"]["phase_seconds"]
+    if sum(split.values()) > rec["round_seconds"]:
+        fail(f"telemetry_fed_detailed: phases {split} sum beyond the "
+             f"round's {rec['round_seconds']} s")
+    res["detailed"] = {"phase_seconds": split,
+                       "round_seconds": rec["round_seconds"]}
+    res["plain_round_seconds"] = plain["round_seconds"]
+    res["phase_seconds"] = [r["telemetry"]["phase_seconds"]
+                            for r in records]
+    res["compiled_round0"] = records[0]["telemetry"]["compiled"]
+    log(f"telemetry_fed: round seconds {res['round_seconds']} with basic "
+        f"telemetry and client stats, {plain['round_seconds']} for the "
+        f"plain fed path (main_paths, this call); compiled in round 0: "
+        f"{res['compiled_round0']}; post-warmup compiles 0; phases "
+        f"{res['phase_seconds']}; peak_hbm_bytes "
+        f"{[r['telemetry']['peak_hbm_bytes'] for r in records]}; "
+        f"clients flagged {res['telemetry']['clients_flagged']}")
+    log(f"telemetry_fed_detailed: round {rec['round_seconds']:.3f} s, "
+        f"phases {split}")
+    return res
+
+
+def client_stats_detect(torch, gn, wg):
+    """Phase 2j: the detector against the failure model on the card:
+    ResNet-18 at full width, 20 clients (chunk 20), f32 local state, lr
+    0.02, momentum 0.9, 2 rounds, median aggregation, cut like the main
+    paths, once under ``corrupt_scale`` and once under ``corrupt_nan`` at
+    ``failure_prob`` 0.2. Each round's flagged ids must equal the ids the
+    failure model corrupted (replayed here from the key chain), every
+    reason ``update_norm`` (respectively ``non_finite``)."""
+    import dataclasses
+
+    import numpy as np
+
+    from distributed_learning_simulator_tpu_torch.algorithms.fedavg import (
+        round_key_splits,
+    )
+    from distributed_learning_simulator_tpu_torch.ops import prng
+    from distributed_learning_simulator_tpu_torch.robustness.faults import (
+        FailureModel,
+    )
+
+    base = dataclasses.replace(
+        path_configs(20, 5000, 2000, "WARNING")["fed"], round=2,
+        client_chunk_size=20, local_compute_dtype="float32",
+        aggregation="median", failure_prob=0.2, client_stats="on")
+    out = {}
+    for mode, reason in (("corrupt_scale", "update_norm"),
+                         ("corrupt_nan", "non_finite")):
+        config = dataclasses.replace(base, failure_mode=mode)
+        res = run_path(torch, gn, wg, f"client_stats_{mode}", config)
+        fm = FailureModel.from_config(config)
+        key = prng.key(config.seed + 1)
+        rounds = []
+        for rec in res["history"]:
+            key, round_key = prng.split(key)
+            injected = np.flatnonzero(fm.draw_failed(
+                round_key_splits(round_key, True)[4],
+                config.worker_number)).tolist()
+            cs = rec["client_stats"]
+            if cs["flagged_clients"] != injected or any(
+                    r != reason for r in cs["flag_reason"].values()):
+                fail(f"client_stats_{mode} round {rec['round']}: flagged "
+                     f"{cs['flag_reason']}, injected {injected}")
+            rounds.append({"injected": injected,
+                           "flag_reason": cs["flag_reason"]})
+        out[mode] = {"rounds": rounds, "round_seconds": res["round_seconds"],
+                     "launches": res["launches"]}
+        log(f"client_stats_{mode}: flagged = injected in every round "
+            f"{[r['injected'] for r in rounds]} ({reason}); round seconds "
+            f"{res['round_seconds']}")
+    return out
+
+
+def threaded_config(algo: str, n_clients: int, model: str, **changes):
+    """An oracle run's configuration, cut like the main paths."""
+    from distributed_learning_simulator_tpu_torch.config import (
+        ExperimentConfig,
+    )
+
+    kw = dict(
+        dataset_name="cifar10", model_name=model, distributed_algorithm=algo,
+        worker_number=n_clients, round=2, epoch=1, batch_size=25,
+        partition="dirichlet", dirichlet_alpha=0.1, max_shard_size=100,
+        n_train=5000, n_test=2000, eval_batch_size=1000,
+        learning_rate=0.02, momentum=0.9, local_compute_dtype="float32",
+        execution_mode="threaded", log_level="WARNING", device="cuda")
+    kw.update(changes)
+    return ExperimentConfig(**kw)
+
+
+@contextlib.contextmanager
+def queue_probe():
+    """Times the native queue's traffic while the oracle runs: each
+    upload's pickling and enqueue (its bytes too), each worker's wait in
+    ``get_result`` (the rendezvous), and the time a worker spent between
+    receiving a model and uploading (its training, the device-to-host copy
+    of the upload included). Yields the dict of lists it fills."""
+    import pickle
+    import threading
+
+    from distributed_learning_simulator_tpu_torch.runtime.native import (
+        NativeTaskQueue,
+    )
+
+    stats = {"pickle_s": [], "enqueue_s": [], "bytes": [], "wait_s": [],
+             "train_s": []}
+    lock = threading.Lock()
+    mark = threading.local()
+    original_add, original_get = (NativeTaskQueue.add_task,
+                                  NativeTaskQueue.get_result)
+
+    def add_task(self, obj):
+        t0 = time.perf_counter()
+        payload = pickle.dumps(obj)
+        t1 = time.perf_counter()
+        if self._lib.dlsq_add_task(self._q, payload, len(payload)) != 0:
+            raise RuntimeError("queue is stopped")
+        t2 = time.perf_counter()
+        with lock:
+            stats["pickle_s"].append(t1 - t0)
+            stats["enqueue_s"].append(t2 - t1)
+            stats["bytes"].append(len(payload))
+            if getattr(mark, "got", None) is not None:
+                stats["train_s"].append(t0 - mark.got)
+
+    def get_result(self):
+        t0 = time.perf_counter()
+        out = original_get(self)
+        mark.got = time.perf_counter()
+        with lock:
+            stats["wait_s"].append(mark.got - t0)
+        return out
+
+    NativeTaskQueue.add_task, NativeTaskQueue.get_result = add_task, get_result
+    try:
+        yield stats
+    finally:
+        NativeTaskQueue.add_task = original_add
+        NativeTaskQueue.get_result = original_get
+
+
+def _median(xs):
+    return statistics.median(xs) if xs else None
+
+
+def run_threaded(torch, gn, wg, name, config):
+    """One oracle run with every launch count set to 0 just before it and
+    read just after, under :func:`queue_probe`; returns the result, its
+    launches, the queue's numbers and the run's peak device memory."""
+    from distributed_learning_simulator_tpu_torch.simulator import (
+        run_simulation,
+    )
+
+    gn.reset_launch_counts()
+    wg.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with queue_probe() as queue:
+        result = run_simulation(config, setup_logging=True)
+    torch.cuda.synchronize()
+    launches = {"gn_stats": gn.gn_stats.launches,
+                "gn_normalize": gn.gn_normalize.launches,
+                "conv3x3_wgrad": wg.conv3x3_wgrad.launches}
+    history = result["history"]
+    if len(history) != config.round or not all(
+            math.isfinite(r["test_accuracy"]) for r in history):
+        fail(f"{name}: {len(history)} records of {config.round}, "
+             f"accuracies {[r['test_accuracy'] for r in history]}")
+    return {"result": result, "launches": launches, "queue": queue,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "round_seconds": [r["round_seconds"] for r in history],
+            "history": history}
+
+
+def threaded_fed(torch, gn, wg, log_root):
+    """Phase 2k: the threaded oracle on ResNet-18 at full width, f32,
+    8 clients (a thread each), 2 rounds, ``telemetry_level='basic'``,
+    ``client_stats='on'``. Fails unless both GroupNorm kernels and the
+    wgrad kernel launched during the run, every record validates at
+    schema_version 3, and a second identical run gives bitwise-equal
+    final params and the same history. Prints round seconds, the upload's
+    pickled bytes and pickling / enqueue seconds, each worker's training
+    and rendezvous-wait seconds, and peak memory."""
+    import dataclasses
+
+    config = threaded_config("fed", 8, "resnet18", telemetry_level="basic",
+                             client_stats="on", log_root=log_root)
+    runs = [run_threaded(torch, gn, wg, "threaded_fed", config)]
+    if not all(runs[0]["launches"].values()):
+        fail(f"threaded_fed: launches {runs[0]['launches']}")
+    with open(os.path.join(_newest_artifacts(config), "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    if records != runs[0]["history"]:
+        fail("threaded_fed: metrics.jsonl differs from the history")
+    _check_records("threaded_fed", records, _schema(), 3)
+    runs.append(run_threaded(torch, gn, wg, "threaded_fed (again)",
+                             dataclasses.replace(config)))
+    same_params = _same_tree(runs[0]["result"]["global_params"],
+                             runs[1]["result"]["global_params"])
+
+    def kept(h):
+        return [{k: v for k, v in r.items()
+                 if k not in ("round_seconds", "telemetry")} for r in h]
+
+    if not (same_params and kept(runs[0]["history"])
+            == kept(runs[1]["history"])):
+        fail("threaded_fed: two identical runs differ (params bitwise "
+             f"equal: {same_params})")
+    q = runs[0]["queue"]
+    res = {k: runs[0][k] for k in ("launches", "peak_memory_bytes",
+                                   "round_seconds", "history")}
+    res.update({
+        "second_round_seconds": runs[1]["round_seconds"],
+        "xla_compiles": runs[0]["result"]["xla_compiles"],
+        "upload_bytes": _median(q["bytes"]),
+        "pickle_s_median": _median(q["pickle_s"]),
+        "enqueue_s_median": _median(q["enqueue_s"]),
+        "train_s_median": _median(q["train_s"]),
+        "wait_s_median": _median(q["wait_s"]),
+        "queue": q, "bitwise_equal_runs": True,
+    })
+    log(f"threaded_fed: 8 clients on threads, round seconds "
+        f"{res['round_seconds']} (again: {res['second_round_seconds']}), "
+        f"launches {res['launches']}, upload {res['upload_bytes']} bytes "
+        f"pickled in {res['pickle_s_median']:.4f} s and enqueued in "
+        f"{res['enqueue_s_median']:.4f} s (medians), a worker's training "
+        f"{res['train_s_median']:.3f} s and rendezvous wait "
+        f"{res['wait_s_median']:.3f} s (medians), peak device memory "
+        f"{res['peak_memory_bytes'] / 2**30:.2f} GiB; two runs bitwise "
+        "equal")
+    return res
+
+
+THREADED_ALGOS = {
+    "sign_SGD": dict(learning_rate=0.001),
+    "fed_quant": dict(quant_levels=256),
+    "multiround_shapley_value": {},
+    "GTG_shapley_value": {},
+}
+
+
+def threaded_algos(torch, gn, wg, log_root):
+    """Phase 2l: sign_SGD, fed_quant and both Shapley algorithms (N=4)
+    through the oracle on ``cnn_tpu``, 4 clients, 1 round each, cut like the
+    main paths: each must finish with a finite accuracy and one record a
+    round. Prints sign_SGD's per-step vote rendezvous time (a worker's wait
+    for the vote)."""
+    out = {}
+    for algo, changes in THREADED_ALGOS.items():
+        config = threaded_config(algo, 4, "cnn_tpu", round=1,
+                                 log_root=log_root, **changes)
+        res = run_threaded(torch, gn, wg, f"threaded_{algo}", config)
+        q = res["queue"]
+        out[algo] = {
+            "round_seconds": res["round_seconds"],
+            "test_accuracy": [r["test_accuracy"] for r in res["history"]],
+            "messages": len(q["bytes"]), "upload_bytes": _median(q["bytes"]),
+            "wait_s_median": _median(q["wait_s"]),
+        }
+        log(f"threaded_{algo}: round seconds {res['round_seconds']}, test "
+            f"accuracy {out[algo]['test_accuracy']}, {len(q['bytes'])} "
+            f"uploads of {out[algo]['upload_bytes']} bytes, median wait in "
+            f"get_result {out[algo]['wait_s_median']:.4f} s"
+            + (" (the per-step vote rendezvous)" if algo == "sign_SGD"
+               else ""))
+    return out
+
+
 def profile_rounds(torch, name, config):
     """Phase 3, where a round's time goes (informational, not a check): one
     algorithm at 10 clients, 2 rounds, under torch.profiler (whose trace
@@ -2258,6 +2606,14 @@ def main() -> None:
                    robust["crash_resume"], work)
     autodiff = phase("gn_autodiff", gn_autodiff, torch, gn, wg)
     shutil.rmtree(work)  # the phases' checkpoints, ~128 MiB each
+    log_root = os.path.join(args.out, "log")
+    paths["telemetry_fed"] = phase("telemetry_fed", telemetry_fed, torch, gn,
+                                   wg, log_root, paths["fed"])
+    detect = phase("client_stats_detect", client_stats_detect, torch, gn, wg)
+    paths["threaded_fed"] = phase("threaded_fed", threaded_fed, torch, gn,
+                                  wg, log_root)
+    oracle_algos = phase("threaded_algos", threaded_algos, torch, gn, wg,
+                         log_root)
     # The ResNet paths at 5 clients (10 before the headline path: the
     # profiler's trace processing took most of the run), the headline at
     # 10 (50 samples each, as at 1000) with a 1000-sample eval.
@@ -2331,7 +2687,9 @@ def main() -> None:
                    "plain_models": plain_models,
                    "profiles": profiles, "vmap_layers": layers,
                    "layout_ab": ab, "crash_resume": resume,
-                   "gn_autodiff": autodiff, "phase_seconds": phase_seconds},
+                   "gn_autodiff": autodiff, "client_stats_detect": detect,
+                   "threaded_algos": oracle_algos,
+                   "phase_seconds": phase_seconds},
                   f, indent=1)
     if "jax" in sys.modules:
         fail("the port imported jax")

@@ -8,6 +8,8 @@
   one pass, row by row); the aggregate is
   quantized the same way for the downlink broadcast. The salts are one per
   (client, leaf) and one per leaf of the broadcast (algorithms/fedavg.py).
+* With ``client_stats`` on, the round reports the downlink's mean squared
+  quantization error (``quant_mse``).
 * post_round reports the analytic compression ratios (ops/payload.py) and,
   with ``client_eval`` (auto-on at cohorts <= 32), each client's QAT model
   evaluated before aggregation.
@@ -30,6 +32,9 @@ from distributed_learning_simulator_tpu_torch.ops.quantize import (
 )
 from distributed_learning_simulator_tpu_torch.parallel.engine import (
     row_slices,
+)
+from distributed_learning_simulator_tpu_torch.telemetry.client_stats import (
+    ClientStats,
 )
 
 
@@ -67,8 +72,15 @@ class FedQuant(FedAvg):
         return out, {}
 
     def process_aggregated(self, global_params, salts):
-        """The quantized downlink broadcast."""
-        return self._quantize_roundtrip(global_params, salts), {}
+        """The quantized downlink broadcast. With ``client_stats`` on, also
+        its mean squared quantization error (``quant_mse``, a device
+        scalar for the ``client_stats`` sub-object)."""
+        deq = self._quantize_roundtrip(global_params, salts)
+        aux = {}
+        if ClientStats.from_config(self.config) is not None:
+            err = deq.float() - global_params.float()
+            aux["quant_mse"] = (err * err).sum() / global_params.numel()
+        return deq, aux
 
     def post_round(self, ctx):
         raw = payload_bytes(ctx.layout)

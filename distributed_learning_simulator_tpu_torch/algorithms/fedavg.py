@@ -66,6 +66,17 @@ split into one key per client, and each client's into one salt per leaf.
 ``process_client_payload`` takes a chunk's ``[M, P]`` uploads with their
 ``[M, n_leaves]`` salts.
 
+With ``client_stats='on'`` (telemetry/client_stats.py) the round also
+returns ``aux["client_stats"]``, the cohort's ``[N, S]`` stats matrix: the
+chunk train function reports each client's first-step loss and mean squared
+gradient norm, and each chunk's uploads, after fault corruption and before
+the payload hook, give their update norms, non-finite counts and a strided
+probe, per chunk on the mean paths (the ``[N, P]`` stack is never held) and
+on the stack on the materializing path; the aggregate's probe is taken
+before the quorum select and the downlink hook. Rows of clients the
+size-aware schedule skips stay zero, as in the JAX program. With it off the
+round is the pre-feature round.
+
 ``client_eval`` (auto: on for fed_quant at cohorts <= 32): each chunk's raw
 models, cast to f32, are evaluated through the transform in one vmapped
 forward right after they train, before their payloads are processed, and
@@ -101,6 +112,9 @@ from distributed_learning_simulator_tpu_torch.parallel.engine import (
 from distributed_learning_simulator_tpu_torch.robustness.faults import (
     FailureModel,
     all_finite,
+)
+from distributed_learning_simulator_tpu_torch.telemetry.client_stats import (
+    ClientStats,
 )
 from distributed_learning_simulator_tpu_torch.utils.logging import get_logger
 
@@ -215,6 +229,9 @@ class FedAvg(Algorithm):
         fm = FailureModel.from_config(cfg)
         min_survivors = cfg.min_survivors
         quorum = fm is not None or min_survivors > 0
+        # Per-client statistics: None (the default) builds the pre-feature
+        # round.
+        cs = ClientStats.from_config(cfg)
         if client_eval and self._eval_fn is None:
             raise RuntimeError(
                 "client_eval needs prepare(apply_fn, eval_fn, eval_batches) "
@@ -230,6 +247,7 @@ class FedAvg(Algorithm):
             param_transform=transform,
             reset_optimizer=cfg.reset_client_optimizer,
             augment=augment,
+            collect_stats=cs is not None,
         )
         n_leaves = len(layout.numels)
         evaluate_models = (
@@ -356,6 +374,17 @@ class FedAvg(Algorithm):
             accs = torch.zeros_like(losses)
             eval_accs = torch.zeros_like(losses) if client_eval else None
             state_k = cohort_take(client_state, ids)
+            stat_rows = None
+            if cs is not None:
+                # Per-client rows, zero for a client the round skips.
+                k = cs.probe_size(layout.numels)
+                stat_rows = {
+                    name: torch.zeros_like(losses) for name in (
+                        "loss_first", "grad_sq_mean", "update_sq",
+                        "nonfinite_count")
+                }
+                stat_rows["stat_probe"] = torch.zeros(
+                    (n_participants, k), device=losses.device)
 
             def train(members, slots):
                 """The cohort positions ``members`` as one chunk on their
@@ -379,6 +408,9 @@ class FedAvg(Algorithm):
                     set_rows(state_k, pos, state)
                 losses[pos] = metrics["loss"]
                 accs[pos] = metrics["accuracy"]
+                if stat_rows is not None:
+                    for name in ("loss_first", "grad_sq_mean"):
+                        stat_rows[name][pos] = metrics[name]
                 return params
 
             def payload(members, params):
@@ -387,6 +419,15 @@ class FedAvg(Algorithm):
                 see them."""
                 if failed is not None and fm.corrupts_upload:
                     params = fm.corrupt_stack(params, failed[members])
+                if stat_rows is not None:
+                    # What the server receives: after the corruption,
+                    # before the payload hook.
+                    pos = torch.as_tensor(members, dtype=torch.long,
+                                          device=global_flat.device)
+                    up = cs.add_upload_stats({}, global_flat, params,
+                                             layout.numels)
+                    for name, v in up.items():
+                        stat_rows[name][pos] = v
                 salts = [payload_salts(int(ids[p])) for p in members]
                 if salts[0] is None:
                     salts = None
@@ -433,6 +474,13 @@ class FedAvg(Algorithm):
             # Empty effective cohort: keep the previous global model.
             if not total > 0:
                 new_global = global_flat
+            if cs is not None:
+                # The aggregate's probe from the raw round aggregate:
+                # before the quorum select and the downlink hook.
+                aux["client_stats"] = cs.stats_matrix(
+                    dict(stat_rows, loss=losses),
+                    cs.probe_delta(global_flat, new_global, layout.numels),
+                )
             rejected = False
             if quorum:
                 # Rejected when the survivors fall below min_survivors or the

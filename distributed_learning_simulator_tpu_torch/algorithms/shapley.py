@@ -57,6 +57,10 @@ from distributed_learning_simulator_tpu_torch.ops.aggregate import (
     subset_masks_all,
     subset_weighted_mean,
 )
+from distributed_learning_simulator_tpu_torch.telemetry.client_stats import (
+    ClientStats,
+    attribution_crosscheck,
+)
 from distributed_learning_simulator_tpu_torch.utils.logging import get_logger
 from distributed_learning_simulator_tpu_torch.utils.reporting import (
     cohort_crc,
@@ -227,11 +231,26 @@ def gtg_walk(evaluator, client_params, sizes, prev_global, eval_batches,
 
 
 def _sv_crosscheck_extra(ctx: RoundContext, sv_arr, config) -> dict:
-    """The Shapley-vs-client-stats correlation (``sv_stats_corr``) needs
-    the per-client stats of ``client_stats='on'``, which the port does not
-    have yet (ROADMAP.md queue 1 item 13; config.py refuses it), so there
-    is nothing to report."""
-    return {}
+    """The Shapley-vs-client-stats cross-check (telemetry/client_stats.py):
+    on a round that carried per-client stats, the correlation between the
+    Shapley values and the local loss improvement, ``sv_stats_corr``. Reads
+    the matrix the round loop already fetched (``ctx.extra``, set only on
+    ``client_stats_every`` rounds), else the round's device matrix on the
+    same cadence. Empty when stats are off, off-cadence, or the correlation
+    is degenerate."""
+    stats = ctx.extra.get("client_stats_np")
+    if stats is None:
+        stats_dev = ctx.aux.get("client_stats")
+        cs = ClientStats.from_config(config)
+        if (
+            stats_dev is None
+            or cs is None
+            or not cs.fetch_round(ctx.round_idx)
+        ):
+            return {}
+        stats = stats_dev.detach().cpu().numpy()
+    corr = attribution_crosscheck(sv_arr, stats)
+    return {} if corr is None else {"sv_stats_corr": corr}
 
 
 def _resolve_eval_dtype(config, default: str) -> str:
@@ -484,9 +503,15 @@ class _ShapleyBase(FedAvg):
         self._evaluator = None
         self._layout = None
 
+    def bind_layout(self, layout) -> None:
+        """The flat layout the subset models unflatten with (make_round_fn
+        sets it; the threaded oracle, which builds no round function,
+        calls it)."""
+        self._layout = layout
+
     def make_round_fn(self, apply_fn, optimizer, layout, n_clients: int,
                       preprocess=None, client_sizes=None, device=None):
-        self._layout = layout
+        self.bind_layout(layout)
         return super().make_round_fn(apply_fn, optimizer, layout, n_clients,
                                      preprocess, client_sizes, device)
 

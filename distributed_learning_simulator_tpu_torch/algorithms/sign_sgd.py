@@ -34,6 +34,12 @@ out of every step (the majority counts the survivors), and its momentum
 and step count stay as they were. The quorum guard rejects a round whose
 survivors fall below ``min_survivors`` or whose voted params are not
 finite, returning the round-start params.
+
+With ``client_stats='on'`` the round reports ``aux["vote_agreement"]``: the
+shared params leave no per-client update to score, so the round statistic
+is the majority vote's mean agreement, ``1/2 + mean|vote| / (2 V)`` over
+the P coordinates for V voters, averaged over steps and epochs (1.0: a
+unanimous step; 0.5: coin-flip directions). A pure read of the vote.
 """
 
 from __future__ import annotations
@@ -61,6 +67,9 @@ from distributed_learning_simulator_tpu_torch.parallel.engine import (
 from distributed_learning_simulator_tpu_torch.robustness.faults import (
     FailureModel,
     all_finite,
+)
+from distributed_learning_simulator_tpu_torch.telemetry.client_stats import (
+    ClientStats,
 )
 
 
@@ -142,6 +151,7 @@ class SignSGD(Algorithm):
         fm = FailureModel.from_config(cfg)
         min_survivors = cfg.min_survivors
         quorum = fm is not None or min_survivors > 0
+        cs = ClientStats.from_config(cfg)
 
         def round_fn(global_flat, client_state, cx, cy, cmask, sizes,
                      key, lr_scale=1.0, client_rng=None,
@@ -180,9 +190,10 @@ class SignSGD(Algorithm):
                 step_counts = torch.zeros(n_clients, dtype=torch.int32,
                                           device=global_flat.device)
             epoch_loss = None
+            epoch_agree = []
             for e in range(epochs):
                 perms = torch.stack([p[e] for p in client_perms]).to(cx.device)
-                step_losses = []
+                step_losses, step_agree = [], []
                 for step in range(steps):
                     idx = perms[:, step * bsz:(step + 1) * bsz]  # [C, B]
                     bx = batched_take(cx, idx)
@@ -230,11 +241,19 @@ class SignSGD(Algorithm):
                         step_counts = step_counts + surv.to(torch.int32)
                         denom = float(max(n_surv, 1))
                     step_losses.append(loss_sum / denom)
+                    if cs is not None:
+                        step_agree.append(
+                            0.5 + vote.abs().sum() / (2.0 * denom
+                                                      * vote.numel()))
                 epoch_loss = torch.stack(step_losses).mean()
+                if cs is not None:
+                    epoch_agree.append(torch.stack(step_agree).mean())
             aux = {
                 "mean_client_loss": epoch_loss,
                 "sync_steps": epochs * steps,
             }
+            if cs is not None:
+                aux["vote_agreement"] = torch.stack(epoch_agree).mean()
             if quorum:
                 # Reject the round (back to the round-start params) when
                 # the survivors fall below min_survivors or the voted

@@ -382,6 +382,12 @@ class ExperimentConfig:
                 f"unknown client_stats {self.client_stats!r}; known: "
                 + ", ".join(CLIENT_STATS_LEVELS)
             )
+        if self.client_stats_every < 1:
+            raise ValueError("client_stats_every must be >= 1")
+        if self.client_stats_probe < 1:
+            raise ValueError("client_stats_probe must be >= 1")
+        if self.client_stats_mad_threshold <= 0.0:
+            raise ValueError("client_stats_mad_threshold must be > 0")
         if self.client_valuation.lower() not in ("off", "on"):
             raise ValueError(
                 f"unknown client_valuation {self.client_valuation!r}; "
@@ -453,12 +459,7 @@ class ExperimentConfig:
             (self.multihost, "multihost", 17),
             (self.async_mode.lower() == "on", "async_mode='on'", 14),
             (self.rounds_per_dispatch > 1, "rounds_per_dispatch > 1", 14),
-            (self.execution_mode.lower() == "threaded",
-             "execution_mode='threaded'", 12),
-            (self.telemetry_level.lower() != "off",
-             f"telemetry_level={self.telemetry_level!r}", 13),
             (self.span_trace.lower() == "on", "span_trace='on'", 13),
-            (self.client_stats.lower() == "on", "client_stats='on'", 13),
             (self.client_valuation.lower() == "on"
              or self.valuation_audit_every > 0, "client valuation", 13),
             (self.profile_dir is not None, "profile_dir", 13),

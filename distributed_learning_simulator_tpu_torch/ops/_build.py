@@ -6,7 +6,12 @@ library with a plain C interface, inside a build directory that
 ``$DLS_TORCH_BUILD_DIR``). The library's file name carries a hash of the
 source and the flags, so an edited source is rebuilt and an unchanged one is
 reused. The build writes to a temporary name and renames it into place, so
-two processes building at once never load a half-written file.
+two processes building at once never load a half-written file; within a
+process each wrapper's loader is :func:`locked_once`, so ``nvcc`` runs once
+however many threads ask (the threaded oracle's workers may launch their
+first kernel at the same moment), while two sources still build side by
+side. Each build that compiles is reported to the recompile counter
+(telemetry/recompile.py) as ``("nvcc <name>", seconds)``.
 
 Nothing here runs at import: the CPU tests import every module of the port,
 and ``nvcc`` runs only when a kernel is first launched on a CUDA tensor.
@@ -21,6 +26,10 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
+import time
+
+from distributed_learning_simulator_tpu_torch.telemetry import recompile
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(__file__)))
@@ -58,6 +67,35 @@ def cuda_tool(name: str) -> str:
     )
 
 
+def locked_once(fn):
+    """``fn()`` computed once per process, under a lock of its own
+    (``functools.lru_cache`` caches but does not lock: two threads could
+    both run the build)."""
+    done = []
+    lock = threading.Lock()
+
+    @functools.wraps(fn)
+    def wrapper():
+        if not done:
+            with lock:
+                if not done:
+                    done.append(fn())
+        return done[0]
+
+    return wrapper
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a kernel wrapper's launch count)
+    under a lock: the threaded oracle's workers launch from several
+    threads, and ``+=`` on an attribute is not atomic."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
 #: Build logs (nvcc's stdout+stderr, including ``-Xptxas -v``) by source
 #: name, for callers that want to print register and shared-memory use.
 BUILD_LOGS: dict[str, str] = {}
@@ -67,7 +105,9 @@ LIB_PATHS: dict[str, str] = {}
 
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
+    """Compile ``csrc/<name>.cu`` if needed and return the loaded library.
+    Its one caller per source is that wrapper's ``_lib()`` loader, which
+    :func:`locked_once` serializes."""
     src = os.path.join(_CSRC, f"{name}.cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(
@@ -80,7 +120,9 @@ def load_library(name: str) -> ctypes.CDLL:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
         cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, src]
+        t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
         BUILD_LOGS[name] = proc.stdout + proc.stderr
         if proc.returncode != 0:
             os.unlink(tmp)
@@ -89,6 +131,7 @@ def load_library(name: str) -> ctypes.CDLL:
                 + proc.stdout + proc.stderr
             )
         os.replace(tmp, lib_path)
+        recompile.notify(f"nvcc {name}", seconds)
     else:
         BUILD_LOGS.setdefault(name, f"(reused {lib_path})")
     LIB_PATHS[name] = lib_path

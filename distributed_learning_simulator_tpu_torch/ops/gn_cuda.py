@@ -56,7 +56,11 @@ from typing import NamedTuple
 
 import torch
 
-from distributed_learning_simulator_tpu_torch.ops._build import load_library
+from distributed_learning_simulator_tpu_torch.ops._build import (
+    count_launch,
+    load_library,
+    locked_once,
+)
 from distributed_learning_simulator_tpu_torch.ops._vmap import models_first
 
 _THREADS = 256  # csrc/gn.cu kThreads
@@ -176,7 +180,7 @@ def gn_normalize_plain(x, mean, rstd, scale, bias, out_dtype):
 _KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
-@functools.lru_cache(maxsize=None)
+@locked_once
 def _lib() -> ctypes.CDLL:
     lib = load_library("gn")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -248,7 +252,7 @@ def gn_stats(x: torch.Tensor, g: int, eps: float, split: int | None = None):
         split, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _raise_on_error(err, "gn_stats_kernel")
-    gn_stats.launches += 1
+    count_launch(gn_stats)
     return mean, rstd
 
 
@@ -315,7 +319,7 @@ def _normalize(x, mean, rstd, scale, bias, out_dtype, after_stats: bool,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _raise_on_error(err, "gn_normalize_kernel")
-    gn_normalize.launches += 1
+    count_launch(gn_normalize)
     return y
 
 

@@ -88,14 +88,17 @@ def _segments(x: torch.Tensor, segments: Segments | None) -> Segments:
 
 
 def _affine_params(x: torch.Tensor, levels: int, segments: Segments,
-                   rows: bool = False):
+                   rows: bool = False, eager: bool = False):
     """Per-leaf ``(scale, zero_point)`` f32 (``[n_leaves]``; with
     ``rows``, ``x`` is ``[M, P]`` and they are ``[M, n_leaves]``), from each
     leaf's min and max taken in the leaf's own dtype (exact: min/max never
     round).
 
     ``span / (levels - 1)`` is computed as XLA compiles it in the JAX round
-    program: a multiply by the f32 reciprocal of the constant."""
+    program: a multiply by the f32 reciprocal of the constant. With
+    ``eager``, a true f32 division, as JAX computes it outside a jitted
+    program (the JAX threaded oracle quantizes its uploads and broadcasts
+    that way)."""
     if x.dtype not in (torch.float32, torch.bfloat16, torch.float16,
                        torch.float64):
         x = x.float()
@@ -108,8 +111,11 @@ def _affine_params(x: torch.Tensor, levels: int, segments: Segments,
     if not rows:
         xmin, xmax = xmin[0], xmax[0]
     span = xmax - xmin
-    recip = float(np.float32(1.0) / np.float32(levels - 1))
-    scale = torch.where(span > 0, span * recip, torch.ones_like(span))
+    if eager:
+        step = span / float(levels - 1)
+    else:
+        step = span * float(np.float32(1.0) / np.float32(levels - 1))
+    scale = torch.where(span > 0, step, torch.ones_like(span))
     zero_point = -xmin / scale
     return scale, zero_point
 
@@ -124,15 +130,18 @@ def _dither_u01(x32: torch.Tensor, salt) -> torch.Tensor:
 
 def stochastic_quantize(x: torch.Tensor, levels: int, salts,
                         segments: Segments | None = None,
-                        rows: bool = False) -> QuantizedTensor:
+                        rows: bool = False,
+                        eager: bool = False) -> QuantizedTensor:
     """Quantize ``x`` to ``levels`` levels per leaf with stochastic rounding
     (unbiased: ``P[up] = frac``). ``salts`` holds one 32-bit salt per leaf
     (the JAX package's ``_salt_from_key`` of the leaf's key); the codes are
     bit-exact against JAX given the same salts. With ``rows``, ``x`` is an
     ``[M, P]`` stack of flat vectors and ``salts`` is ``[M, n_leaves]``:
-    each row is quantized on its own, as it would be alone."""
+    each row is quantized on its own, as it would be alone. ``eager``: the
+    scale as JAX computes it outside a jitted program (``_affine_params``).
+    """
     seg = _segments(x[0] if rows else x, segments)
-    scale, zero_point = _affine_params(x, levels, seg, rows)
+    scale, zero_point = _affine_params(x, levels, seg, rows, eager)
     salt = seg.spread(torch.as_tensor(salts, dtype=torch.int64,
                                       device=x.device).reshape(
         (x.shape[0], -1) if rows else (-1,)))

@@ -39,12 +39,15 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 
 import torch
 import torch.nn.functional as F
 
-from distributed_learning_simulator_tpu_torch.ops._build import load_library
+from distributed_learning_simulator_tpu_torch.ops._build import (
+    count_launch,
+    load_library,
+    locked_once,
+)
 from distributed_learning_simulator_tpu_torch.ops._vmap import models_first
 
 _TILE = 64  # csrc/wgrad.cu kTile: ci and co extent of a block's tile
@@ -75,7 +78,7 @@ def conv3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 _KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
-@functools.lru_cache(maxsize=None)
+@locked_once
 def _lib() -> ctypes.CDLL:
     lib = load_library("wgrad")
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -237,7 +240,7 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _raise_on_error(err)
-    conv3x3_wgrad.launches += 1
+    count_launch(conv3x3_wgrad)
     return out
 
 

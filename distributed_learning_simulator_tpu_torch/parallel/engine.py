@@ -39,6 +39,9 @@ from distributed_learning_simulator_tpu_torch.ops.quantize import (
     Segments,
     hash_mix,
 )
+from distributed_learning_simulator_tpu_torch.telemetry.recompile import (
+    tracked,
+)
 
 #: Salt advance per rounded leaf (the JAX package's ``0x9E3779B9``).
 SALT_STEP = 0x9E3779B9
@@ -358,6 +361,7 @@ def make_chunk_train_fn(
     param_transform: Callable | None = None,
     reset_optimizer: bool = True,
     augment: Callable | None = None,
+    collect_stats: bool = False,
 ):
     """Build ``train_chunk(global_flat, xs, ys, mask, epoch_perms, sr_salts,
     aug_keys=None, lr_scale=1.0, opt_state=None) -> (params [M, P],
@@ -394,6 +398,16 @@ def make_chunk_train_fn(
 
     ``param_transform`` (flat -> flat, e.g. fed_quant's fake-quant) is
     applied to the params inside the loss, per member.
+
+    ``collect_stats`` (telemetry/client_stats.py): ``metrics`` also holds
+    each member's ``loss_first`` (the first step's batch loss: the loss of
+    the incoming global model on its first batch) and ``grad_sq_mean`` (the
+    mean over epochs of the mean over steps of the squared gradient L2
+    norm, in f32). Chosen when the function is built; either way the run
+    draws nothing more and computes the same params.
+
+    The returned function counts its first-seen call signatures for the
+    recompile counter (telemetry/recompile.py, ``train_chunk``).
     """
     loss_fn = make_loss_fn(
         lambda flat, x: apply_fn(layout.unflatten(flat), x), param_transform
@@ -420,8 +434,10 @@ def make_chunk_train_fn(
         steps = xs.shape[1] // batch_size
         epoch_perms = epoch_perms.to(xs.device)
         epoch_loss = epoch_acc = None
+        loss_first = None
+        epoch_grad_sq = []
         for epoch in range(epoch_perms.shape[1]):
-            losses, accs = [], []
+            losses, accs, grad_sqs = [], [], []
             for step in range(steps):
                 idx = epoch_perms[:, epoch,
                                   step * batch_size:(step + 1) * batch_size]
@@ -436,6 +452,8 @@ def make_chunk_train_fn(
                         for k in aug_keys
                     ])
                 grads, (loss, acc) = grad_fn(params, bx, by, bm)
+                if collect_stats:
+                    grad_sqs.append(squared_norms(grads))
                 with torch.no_grad():
                     updates, opt_state = optimizer.update(
                         grads, opt_state, params
@@ -456,12 +474,28 @@ def make_chunk_train_fn(
                 accs.append(acc.detach())
             epoch_loss = torch.stack(losses).mean(dim=0)
             epoch_acc = torch.stack(accs).mean(dim=0)
+            if collect_stats:
+                if loss_first is None:
+                    loss_first = losses[0]
+                epoch_grad_sq.append(torch.stack(grad_sqs).mean(dim=0))
         if not params.is_contiguous():  # no step ran: the broadcast view
             params = params.contiguous()
-        return (params, None if reset_optimizer else opt_state,
-                {"loss": epoch_loss, "accuracy": epoch_acc})
+        metrics = {"loss": epoch_loss, "accuracy": epoch_acc}
+        if collect_stats:
+            metrics["loss_first"] = loss_first
+            metrics["grad_sq_mean"] = torch.stack(epoch_grad_sq).mean(dim=0)
+        return params, None if reset_optimizer else opt_state, metrics
 
-    return train_chunk
+    return tracked("train_chunk", train_chunk)
+
+
+def squared_norms(stack: torch.Tensor) -> torch.Tensor:
+    """Each row's squared L2 norm of an ``[M, P]`` stack, in f32, a
+    :func:`row_slices` slice at a time (the f32 temporaries stay
+    bounded)."""
+    with torch.no_grad():
+        return torch.cat([(stack[r].float() ** 2).sum(dim=1)
+                          for r in row_slices(stack)])
 
 
 def make_local_train_fn(apply_fn: Callable, optimizer: SGD | Adam, layout,
@@ -544,7 +578,9 @@ def make_models_eval_fn(eval_fn: Callable, layout,
     """``evaluate_models(models [K, P], xb, yb, mb) -> {"loss": [K],
     "accuracy": [K]}``: ``eval_fn`` (:func:`make_eval_fn`) over K flat
     models in one vmapped forward per eval batch, each model through
-    ``transform`` first (fed_quant's fake-quant) when given."""
+    ``transform`` first (fed_quant's fake-quant) when given. It counts its
+    first-seen call signatures for the recompile counter
+    (telemetry/recompile.py, ``evaluate_models``)."""
 
     def one(flat, xb, yb, mb):
         if transform is not None:
@@ -557,4 +593,4 @@ def make_models_eval_fn(eval_fn: Callable, layout,
     def evaluate_models(models, xb, yb, mb):
         return batched(models, xb, yb, mb)
 
-    return evaluate_models
+    return tracked("evaluate_models", evaluate_models)

@@ -15,6 +15,13 @@ rather than carry on on the CPU. ``--device cpu`` is for tests.
 backward per step for the whole chunk (``0``: the footprint model picks C;
 unset: the whole cohort at once; ``1``: one client at a time), as the JAX
 package does.
+
+``--telemetry_level basic|detailed`` times each round's phases, counts the
+round programs' first-seen call signatures after the warmup round and
+records the device-memory watermark (schema-v2 records);
+``--client_stats on`` adds the per-client statistics and the anomaly
+detector (v3). ``--execution_mode threaded`` runs the threaded oracle
+(execution/threaded.py) instead of the round loop.
 """
 
 from __future__ import annotations
@@ -67,6 +74,16 @@ from distributed_learning_simulator_tpu_torch.parallel.engine import (
 )
 from distributed_learning_simulator_tpu_torch.robustness.chaos import (
     maybe_crash,
+)
+from distributed_learning_simulator_tpu_torch.telemetry import (
+    ClientStats,
+    RecompileMonitor,
+    detect_and_record,
+    hbm_limit_bytes,
+    log_round_compiles,
+    make_phase_timer,
+    peak_hbm_bytes,
+    tracked,
 )
 from distributed_learning_simulator_tpu_torch.utils.checkpoint import (
     gc_checkpoints,
@@ -121,11 +138,9 @@ def resolve_device(name: str) -> torch.device:
 
 
 def device_memory_bytes(device: torch.device) -> int | None:
-    """The card's memory (``torch.cuda.mem_get_info``'s total), or None on
-    the CPU, where the JAX package's memory stats are missing too."""
-    if device.type != "cuda":
-        return None
-    return int(torch.cuda.mem_get_info(device)[1])
+    """The card's memory, or None on the CPU, where the JAX package's
+    memory stats are missing too (telemetry/memory.py, the one probe)."""
+    return hbm_limit_bytes(device)
 
 
 def _device_budget_bytes(config, device) -> float:
@@ -252,6 +267,40 @@ def build_base_round_record(config, round_idx: int, metrics: dict,
         record["cohort_hash"] = cohort_crc(aux["participants"],
                                            config.worker_number)
     return record
+
+
+def fetch_to_host(tree: dict) -> dict:
+    """``tree`` (nested dicts of tensors and host values) with every tensor
+    as a numpy array, fetched in one device-to-host copy per dtype: the
+    round's one metric fetch. Host values pass through."""
+    leaves = []
+
+    def collect(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                collect(v)
+        elif isinstance(node, torch.Tensor):
+            leaves.append(node)
+
+    collect(tree)
+    host = {}
+    for dtype in dict.fromkeys(t.dtype for t in leaves):
+        group = [t for t in leaves if t.dtype == dtype]
+        flat = torch.cat([t.detach().reshape(-1) for t in group])
+        flat = flat.cpu().numpy()
+        offset = 0
+        for t in group:
+            host[id(t)] = flat[offset:offset + t.numel()].reshape(t.shape)
+            offset += t.numel()
+
+    def rebuild(node):
+        if isinstance(node, dict):
+            return {k: rebuild(v) for k, v in node.items()}
+        if isinstance(node, torch.Tensor):
+            return host[id(node)]
+        return node
+
+    return rebuild(tree)
 
 
 def _algo_checkpoint_state(algorithm, metrics, server_state) -> dict:
@@ -382,6 +431,16 @@ def run_simulation(
     returns with ``preempted_at`` set.
     """
     config.validate()
+    if config.execution_mode.lower() == "threaded":
+        # Honoured from every entry point, as in the JAX package.
+        from distributed_learning_simulator_tpu_torch.execution.threaded import (  # noqa: E501
+            run_threaded_simulation,
+        )
+
+        return run_threaded_simulation(
+            config, dataset=dataset, client_data=client_data,
+            setup_logging=setup_logging,
+        )
     device = resolve_device(config.device)
     logger = get_logger()
     set_level(config.log_level)
@@ -452,6 +511,9 @@ def run_simulation(
     )
     evaluate = make_eval_fn(apply_fn)
     algorithm.prepare(apply_fn, evaluate, eval_batches)
+    # The round programs count their first-seen call signatures for the
+    # recompile counter (telemetry/recompile.py).
+    server_eval = tracked("evaluate", evaluate)
     round_fn = algorithm.make_round_fn(
         apply_fn, optimizer, layout, n_clients,
         preprocess=(
@@ -461,6 +523,7 @@ def run_simulation(
         client_sizes=client_data.sizes,
         device=device,
     )
+    round_fn = tracked("round_fn", round_fn)
     # Optional server-side optimizer (FedAvgM / FedAdam) on the aggregate.
     server_state = server_update = None
     server = algorithm.make_server_update()
@@ -474,6 +537,7 @@ def run_simulation(
         )
     if server is not None:
         server_init, server_update = server
+        server_update = tracked("server_update", server_update)
         server_state = server_init(global_flat)
     client_state = algorithm.init_client_state(optimizer, global_flat,
                                                n_clients)
@@ -519,42 +583,80 @@ def run_simulation(
     rounds_rejected = 0
     survivor_counts: list[int] = []
     metrics_path = os.path.join(log_dir, "metrics.jsonl") if log_dir else None
+    # Run telemetry (telemetry/): phase timing, the recompile counter and
+    # the memory watermark; per-client statistics. All off by default, and
+    # then the records are the v1 records.
+    tel_level = config.telemetry_level.lower()
+    phase_timer = make_phase_timer(tel_level)
+    recompile = RecompileMonitor() if tel_level != "off" else None
+    post_warmup_compiles = 0
+    client_stats_cfg = ClientStats.from_config(config)
+    clients_flagged = 0
     completed_round = start_round - 1
     t_start = time.perf_counter()
     t_prev_done = t_start
+    if recompile is not None:
+        recompile.start()
     try:
         for round_idx in range(start_round, config.round):
             lr_scale = float(lr_factors(config, round_idx, 1)[0])
             key, round_key = prng.split(key)
-            new_global, client_state, aux = round_fn(
-                global_flat, client_state, cx, cy, cmask, client_data.sizes,
-                round_key,
-                lr_scale=lr_scale,
-                client_rng=client_rng_fn(round_idx) if client_rng_fn
-                else None,
-            )
+            with phase_timer.phase(round_idx, "client_step") as ph:
+                new_global, client_state, aux = round_fn(
+                    global_flat, client_state, cx, cy, cmask,
+                    client_data.sizes, round_key,
+                    lr_scale=lr_scale,
+                    client_rng=client_rng_fn(round_idx) if client_rng_fn
+                    else None,
+                )
+                ph.fence((new_global, aux))
             if server_update is not None:
                 # A rejected round leaves the params and the server
                 # optimizer's state as they were.
-                new_global, server_state = server_update(
-                    global_flat, new_global, server_state,
-                    aux.get("round_rejected"))
-            metrics_dev = evaluate(layout.unflatten(new_global),
-                                   *eval_batches)
-            metrics = {k: float(v) for k, v in metrics_dev.items()}
-            mean_client_loss = float(aux["mean_client_loss"])
-            extra = algorithm.post_round(RoundContext(
+                with phase_timer.phase(round_idx, "aggregate") as ph:
+                    new_global, server_state = server_update(
+                        global_flat, new_global, server_state,
+                        aux.get("round_rejected"))
+                    ph.fence(new_global)
+            with phase_timer.phase(round_idx, "eval") as ph:
+                metrics_dev = server_eval(layout.unflatten(new_global),
+                                          *eval_batches)
+                ph.fence(metrics_dev)
+            if recompile is not None:
+                recompile.attribute(round_idx)
+            # The client stats and their round scalars ride the round's one
+            # metric fetch, on the client_stats_every cadence.
+            cs_keys = [
+                k for k in ("client_stats", "quant_mse", "vote_agreement")
+                if k in aux
+            ] if (client_stats_cfg is not None
+                  and client_stats_cfg.fetch_round(round_idx)) else []
+            with phase_timer.phase(round_idx, "host_sync"):
+                fetched = fetch_to_host({
+                    "metrics": metrics_dev,
+                    "mean_client_loss": aux["mean_client_loss"],
+                    **{k: aux[k] for k in cs_keys},
+                })
+            metrics = {k: float(v) for k, v in fetched["metrics"].items()}
+            mean_client_loss = float(fetched["mean_client_loss"])
+            ctx = RoundContext(
                 round_idx=round_idx, global_params=new_global,
                 prev_global_params=global_flat, sizes=client_data.sizes,
                 aux=aux, metrics=metrics, prev_metrics=prev_metrics,
                 eval_batches=eval_batches, log_dir=log_dir, layout=layout,
-            )) or {}
+            )
+            if "client_stats" in fetched:
+                # Post-round hooks (Shapley's cross-check) read the
+                # matrix already fetched.
+                ctx.extra["client_stats_np"] = fetched["client_stats"]
+            with phase_timer.phase(round_idx, "post_round"):
+                extra = algorithm.post_round(ctx) or {}
             global_flat, prev_metrics = new_global, metrics
             now = time.perf_counter()
-            record = build_round_record(build_base_round_record(
+            record = build_base_round_record(
                 config, round_idx, metrics, mean_client_loss, aux, extra,
                 round_seconds=now - t_prev_done,
-            ))
+            )
             if "survivor_count" in record:
                 survivor_counts.append(record["survivor_count"])
             if record.get("round_rejected"):
@@ -566,6 +668,49 @@ def run_simulation(
                     config.min_survivors,
                 )
             t_prev_done = now
+            cs_rec = None
+            extras = {k: float(fetched[k])
+                      for k in ("quant_mse", "vote_agreement")
+                      if k in fetched}
+            if "client_stats" in fetched:
+                cs_rec, n_flagged = detect_and_record(
+                    fetched["client_stats"], client_stats_cfg, round_idx,
+                    logger=logger, participants=aux.get("participants"),
+                    extras=extras,
+                )
+                clients_flagged += n_flagged
+            elif extras:
+                # No per-client deltas (sign_SGD): the round scalars only.
+                cs_rec = {
+                    "n_clients": n_clients,
+                    **{k: (v if np.isfinite(v) else None)
+                       for k, v in extras.items()},
+                }
+            tel_rec = None
+            if phase_timer.enabled:
+                # The first executed round is the warmup; a compile in any
+                # later round is the instability warning.
+                recompile.attribute(round_idx)
+                events = recompile.take(round_idx)
+                n_compiles = log_round_compiles(
+                    logger, round_idx, events,
+                    warmup=round_idx == start_round,
+                )
+                if round_idx > start_round:
+                    post_warmup_compiles += n_compiles
+                tel_rec = {
+                    "phase_seconds": {
+                        k: round(v, 6) for k, v in sorted(
+                            phase_timer.take(round_idx).items())
+                    },
+                    "compiles": n_compiles,
+                }
+                if events:
+                    tel_rec["compiled"] = [name for name, _ in events]
+                peak = peak_hbm_bytes(device)
+                if peak is not None:
+                    tel_rec["peak_hbm_bytes"] = peak
+            record = build_round_record(record, tel_rec, cs_rec)
             history.append(record)
             if metrics_path:
                 with open(metrics_path, "a") as f:
@@ -585,6 +730,8 @@ def run_simulation(
             if preempt["flag"]:
                 break
     finally:
+        if recompile is not None:
+            recompile.stop()
         if installed:
             signal.signal(signal.SIGTERM, prev_sigterm)
 
@@ -628,15 +775,21 @@ def run_simulation(
         "client_rounds_per_sec": n_rounds * n_clients / max(total, 1e-9),
         "client_chunk_size": config.client_chunk_size,
         # The JAX package's other keys, at the values its run gives them
-        # with each feature off (the port has none of these features yet).
+        # with each feature off (the port does not have these yet).
         "mesh": None,
         "rounds_rejected": rounds_rejected,
-        "telemetry_level": config.telemetry_level.lower(),
-        "post_warmup_compiles": None,
+        "telemetry_level": tel_level,
+        # 0 on a shape-stable run; None with telemetry off.
+        "post_warmup_compiles": (
+            post_warmup_compiles if recompile is not None else None
+        ),
         "mean_survivor_count": (
             float(np.mean(survivor_counts)) if survivor_counts else None
         ),
-        "clients_flagged": None,
+        # The detector's flags over the run; None with client stats off.
+        "clients_flagged": (
+            clients_flagged if client_stats_cfg is not None else None
+        ),
         "async_speedup_ratio": None,
         "sim_clock_seconds": None,
         "mean_buffer_occupancy": None,

@@ -4,8 +4,9 @@ of the JAX package).
 Copied so that the port's records carry the same layout and schema
 versions: ``scripts/report_run.py`` and the checked-in
 ``tests/data/metrics_record.schema.json`` read both packages' output. The
-port emits only v1 records so far (no telemetry sub-objects), but keeps
-the function whole so later slices add their sub-objects through it.
+port emits v1 records (telemetry and client stats off), v2 (the
+``telemetry`` sub-object) and v3 (``client_stats``); the function is kept
+whole so later slices add their sub-objects through it.
 """
 
 from __future__ import annotations

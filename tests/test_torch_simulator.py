@@ -134,12 +134,13 @@ def test_probes_raise_as_in_jax():
 @pytest.mark.parametrize("flags,item", [
     (["--client_residency", "streamed"], "item 15"),
     (["--mesh_devices", "2"], "item 17"),
-    (["--telemetry_level", "basic"], "item 13"),
-    (["--execution_mode", "threaded"], "item 12"),
+    (["--span_trace", "on"], "item 13"),
+    (["--profile_dir", "PROFILE_DIR"], "item 13"),
     (["--rounds_per_dispatch", "2"], "item 14"),
     (["--sweep_seeds", "0,1"], "item 16"),
 ])
-def test_unported_features_refuse(flags, item):
+def test_unported_features_refuse(flags, item, tmp_path):
+    flags = [str(tmp_path) if f == "PROFILE_DIR" else f for f in flags]
     with pytest.raises(NotImplementedError, match=item):
         run_simulation(get_config(TINY + flags), setup_logging=False)
 
@@ -162,6 +163,8 @@ def test_importing_the_port_loads_no_jax():
         "import distributed_learning_simulator_tpu_torch"
         ".simulator_heterogeneous\n"
         "import distributed_learning_simulator_tpu_torch.__main__\n"
+        "import distributed_learning_simulator_tpu_torch.execution.threaded\n"
+        "import distributed_learning_simulator_tpu_torch.telemetry\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'distributed_learning_simulator_tpu'))\n"
         "assert not bad, bad\n"

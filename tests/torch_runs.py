@@ -3,6 +3,11 @@ with nothing injected: the port's own init (models/flax_init.py) and key
 chain must replay the JAX package's. Shared by the port's end-to-end parity
 tests."""
 
+import dataclasses
+import glob
+import json
+import os
+
 import jax
 import numpy as np
 import torch
@@ -45,6 +50,23 @@ def run_both(log_root=None, **changes):
     pres = simulator.run_simulation(pcfg,
                                     setup_logging=log_root is not None)
     return jres, pres
+
+
+def port_config(jax_config, **changes) -> ExperimentConfig:
+    """The port's config of a JAX package config (every field copied, then
+    ``changes``), on the CPU."""
+    fields = {f.name: getattr(jax_config, f.name)
+              for f in dataclasses.fields(jax_config)}
+    fields.update(changes)
+    return ExperimentConfig(device="cpu", **fields)
+
+
+def read_records(log_root) -> list[dict]:
+    """The records of the one metrics.jsonl under ``log_root``."""
+    (path,) = glob.glob(os.path.join(str(log_root), "**", "metrics.jsonl"),
+                        recursive=True)
+    with open(path) as f:
+        return [json.loads(line) for line in f]
 
 
 def losses_of(result) -> np.ndarray:
