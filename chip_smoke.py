@@ -136,6 +136,30 @@ together), then runs these phases and exits non-zero if any of them fails:
    ``threaded_algos`` (sign_SGD, fed_quant and both Shapley algorithms
    through the oracle on ``cnn_tpu``, 4 clients, 1 round: finite
    accuracies, one record a round, sign_SGD's vote rendezvous time).
+   Then valuation, spans, profiling, round batching and async federation,
+   cut like the main paths (ResNet-18 at full width, Dirichlet(0.1), shard
+   cap 100, batch 25, chunk 40, bf16 local state), each through run_path's
+   launch gates: ``valuation_fed`` (``fed``, 50 clients, 3 rounds, client
+   stats and valuation on, a GTG audit in round 2 with 4 permutations,
+   without the size-aware schedule: schema-v7 records, finite audit
+   correlations, GN and wgrad launches inside the audit, the replayed
+   uploads' update norms at rtol 1e-4 of the round's client stats; the
+   audit's seconds and subset evals/s); ``spans_fed`` (``fed``, 50
+   clients, 2 rounds, ``span_trace='on'``: the journal written,
+   ``scripts/trace_timeline.py`` summarizing its round and phase spans,
+   schema-v12 records); ``profile_costmodel`` (``fed`` at 5 clients,
+   round 2 profiled into ``profile_dir``, then a run with
+   ``cost_model_trace`` on it: ``dls::group_norm`` and
+   ``dls::conv3x3_wgrad`` kernels with bytes in the trace, FLOPs in the
+   convolution category, a finite positive predicted round on
+   ``h100-sxm-1`` in the v6 record; the ledger, the predicted-to-measured
+   ratio and the fitted efficiencies printed); ``round_batch`` (``fed``
+   and ``sign_SGD`` at 50 clients, 4 rounds at ``rounds_per_dispatch`` 1
+   and 4: bitwise equal histories and params, no synchronizing CUDA call
+   inside a dispatch; the headline's round seconds at K=1 and K=4);
+   ``async_fed`` (``fed``, 50 clients, 3 rounds, bimodal arrivals,
+   deadline 1.5, buffer 8: schema-v4 records, a buffer apply, and
+   ``round_deadline=inf`` bitwise equal to the synchronous run).
 3. A profiler pass per algorithm (5 clients, 2 rounds) and one of the
    headline (10 clients, 2 rounds): device busy time, idle share, and the
    host operators with the most self time. Then the batched layers alone
@@ -958,7 +982,8 @@ def chunk_steps(config, n_train: int) -> int:
 
 def run_path(torch, gn, wg, name, config, post_round_probe=None,
              gn_per_forward=GN_PER_FORWARD, wgrad_per_step=WGRAD_PER_STEP,
-             setup_logging=False, n_train=None, keep_params=False):
+             setup_logging=False, n_train=None, keep_params=False,
+             extra_rounds=0):
     """Phase 2: one main path through run_simulation, with every launch
     count set to 0 just before it and read just after; each GroupNorm
     kernel must launch ``gn_per_forward`` times per model forward and the
@@ -969,8 +994,9 @@ def run_path(torch, gn, wg, name, config, post_round_probe=None,
     Shapley subset evaluations); such a run, or one with
     ``setup_logging``, writes its artifacts under ``config.log_root``.
     The training forwards must be at most :func:`chunk_steps` (``n_train``
-    defaults to ``config.n_train``). Keeps the run's peak device memory;
-    ``keep_params`` returns the final global model too."""
+    defaults to ``config.n_train``; ``extra_rounds`` rounds of training
+    more, such as the valuation audit's replay). Keeps the run's peak
+    device memory; ``keep_params`` returns the final global model too."""
     from distributed_learning_simulator_tpu_torch import factory
     from distributed_learning_simulator_tpu_torch.algorithms import shapley
     from distributed_learning_simulator_tpu_torch.models import registry
@@ -1055,7 +1081,8 @@ def run_path(torch, gn, wg, name, config, post_round_probe=None,
         fail(f"{name}: conv3x3_wgrad launched "
              f"{launches['conv3x3_wgrad']} times for {forwards['train']} "
              f"training steps (expected {wgrad_per_step} each)")
-    bound = chunk_steps(config, n_train or config.n_train)
+    bound = chunk_steps(config, n_train or config.n_train) * (
+        config.round + extra_rounds) // config.round
     if forwards["train"] > bound:
         fail(f"{name}: {forwards['train']} training forwards, more than the "
              f"{bound} chunk-steps of chunk {config.client_chunk_size}: the "
@@ -2168,6 +2195,412 @@ def threaded_algos(torch, gn, wg, log_root):
     return out
 
 
+def _plain_record(rec: dict) -> dict:
+    """A record without its timings: what two runs of one configuration
+    must agree on bitwise."""
+    return {k: v for k, v in rec.items()
+            if k not in ("round_seconds", "telemetry", "spans")}
+
+
+def valuation_fed(torch, gn, wg, log_root):
+    """Phase 2m: ``valuation_fed``. The ``fed`` main path (50 clients, cut
+    like the main paths, without the size-aware schedule: the audit replays
+    a round on whole shards, as the JAX package's does) for 3 rounds with
+    ``client_stats='on'``, ``client_valuation='on'``,
+    ``valuation_audit_every=2`` and ``valuation_audit_permutations=4``,
+    through run_path's launch gates (the audit's replay and subset
+    evaluations are model forwards too). Fails unless every record
+    validates at schema_version 7, round 2 carries an ``audit`` with
+    finite Spearman and Pearson correlations, the GroupNorm and wgrad
+    kernels launched inside the audit, and the replayed uploads' update
+    norms match round 2's client-stats ``update_norm`` at rtol 1e-4.
+    Prints the audit's wall seconds and subset evals/s beside the round
+    seconds."""
+    import dataclasses
+
+    import numpy as np
+
+    from distributed_learning_simulator_tpu_torch import simulator
+    from distributed_learning_simulator_tpu_torch.telemetry import (
+        valuation,
+    )
+
+    cfg = dataclasses.replace(
+        path_configs(50, 5000, 2000, "INFO")["fed"], round=3,
+        client_stats="on", client_valuation="on", valuation_audit_every=2,
+        valuation_audit_permutations=4, bucket_client_work=False,
+        log_root=log_root)
+    stats = {}
+    audits = []
+    run_audit = valuation.ValuationAuditor.run
+    replay = valuation.ValuationAuditor.replay
+    detect = simulator.detect_and_record
+    norms = []
+
+    def keep_stats(matrix, cs, round_idx, **kw):
+        stats[round_idx] = np.asarray(matrix)
+        return detect(matrix, cs, round_idx, **kw)
+
+    def replayed(self, round_key, prev_global, *args, **kw):
+        stack = replay(self, round_key, prev_global, *args, **kw)
+        norms.append(torch.linalg.vector_norm(
+            stack - prev_global.float(), dim=1).cpu().numpy())
+        return stack
+
+    def probed(self, round_idx, round_key, prev_global, *args, **kw):
+        torch.cuda.synchronize()
+        before = (gn.gn_stats.launches, gn.gn_normalize.launches,
+                  wg.conv3x3_wgrad.launches, time.perf_counter())
+        out = run_audit(self, round_idx, round_key, prev_global, *args,
+                        **kw)
+        torch.cuda.synchronize()
+        audits.append({
+            "round": round_idx, "record": out,
+            "gn_stats": gn.gn_stats.launches - before[0],
+            "gn_normalize": gn.gn_normalize.launches - before[1],
+            "conv3x3_wgrad": wg.conv3x3_wgrad.launches - before[2],
+            "seconds": time.perf_counter() - before[3],
+        })
+        return out
+
+    simulator.detect_and_record = keep_stats
+    valuation.ValuationAuditor.run = probed
+    valuation.ValuationAuditor.replay = replayed
+    try:
+        res = run_path(torch, gn, wg, "valuation_fed", cfg,
+                       setup_logging=True, extra_rounds=1)
+    finally:
+        simulator.detect_and_record = detect
+        valuation.ValuationAuditor.run = run_audit
+        valuation.ValuationAuditor.replay = replay
+    records = res["history"]
+    _check_records("valuation_fed", records, _schema(), 7)
+    if len(audits) != 1 or audits[0]["round"] != 2:
+        fail(f"valuation_fed: audits in rounds "
+             f"{[a['round'] for a in audits]} (expected [2])")
+    audit = audits[0]
+    rec = records[2]["valuation"].get("audit")
+    if rec is None or any(
+            rec.get(k) is None or not math.isfinite(rec[k])
+            for k in ("spearman", "pearson")):
+        fail(f"valuation_fed: round 2's audit {rec}")
+    if min(audit[k] for k in ("gn_stats", "gn_normalize",
+                              "conv3x3_wgrad")) <= 0:
+        fail(f"valuation_fed: launches inside the audit {audit}")
+    want = stats[2][:, 2]  # the update_norm column
+    got = norms[0]
+    rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                       1e-30)))
+    if not rel <= 1e-4:
+        fail(f"valuation_fed: replayed update norms differ from round 2's "
+             f"client stats by {rel:.3e} (rtol 1e-4)")
+    res["audit"] = dict(audit)
+    res["audit"]["update_norm_rel_err"] = rel
+    res["audit"]["subset_evals_per_s"] = (
+        rec["subset_evals"] / max(audit["seconds"], 1e-9))
+    log(f"valuation_fed: audit {audit['seconds']:.2f} s wall "
+        f"({rec['subset_evals']} subset evals, "
+        f"{res['audit']['subset_evals_per_s']:.1f} evals/s, "
+        f"{rec['permutations']} permutations, spearman {rec['spearman']}, "
+        f"pearson {rec['pearson']}) against round seconds "
+        f"{res['round_seconds']}; launches inside it: gn_stats "
+        f"{audit['gn_stats']}, gn_normalize {audit['gn_normalize']}, "
+        f"wgrad {audit['conv3x3_wgrad']}; replayed update norms within "
+        f"{rel:.2e} of the round's")
+    return res
+
+
+def spans_fed(torch, gn, wg, log_root):
+    """Phase 2n: ``spans_fed``. The ``fed`` main path (50 clients) for 2
+    rounds with ``span_trace='on'`` through run_path. Fails unless the
+    journal ``spans_0.jsonl`` is written beside metrics.jsonl,
+    ``scripts/trace_timeline.py --json`` (a subprocess) summarizes it with
+    the round and phase spans, and every record validates at
+    schema_version 12."""
+    import dataclasses
+
+    cfg = dataclasses.replace(
+        path_configs(50, 5000, 2000, "INFO")["fed"], span_trace="on",
+        log_root=log_root)
+    res = run_path(torch, gn, wg, "spans_fed", cfg, setup_logging=True)
+    _check_records("spans_fed", res["history"], _schema(), 12)
+    artifacts = _newest_artifacts(cfg)
+    journal = os.path.join(artifacts, "spans_0.jsonl")
+    if not os.path.exists(journal):
+        fail(f"spans_fed: no journal at {journal}")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(repo, "scripts", "trace_timeline.py"),
+         artifacts, "--json"], capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        fail(f"spans_fed: trace_timeline.py exited {proc.returncode}: "
+             f"{proc.stderr[-500:]}")
+    summary = json.loads(proc.stdout)
+    by_cat = summary["totals"]["0"]["by_cat"]
+    spans = summary["hosts"][0]["spans"]
+    if not (by_cat.get("phase", 0) > 0 and by_cat.get("round", 0) > 0
+            and spans >= 5 * cfg.round):
+        fail(f"spans_fed: trace_timeline.py read {spans} spans, by "
+             f"category {by_cat}")
+    res["timeline"] = {"spans": spans, "by_cat": by_cat}
+    log(f"spans_fed: journal of {spans} spans, by category {by_cat}; "
+        f"round seconds {res['round_seconds']}")
+    return res
+
+
+def fitted_efficiency(ledger: dict) -> dict:
+    """Fractions of the H100 row's datasheet peaks that a ledger's device
+    time reaches: the convolution category's FLOPs over its device time
+    against the tensor cores' peak, and every other category's bytes over
+    their device time against HBM's (the cost model's
+    ``DEFAULT_EFFICIENCY``)."""
+    mm = ledger.get("matmul_conv", {})
+    rest = [e for c, e in ledger.items() if c != "matmul_conv"]
+    rest_s = sum(e["device_ms"] for e in rest) / 1e3
+    rest_bytes = sum(e["bytes_gb"] for e in rest) * 2**30
+    return {
+        "mxu": (mm.get("flops_g", 0.0) * 1e9
+                / max(mm.get("device_ms", 0.0) / 1e3, 1e-12)
+                / BF16_OPS_PER_S),
+        "hbm": rest_bytes / max(rest_s, 1e-12) / HBM_BYTES_PER_S,
+    }
+
+
+def profile_costmodel(torch, gn, wg, work):
+    """Phase 2o: ``profile_costmodel``. The ``fed`` main path at 5 clients
+    for 3 rounds with ``profile_dir`` set and ``profile_from_round=2`` (the
+    profiler records round 2: with recorded shapes torch.profiler keeps a
+    profiled round's operator inputs alive until the session ends, which
+    at 10 clients went past the card's 80 GB within one round), then the
+    same configuration with ``cost_model_trace`` reading that directory
+    (``cost_model_trace_rounds=1``). Fails unless the trace holds
+    ``dls::group_norm`` and ``dls::conv3x3_wgrad`` kernels with nonzero
+    bytes, the ``matmul_conv`` category has nonzero FLOPs, and the last
+    record's v6 ``costmodel`` predicts a finite positive round on
+    ``h100-sxm-1``. Prints the ledger's categories (device ms, GB,
+    GFLOP), the predicted-to-measured ratio and the fitted
+    efficiencies."""
+    import dataclasses
+
+    from distributed_learning_simulator_tpu_torch.utils import tracing
+
+    trace_dir = os.path.join(work, "profile")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    cfg = dataclasses.replace(
+        path_configs(5, 500, 1000, "WARNING")["fed"], round=3,
+        profile_dir=trace_dir, profile_from_round=2)
+    t0 = time.perf_counter()
+    prof = run_path(torch, gn, wg, "profile_fed", cfg)
+    traced_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ops = list(tracing.iter_device_ops(trace_dir))
+    ledger = tracing.categorize_ops(trace_dir)
+    parse_s = time.perf_counter() - t0
+    own = {}
+    for name in ("dls::group_norm", "dls::conv3x3_wgrad"):
+        mine = [o for o in ops if name in o["ops"]]
+        own[name] = {"kernels": len(mine),
+                     "bytes": sum(o["bytes"] for o in mine),
+                     "device_ms": sum(o["dur"] for o in mine) / 1e3}
+        if not mine or own[name]["bytes"] <= 0:
+            fail(f"profile_costmodel: {name} kernels in the trace: "
+                 f"{own[name]}")
+    # Each hand-written kernel by name, tied to a launching operator: the
+    # normalize kernel is a programmatic dependent launch
+    # (cudaLaunchKernelExC), correlated like any other launch.
+    by_kernel = {
+        k: sum(1 for o in ops if k in o["name"] and o["ops"])
+        for k in ("gn_stats_kernel", "gn_normalize_kernel",
+                  "wgrad_tc_partial_kernel")
+    }
+    if min(by_kernel.values()) == 0:
+        fail(f"profile_costmodel: kernels tied to an operator {by_kernel}")
+    own["kernels_by_name"] = by_kernel
+    if not ledger.get("matmul_conv", {}).get("flops_g", 0) > 0:
+        fail(f"profile_costmodel: no FLOPs in the convolution category: "
+             f"{ledger.get('matmul_conv')}")
+    res = run_path(torch, gn, wg, "costmodel_fed", dataclasses.replace(
+        cfg, profile_dir=None, cost_model_trace=trace_dir,
+        cost_model_trace_rounds=1))
+    cm = res["history"][-1].get("costmodel")
+    if cm is None or not (math.isfinite(cm["predicted_ms"])
+                          and cm["predicted_ms"] > 0
+                          and cm["anchor_topology"] == "h100-sxm-1"):
+        fail(f"profile_costmodel: last record's costmodel {cm}")
+    _check_records("costmodel_fed", res["history"][-1:], _schema(), 6)
+    fit = fitted_efficiency(ledger)
+    per_round = {c: {k: round(e[k], 4) for k in
+                     ("device_ms", "bytes_gb", "flops_g")} | {
+                         "op_count": e["op_count"]}
+                 for c, e in sorted(ledger.items())}
+    out = {"ledger_per_round": per_round, "own_kernels": own,
+           "costmodel": cm, "fitted_efficiency": fit,
+           "profiled_run_seconds": traced_s, "trace_parse_seconds": parse_s,
+           "profiled_round_seconds": prof["round_seconds"],
+           "round_seconds": res["round_seconds"]}
+    log(f"profile_costmodel: ledger per round {per_round}; own kernels "
+        f"{own}; predicted {cm['predicted_ms']} ms against measured "
+        f"{cm['measured_ms']} ms (ratio {cm['model_error_ratio']}), "
+        f"bottleneck {cm['bottleneck']}; fitted efficiency {fit}; trace "
+        f"read in {parse_s:.1f} s")
+    return out
+
+
+def _sync_points(torch, batched):
+    """``batched`` (a dispatch of K rounds) under CUDA's synchronization
+    check: ``torch.cuda.set_sync_debug_mode`` warns at every synchronizing
+    call inside it, and each warning's Python stack is kept in
+    ``wrapper.syncs``."""
+    import traceback
+    import warnings
+
+    def wrapper(*args, **kwargs):
+        def keep(message, category, filename, lineno, file=None,
+                 line=None):
+            # (Enabling the mode warns once that it is a prototype: not a
+            # synchronizing call.)
+            if "called a synchronizing CUDA operation" in str(message):
+                wrapper.syncs.append(
+                    f"{message}\n" + "".join(traceback.format_stack(
+                        limit=12)[:-1]))
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = keep
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return batched(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+    wrapper.syncs = []
+    return wrapper
+
+
+def round_batch(torch, gn, wg, log_root):
+    """Phase 2p: ``round_batch``. ``fed`` and ``sign_SGD`` (50 clients, cut
+    like the main paths) for 4 rounds at ``rounds_per_dispatch`` 1 and 4:
+    the histories (timings aside) and final params must be bitwise equal,
+    and no synchronizing CUDA call may run inside a dispatch of 4 rounds
+    (the dispatch runs under ``torch.cuda.set_sync_debug_mode``; its one
+    metric fetch follows it). Then the headline workload (``cnn_tpu``,
+    1000 clients, chunk 250, f32) for 4 rounds at K=1, K=4 and K=1 again
+    (the first run pays the first calls): round seconds for each, no gate
+    on speed."""
+    import dataclasses
+
+    from distributed_learning_simulator_tpu_torch import simulator
+
+    make_batched = simulator.make_batched_round_fn
+    dispatches = []
+
+    def checked(*args, **kwargs):
+        fn = _sync_points(torch, make_batched(*args, **kwargs))
+        dispatches.append(fn)
+        return fn
+
+    out = {}
+    simulator.make_batched_round_fn = checked
+    try:
+        paths = path_configs(50, 5000, 2000, "WARNING")
+        for name in ("fed", "sign_SGD"):
+            cfg = dataclasses.replace(paths[name], round=4)
+            one = run_path(torch, gn, wg, f"{name}_k1", cfg,
+                           keep_params=True)
+            dispatches.clear()
+            four = run_path(torch, gn, wg, f"{name}_k4", dataclasses.replace(
+                cfg, rounds_per_dispatch=4), keep_params=True)
+            same_hist = ([_plain_record(r) for r in one["history"]]
+                         == [_plain_record(r) for r in four["history"]])
+            same_params = _same_tree(one["global_params"],
+                                     four["global_params"])
+            syncs = [s for d in dispatches for s in d.syncs]
+            if not (same_hist and same_params):
+                fail(f"round_batch {name}: K=4 differs from K=1 (history "
+                     f"equal {same_hist}, params equal {same_params})")
+            if syncs:
+                fail(f"round_batch {name}: {len(syncs)} synchronizing "
+                     f"calls inside a dispatch; the first:\n{syncs[0]}"
+                     + "".join(f"\nalso:\n{s}" for s in syncs[1:4]))
+            out[name] = {"k1_round_seconds": one["round_seconds"],
+                         "k4_round_seconds": four["round_seconds"]}
+            log(f"round_batch {name}: K=4 bitwise equal to K=1, no "
+                f"synchronizing call inside the dispatch; round seconds "
+                f"K=1 {one['round_seconds']}, K=4 {four['round_seconds']}")
+        head = dataclasses.replace(
+            headline_config(HEADLINE_CLIENTS, None, None, 10000,
+                            log_level="WARNING"), round=4)
+        first = run_path(torch, gn, wg, "headline_k1", head,
+                         gn_per_forward=0, wgrad_per_step=0, n_train=50000)
+        dispatches.clear()
+        four = run_path(torch, gn, wg, "headline_k4", dataclasses.replace(
+            head, rounds_per_dispatch=4), gn_per_forward=0,
+            wgrad_per_step=0, n_train=50000, keep_params=True)
+        one = run_path(torch, gn, wg, "headline_k1_again", head,
+                       gn_per_forward=0, wgrad_per_step=0, n_train=50000,
+                       keep_params=True)
+        out["headline_cnn_tpu"] = {
+            "first_k1_round_seconds": first["round_seconds"],
+            "k1_round_seconds": one["round_seconds"],
+            "k4_round_seconds": four["round_seconds"],
+            "k1_seconds": sum(one["round_seconds"]),
+            "k4_seconds": sum(four["round_seconds"]),
+            "bitwise_equal": _same_tree(one["global_params"],
+                                        four["global_params"]),
+            "syncs_in_dispatch": len([s for d in dispatches
+                                      for s in d.syncs]),
+        }
+        log(f"round_batch headline_cnn_tpu: 4 rounds in "
+            f"{out['headline_cnn_tpu']['k1_seconds']:.3f} s at K=1 "
+            f"({one['round_seconds']}; the first K=1 run "
+            f"{first['round_seconds']}), "
+            f"{out['headline_cnn_tpu']['k4_seconds']:.3f} s at K=4 "
+            f"({four['round_seconds']}); bitwise equal "
+            f"{out['headline_cnn_tpu']['bitwise_equal']}, synchronizing "
+            f"calls in the dispatch "
+            f"{out['headline_cnn_tpu']['syncs_in_dispatch']}")
+    finally:
+        simulator.make_batched_round_fn = make_batched
+    return out
+
+
+def async_fed(torch, gn, wg, log_root):
+    """Phase 2q: ``async_fed``. The ``fed`` main path (50 clients) for 3
+    rounds with ``async_mode='on'``, ``arrival_model='bimodal'``,
+    ``round_deadline=1.5`` and ``async_buffer_size=8``. Fails unless every
+    record validates at schema_version 4 and the buffer applied at least
+    once; then the same run at ``round_deadline=inf`` must be bitwise
+    equal (history and params) to the plain ``fed`` run of these
+    settings."""
+    import dataclasses
+
+    base = dataclasses.replace(path_configs(50, 5000, 2000, "WARNING")["fed"],
+                               round=3)
+    cfg = dataclasses.replace(base, async_mode="on", arrival_model="bimodal",
+                              round_deadline=1.5, async_buffer_size=8)
+    res = run_path(torch, gn, wg, "async_fed", cfg)
+    _check_records("async_fed", res["history"], _schema(), 4)
+    applied = [r["async"]["applied"] for r in res["history"]]
+    if not any(applied):
+        fail(f"async_fed: the buffer never applied "
+             f"({[r['async'] for r in res['history']]})")
+    inf = run_path(torch, gn, wg, "async_fed_inf", dataclasses.replace(
+        cfg, round_deadline=float("inf")), keep_params=True)
+    plain = run_path(torch, gn, wg, "async_fed_sync", base, keep_params=True)
+    strip = [{k: v for k, v in _plain_record(r).items()
+              if k not in ("async", "schema_version")}
+             for r in inf["history"]]
+    if not (strip == [_plain_record(r) for r in plain["history"]]
+            and _same_tree(inf["global_params"], plain["global_params"])):
+        fail("async_fed: round_deadline=inf differs from the synchronous "
+             "run")
+    res["async"] = [r["async"] for r in res["history"]]
+    log(f"async_fed: {res['async']}; round_deadline=inf bitwise equal to "
+        f"sync fed; round seconds async {res['round_seconds']}, sync "
+        f"{plain['round_seconds']}")
+    return res
+
+
 def profile_rounds(torch, name, config):
     """Phase 3, where a round's time goes (informational, not a check): one
     algorithm at 10 clients, 2 rounds, under torch.profiler (whose trace
@@ -2186,13 +2619,15 @@ def profile_rounds(torch, name, config):
         result = run_simulation(config, setup_logging=False)
         torch.cuda.synchronize()
     # Kernel events only: the aten ops that launched them carry the same
-    # device time again.
+    # device time again, and so do the device spans of the round loop's
+    # named regions (user annotations).
     averages = prof.key_averages()
     rows = [
         (e.key, e.self_device_time_total / 1e3, e.count)
         for e in averages
         if e.device_type == torch.autograd.DeviceType.CUDA
         and e.self_device_time_total > 0
+        and not getattr(e, "is_user_annotation", False)
     ]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
@@ -2614,6 +3049,15 @@ def main() -> None:
                                   wg, log_root)
     oracle_algos = phase("threaded_algos", threaded_algos, torch, gn, wg,
                          log_root)
+    paths["valuation_fed"] = phase("valuation_fed", valuation_fed, torch, gn,
+                                   wg, log_root)
+    paths["spans_fed"] = phase("spans_fed", spans_fed, torch, gn, wg,
+                               log_root)
+    costmodel = phase("profile_costmodel", profile_costmodel, torch, gn, wg,
+                      os.path.abspath(args.out))
+    batching = phase("round_batch", round_batch, torch, gn, wg, log_root)
+    paths["async_fed"] = phase("async_fed", async_fed, torch, gn, wg,
+                               log_root)
     # The ResNet paths at 5 clients (10 before the headline path: the
     # profiler's trace processing took most of the run), the headline at
     # 10 (50 samples each, as at 1000) with a 1000-sample eval.
@@ -2689,6 +3133,7 @@ def main() -> None:
                    "layout_ab": ab, "crash_resume": resume,
                    "gn_autodiff": autodiff, "client_stats_detect": detect,
                    "threaded_algos": oracle_algos,
+                   "profile_costmodel": costmodel, "round_batch": batching,
                    "phase_seconds": phase_seconds},
                   f, indent=1)
     if "jax" in sys.modules:

@@ -40,6 +40,12 @@ class Algorithm:
     #: upload as an f32 ``[cohort, P]`` stack in ``aux["client_params"]``
     #: for post_round (the Shapley algorithms).
     keep_client_params: bool = False
+    #: The round function runs inside a ``rounds_per_dispatch > 1``
+    #: dispatch: its aux holds no per-round parameter stack and post_round
+    #: needs only the dispatch's last model.
+    supports_round_batching: bool = False
+    #: The round function takes the staleness buffer (async_mode='on').
+    supports_async: bool = False
 
     def __init__(self, config):
         self.config = config

@@ -81,6 +81,26 @@ round is the pre-feature round.
 models, cast to f32, are evaluated through the transform in one vmapped
 forward right after they train, before their payloads are processed, and
 post_round reports the ``client_eval`` record sub-object.
+
+With ``client_valuation='on'`` (telemetry/valuation.py) the round also
+returns ``aux["valuation_scores"]``, the cohort's streaming scores from the
+stats matrix. ``make_valuation_audit_fn`` builds the audit's replay of a
+round's cohort training.
+
+With ``async_mode='on'`` (robustness/arrivals.py) the round takes the
+staleness buffer as ``async_state``: the host draws each cohort client's
+latency and splits the cohort against the deadline; the on-time clients
+form the fresh mean exactly as a synchronous round would (the same
+weights, the same contraction), the late ones a second weighted sum with
+their discounted weights, which the buffer absorbs; the round returns the
+next buffer state as ``aux["async_state"]`` with the v4 record's scalars.
+
+A round never waits on the card to decide anything: the quorum verdict,
+a robust rule's finiteness fallback and the buffer's trigger are selects
+on the device (``aux["round_rejected"]`` is a device bool), and host
+index and weight vectors go to the card as asynchronous copies from
+pinned memory (ops/cohort.to_device). That is what lets the simulator run
+``rounds_per_dispatch`` rounds back to back with one metric fetch.
 """
 
 from __future__ import annotations
@@ -96,6 +116,7 @@ from distributed_learning_simulator_tpu_torch.ops.cohort import (
     cohort_scatter,
     cohort_take,
     set_rows,
+    to_device,
 )
 from distributed_learning_simulator_tpu_torch.ops.quantize import Segments
 from distributed_learning_simulator_tpu_torch.ops.sampling import (
@@ -109,12 +130,18 @@ from distributed_learning_simulator_tpu_torch.parallel.engine import (
     make_models_eval_fn,
     stack_draws,
 )
+from distributed_learning_simulator_tpu_torch.robustness.arrivals import (
+    AsyncFederation,
+)
 from distributed_learning_simulator_tpu_torch.robustness.faults import (
     FailureModel,
-    all_finite,
+    finite_flag,
 )
 from distributed_learning_simulator_tpu_torch.telemetry.client_stats import (
     ClientStats,
+)
+from distributed_learning_simulator_tpu_torch.telemetry.valuation import (
+    ClientValuation,
 )
 from distributed_learning_simulator_tpu_torch.utils.logging import get_logger
 
@@ -141,10 +168,26 @@ def chunk_keys(group_key, n_members: int, chunk: int | None):
     return list(prng.split(group_key, n_members // chunk + 1))
 
 
+def _select(rejected: torch.Tensor, old, new):
+    """``old`` where the device bool ``rejected`` holds, else ``new``, leaf
+    by leaf over a tensor or a dict of them; a leaf on another device (the
+    host step count of Adam) is decided on the host."""
+    if isinstance(old, dict):
+        return {k: _select(rejected, old[k], new[k]) for k in old}
+    if old is None:
+        return None
+    if old.device != rejected.device:
+        return old if bool(rejected) else new
+    return torch.where(rejected, old, new)
+
+
 class FedAvg(Algorithm):
     name = "fed"
     #: Whether the payload hooks use salts (the round derives them only then).
     payload_salted = False
+    #: The round function takes the staleness buffer (async_mode='on');
+    #: fed_quant inherits it.
+    supports_async = True
 
     def __init__(self, config):
         super().__init__(config)
@@ -172,6 +215,14 @@ class FedAvg(Algorithm):
             or self._client_eval_enabled
             or self.config.aggregation.lower() != "mean"
         )
+
+    @property
+    def supports_round_batching(self) -> bool:
+        """``rounds_per_dispatch > 1`` stacks every round's aux over the
+        dispatch, so a round must not carry a per-round parameter stack
+        (``keep_client_params``) or need post_round on each round's own
+        stack (``client_eval``)."""
+        return not (self.keep_client_params or self._client_eval_enabled)
 
     def prepare(self, apply_fn, eval_fn, eval_batches=None):
         self._eval_fn = eval_fn
@@ -230,8 +281,12 @@ class FedAvg(Algorithm):
         min_survivors = cfg.min_survivors
         quorum = fm is not None or min_survivors > 0
         # Per-client statistics: None (the default) builds the pre-feature
-        # round.
+        # round; so does valuation off, and async off.
         cs = ClientStats.from_config(cfg)
+        cv = ClientValuation.from_config(cfg)
+        af = AsyncFederation.from_config(cfg)
+        arrival_speeds = (af.speed_table(n_clients) if af is not None
+                          else None)
         if client_eval and self._eval_fn is None:
             raise RuntimeError(
                 "client_eval needs prepare(apply_fn, eval_fn, eval_batches) "
@@ -314,7 +369,8 @@ class FedAvg(Algorithm):
             return out
 
         def round_fn(global_flat, client_state, cx, cy, cmask, sizes, key,
-                     lr_scale=1.0, client_rng=None, payload_salts=None):
+                     lr_scale=1.0, client_rng=None, payload_salts=None,
+                     async_state=None):
             """``sizes`` is the host f32 ``[n_clients]`` weight vector,
             ``key`` the round key (ops/prng.py); ``client_state`` is None,
             or with ``reset_client_optimizer=False`` each client's optimizer
@@ -329,9 +385,18 @@ class FedAvg(Algorithm):
             the fault key) zeroes a dropout's or straggler's weight, turns a
             corrupt client's raw upload into garbage, and freezes a
             dropout's persistent state. With the quorum guard,
-            ``aux["survivor_count"]`` and ``aux["round_rejected"]`` report
-            the round, and a rejected round returns the previous global
-            model exactly."""
+            ``aux["survivor_count"]`` and ``aux["round_rejected"]`` (a
+            device bool) report the round, and a rejected round returns the
+            previous global model exactly.
+
+            ``async_state`` (async_mode='on'): the staleness buffer
+            (``AsyncFederation.init_state``); the next one is
+            ``aux["async_state"]``."""
+            if af is not None and async_state is None:
+                raise ValueError(
+                    "async_mode='on' round program needs the async_state "
+                    "operand (AsyncFederation.init_state)"
+                )
             _, train_key, payload_key, agg_key, fault_key = round_key_splits(
                 key, fm is not None)
             failed = (fm.draw_failed(fault_key, n_participants)
@@ -364,10 +429,38 @@ class FedAvg(Algorithm):
                 def payload_salts(i):
                     return None
             part_sizes = np.asarray(sizes, dtype=np.float32)[ids]
+            survival = None if failed is None else ~failed
+            routed_late = None
             if failed is not None and fm.excludes_update:
-                # The weighted mean renormalizes over the survivors; the
-                # robust rules' weight > 0 mask leaves the failed out.
-                part_sizes = part_sizes * (~failed).astype(np.float32)
+                if af is not None and fm.routes_to_buffer:
+                    # A straggler's upload arrives after the deadline: into
+                    # the buffer at its weight, and the client survives.
+                    routed_late = failed
+                    survival = np.ones_like(failed)
+                else:
+                    # The weighted mean renormalizes over the survivors;
+                    # the robust rules' weight > 0 mask leaves the failed
+                    # out.
+                    part_sizes = part_sizes * (~failed).astype(np.float32)
+            late_w = None
+            if af is not None:
+                # Latencies from the fold_in-decoupled arrival stream, by
+                # true client id; the split chain above is untouched.
+                latency = af.draw_latency(key, ids, arrival_speeds[ids])
+                on_time, staleness, discount, eff_latency = af.classify(
+                    latency, routed_late)
+                sim_duration, sim_duration_sync = af.durations(eff_latency)
+                late_mask = (~on_time) & (part_sizes > 0)
+                late_w = (part_sizes * discount
+                          * late_mask.astype(np.float32)).astype(np.float32)
+                b_tot = late_w.sum(dtype=np.float32)
+                n_late = int(late_mask.sum())
+                mean_staleness = np.float32(
+                    (staleness * late_mask.astype(np.float32)).sum(
+                        dtype=np.float32) / np.float32(max(n_late, 1)))
+                # The fresh cohort is the on-time clients; a late client
+                # contributes through the buffer only.
+                part_sizes = part_sizes * on_time.astype(np.float32)
             total = part_sizes.sum(dtype=np.float32)
             norm_w = part_sizes / np.maximum(total, np.float32(1e-12))
             losses = torch.zeros(n_participants, device=global_flat.device)
@@ -389,10 +482,8 @@ class FedAvg(Algorithm):
             def train(members, slots):
                 """The cohort positions ``members`` as one chunk on their
                 first ``slots`` slots; returns their ``[M, P]`` params."""
-                pos = torch.as_tensor(members, dtype=torch.long,
-                                      device=global_flat.device)
-                rows = torch.as_tensor(ids[members], dtype=torch.long,
-                                       device=cx.device)
+                pos = to_device(members, global_flat.device, torch.long)
+                rows = to_device(ids[members], cx.device, torch.long)
                 perms, salts, aug_keys = stack_draws(
                     [client_rng(int(ids[p]), slots) for p in members])
                 old_state = cohort_take(state_k, pos)
@@ -422,8 +513,7 @@ class FedAvg(Algorithm):
                 if stat_rows is not None:
                     # What the server receives: after the corruption,
                     # before the payload hook.
-                    pos = torch.as_tensor(members, dtype=torch.long,
-                                          device=global_flat.device)
+                    pos = to_device(members, global_flat.device, torch.long)
                     up = cs.add_upload_stats({}, global_flat, params,
                                              layout.numels)
                     for name, v in up.items():
@@ -450,29 +540,56 @@ class FedAvg(Algorithm):
                                 "accuracy"])
                     stack[start:start + len(members)] = payload(members,
                                                                 params)
+                if late_w is not None:
+                    late_sum = torch.tensordot(
+                        to_device(late_w, stack.device), stack, dims=1)
                 new_global = aggregate(stack, part_sizes, aggregation,
                                        cfg.trim_ratio)
-                if (aggregation != "mean" and not quorum
-                        and not all_finite(new_global)):
+                if aggregation != "mean" and not quorum:
                     # Every candidate diverged: keep the previous model (the
                     # quorum guard, when on, rejects such a round instead).
-                    new_global = global_flat.to(new_global.dtype)
+                    new_global = torch.where(
+                        finite_flag(new_global), new_global,
+                        global_flat.to(new_global.dtype))
                 if keep_stack:
                     aux["client_params"] = stack
             else:
                 new_global = torch.zeros_like(global_flat,
                                               dtype=torch.float32)
+                if late_w is not None:
+                    late_sum = torch.zeros_like(new_global)
                 for slots, chunks in plan:
                     group_acc = torch.zeros_like(new_global)
+                    late_acc = (torch.zeros_like(new_global)
+                                if late_w is not None else None)
                     for _, members in chunks:
                         uploads = payload(members, train(members, slots))
-                        w = torch.as_tensor(norm_w[members],
-                                            device=uploads.device)
+                        w = to_device(norm_w[members], uploads.device)
                         group_acc += torch.tensordot(w, uploads.float(),
                                                      dims=1)
+                        if late_acc is not None:
+                            # The late row: a second contraction of the same
+                            # uploads, so the fresh row's ops are those of
+                            # the synchronous round.
+                            lw = to_device(late_w[members], uploads.device)
+                            late_acc += torch.tensordot(lw, uploads.float(),
+                                                        dims=1)
                     new_global += group_acc
-            # Empty effective cohort: keep the previous global model.
-            if not total > 0:
+                    if late_acc is not None:
+                        late_sum += late_acc
+            if af is not None:
+                # The buffer: insert the late batch, fire the trigger, mix
+                # the buffered mean delta in. A round the whole cohort
+                # missed is still an update when the buffer applies.
+                new_global, applied, state_ins, state_next = (
+                    af.absorb_and_apply(async_state, global_flat, new_global,
+                                        total, late_sum, b_tot, n_late,
+                                        sim_duration))
+                new_global = torch.where(
+                    applied | bool(total > 0), new_global,
+                    global_flat.to(new_global.dtype))
+            elif not total > 0:
+                # Empty effective cohort: keep the previous global model.
                 new_global = global_flat
             if cs is not None:
                 # The aggregate's probe from the raw round aggregate:
@@ -481,25 +598,49 @@ class FedAvg(Algorithm):
                     dict(stat_rows, loss=losses),
                     cs.probe_delta(global_flat, new_global, layout.numels),
                 )
-            rejected = False
+                if cv is not None:
+                    # The streaming valuation scores, from the same matrix.
+                    aux["valuation_scores"] = cv.scores(aux["client_stats"])
+            rejected = None
             if quorum:
                 # Rejected when the survivors fall below min_survivors or the
                 # aggregate is not finite (the plain mean would carry a NaN
                 # upload into the global model for good).
-                survivor_count = (int((~failed).sum()) if failed is not None
+                survivor_count = (int(survival.sum()) if survival is not None
                                   else n_participants)
-                rejected = (not all_finite(new_global)
-                            or survivor_count < min_survivors)
+                rejected = (~finite_flag(new_global)
+                            | bool(survivor_count < min_survivors))
                 aux["survivor_count"] = survivor_count
                 aux["round_rejected"] = rejected
             new_global, agg_aux = self.process_aggregated(
                 new_global, payload_salts(None)
             )
-            if rejected:
+            if rejected is not None:
                 # After the downlink transform, so that a rejected round
                 # keeps the previous global model exactly (fed_quant would
                 # otherwise re-quantize it with fresh noise).
-                new_global = global_flat.to(new_global.dtype)
+                new_global = torch.where(
+                    rejected, global_flat.to(new_global.dtype), new_global)
+            if af is not None:
+                if rejected is not None:
+                    # A rejected round keeps its inserts (the late uploads
+                    # arrived) but not the trigger's reset.
+                    state_next = {
+                        k: torch.where(rejected, state_ins[k], state_next[k])
+                        for k in state_next
+                    }
+                    applied = applied & ~rejected
+                aux["async_state"] = state_next
+                aux.update({
+                    "on_time_count": int((part_sizes > 0).sum()),
+                    "late_count": n_late,
+                    "buffer_count": state_next["buf_count"],
+                    "buffer_applied": applied,
+                    "mean_staleness": mean_staleness,
+                    "sim_duration": sim_duration,
+                    "sim_duration_sync": sim_duration_sync,
+                    "sim_clock": state_next["clock"],
+                })
             aux.update({
                 "client_loss": losses,
                 "client_accuracy": accs,
@@ -515,6 +656,70 @@ class FedAvg(Algorithm):
             return new_global, client_state, aux
 
         return round_fn
+
+    def make_valuation_audit_fn(self, apply_fn, optimizer, layout,
+                                preprocess=None, device=None):
+        """The valuation audit's replay of a round's cohort training
+        (telemetry/valuation.py): ``audit_stack(global_flat, cx, cy, cmask,
+        ids, client_keys, payload_key, lr_scale) -> [cohort, P]`` f32, the
+        cohort's processed uploads.
+
+        As in the JAX package, the cohort trains from the pre-round global
+        model on its whole shards, ``client_chunk_size`` clients at a time
+        in cohort order, through the round's own chunk train function
+        (:func:`~..parallel.engine.make_chunk_train_fn`: the same grouped
+        convolutions and kernel shapes), each client with its round key
+        ``client_keys[p]``; only the stats are not collected, which changes
+        no trained parameter. The audit's preconditions (plain ``fed``, no
+        faults, no async, no persistent client state, config.validate())
+        make ``process_client_payload`` the identity. Under
+        ``bucket_client_work`` the live round trains a client on its
+        group's slots only, so there (as in the JAX package) the replay is
+        the unscheduled round's training, not the scheduled one's."""
+        cfg = self.config
+        compute_dtype = (
+            torch.bfloat16 if cfg.local_compute_dtype == "bfloat16" else None
+        )
+        augment = get_augment(cfg.augment)
+        train_chunk = make_chunk_train_fn(
+            apply_fn, optimizer, layout,
+            local_epochs=cfg.epoch,
+            batch_size=cfg.batch_size,
+            preprocess=preprocess,
+            compute_dtype=compute_dtype,
+            device=device,
+            param_transform=self.client_param_transform(),
+            reset_optimizer=cfg.reset_client_optimizer,
+            augment=augment,
+            collect_stats=False,
+        )
+        chunk = cfg.client_chunk_size
+
+        def audit_stack(global_flat, cx, cy, cmask, ids, client_keys,
+                        payload_key, lr_scale=1.0):
+            n = len(ids)
+            n_slots = cx.shape[1]
+            stack = torch.empty((n,) + global_flat.shape,
+                                dtype=torch.float32,
+                                device=global_flat.device)
+            step = chunk if chunk else n
+            for start in range(0, n, step):
+                members = list(range(start, min(start + step, n)))
+                rows = to_device(np.asarray(ids)[members], cx.device,
+                                 torch.long)
+                perms, salts, aug_keys = stack_draws([
+                    client_draws(client_keys[p], n_slots, cfg.epoch,
+                                 augment=augment is not None)
+                    for p in members
+                ])
+                params, _, _ = train_chunk(
+                    global_flat, cx[rows], cy[rows], cmask[rows], perms,
+                    salts, aug_keys=aug_keys, lr_scale=lr_scale,
+                )
+                stack[start:start + len(members)] = params.float()
+            return self.process_client_payload(stack, None)[0]
+
+        return audit_stack
 
     def post_round(self, ctx):
         """The ``client_eval`` record sub-object: the clients' pre-
@@ -585,10 +790,19 @@ class FedAvg(Algorithm):
             )
 
         def update(prev_global, aggregate, opt_state, rejected=None):
-            if rejected:
-                return prev_global, opt_state
+            if rejected is not None and not isinstance(rejected,
+                                                       torch.Tensor):
+                if rejected:  # a host verdict
+                    return prev_global, opt_state
+                rejected = None
             pseudo_grad = prev_global - aggregate.to(prev_global.dtype)
             d, new_state = direction(pseudo_grad, opt_state, prev_global)
-            return fma(d, -lr, prev_global), new_state
+            stepped = fma(d, -lr, prev_global)
+            if rejected is None:
+                return stepped, new_state
+            # A device verdict: selects, so the round never waits on it
+            # (Adam's host step count alone needs the verdict on the host).
+            return (_select(rejected, prev_global, stepped),
+                    _select(rejected, opt_state, new_state))
 
         return init, update

@@ -152,11 +152,15 @@ def _gtg_converged(records: list[np.ndarray], n: int, last_k: int,
 def gtg_walk(evaluator, client_params, sizes, prev_global, eval_batches,
              n: int, rng, *, eps: float, cap: int, last_k: int,
              converge_criteria: float, trunc_ref: float,
-             prefix_mode: str = "cumsum", memo=None):
-    """One round's GTG permutation-sampling walk over ``n`` clients.
+             prefix_mode: str = "cumsum", memo=None,
+             starts_per_iteration: int | None = None):
+    """One round's GTG permutation-sampling walk over ``n`` clients (shared
+    by the GTG server and the valuation audit, telemetry/valuation.py).
 
     Each sampling iteration draws one permutation starting with each client
-    (the rest shuffled by ``rng``) and walks all of them in waves of
+    (the rest shuffled by ``rng``), or with ``starts_per_iteration`` of
+    them drawn without replacement from ``rng`` (the audit's budget), and
+    walks all of them in waves of
     ``_PREFIX_BLOCK`` prefix positions; a permutation whose running utility
     is within ``eps`` of ``trunc_ref`` stops (its remaining marginals are 0). Records one
     marginal vector per permutation until :func:`_gtg_converged` or
@@ -177,20 +181,26 @@ def gtg_walk(evaluator, client_params, sizes, prev_global, eval_batches,
     n_perms = 0
     converged = False
     while not converged and n_perms < cap:
+        if starts_per_iteration is None or starts_per_iteration >= n:
+            starts = list(range(n))
+        else:
+            starts = [int(s) for s in
+                      rng.choice(n, size=starts_per_iteration, replace=False)]
+        m = len(starts)
         perms = []
-        for first in range(n):
+        for first in starts:
             rest = [i for i in range(n) if i != first]
             rng.shuffle(rest)
             perms.append([first] + rest)
         if walker is not None:
             walker.reset()  # fresh zero carries for this iteration
-        marginals = np.zeros((n, n), dtype=np.float64)
-        v_prev = [memo[frozenset()]] * n
-        truncated = [False] * n
+        marginals = np.zeros((m, n), dtype=np.float64)
+        v_prev = [memo[frozenset()]] * m
+        truncated = [False] * m
         for j0 in range(0, n, _PREFIX_BLOCK):
             j1 = min(j0 + _PREFIX_BLOCK, n)
             active: list[int] = []
-            for p_idx in range(n):
+            for p_idx in range(m):
                 if truncated[p_idx] or (
                     abs(trunc_ref - v_prev[p_idx]) < eps
                 ):
@@ -221,7 +231,7 @@ def gtg_walk(evaluator, client_params, sizes, prev_global, eval_batches,
                     marginals[p_idx, perm[j]] = v_j - vp
                     vp = v_j
                 v_prev[p_idx] = vp
-        for p_idx in range(n):
+        for p_idx in range(m):
             records.append(marginals[p_idx].copy())
             n_perms += 1
             if _gtg_converged(records, n, last_k, converge_criteria):
@@ -562,6 +572,8 @@ class MultiRoundShapley(_ShapleyBase):
     """Exact multi-round Shapley: the utility of every subset of the N
     clients each round (N <= 16; the reference's canonical run is N=4)."""
 
+    supports_round_batching = False  # post_round scores every round
+
     name = "multiround_shapley_value"
 
     def __init__(self, config):
@@ -613,6 +625,8 @@ class GTGShapley(_ShapleyBase):
     """GTG-Shapley: Monte-Carlo permutation sampling with guided
     truncation (defaults: eps 1e-3, round truncation 0.01, last_k 10,
     convergence 0.05, at most max(500, 2N) permutations)."""
+
+    supports_round_batching = False  # post_round scores every round
 
     name = "GTG_shapley_value"
     _default_eval_dtype = "bfloat16"

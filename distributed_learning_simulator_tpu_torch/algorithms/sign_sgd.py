@@ -49,7 +49,10 @@ import torch
 
 from distributed_learning_simulator_tpu_torch.algorithms.base import Algorithm
 from distributed_learning_simulator_tpu_torch.ops import prng
-from distributed_learning_simulator_tpu_torch.ops.cohort import batched_take
+from distributed_learning_simulator_tpu_torch.ops.cohort import (
+    batched_take,
+    to_device,
+)
 from distributed_learning_simulator_tpu_torch.ops.payload import (
     compression_ratio,
     payload_bytes,
@@ -66,7 +69,7 @@ from distributed_learning_simulator_tpu_torch.parallel.engine import (
 )
 from distributed_learning_simulator_tpu_torch.robustness.faults import (
     FailureModel,
-    all_finite,
+    finite_flag,
 )
 from distributed_learning_simulator_tpu_torch.telemetry.client_stats import (
     ClientStats,
@@ -75,6 +78,7 @@ from distributed_learning_simulator_tpu_torch.telemetry.client_stats import (
 
 class SignSGD(Algorithm):
     name = "sign_SGD"
+    supports_round_batching = True
 
     def __init__(self, config):
         super().__init__(config)
@@ -167,8 +171,7 @@ class SignSGD(Algorithm):
                 key, fault_key = prng.split(key)
                 failed = fm.draw_failed(fault_key, n_clients)
                 n_surv = int((~failed).sum())
-                surv = torch.as_tensor(~failed, dtype=torch.float32,
-                                       device=global_flat.device)
+                surv = to_device(~failed, global_flat.device, torch.float32)
             if client_rng is None:
                 perm_keys = [prng.split(ek, n_clients)
                              for ek in prng.split(key, epochs)]
@@ -192,7 +195,8 @@ class SignSGD(Algorithm):
             epoch_loss = None
             epoch_agree = []
             for e in range(epochs):
-                perms = torch.stack([p[e] for p in client_perms]).to(cx.device)
+                perms = to_device(torch.stack([p[e] for p in client_perms]),
+                                  cx.device)
                 step_losses, step_agree = [], []
                 for step in range(steps):
                     idx = perms[:, step * bsz:(step + 1) * bsz]  # [C, B]
@@ -260,10 +264,11 @@ class SignSGD(Algorithm):
                 # params are not finite. The per-client momentum and step
                 # state keeps its per-client freeze.
                 survivor_count = n_surv if fm is not None else n_clients
-                rejected = (not all_finite(params)
-                            or survivor_count < min_survivors)
-                if rejected:
-                    params = global_flat.to(params.dtype)
+                # A select on the device: the round never waits to decide.
+                rejected = (~finite_flag(params)
+                            | bool(survivor_count < min_survivors))
+                params = torch.where(rejected, global_flat.to(params.dtype),
+                                     params)
                 aux["survivor_count"] = survivor_count
                 aux["round_rejected"] = rejected
             new_state = (

@@ -2,7 +2,9 @@
 
 ``ExperimentConfig`` carries every field of the JAX package's config under
 the same name and default, so the two CLIs take the same flags, plus the
-port's own ``device`` (default ``"cuda"``; the tests pass ``"cpu"``).
+port's own ``device`` (default ``"cuda"``; the tests pass ``"cpu"``). One
+default differs on purpose: ``cost_model_topology`` is ``"h100-sxm-1"``,
+the card the port's traces come from.
 The field comments are short; the JAX package's config.py documents each
 knob in full.
 
@@ -166,7 +168,10 @@ class ExperimentConfig:
     profile_from_round: int = 0
     cost_model_trace: str | None = None
     cost_model_trace_rounds: int = 1
-    cost_model_topology: str = "v5e-1"
+    # The anchor is the card that made the trace: the port's default is its
+    # own table's H100 row (telemetry/topologies.py), where the JAX
+    # package's is a TPU row.
+    cost_model_topology: str = "h100-sxm-1"
     # --- multi-experiment sweep ---------------------------------------------
     sweep_seeds: str | None = None
     sweep_points: str | None = None
@@ -225,6 +230,13 @@ class ExperimentConfig:
                 f"unknown sweep_strategy {self.sweep_strategy!r}; known: "
                 + ", ".join(SWEEP_STRATEGIES)
             )
+        if self.cost_model_trace_rounds < 1:
+            raise ValueError("cost_model_trace_rounds must be >= 1")
+        from distributed_learning_simulator_tpu_torch.telemetry.topologies import (  # noqa: E501
+            get_topology,
+        )
+
+        get_topology(self.cost_model_topology)  # fail fast on typos
         if not isinstance(self.model_args, dict):
             raise ValueError(
                 "model_args must be a dict of model-constructor kwargs "
@@ -327,6 +339,35 @@ class ExperimentConfig:
                 "failures; use execution_mode='vmap' with a failure "
                 "model"
             )
+        from distributed_learning_simulator_tpu_torch.robustness.arrivals import (  # noqa: E501
+            ARRIVAL_MODES,
+            AsyncFederation,
+        )
+
+        if self.arrival_model not in ARRIVAL_MODES:
+            # Checked at async_mode='off' too, so a typo fails fast.
+            raise ValueError(
+                f"unknown arrival_model {self.arrival_model!r}; known: "
+                + ", ".join(ARRIVAL_MODES)
+            )
+        # The async_mode / arrival-model gate (the errors library callers
+        # of AsyncFederation.from_config see).
+        AsyncFederation.from_config(self)
+        if self.async_mode.lower() == "on":
+            if not self.round_deadline > 0.0:
+                raise ValueError("round_deadline must be > 0 (inf = sync)")
+            if self.async_buffer_size < 1:
+                raise ValueError("async_buffer_size must be >= 1")
+            if self.staleness_alpha < 0.0:
+                raise ValueError("staleness_alpha must be >= 0")
+            if not 0.0 <= self.arrival_slow_fraction <= 1.0:
+                raise ValueError(
+                    "arrival_slow_fraction must be in [0, 1]"
+                )
+            if self.arrival_slow_factor < 1.0:
+                raise ValueError("arrival_slow_factor must be >= 1")
+            if self.arrival_model == "lognormal" and self.arrival_sigma <= 0.0:
+                raise ValueError("arrival_sigma must be > 0")
         if self.checkpoint_keep_last is not None and (
             self.checkpoint_keep_last < 1
         ):
@@ -368,6 +409,15 @@ class ExperimentConfig:
             )
         if self.rounds_per_dispatch < 1:
             raise ValueError("rounds_per_dispatch must be >= 1")
+        if (
+            self.rounds_per_dispatch > 1
+            and self.execution_mode.lower() == "threaded"
+        ):
+            # The threaded oracle sequences rounds on the host.
+            raise ValueError(
+                "rounds_per_dispatch > 1 requires the vmap execution mode "
+                "(the threaded oracle dispatches per round)"
+            )
         if self.telemetry_level.lower() not in TELEMETRY_LEVELS:
             raise ValueError(
                 f"unknown telemetry_level {self.telemetry_level!r}; known: "
@@ -377,6 +427,10 @@ class ExperimentConfig:
             raise ValueError(
                 f"unknown span_trace {self.span_trace!r}; known: off, on"
             )
+        if self.span_buffer_size < 1:
+            raise ValueError("span_buffer_size must be >= 1")
+        if self.span_flush_last_k < 1:
+            raise ValueError("span_flush_last_k must be >= 1")
         if self.client_stats.lower() not in CLIENT_STATS_LEVELS:
             raise ValueError(
                 f"unknown client_stats {self.client_stats!r}; known: "
@@ -393,6 +447,7 @@ class ExperimentConfig:
                 f"unknown client_valuation {self.client_valuation!r}; "
                 "known: off, on"
             )
+        self._validate_valuation()
         if self.profile_from_round < 0:
             raise ValueError(
                 f"profile_from_round must be >= 0, got "
@@ -446,6 +501,88 @@ class ExperimentConfig:
                 f"unknown device {self.device!r}; known: cuda, cuda:N, cpu"
             )
 
+    def _validate_valuation(self) -> None:
+        """The JAX package's checks of the valuation fields: the scores
+        come from the client-stats matrix, and the audit's replay must be
+        the round's training."""
+        if not 0.0 <= self.valuation_decay < 1.0:
+            raise ValueError("valuation_decay must be in [0, 1)")
+        if self.valuation_audit_every < 0:
+            raise ValueError("valuation_audit_every must be >= 0")
+        if self.valuation_audit_permutations < 1:
+            raise ValueError("valuation_audit_permutations must be >= 1")
+        if self.client_valuation.lower() == "on":
+            if self.client_stats.lower() != "on":
+                raise ValueError(
+                    "client_valuation='on' requires client_stats='on' "
+                    "(the streaming scores derive from the per-client "
+                    "stats matrix)"
+                )
+            if self.execution_mode.lower() == "threaded":
+                raise ValueError(
+                    "client_valuation='on' requires the vmap execution "
+                    "mode (the threaded oracle computes no in-round "
+                    "score vector)"
+                )
+            if self.distributed_algorithm == "sign_SGD":
+                raise ValueError(
+                    "client_valuation='on' is not supported for sign_SGD "
+                    "(no per-client update delta to score)"
+                )
+        if self.valuation_audit_every > 0:
+            if self.client_valuation.lower() != "on":
+                raise ValueError(
+                    "valuation_audit_every > 0 requires "
+                    "client_valuation='on' (there is no streaming vector "
+                    "to audit)"
+                )
+            if self.distributed_algorithm != "fed":
+                raise ValueError(
+                    "valuation audits support distributed_algorithm="
+                    f"'fed' only, not {self.distributed_algorithm!r} "
+                    "(fed_quant's per-chunk upload-quantization keys "
+                    "cannot be replayed exactly on a whole-stack audit; "
+                    "the Shapley servers already compute exact SVs)"
+                )
+            if self.failure_mode != "none" and self.failure_prob > 0.0:
+                raise ValueError(
+                    "valuation audits refuse failure injection (the "
+                    "cohort replay assumes honest uploads, the same "
+                    "contract as Shapley scoring); set failure_mode="
+                    "'none' or valuation_audit_every=0"
+                )
+            if self.async_mode.lower() == "on":
+                raise ValueError(
+                    "valuation audits refuse async_mode='on' (subset "
+                    "utilities assume a synchronous cohort); set "
+                    "valuation_audit_every=0"
+                )
+            if self.aggregation.lower() != "mean":
+                raise ValueError(
+                    "valuation audits assume the weighted-mean "
+                    "aggregator (subset utilities are weighted means); "
+                    "set aggregation='mean' or valuation_audit_every=0"
+                )
+            if not self.reset_client_optimizer:
+                raise ValueError(
+                    "valuation audits require reset_client_optimizer="
+                    "True (the replay cannot reconstruct pre-round "
+                    "persistent optimizer state)"
+                )
+            if self.rounds_per_dispatch > 1:
+                raise ValueError(
+                    "valuation audits require rounds_per_dispatch=1 "
+                    "(the audit replays one round's key chain against "
+                    "that round's pre-round global params)"
+                )
+            if self.multihost:
+                raise ValueError(
+                    "valuation audits do not compose with multihost: the "
+                    "audit's cohort replay and GTG walk are driven by a "
+                    "single host process; run audits on one host's mesh "
+                    "(single-process mesh_devices sharding is supported)"
+                )
+
     def _refuse_unported(self) -> None:
         """NotImplementedError for every feature the port lacks so far,
         naming the ROADMAP.md queue 1 item that brings it."""
@@ -457,13 +594,6 @@ class ExperimentConfig:
             (self.mesh_devices is not None and self.mesh_devices > 1,
              "mesh_devices > 1", 17),
             (self.multihost, "multihost", 17),
-            (self.async_mode.lower() == "on", "async_mode='on'", 14),
-            (self.rounds_per_dispatch > 1, "rounds_per_dispatch > 1", 14),
-            (self.span_trace.lower() == "on", "span_trace='on'", 13),
-            (self.client_valuation.lower() == "on"
-             or self.valuation_audit_every > 0, "client valuation", 13),
-            (self.profile_dir is not None, "profile_dir", 13),
-            (self.cost_model_trace is not None, "cost_model_trace", 13),
             (bool(self.sweep_seeds or self.sweep_points), "sweeps", 16),
         )
         for refused, what, item in checks:

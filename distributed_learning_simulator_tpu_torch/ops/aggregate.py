@@ -22,6 +22,8 @@ import itertools
 import numpy as np
 import torch
 
+from distributed_learning_simulator_tpu_torch.ops.cohort import to_device
+
 
 def weighted_mean(stacked: torch.Tensor, weights) -> torch.Tensor:
     """Weighted average over the leading (client) axis of ``stacked``.
@@ -31,7 +33,7 @@ def weighted_mean(stacked: torch.Tensor, weights) -> torch.Tensor:
     than NaN (the caller decides the fallback). As in the JAX function the
     normalized weights are cast to the stack's dtype before the contraction.
     """
-    w = torch.as_tensor(weights, dtype=torch.float32, device=stacked.device)
+    w = to_device(weights, stacked.device, torch.float32)
     w = w / torch.clamp(w.sum(), min=1e-12)
     return torch.tensordot(w.to(stacked.dtype), stacked, dims=([0], [0]))
 
@@ -39,7 +41,7 @@ def weighted_mean(stacked: torch.Tensor, weights) -> torch.Tensor:
 def _valid_mask(weights, device) -> torch.Tensor:
     """Participation mask ``weights > 0``; an all-zero cohort counts every
     client (the statistic then degrades to the unmasked one)."""
-    valid = torch.as_tensor(weights, dtype=torch.float32, device=device) > 0
+    valid = to_device(weights, device, torch.float32) > 0
     return valid | ~valid.any()
 
 
@@ -122,12 +124,12 @@ def krum_select(stacked: torch.Tensor, n_byzantine: int = 0,
     x = stacked.reshape(n, -1).float()
     bad = ~torch.isfinite(x).all(dim=1)
     if weights is not None:
-        w = torch.as_tensor(weights, dtype=torch.float32, device=x.device)
+        w = to_device(weights, x.device, torch.float32)
         bad = bad | (w <= 0.0)
     x = torch.nan_to_num(x, nan=0.0)
     sq = (x * x).sum(dim=1)
     d2 = torch.clamp(sq[:, None] + sq[None, :] - 2.0 * (x @ x.T), min=0.0)
-    big = torch.tensor(1e30, dtype=torch.float32, device=x.device)
+    big = torch.full((), 1e30, dtype=torch.float32, device=x.device)
     eye = torch.eye(n, dtype=torch.bool, device=x.device)
     d2 = torch.where(bad[:, None] | bad[None, :] | eye, big, d2)
     k = max(1, min(n - n_byzantine - 2, n - 1))
@@ -166,8 +168,8 @@ def subset_weighted_mean(stacked: torch.Tensor, weights, masks,
     One ``[M, n] @ [n, P]`` product forms every model of the batch."""
     single = torch.as_tensor(masks).dim() == 1
     dev = stacked.device
-    w = torch.as_tensor(weights, dtype=torch.float32, device=dev)
-    m = torch.as_tensor(masks, dtype=torch.float32, device=dev).reshape(
+    w = to_device(weights, dev, torch.float32)
+    m = to_device(masks, dev, torch.float32).reshape(
         -1, stacked.shape[0])
     mw = m * w
     total = mw.sum(dim=1)
@@ -188,8 +190,8 @@ def block_prefix_cumsum(stacked: torch.Tensor, weights, perm_block,
     [G, B])`` in f32: ``cs[g, b]`` sums ``w[c] * x[c]`` over the first
     ``j0 + b + 1`` clients of permutation g."""
     dev = stacked.device
-    idx = torch.as_tensor(perm_block, dtype=torch.long, device=dev)
-    w = torch.as_tensor(weights, dtype=torch.float32, device=dev)[idx]
+    idx = to_device(perm_block, dev, torch.long)
+    w = to_device(weights, dev, torch.float32)[idx]
     totals = torch.cumsum(w, dim=1)
     if carry_total is not None:
         totals = totals + carry_total[:, None]

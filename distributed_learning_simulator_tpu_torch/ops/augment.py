@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from distributed_learning_simulator_tpu_torch.ops import prng
+from distributed_learning_simulator_tpu_torch.ops.cohort import to_device
 
 _PAD = 4
 
@@ -45,10 +46,10 @@ def cifar_augment(x: torch.Tensor, key) -> torch.Tensor:
 
 def _flip_crop(x: torch.Tensor, flip, offsets) -> torch.Tensor:
     b, h, w, _ = x.shape
-    flip = torch.as_tensor(flip, device=x.device)
+    flip = to_device(flip, x.device)
     x = torch.where(flip[:, None, None, None], x.flip(2), x)
     pad = F.pad(x, (0, 0, _PAD, _PAD, _PAD, _PAD))
-    off = torch.as_tensor(offsets, dtype=torch.long, device=x.device)
+    off = to_device(offsets, x.device, torch.long)
     rows = off[:, 0, None] + torch.arange(h, device=x.device)
     cols = off[:, 1, None] + torch.arange(w, device=x.device)
     idx = torch.arange(b, device=x.device)[:, None, None]

@@ -21,8 +21,23 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def to_device(x, device, dtype=None) -> torch.Tensor:
+    """``x`` (a host array, list or tensor) as a tensor on ``device``. A
+    host value bound for a card goes through pinned memory as an
+    asynchronous copy, so that a round never waits on the card for its
+    index and weight vectors (a plain copy from pageable memory
+    synchronizes)."""
+    t = torch.as_tensor(x, dtype=dtype)
+    if device is None:
+        return t
+    device = torch.device(device)
+    if device.type != "cuda" or t.device.type == "cuda":
+        return t.to(device)
+    return t.contiguous().pin_memory().to(device, non_blocking=True)
+
+
 def _index(idx, t: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(idx, dtype=torch.long, device=t.device)
+    return to_device(idx, t.device, torch.long)
 
 
 def cohort_take(stacked, idx):
@@ -56,4 +71,4 @@ def batched_take(stacked: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[c] = stacked[c, idx[c]]``: ``stacked [C, S, ...]`` and ``idx
     [C, B]`` give ``[C, B, ...]``, each client's own minibatch rows."""
     rows = torch.arange(stacked.shape[0], device=stacked.device)[:, None]
-    return stacked[rows, idx.to(stacked.device)]
+    return stacked[rows, to_device(idx, stacked.device)]

@@ -25,6 +25,8 @@ mode off:
   maxval)``; ``bernoulli(key, p, shape)`` is ``uniform < p``;
 * ``randint(key, shape, lo, hi)`` (int32) draws two words per value, from
   the two halves of ``split(key)``, and reduces them modulo the span;
+* ``normal(key, shape)`` (f32) is ``sqrt(2) * erf_inv(u)`` of a uniform in
+  ``[nextafter(-1, 0), 1)``, ``erf_inv`` over its whole range;
 * ``truncated_normal(key, lower, upper, shape)`` (f32) maps a uniform
   between ``erf(lower/√2)`` and ``erf(upper/√2)`` through ``√2 erf_inv``
   and clips. XLA computes ``erf_inv`` in f32 with Giles' polynomial over
@@ -190,6 +192,9 @@ _LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
 _ERF_INV_P = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
               -4.39150654e-06, 0.00021858087, -0.00125372503,
               -0.00417768164, 0.246640727, 1.50140941)
+_ERF_INV_P_TAIL = (-0.000200214257, 0.000100950558, 0.00134934322,
+                   -0.00367342844, 0.00573950773, -0.0076224613,
+                   0.00943887047, 1.00167406, 2.83297682)
 
 
 def _xla_log(x: np.ndarray) -> np.ndarray:
@@ -231,14 +236,31 @@ def _xla_log1p(x: np.ndarray) -> np.ndarray:
 
 
 def _xla_erf_inv(x: np.ndarray) -> np.ndarray:
-    """XLA's f32 ``erf_inv`` (Giles' polynomial) for ``|x| < 1`` with
-    ``w = -log1p(-x*x) < 5``, the only branch the truncated normal
-    between -2 and 2 reaches (|x| <= erf(sqrt(2)) gives w <= 2.42)."""
+    """XLA's f32 ``erf_inv`` over ``-1 < x < 1``: Giles' polynomial in
+    ``w - 2.5`` where ``w = -log1p(-x*x) < 5``, else in ``sqrt(w) - 3``
+    with the tail coefficients."""
     f32 = np.float32
+    x = x.astype(f32)
     w = -_xla_log1p(-(x * x))
-    if not bool(np.all(w < f32(5))):
-        raise ValueError("erf_inv replay covers w < 5 only")
-    return _horner(w - f32(2.5), _ERF_INV_P) * x
+    small = w < f32(5)
+    out = np.empty_like(x)
+    out[small] = _horner(w[small] - f32(2.5), _ERF_INV_P) * x[small]
+    tail = ~small
+    out[tail] = (_horner(np.sqrt(w[tail]) - f32(3), _ERF_INV_P_TAIL)
+                 * x[tail])
+    return out
+
+
+def normal(k, shape, scale: float = 1.0) -> np.ndarray:
+    """``scale * jax.random.normal(k, shape)`` (f32) as a jitted program
+    computes it: ``(scale * sqrt(2)) * erf_inv(u)`` with ``u`` uniform in
+    ``[nextafter(-1, 0), 1)``; XLA folds the two constants into one f32
+    product first (``scale=1`` is ``jax.random.normal`` itself)."""
+    f32 = np.float32
+    lo = np.nextafter(f32(-1), f32(0))
+    u = uniform(k, shape, lo, f32(1))
+    return ((f32(scale) * f32(np.sqrt(2))) * _xla_erf_inv(u)).astype(
+        f32)
 
 
 def truncated_normal(k, lower: float, upper: float, shape) -> np.ndarray:
@@ -295,6 +317,8 @@ KNOWN_ANSWERS = (
     ("truncated_normal(key(6), -2, 2, (3,))", "truncated_normal",
      (key(6), -2.0, 2.0, (3,)),
      [0.3680495321750641, -0.5420456528663635, -1.496392846107483]),
+    ("normal(key(8), (3,))", "normal", (key(8), (3,)),
+     [-0.5515055656433105, -1.3691120147705078, 2.7549402713775635]),
 )
 
 

@@ -29,6 +29,8 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from distributed_learning_simulator_tpu_torch.ops.cohort import to_device
+
 MASK32 = 0xFFFFFFFF
 
 
@@ -68,7 +70,7 @@ class Segments:
         if self._ids is None:
             self._ids = torch.repeat_interleave(
                 torch.arange(len(self.numels), device=self.device),
-                torch.tensor(self.numels, device=self.device),
+                to_device(self.numels, self.device),
             )
         return per_leaf[..., self._ids]
 
@@ -142,8 +144,7 @@ def stochastic_quantize(x: torch.Tensor, levels: int, salts,
     """
     seg = _segments(x[0] if rows else x, segments)
     scale, zero_point = _affine_params(x, levels, seg, rows, eager)
-    salt = seg.spread(torch.as_tensor(salts, dtype=torch.int64,
-                                      device=x.device).reshape(
+    salt = seg.spread(to_device(salts, x.device, torch.int64).reshape(
         (x.shape[0], -1) if rows else (-1,)))
     normalized = x.float().reshape((x.shape[0], -1) if rows else (-1,)) / (
         seg.spread(scale)) + seg.spread(zero_point)

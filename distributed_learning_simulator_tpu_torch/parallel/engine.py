@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from distributed_learning_simulator_tpu_torch.ops import prng
 from distributed_learning_simulator_tpu_torch.ops.cohort import (
     batched_take,
+    to_device,
     tree_map,
 )
 from distributed_learning_simulator_tpu_torch.ops.quantize import (
@@ -143,8 +144,8 @@ class Adam:
 
     def update(self, grads, state, params):
         direction, state = self.direction(grads, state, params)
-        lr = torch.tensor(-self.learning_rate, dtype=direction.dtype,
-                          device=direction.device)
+        lr = torch.full((), -self.learning_rate, dtype=direction.dtype,
+                        device=direction.device)
         return lr * direction, state
 
     def direction(self, grads, state, params):
@@ -155,13 +156,13 @@ class Adam:
             np.iinfo(np.int32).max), dtype=np.int32)
 
         def const(v):
-            return torch.tensor(v, dtype=dtype, device=grads.device)
+            return torch.full((), v, dtype=dtype, device=grads.device)
 
         def correction(decay):
             """``1 - decay**count`` in f32, cast to the moments' dtype, as
             a column over the models."""
             bc = (np.float32(1) - _powf(decay, count)).astype(np.float32)
-            return torch.as_tensor(bc, device=grads.device).to(dtype)[
+            return to_device(bc, grads.device).to(dtype)[
                 ..., None]
 
         def sqrt(x):
@@ -296,8 +297,8 @@ class FlatRounder:
             rounded, salts = self(flat32[None], [salt])
             return rounded[0], salts[0]
         step = self.n_leaves * SALT_STEP
-        salts = torch.as_tensor([int(v) for v in salt], dtype=torch.int64,
-                                device=flat32.device)
+        salts = to_device([int(v) for v in salt], flat32.device,
+                          torch.int64)
         out = torch.empty(flat32.shape, dtype=torch.bfloat16,
                           device=flat32.device)
         for rows in row_slices(flat32):
@@ -432,7 +433,7 @@ def make_chunk_train_fn(
             if reset_optimizer:
                 opt_state = optimizer.init(params)
         steps = xs.shape[1] // batch_size
-        epoch_perms = epoch_perms.to(xs.device)
+        epoch_perms = to_device(epoch_perms, xs.device)
         epoch_loss = epoch_acc = None
         loss_first = None
         epoch_grad_sq = []
@@ -594,3 +595,75 @@ def make_models_eval_fn(eval_fn: Callable, layout,
         return batched(models, xb, yb, mb)
 
     return tracked("evaluate_models", evaluate_models)
+
+
+def stack_rounds(values: list):
+    """Per-round values -> one stacked value: tensors ``torch.stack``ed on
+    their device (no host transfer), host numbers and arrays into one numpy
+    array, dicts key by key."""
+    first = values[0]
+    if isinstance(first, dict):
+        return {k: stack_rounds([v[k] for v in values]) for k in first}
+    if isinstance(first, torch.Tensor):
+        return torch.stack(values)
+    return np.stack([np.asarray(v) for v in values])
+
+
+def make_batched_round_fn(round_fn, server_update_fn, eval_fn, length: int,
+                          async_mode: bool = False):
+    """``length`` federated rounds back to back on the host, with no wait
+    on the card between them (config.rounds_per_dispatch; the JAX
+    package's ``make_batched_round_fn``, whose ``lax.scan`` this loop
+    replays).
+
+    Each round is the K=1 loop's sequence exactly: ``key, round_key =
+    split(key)``, the round function, the server optimizer's step fed the
+    round's quorum verdict, the server eval. So a dispatch of K rounds
+    computes the same values as K single rounds, bitwise; only the metric
+    fetch moves to the end of the dispatch. Nothing inside synchronizes
+    with the card: the round functions decide on the device
+    (algorithms/fedavg.py, sign_sgd.py) and send host vectors through
+    pinned memory.
+
+    ``async_mode``: the staleness buffer rides the loop, each round's
+    ``aux["async_state"]`` popped and fed to the next round, the last one
+    returned (never stacked).
+
+    Returns ``batched(global_flat, client_state, server_state, key, cx, cy,
+    cmask, sizes, eval_batches, lr_vec, async_state=None, round_kwargs=None)
+    -> (global_flat, client_state, server_state, key, metrics_k, aux_k[,
+    async_state])``. ``lr_vec`` is the ``[length]`` f32 schedule factors
+    (simulator ``lr_factors``); ``round_kwargs[i]`` optional extra
+    arguments of round i (tests' draw overrides). ``metrics_k`` and
+    ``aux_k`` are stacked ``[length, ...]`` (:func:`stack_rounds`): device
+    values stay on the device for the dispatch's one fetch."""
+
+    def batched(global_flat, client_state, server_state, key, cx, cy,
+                cmask, sizes, eval_batches, lr_vec, async_state=None,
+                round_kwargs=None):
+        metrics_list, aux_list = [], []
+        for i in range(length):
+            key, round_key = prng.split(key)
+            kw = dict(round_kwargs[i]) if round_kwargs else {}
+            if async_mode:
+                kw["async_state"] = async_state
+            new_global, client_state, aux = round_fn(
+                global_flat, client_state, cx, cy, cmask, sizes, round_key,
+                lr_scale=float(lr_vec[i]), **kw)
+            if async_mode:
+                aux = dict(aux)
+                async_state = aux.pop("async_state")
+            if server_update_fn is not None:
+                new_global, server_state = server_update_fn(
+                    global_flat, new_global, server_state,
+                    aux.get("round_rejected"))
+            metrics_list.append(eval_fn(new_global, *eval_batches))
+            aux_list.append(aux)
+            global_flat = new_global
+        out = (global_flat, client_state, server_state, key,
+               stack_rounds(metrics_list), stack_rounds(aux_list))
+        if async_mode:
+            out = out + (async_state,)
+        return out
+
+    return batched

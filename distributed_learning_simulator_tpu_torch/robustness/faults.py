@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from distributed_learning_simulator_tpu_torch.ops import prng
-from distributed_learning_simulator_tpu_torch.ops.cohort import tree_map
+from distributed_learning_simulator_tpu_torch.ops.cohort import to_device, tree_map
 
 #: Multiplier a ``corrupt_scale`` client applies to its upload.
 CORRUPT_SCALE = 100.0
@@ -41,14 +41,20 @@ MODES = ("none", "dropout", "straggler", "corrupt_nan", "corrupt_scale")
 
 
 def all_finite(x: torch.Tensor) -> bool:
-    """Whether every element of ``x`` is finite (a host bool: the port's
-    round loop decides on the host)."""
-    return bool(torch.isfinite(x.float()).all())
+    """Whether every element of ``x`` is finite, as a host bool."""
+    return bool(finite_flag(x))
+
+
+def finite_flag(x: torch.Tensor) -> torch.Tensor:
+    """Whether every element of ``x`` is finite, as a 0-dim bool tensor on
+    ``x``'s device: the round's selects use it without waiting for the
+    card."""
+    return torch.isfinite(x).all()
 
 
 def _rows(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """A per-model ``[M]`` mask shaped to broadcast over ``x [M, ...]``."""
-    return mask.to(x.device).reshape((-1,) + (1,) * (x.dim() - 1))
+    return to_device(mask, x.device).reshape((-1,) + (1,) * (x.dim() - 1))
 
 
 @dataclass(frozen=True)
@@ -88,6 +94,14 @@ class FailureModel:
         return self.mode in ("corrupt_nan", "corrupt_scale")
 
     @property
+    def routes_to_buffer(self) -> bool:
+        """Under async federation (robustness/arrivals.py) a failed client
+        arrives late into the staleness buffer instead of being excluded:
+        only a straggler (its upload exists and arrives; a dropout never
+        trained, the corrupt modes damage the payload)."""
+        return self.mode == "straggler"
+
+    @property
     def freezes_client_state(self) -> bool:
         """A dropout never ran, so its persistent state must not advance;
         a straggler trained and keeps its new state."""
@@ -113,8 +127,7 @@ class FailureModel:
         if self.mode == "corrupt_nan":
             bad = torch.full_like(stack, float("nan"))
         else:
-            bad = stack * torch.tensor(CORRUPT_SCALE, dtype=stack.dtype,
-                                       device=stack.device)
+            bad = stack * CORRUPT_SCALE
         return torch.where(f, bad, stack)
 
     def freeze_failed_state(self, failed, old_state, new_state):

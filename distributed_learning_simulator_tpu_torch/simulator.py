@@ -20,12 +20,20 @@ package does.
 round programs' first-seen call signatures after the warmup round and
 records the device-memory watermark (schema-v2 records);
 ``--client_stats on`` adds the per-client statistics and the anomaly
-detector (v3). ``--execution_mode threaded`` runs the threaded oracle
+detector (v3), ``--client_valuation on`` the streaming valuation and, with
+``--valuation_audit_every``, its GTG audit (v7); ``--span_trace on`` writes
+a span journal (v12); ``--profile_dir`` records a torch.profiler trace
+from ``--profile_from_round`` on, and ``--cost_model_trace`` prices such a
+trace on the last record (v6). ``--async_mode on`` runs deadline rounds
+with the staleness buffer (v4). ``--rounds_per_dispatch K`` runs K rounds
+back to back with one metric fetch (the same records and parameters as
+K=1). ``--execution_mode threaded`` runs the threaded oracle
 (execution/threaded.py) instead of the round loop.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -33,6 +41,7 @@ import os
 import signal
 import threading
 import time
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -67,10 +76,14 @@ from distributed_learning_simulator_tpu_torch.models.registry import (
 )
 from distributed_learning_simulator_tpu_torch.ops import prng
 from distributed_learning_simulator_tpu_torch.parallel.engine import (
+    make_batched_round_fn,
     make_decoder,
     make_eval_fn,
     make_optimizer,
     pad_eval_set,
+)
+from distributed_learning_simulator_tpu_torch.robustness.arrivals import (
+    AsyncFederation,
 )
 from distributed_learning_simulator_tpu_torch.robustness.chaos import (
     maybe_crash,
@@ -85,6 +98,20 @@ from distributed_learning_simulator_tpu_torch.telemetry import (
     peak_hbm_bytes,
     tracked,
 )
+from distributed_learning_simulator_tpu_torch.telemetry.costmodel import (
+    costmodel_record,
+    ledger_totals,
+)
+from distributed_learning_simulator_tpu_torch.telemetry.spans import (
+    SpanPhaseTimer,
+    SpanRecorder,
+)
+from distributed_learning_simulator_tpu_torch.telemetry.valuation import (
+    ClientValuation,
+    ValuationAuditor,
+    ValuationState,
+    valuation_record,
+)
 from distributed_learning_simulator_tpu_torch.utils.checkpoint import (
     gc_checkpoints,
     load_latest_valid_checkpoint,
@@ -98,6 +125,11 @@ from distributed_learning_simulator_tpu_torch.utils.logging import (
 from distributed_learning_simulator_tpu_torch.utils.reporting import (
     build_round_record,
     cohort_crc,
+)
+from distributed_learning_simulator_tpu_torch.utils.tracing import (
+    annotate,
+    categorize_ops,
+    profile_session,
 )
 
 
@@ -303,15 +335,50 @@ def fetch_to_host(tree: dict) -> dict:
     return rebuild(tree)
 
 
-def _algo_checkpoint_state(algorithm, metrics, server_state) -> dict:
+#: The async round's per-round scalars in aux (robustness/arrivals.py; the
+#: carried ``async_state`` itself is popped before any record is built):
+#: fetched with the round's metrics, rendered as the v4 ``async`` record.
+ASYNC_AUX_KEYS = (
+    "on_time_count", "late_count", "buffer_count", "buffer_applied",
+    "mean_staleness", "sim_duration", "sim_duration_sync", "sim_clock",
+)
+
+
+class StackedAuxRow(Mapping):
+    """Round i's view of a dispatch's stacked aux (``aux[name][i]``), sliced
+    only where post_round reads it."""
+
+    __slots__ = ("_aux_k", "_i")
+
+    def __init__(self, aux_k: dict, i: int):
+        self._aux_k = aux_k
+        self._i = i
+
+    def __getitem__(self, name):
+        return self._aux_k[name][self._i]
+
+    def __iter__(self):
+        return iter(self._aux_k)
+
+    def __len__(self):
+        return len(self._aux_k)
+
+
+def _algo_checkpoint_state(algorithm, metrics, server_state,
+                           async_state=None, valuation=None) -> dict:
     """The checkpoint's ``algo_state``: the last round's metrics, the
-    Shapley values so far, and the server optimizer's state when there is
-    one (JAX simulator.py ``_algo_checkpoint_state``)."""
+    Shapley values so far, the server optimizer's state when there is one,
+    the staleness buffer (async_mode='on') and the valuation vector
+    (client_valuation='on') (JAX simulator.py ``_algo_checkpoint_state``)."""
     algo_state = {"prev_metrics": metrics}
     if hasattr(algorithm, "shapley_values"):
         algo_state["shapley_values"] = algorithm.shapley_values
     if server_state is not None:
         algo_state["server_opt_state"] = server_state
+    if async_state is not None:
+        algo_state["async_state"] = async_state
+    if valuation is not None:
+        algo_state["valuation"] = np.asarray(valuation)
     return algo_state
 
 
@@ -345,11 +412,12 @@ def _resume(config, algorithm, model, sample_hw, layout, device,
     """Restore a run from the newest valid checkpoint in
     ``config.checkpoint_dir``, with the JAX package's structure and
     configuration checks. Returns ``(start_round, global_flat or None,
-    client_state, server_state, prev_metrics, key or None)``."""
+    client_state, server_state, prev_metrics, key or None, algo_state or
+    None)``."""
     logger = get_logger()
     ckpt_path, ckpt = load_latest_valid_checkpoint(config.checkpoint_dir)
     if ckpt_path is None:
-        return 0, None, client_state, server_state, None, None
+        return 0, None, client_state, server_state, None, None, None
     paths = jax_paths(model, sample_hw)
     if sorted(paths.values()) != tree_paths(ckpt["global_params"]):
         raise ValueError(
@@ -406,7 +474,31 @@ def _resume(config, algorithm, model, sample_hw, layout, device,
     start_round = ckpt["round_idx"] + 1
     logger.info("resumed from %s at round %d", ckpt_path, start_round)
     return (start_round, global_flat, client_state, server_state,
-            algo_state.get("prev_metrics"), ckpt.get("rng_key"))
+            algo_state.get("prev_metrics"), ckpt.get("rng_key"), algo_state)
+
+
+def _resume_async(async_ctl, async_state, algo_state: dict):
+    """The staleness buffer of a checkpoint, with the JAX package's checks:
+    a checkpoint written with async on refuses to resume with it off, and
+    the other way round."""
+    saved = algo_state.get("async_state")
+    if async_ctl is None and saved is not None:
+        raise ValueError(
+            "checkpoint was written with async_mode='on' but "
+            "async_mode='off' now (the staleness buffer would be "
+            "silently discarded); resume with the configuration "
+            "the checkpoint was written with"
+        )
+    if async_ctl is None:
+        return async_state
+    if saved is None:
+        raise ValueError(
+            "async_mode='on' but the checkpoint has no "
+            "staleness-buffer state (written with "
+            "async_mode='off'); resume with the configuration "
+            "the checkpoint was written with"
+        )
+    return _restore_like(async_state, saved)
 
 
 def run_simulation(
@@ -509,17 +601,34 @@ def run_simulation(
         config.optimizer_name, config.learning_rate,
         momentum=config.momentum, weight_decay=config.weight_decay,
     )
+    K = config.rounds_per_dispatch
+    if K > 1 and not algorithm.supports_round_batching:
+        raise ValueError(
+            f"algorithm {config.distributed_algorithm!r} does not support "
+            "rounds_per_dispatch > 1: its post_round must observe every "
+            "round (for the FedAvg family this includes client_eval=True "
+            "and keep_client_params — their aux/post_round consume "
+            "per-round parameter stacks); set rounds_per_dispatch=1"
+        )
+    # Asynchronous federation (robustness/arrivals.py): refused with the
+    # cause where the round has no staleness buffer.
+    async_ctl = AsyncFederation.from_config(config)
+    if async_ctl is not None and not algorithm.supports_async:
+        raise ValueError(
+            f"algorithm {config.distributed_algorithm!r} does not support "
+            "async_mode='on': its round program has no staleness buffer "
+            "to hold late uploads; set async_mode='off'"
+        )
     evaluate = make_eval_fn(apply_fn)
     algorithm.prepare(apply_fn, evaluate, eval_batches)
     # The round programs count their first-seen call signatures for the
     # recompile counter (telemetry/recompile.py).
     server_eval = tracked("evaluate", evaluate)
+    preprocess = (make_decoder(client_data.sample_shape)
+                  if client_data.compact else None)
     round_fn = algorithm.make_round_fn(
         apply_fn, optimizer, layout, n_clients,
-        preprocess=(
-            make_decoder(client_data.sample_shape)
-            if client_data.compact else None
-        ),
+        preprocess=preprocess,
         client_sizes=client_data.sizes,
         device=device,
     )
@@ -541,35 +650,123 @@ def run_simulation(
         server_state = server_init(global_flat)
     client_state = algorithm.init_client_state(optimizer, global_flat,
                                                n_clients)
+    # The staleness buffer (async_mode='on'): carried round to round,
+    # checkpointed and restored, like the client state.
+    async_state = (async_ctl.init_state(global_flat)
+                   if async_ctl is not None else None)
     key = prng.key(config.seed + 1)
     start_round = 0
     prev_metrics = None
+    resumed_valuation = None
     if config.resume and config.checkpoint_dir:
         (start_round, resumed_global, client_state, server_state,
-         prev_metrics, resumed_key) = _resume(
+         prev_metrics, resumed_key, algo_state) = _resume(
             config, algorithm, model, sample_shape[:2], layout, device,
             client_state, server_state)
         if resumed_global is not None:
             global_flat = resumed_global
         if resumed_key is not None:
             key = resumed_key
+        if algo_state is not None:
+            async_state = _resume_async(async_ctl, async_state, algo_state)
+            resumed_valuation = algo_state.get("valuation")
     checkpointing = bool(config.checkpoint_dir and config.checkpoint_every)
 
-    def save(round_idx: int, metrics) -> str:
-        path = os.path.join(config.checkpoint_dir, f"round_{round_idx}.ckpt")
-        save_checkpoint(
-            path, round_idx,
-            params_to_jax(layout.unflatten(global_flat),
-                          jax_paths(model, sample_shape[:2])),
-            client_state,
-            _algo_checkpoint_state(algorithm, metrics, server_state), key,
+    # --- telemetry ------------------------------------------------------------
+    # Phase timing, the recompile counter and the memory watermark; span
+    # journals; per-client statistics; client valuation; the cost model.
+    # All off by default, and then the records are the v1 records.
+    tel_level = config.telemetry_level.lower()
+    phase_timer = make_phase_timer(tel_level)
+    recompile = RecompileMonitor() if tel_level != "off" else None
+    span_recorder = None
+    if config.span_trace.lower() == "on":
+        span_recorder = SpanRecorder(
+            capacity=config.span_buffer_size,
+            flush_last_k=config.span_flush_last_k,
         )
+        span_journal_dir = config.span_dir or log_dir
+        if span_journal_dir:
+            logger.info(
+                "span journal: %s (clock offset %+.6fs ± %.6fs vs host 0)",
+                span_recorder.attach(span_journal_dir), 0.0, 0.0,
+            )
+        else:
+            logger.warning(
+                "span_trace='on' but this host has no artifacts dir and "
+                "no span_dir; span journal disabled (in-memory flight "
+                "recorder only) — set span_dir to a shared directory"
+            )
+        # Every phase boundary is also a span, at any telemetry_level.
+        phase_timer = SpanPhaseTimer(phase_timer, span_recorder)
+    client_stats_cfg = ClientStats.from_config(config)
+    valuation_cfg = ClientValuation.from_config(config)
+    vstate = auditor = None
+    if valuation_cfg is not None:
+        vstate = ValuationState(n_clients)
+        if resumed_valuation is not None:
+            vstate.load(resumed_valuation)
+        elif start_round > 0:
+            logger.warning(
+                "checkpoint carries no valuation vector (written before "
+                "the feature or with client_valuation='off'); valuation "
+                "restarts from zero"
+            )
+        if valuation_cfg.audit_every > 0:
+            auditor = ValuationAuditor(
+                config, valuation_cfg, algorithm, apply_fn, optimizer,
+                layout, preprocess, evaluate, (cx, cy, cmask), eval_batches,
+                n_clients, device,
+                budget_bytes=_device_budget_bytes(config, device),
+            )
+    # The cost model's ledger, read once from the reference trace.
+    cost_ledger = None
+    if config.cost_model_trace:
+        cost_ledger = categorize_ops(config.cost_model_trace)
+        if not cost_ledger or ledger_totals(cost_ledger)["bytes_gb"] <= 0:
+            # A CPU trace has no device op: warn, never price nothing.
+            logger.warning(
+                "cost_model_trace %r holds no byte-annotated device-op "
+                "events; cost model disabled for this run",
+                config.cost_model_trace,
+            )
+            cost_ledger = None
+    if K > 1 and config.pipeline_rounds:
+        logger.info(
+            "pipeline_rounds disabled: rounds_per_dispatch > 1 already "
+            "amortizes the fetch (one device_get per dispatch)"
+        )
+
+    def save(round_idx: int, metrics, params, c_state, s_state, a_state,
+             rng_key) -> str:
+        path = os.path.join(config.checkpoint_dir, f"round_{round_idx}.ckpt")
+
+        def write():
+            save_checkpoint(
+                path, round_idx,
+                params_to_jax(layout.unflatten(params),
+                              jax_paths(model, sample_shape[:2])),
+                c_state,
+                _algo_checkpoint_state(
+                    algorithm, metrics, s_state, a_state,
+                    vstate.values if vstate is not None else None),
+                rng_key,
+            )
+
+        if span_recorder is None:
+            write()
+        else:
+            with span_recorder.span("ckpt_write", "io", round_idx=round_idx,
+                                    eager=True) as sp:
+                write()
+                sp["bytes"] = os.path.getsize(path)
         gc_checkpoints(config.checkpoint_dir, config.checkpoint_keep_last)
         return path
 
     # SIGTERM (a preemption notice): the handler only sets a flag; the loop
-    # finishes the round in flight, writes a final checkpoint and returns.
-    # Installed in the main thread only, and the previous handler restored.
+    # finishes the round (or dispatch) in flight, writes a final checkpoint
+    # and returns. Installed in the main thread only, and the previous
+    # handler restored.
     preempt = {"flag": False}
     installed = threading.current_thread() is threading.main_thread()
     if installed:
@@ -580,155 +777,463 @@ def run_simulation(
 
     # --- round loop ---------------------------------------------------------
     history: list[dict] = []
-    rounds_rejected = 0
-    survivor_counts: list[int] = []
+    telemetry = {
+        "rounds_rejected": 0, "survivor_counts": [], "clients_flagged": 0,
+        "post_warmup_compiles": 0,
+        # Async federation: the simulated clocks (async against the
+        # wait-for-everyone counterfactual) and the buffer occupancy.
+        "sim_async_s": 0.0, "sim_sync_s": 0.0, "buffer_occupancy": [],
+        "valuation_last_audit": None, "costmodel": None,
+    }
     metrics_path = os.path.join(log_dir, "metrics.jsonl") if log_dir else None
-    # Run telemetry (telemetry/): phase timing, the recompile counter and
-    # the memory watermark; per-client statistics. All off by default, and
-    # then the records are the v1 records.
-    tel_level = config.telemetry_level.lower()
-    phase_timer = make_phase_timer(tel_level)
-    recompile = RecompileMonitor() if tel_level != "off" else None
-    post_warmup_compiles = 0
-    client_stats_cfg = ClientStats.from_config(config)
-    clients_flagged = 0
     completed_round = start_round - 1
     t_start = time.perf_counter()
     t_prev_done = t_start
+    seen_dispatch_sizes: set[int] = set()
+
+    def emit_record(round_idx, metrics, mean_client_loss, fetched, ctx,
+                    tel_rec_fn, phase_round, audit_fn=None):
+        """One round's record from already-fetched host values: post_round,
+        the record's sub-objects, the history and the metrics.jsonl line.
+        Shared by the one-round loop and the dispatch flush, so that the
+        record layout cannot differ between them."""
+        nonlocal prev_metrics, t_prev_done
+        with annotate("post_round"), phase_timer.phase(phase_round,
+                                                       "post_round"):
+            extra = algorithm.post_round(ctx) or {}
+        now = time.perf_counter()
+        # Within a dispatch its wall lands on its first round.
+        record = build_base_round_record(
+            config, round_idx, metrics, mean_client_loss, fetched, extra,
+            round_seconds=now - t_prev_done,
+        )
+        if "survivor_count" in record:
+            telemetry["survivor_counts"].append(record["survivor_count"])
+        if record.get("round_rejected"):
+            telemetry["rounds_rejected"] += 1
+            logger.warning(
+                "round %d REJECTED by quorum policy (survivors=%s, "
+                "min_survivors=%d): previous global model retained",
+                round_idx, record.get("survivor_count"),
+                config.min_survivors,
+            )
+            if span_recorder is not None:
+                # Flight recorder: a rejected round is a fault event.
+                span_recorder.flush_inflight("quorum_rejected")
+        t_prev_done = now
+        cs_rec = None
+        extras = {k: float(fetched[k])
+                  for k in ("quant_mse", "vote_agreement") if k in fetched}
+        if "client_stats" in fetched:
+            cs_rec, n_flagged = detect_and_record(
+                fetched["client_stats"], client_stats_cfg, round_idx,
+                logger=logger, participants=fetched.get("participants"),
+                extras=extras,
+            )
+            telemetry["clients_flagged"] += n_flagged
+        elif extras:
+            # No per-client deltas (sign_SGD): the round scalars only.
+            cs_rec = {
+                "n_clients": n_clients,
+                **{k: (v if np.isfinite(v) else None)
+                   for k, v in extras.items()},
+            }
+        async_rec = None
+        if "sim_duration" in fetched:
+            # The deadline round's outcome: the v4 ``async`` sub-object.
+            n_late = int(fetched["late_count"])
+            async_rec = {
+                "on_time": int(fetched["on_time_count"]),
+                "late": n_late,
+                "buffer": int(fetched["buffer_count"]),
+                "applied": bool(fetched["buffer_applied"]),
+                "mean_staleness": (
+                    round(float(fetched["mean_staleness"]), 4)
+                    if n_late else None
+                ),
+                "sim_round_s": round(float(fetched["sim_duration"]), 6),
+                "sim_round_sync_s": round(
+                    float(fetched["sim_duration_sync"]), 6),
+                "sim_clock_s": round(float(fetched["sim_clock"]), 6),
+            }
+            telemetry["sim_async_s"] += float(fetched["sim_duration"])
+            telemetry["sim_sync_s"] += float(fetched["sim_duration_sync"])
+            telemetry["buffer_occupancy"].append(
+                int(fetched["buffer_count"]))
+        val_rec = None
+        if vstate is not None and "valuation_scores" in fetched:
+            # The streaming fold: this round's scores times its loss delta
+            # (prev_metrics is still the previous round's here); round 0
+            # folds a delta of 0.
+            v_ids = fetched.get("participants")
+            if v_ids is not None:
+                v_ids = np.asarray(v_ids)
+            loss_delta = (
+                float(prev_metrics["loss"]) - float(metrics["loss"])
+                if prev_metrics else 0.0
+            )
+            vstate.fold(v_ids, np.asarray(fetched["valuation_scores"]),
+                        loss_delta, valuation_cfg.decay)
+            audit_rec = audit_fn(v_ids) if audit_fn is not None else None
+            if audit_rec is not None:
+                telemetry["valuation_last_audit"] = {
+                    "round": round_idx, **audit_rec,
+                }
+                logger.info(
+                    "round %d valuation audit: spearman=%s pearson=%s "
+                    "(%d permutations, %d subset evals, converged=%s, "
+                    "memo_hit_rate=%s, %.1fs)",
+                    round_idx, audit_rec["spearman"],
+                    audit_rec["pearson"], audit_rec["permutations"],
+                    audit_rec["subset_evals"], audit_rec["converged"],
+                    audit_rec["memo_hit_rate"], audit_rec["seconds"],
+                )
+            val_rec = valuation_record(vstate, v_ids, loss_delta,
+                                       audit=audit_rec)
+        cm_rec = None
+        if cost_ledger is not None and round_idx == config.round - 1:
+            # The measured round: the mean over the steady rounds (round 0
+            # carries the first calls; a dispatch's wall lands on its first
+            # round, so the mean is the unit in every dispatch shape).
+            walls = [h["round_seconds"] for h in history] + [
+                record["round_seconds"]]
+            steady = walls[1:] or walls
+            cm_rec = costmodel_record(
+                cost_ledger,
+                trace_rounds=config.cost_model_trace_rounds,
+                anchor=config.cost_model_topology,
+                measured_ms=1e3 * sum(steady) / len(steady),
+                param_bytes=4 * global_flat.numel(),
+                run_rounds=config.round,
+            )
+            telemetry["costmodel"] = cm_rec
+        tel_rec = tel_rec_fn()
+        spans_rec = None
+        if span_recorder is not None:
+            # The round's span summary (v12), then the once-a-round drain.
+            spans_rec = span_recorder.round_summary(round_idx)
+            span_recorder.flush()
+        record = build_round_record(record, tel_rec, cs_rec, async_rec,
+                                    None, cm_rec, val_rec, spans=spans_rec)
+        history.append(record)
+        if metrics_path:
+            with open(metrics_path, "a") as f:
+                f.write(json.dumps(record) + "\n")
+        logger.info(
+            "round %d: test_acc=%.4f test_loss=%.4f (%.2fs)",
+            round_idx, metrics["accuracy"], metrics["loss"],
+            record["round_seconds"],
+        )
+        prev_metrics = metrics
+
+    def compile_events(last: int):
+        """The recompile events of a round (or dispatch, filed under its
+        last round), each also a ``compile`` span event."""
+        recompile.attribute(last)
+        events = recompile.take(last)
+        if span_recorder is not None:
+            for name, secs in events:
+                span_recorder.event(name, "compile", round_idx=last,
+                                    seconds=round(secs, 6))
+        return events
+
+    def tel_record(last: int, n_compiles: int) -> dict:
+        tel_rec = {
+            "phase_seconds": {
+                k: round(v, 6)
+                for k, v in sorted(phase_timer.take(last).items())
+            },
+            "compiles": n_compiles,
+        }
+        return tel_rec
+
+    def fetch_keys(aux, fetch_stats: bool) -> list[str]:
+        """The round's aux values that ride the one metric fetch."""
+        keys = [k for k in ("survivor_count", "round_rejected",
+                            "participants") if k in aux]
+        if fetch_stats:
+            keys += [k for k in ("client_stats", "quant_mse",
+                                 "vote_agreement") if k in aux]
+        if vstate is not None and "valuation_scores" in aux:
+            keys.append("valuation_scores")
+        return keys + [k for k in ASYNC_AUX_KEYS if k in aux]
+
+    def finalize(p: dict) -> None:
+        """Fetch, record and checkpoint one round (K=1): inside an eager
+        ``finalize`` span when spans are on, so a process killed here
+        leaves it in its journal."""
+        if span_recorder is None:
+            return _finalize(p)
+        with span_recorder.span("finalize", "round", round_idx=p["round"],
+                                eager=True):
+            return _finalize(p)
+
+    def _finalize(p: dict) -> None:
+        round_idx, aux = p["round"], p["aux"]
+        keys = fetch_keys(aux, client_stats_cfg is not None
+                          and client_stats_cfg.fetch_round(round_idx))
+        with phase_timer.phase(round_idx, "host_sync"):
+            fetched = fetch_to_host({
+                "metrics": p["metrics_dev"],
+                "mean_client_loss": aux["mean_client_loss"],
+                "tel": {k: aux[k] for k in keys},
+            })
+        metrics = {k: float(v) for k, v in fetched["metrics"].items()}
+        tel = fetched["tel"]
+        ctx = RoundContext(
+            round_idx=round_idx, global_params=p["new_global"],
+            prev_global_params=p["prev_global"], sizes=client_data.sizes,
+            aux=aux, metrics=metrics, prev_metrics=prev_metrics,
+            eval_batches=eval_batches, log_dir=log_dir, layout=layout,
+        )
+        if "client_stats" in tel:
+            # Post-round hooks (Shapley's cross-check) read the matrix
+            # already fetched.
+            ctx.extra["client_stats_np"] = tel["client_stats"]
+
+        def tel_rec_fn():
+            if not phase_timer.enabled:
+                return None
+            # The first executed round is the warmup; a first call in any
+            # later round is the instability warning.
+            events = compile_events(round_idx)
+            n_compiles = log_round_compiles(
+                logger, round_idx, events, warmup=round_idx == start_round)
+            if round_idx > start_round:
+                telemetry["post_warmup_compiles"] += n_compiles
+            tel_rec = tel_record(round_idx, n_compiles)
+            if events:
+                tel_rec["compiled"] = [name for name, _ in events]
+            peak = peak_hbm_bytes(device)
+            if peak is not None:
+                tel_rec["peak_hbm_bytes"] = peak
+            return tel_rec
+
+        def audit_fn(v_ids):
+            """The sparse GTG audit: replays this round's cohort from its
+            round key against the pre-round global model (a pure read)."""
+            if auditor is None or not auditor.due(round_idx):
+                return None
+            with annotate("valuation_audit"):
+                return auditor.run(
+                    round_idx, p["round_key"], p["prev_global"], v_ids,
+                    vstate.values, client_data.sizes,
+                    lr_scale=float(lr_factors(config, round_idx, 1)[0]),
+                )
+
+        emit_record(round_idx, metrics, float(fetched["mean_client_loss"]),
+                    tel, ctx, tel_rec_fn, round_idx, audit_fn=audit_fn)
+        if checkpointing and (round_idx + 1) % config.checkpoint_every == 0:
+            save(round_idx, metrics, p["new_global"], p["client_state"],
+                 p["server_state"], p["async_state"], p["key"])
+        # Chaos-harness hook (robustness/chaos.py), after the round's
+        # record and checkpoint are on disk.
+        maybe_crash(round_idx)
+
+    def flush_dispatch(d: dict) -> None:
+        """Record a dispatch of K rounds: one fetch of the stacked metrics
+        and aux, then one record per round. Phase times and compile events
+        are per dispatch, on its last round's record (``dispatch_rounds``
+        says so)."""
+        first, k = d["round_start"], d["k"]
+        last = first + k - 1
+        rounds = range(first, last + 1)
+        aux_k = d["aux"]
+        fetch_rounds = {
+            r for r in rounds
+            if client_stats_cfg is not None and client_stats_cfg.fetch_round(r)
+        }
+        keys = fetch_keys(aux_k, bool(fetch_rounds))
+        stat_keys = [k_ for k_ in ("client_stats", "quant_mse",
+                                   "vote_agreement") if k_ in keys]
+        with phase_timer.phase(last, "host_sync"):
+            fetched = fetch_to_host({
+                "metrics": d["metrics"],
+                "mean_client_loss": aux_k["mean_client_loss"],
+                "tel": {k_: aux_k[k_] for k_ in keys},
+            })
+
+        def tel_rec_fn():
+            if not phase_timer.enabled:
+                return None
+            events = compile_events(last)
+            warm = first == start_round or k not in seen_dispatch_sizes
+            seen_dispatch_sizes.add(k)
+            n_compiles = log_round_compiles(logger, last, events,
+                                            warmup=warm)
+            if not warm:
+                telemetry["post_warmup_compiles"] += n_compiles
+            tel_rec = tel_record(last, n_compiles)
+            # The phase times and compiles cover this many rounds.
+            tel_rec["dispatch_rounds"] = k
+            if warm and n_compiles:
+                tel_rec["warmup"] = True
+            if events:
+                tel_rec["compiled"] = [name for name, _ in events]
+            peak = peak_hbm_bytes(device)
+            if peak is not None:
+                tel_rec["peak_hbm_bytes"] = peak
+            return tel_rec
+
+        for i, round_idx in enumerate(rounds):
+            metrics = {name: float(v[i])
+                       for name, v in fetched["metrics"].items()}
+            row = {name: v[i] for name, v in fetched["tel"].items()
+                   if name not in stat_keys or round_idx in fetch_rounds}
+            ctx = RoundContext(
+                # The dispatch's last model and its first round's previous
+                # one (supports_round_batching's contract).
+                round_idx=round_idx, global_params=d["new_global"],
+                prev_global_params=d["prev_global"],
+                sizes=client_data.sizes,
+                aux=StackedAuxRow(aux_k, i), metrics=metrics,
+                prev_metrics=prev_metrics, eval_batches=eval_batches,
+                log_dir=log_dir, layout=layout,
+            )
+            if "client_stats" in row:
+                ctx.extra["client_stats_np"] = row["client_stats"]
+            emit_record(round_idx, metrics,
+                        float(fetched["mean_client_loss"][i]), row, ctx,
+                        tel_rec_fn if round_idx == last else (lambda: None),
+                        last)
+        # Dispatches end at checkpoint boundaries, so the cadence fires on
+        # a dispatch's last round only, where the carried state is that
+        # round's.
+        if checkpointing and (last + 1) % config.checkpoint_every == 0:
+            save(last, prev_metrics, d["new_global"], d["client_state"],
+                 d["server_state"], d["async_state"], d["key"])
+        maybe_crash(last)
+
+    def eval_flat(flat, *batches):
+        return server_eval(layout.unflatten(flat), *batches)
+
+    batched_fns: dict[int, object] = {}
+
+    def dispatch_len(start: int) -> int:
+        """min(K, rounds left, rounds to the next checkpoint)."""
+        k = min(K, config.round - start)
+        if config.checkpoint_dir and config.checkpoint_every:
+            k = min(k, config.checkpoint_every
+                    - (start % config.checkpoint_every))
+        return k
+
+    profile_from = config.profile_from_round
+    profile_stack = contextlib.ExitStack()
+
+    def maybe_profile(round_idx: int) -> None:
+        """Start the profiler session at ``profile_from_round`` (the first
+        round carries the first calls and the kernel builds)."""
+        nonlocal profile_from
+        if (config.profile_dir and profile_from is not None
+                and round_idx >= profile_from):
+            profile_stack.enter_context(profile_session(config.profile_dir))
+            profile_from = None
+
     if recompile is not None:
         recompile.start()
     try:
-        for round_idx in range(start_round, config.round):
-            lr_scale = float(lr_factors(config, round_idx, 1)[0])
-            key, round_key = prng.split(key)
-            with phase_timer.phase(round_idx, "client_step") as ph:
-                new_global, client_state, aux = round_fn(
-                    global_flat, client_state, cx, cy, cmask,
-                    client_data.sizes, round_key,
-                    lr_scale=lr_scale,
-                    client_rng=client_rng_fn(round_idx) if client_rng_fn
-                    else None,
-                )
-                ph.fence((new_global, aux))
-            if server_update is not None:
-                # A rejected round leaves the params and the server
-                # optimizer's state as they were.
-                with phase_timer.phase(round_idx, "aggregate") as ph:
-                    new_global, server_state = server_update(
-                        global_flat, new_global, server_state,
-                        aux.get("round_rejected"))
-                    ph.fence(new_global)
-            with phase_timer.phase(round_idx, "eval") as ph:
-                metrics_dev = server_eval(layout.unflatten(new_global),
-                                          *eval_batches)
-                ph.fence(metrics_dev)
-            if recompile is not None:
-                recompile.attribute(round_idx)
-            # The client stats and their round scalars ride the round's one
-            # metric fetch, on the client_stats_every cadence.
-            cs_keys = [
-                k for k in ("client_stats", "quant_mse", "vote_agreement")
-                if k in aux
-            ] if (client_stats_cfg is not None
-                  and client_stats_cfg.fetch_round(round_idx)) else []
-            with phase_timer.phase(round_idx, "host_sync"):
-                fetched = fetch_to_host({
-                    "metrics": metrics_dev,
-                    "mean_client_loss": aux["mean_client_loss"],
-                    **{k: aux[k] for k in cs_keys},
-                })
-            metrics = {k: float(v) for k, v in fetched["metrics"].items()}
-            mean_client_loss = float(fetched["mean_client_loss"])
-            ctx = RoundContext(
-                round_idx=round_idx, global_params=new_global,
-                prev_global_params=global_flat, sizes=client_data.sizes,
-                aux=aux, metrics=metrics, prev_metrics=prev_metrics,
-                eval_batches=eval_batches, log_dir=log_dir, layout=layout,
-            )
-            if "client_stats" in fetched:
-                # Post-round hooks (Shapley's cross-check) read the
-                # matrix already fetched.
-                ctx.extra["client_stats_np"] = fetched["client_stats"]
-            with phase_timer.phase(round_idx, "post_round"):
-                extra = algorithm.post_round(ctx) or {}
-            global_flat, prev_metrics = new_global, metrics
-            now = time.perf_counter()
-            record = build_base_round_record(
-                config, round_idx, metrics, mean_client_loss, aux, extra,
-                round_seconds=now - t_prev_done,
-            )
-            if "survivor_count" in record:
-                survivor_counts.append(record["survivor_count"])
-            if record.get("round_rejected"):
-                rounds_rejected += 1
-                logger.warning(
-                    "round %d REJECTED by quorum policy (survivors=%s, "
-                    "min_survivors=%d): previous global model retained",
-                    round_idx, record.get("survivor_count"),
-                    config.min_survivors,
-                )
-            t_prev_done = now
-            cs_rec = None
-            extras = {k: float(fetched[k])
-                      for k in ("quant_mse", "vote_agreement")
-                      if k in fetched}
-            if "client_stats" in fetched:
-                cs_rec, n_flagged = detect_and_record(
-                    fetched["client_stats"], client_stats_cfg, round_idx,
-                    logger=logger, participants=aux.get("participants"),
-                    extras=extras,
-                )
-                clients_flagged += n_flagged
-            elif extras:
-                # No per-client deltas (sign_SGD): the round scalars only.
-                cs_rec = {
-                    "n_clients": n_clients,
-                    **{k: (v if np.isfinite(v) else None)
-                       for k, v in extras.items()},
-                }
-            tel_rec = None
-            if phase_timer.enabled:
-                # The first executed round is the warmup; a compile in any
-                # later round is the instability warning.
-                recompile.attribute(round_idx)
-                events = recompile.take(round_idx)
-                n_compiles = log_round_compiles(
-                    logger, round_idx, events,
-                    warmup=round_idx == start_round,
-                )
-                if round_idx > start_round:
-                    post_warmup_compiles += n_compiles
-                tel_rec = {
-                    "phase_seconds": {
-                        k: round(v, 6) for k, v in sorted(
-                            phase_timer.take(round_idx).items())
-                    },
-                    "compiles": n_compiles,
-                }
-                if events:
-                    tel_rec["compiled"] = [name for name, _ in events]
-                peak = peak_hbm_bytes(device)
-                if peak is not None:
-                    tel_rec["peak_hbm_bytes"] = peak
-            record = build_round_record(record, tel_rec, cs_rec)
-            history.append(record)
-            if metrics_path:
-                with open(metrics_path, "a") as f:
-                    f.write(json.dumps(record) + "\n")
-            logger.info(
-                "round %d: test_acc=%.4f test_loss=%.4f (%.2fs)",
-                round_idx, metrics["accuracy"], metrics["loss"],
-                record["round_seconds"],
-            )
-            if checkpointing and (
-                    (round_idx + 1) % config.checkpoint_every == 0):
-                save(round_idx, metrics)
-            # Chaos-harness hook (robustness/chaos.py), after the round's
-            # record and checkpoint are on disk.
-            maybe_crash(round_idx)
-            completed_round = round_idx
-            if preempt["flag"]:
-                break
+        with profile_stack:
+            round_idx = start_round
+            while round_idx < config.round:
+                maybe_profile(round_idx)
+                if K > 1:
+                    k = dispatch_len(round_idx)
+                    last = round_idx + k - 1
+                    if k not in batched_fns:
+                        batched_fns[k] = tracked(
+                            "batched", make_batched_round_fn(
+                                round_fn, server_update, eval_flat, k,
+                                async_mode=async_ctl is not None))
+                    prev_global = global_flat
+                    round_kwargs = ([
+                        {"client_rng": client_rng_fn(r)}
+                        for r in range(round_idx, last + 1)
+                    ] if client_rng_fn else None)
+                    with phase_timer.phase(last, "client_step") as ph:
+                        out = batched_fns[k](
+                            global_flat, client_state, server_state, key,
+                            cx, cy, cmask, client_data.sizes, eval_batches,
+                            lr_factors(config, round_idx, k),
+                            async_state=async_state,
+                            round_kwargs=round_kwargs)
+                        (global_flat, client_state, server_state, key,
+                         metrics_k, aux_k) = out[:6]
+                        if async_ctl is not None:
+                            async_state = out[6]
+                        ph.fence((global_flat, metrics_k))
+                    if recompile is not None:
+                        recompile.attribute(last)
+                    flush_dispatch({
+                        "round_start": round_idx, "k": k,
+                        "metrics": metrics_k, "aux": aux_k,
+                        "new_global": global_flat, "prev_global": prev_global,
+                        "client_state": client_state,
+                        "server_state": server_state,
+                        "async_state": async_state, "key": key,
+                    })
+                    completed_round = last
+                    round_idx = last + 1
+                else:
+                    lr_scale = float(lr_factors(config, round_idx, 1)[0])
+                    key, round_key = prng.split(key)
+                    kw = {}
+                    if client_rng_fn:
+                        kw["client_rng"] = client_rng_fn(round_idx)
+                    if async_ctl is not None:
+                        kw["async_state"] = async_state
+                    with annotate(f"fl_round_{round_idx}"):
+                        with phase_timer.phase(round_idx,
+                                               "client_step") as ph:
+                            new_global, client_state, aux = round_fn(
+                                global_flat, client_state, cx, cy, cmask,
+                                client_data.sizes, round_key,
+                                lr_scale=lr_scale, **kw,
+                            )
+                            ph.fence((new_global, aux))
+                        if async_ctl is not None:
+                            # The buffer rides to the next round.
+                            aux = dict(aux)
+                            async_state = aux.pop("async_state")
+                        if server_update is not None:
+                            # A rejected round leaves the params and the
+                            # server optimizer's state as they were.
+                            with phase_timer.phase(round_idx,
+                                                   "aggregate") as ph:
+                                new_global, server_state = server_update(
+                                    global_flat, new_global, server_state,
+                                    aux.get("round_rejected"))
+                                ph.fence(new_global)
+                    with annotate("server_eval"):
+                        with phase_timer.phase(round_idx, "eval") as ph:
+                            metrics_dev = server_eval(
+                                layout.unflatten(new_global), *eval_batches)
+                            ph.fence(metrics_dev)
+                    if recompile is not None:
+                        recompile.attribute(round_idx)
+                    prev_global, global_flat = global_flat, new_global
+                    finalize({
+                        "round": round_idx, "round_key": round_key,
+                        "aux": aux, "metrics_dev": metrics_dev,
+                        "new_global": new_global, "prev_global": prev_global,
+                        "client_state": client_state,
+                        "server_state": server_state,
+                        "async_state": async_state, "key": key,
+                    })
+                    completed_round = round_idx
+                    round_idx += 1
+                if preempt["flag"]:
+                    # The round (or dispatch) in flight finished and was
+                    # recorded; no new one starts.
+                    break
+    except BaseException as crash:
+        # Flight recorder: an unhandled exception force-flushes the last
+        # spans and every span still open.
+        if span_recorder is not None:
+            try:
+                span_recorder.flush_inflight(type(crash).__name__)
+            except Exception:
+                pass
+        raise
     finally:
         if recompile is not None:
             recompile.stop()
@@ -740,11 +1245,14 @@ def run_simulation(
         # Persist the finished round even off the checkpoint_every cadence,
         # so that the resumed run loses nothing.
         preempted_at = completed_round
+        if span_recorder is not None:
+            span_recorder.flush_inflight("sigterm")
         if config.checkpoint_dir and completed_round >= start_round:
             forced_path = os.path.join(config.checkpoint_dir,
                                        f"round_{completed_round}.ckpt")
             if not os.path.exists(forced_path):
-                save(completed_round, prev_metrics)
+                save(completed_round, prev_metrics, global_flat,
+                     client_state, server_state, async_state, key)
             logger.warning(
                 "preempted at round %d (SIGTERM): final checkpoint %s "
                 "written; exiting cleanly — resume with config.resume=True",
@@ -757,6 +1265,10 @@ def run_simulation(
                 completed_round,
             )
 
+    span_summary = None
+    if span_recorder is not None:
+        span_summary = span_recorder.run_summary()
+        span_recorder.close()
     total = time.perf_counter() - t_start
     # This run's rounds (a resumed or preempted run runs fewer).
     n_rounds = len(history)
@@ -765,6 +1277,7 @@ def run_simulation(
         n_rounds, n_clients, total,
         n_rounds * n_clients / max(total, 1e-9),
     )
+    survivor_counts = telemetry["survivor_counts"]
     return {
         "global_params": layout.unflatten(global_flat),
         "client_state": client_state,
@@ -774,25 +1287,39 @@ def run_simulation(
         "total_seconds": total,
         "client_rounds_per_sec": n_rounds * n_clients / max(total, 1e-9),
         "client_chunk_size": config.client_chunk_size,
-        # The JAX package's other keys, at the values its run gives them
-        # with each feature off (the port does not have these yet).
+        # The JAX package's keys, at the values its run gives them with
+        # each feature the port does not have yet off.
         "mesh": None,
-        "rounds_rejected": rounds_rejected,
+        "rounds_rejected": telemetry["rounds_rejected"],
         "telemetry_level": tel_level,
         # 0 on a shape-stable run; None with telemetry off.
         "post_warmup_compiles": (
-            post_warmup_compiles if recompile is not None else None
+            telemetry["post_warmup_compiles"] if recompile is not None
+            else None
         ),
         "mean_survivor_count": (
             float(np.mean(survivor_counts)) if survivor_counts else None
         ),
         # The detector's flags over the run; None with client stats off.
         "clients_flagged": (
-            clients_flagged if client_stats_cfg is not None else None
+            telemetry["clients_flagged"] if client_stats_cfg is not None
+            else None
         ),
-        "async_speedup_ratio": None,
-        "sim_clock_seconds": None,
-        "mean_buffer_occupancy": None,
+        # Async federation: the simulated speedup over the synchronous
+        # counterfactual (this run's rounds), the buffer's clock (the whole
+        # run's, across a resume) and its mean occupancy; None when off.
+        "async_speedup_ratio": (
+            telemetry["sim_sync_s"] / telemetry["sim_async_s"]
+            if async_ctl is not None and telemetry["sim_async_s"] > 0
+            else None
+        ),
+        "sim_clock_seconds": (
+            float(async_state["clock"]) if async_ctl is not None else None
+        ),
+        "mean_buffer_occupancy": (
+            float(np.mean(telemetry["buffer_occupancy"]))
+            if telemetry["buffer_occupancy"] else None
+        ),
         "client_residency": config.client_residency,
         "stream_overlap_ratio": None,
         "stream_h2d_bytes": None,
@@ -801,15 +1328,19 @@ def run_simulation(
         "stream_sample_seconds": None,
         "stream_dcn_bytes": None,
         "multihost_summary": None,
-        "costmodel": None,
+        # The v6 costmodel sub-object of the run's last record.
+        "costmodel": telemetry["costmodel"],
         "client_valuation": config.client_valuation,
-        "valuation": None,
-        "valuation_state": None,
+        "valuation": (
+            vstate.summary(telemetry["valuation_last_audit"])
+            if vstate is not None else None
+        ),
+        "valuation_state": vstate,
         "gtg_memo_hit_rate": getattr(algorithm, "gtg_memo_hit_rate", None),
         "population": config.population,
         "population_summary": None,
         "span_trace": config.span_trace,
-        "span_summary": None,
+        "span_summary": span_summary,
         "preempted_at": preempted_at,
         "device": str(device),
     }

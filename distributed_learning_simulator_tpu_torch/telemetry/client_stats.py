@@ -35,6 +35,7 @@ import torch
 from distributed_learning_simulator_tpu_torch.config import (
     CLIENT_STATS_LEVELS,
 )
+from distributed_learning_simulator_tpu_torch.ops.cohort import to_device
 
 #: Column order of the per-client ``[N, S]`` stats matrix. Fields an
 #: execution path cannot produce (the threaded oracle's workers report no
@@ -68,7 +69,7 @@ def _probe_index(numels: tuple, stride: int, device: str) -> torch.Tensor:
     starts = np.concatenate([[0], np.cumsum(numels)[:-1]]).astype(np.int64)
     idx = np.concatenate([s + np.arange(0, n, stride, dtype=np.int64)
                           for s, n in zip(starts, numels)])
-    return torch.as_tensor(idx, device=device)
+    return to_device(idx, device)
 
 
 @dataclass(frozen=True)

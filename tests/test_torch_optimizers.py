@@ -38,7 +38,9 @@ _DTYPES = {"float32": (jnp.float32, torch.float32),
 
 
 def _port_config(jcfg, **changes):
-    fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
+    # cost_model_topology's JAX default is a TPU row the port lacks.
+    fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)
+              if f.name != "cost_model_topology"}
     return ExperimentConfig(device="cpu", **{**fields, **changes})
 
 

@@ -129,6 +129,8 @@ def test_known_answers_are_jax_values():
         "truncated_normal": lambda k, lo, hi, s: np.asarray(
             jax.random.truncated_normal(
                 jax.random.wrap_key_data(jnp.asarray(k)), lo, hi, s)),
+        "normal": lambda k, s: np.asarray(jax.random.normal(
+            jax.random.wrap_key_data(jnp.asarray(k)), s)),
     }
     for name, fn, args, want in prng.KNOWN_ANSWERS:
         assert jfn[fn](*args).tolist() == want, name

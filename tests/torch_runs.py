@@ -53,10 +53,12 @@ def run_both(log_root=None, **changes):
 
 
 def port_config(jax_config, **changes) -> ExperimentConfig:
-    """The port's config of a JAX package config (every field copied, then
-    ``changes``), on the CPU."""
+    """The port's config of a JAX package config (every field copied but
+    ``cost_model_topology``, whose JAX default is a TPU row the port's
+    table lacks; then ``changes``), on the CPU."""
     fields = {f.name: getattr(jax_config, f.name)
-              for f in dataclasses.fields(jax_config)}
+              for f in dataclasses.fields(jax_config)
+              if f.name != "cost_model_topology"}
     fields.update(changes)
     return ExperimentConfig(device="cpu", **fields)
 
