@@ -147,9 +147,10 @@ together), then runs these phases and exits non-zero if any of them fails:
    audit's seconds and subset evals/s); ``spans_fed`` (``fed``, 50
    clients, 2 rounds, ``span_trace='on'``: the journal written,
    ``scripts/trace_timeline.py`` summarizing its round and phase spans,
-   schema-v12 records); ``profile_costmodel`` (``fed`` at 5 clients,
-   round 2 profiled into ``profile_dir``, then a run with
-   ``cost_model_trace`` on it: ``dls::group_norm`` and
+   schema-v12 records); ``profile_costmodel`` (``fed`` at 10 clients,
+   rounds 1-2 profiled into ``profile_dir``, one profiler window per
+   training step, then a run with ``cost_model_trace`` on it, the two
+   runs' peak device memory printed side by side: ``dls::group_norm`` and
    ``dls::conv3x3_wgrad`` kernels with bytes in the trace, FLOPs in the
    convolution category, a finite positive predicted round on
    ``h100-sxm-1`` in the v6 record; the ledger, the predicted-to-measured
@@ -160,6 +161,29 @@ together), then runs these phases and exits non-zero if any of them fails:
    ``async_fed`` (``fed``, 50 clients, 3 rounds, bimodal arrivals,
    deadline 1.5, buffer 8: schema-v4 records, a buffer apply, and
    ``round_deadline=inf`` bitwise equal to the synchronous run).
+   Then the memory refusals and streamed residency, each path with its
+   counts set to 0 just before it and read just after: ``oom_hint``
+   (``fed`` at the flagship settings, 1000 clients as one chunk: the JAX
+   package's hint text with a ``client_chunk_size=`` below 1000, chained
+   from a ``torch.OutOfMemoryError``, and the card's allocated memory
+   back within 64 MiB once the exception is dropped; GTG at N=1000
+   refused by ``_assert_client_stack_feasible`` before any allocation);
+   ``stream_flagship`` (``fed`` at the flagship settings, 400 clients, a
+   hashed 10% cohort, 3 rounds, resident and ``client_residency=
+   'streamed'`` in turns (A B B A), and ``sign_SGD`` as its main path
+   in the same turns, through run_path's gates: params and history
+   bitwise equal, valid v5 records; round seconds, overlap ratio, H2D MiB
+   and both peaks printed; then for each, one profiled round resident and
+   one streamed, their device busy ms beside their wall seconds);
+   ``stream_population`` (bench.py's ``stream`` leg: an MLP on
+   ``synthetic_stream_shards`` populations of 16-sample shards, a cohort
+   of 256, 8 rounds, hashed at N = 1e5 and 1e6 and exact at 1e5: cohort
+   rate, ``sample_ms``, overlap, host store MiB, and a device peak at
+   most 1.05x the hashed 1e5 run's plus 64 MiB); ``churn_headline``
+   (bench.py's ``churn`` leg: the headline streamed + hashed with a 25%
+   cohort, 4 rounds plus the first, static then dynamic toward 10x
+   growth: finite losses, a grown population, valid v9 records;
+   ``churn_overhead_ratio`` and ``population_summary`` printed).
 3. A profiler pass per algorithm (5 clients, 2 rounds) and one of the
    headline (10 clients, 2 rounds): device busy time, idle share, and the
    host operators with the most self time. Then the batched layers alone
@@ -1101,6 +1125,10 @@ def run_path(torch, gn, wg, name, config, post_round_probe=None,
         "telemetry": {k: result[k] for k in (
             "telemetry_level", "post_warmup_compiles", "clients_flagged")},
     }
+    if result["client_residency"] == "streamed":
+        out["stream"] = {k: result[k] for k in STREAM_KEYS}
+    if result["population_summary"] is not None:
+        out["population_summary"] = result["population_summary"]
     if keep_params:
         out["global_params"] = result["global_params"]
     return out
@@ -2367,13 +2395,13 @@ def fitted_efficiency(ledger: dict) -> dict:
 
 
 def profile_costmodel(torch, gn, wg, work):
-    """Phase 2o: ``profile_costmodel``. The ``fed`` main path at 5 clients
-    for 3 rounds with ``profile_dir`` set and ``profile_from_round=2`` (the
-    profiler records round 2: with recorded shapes torch.profiler keeps a
-    profiled round's operator inputs alive until the session ends, which
-    at 10 clients went past the card's 80 GB within one round), then the
-    same configuration with ``cost_model_trace`` reading that directory
-    (``cost_model_trace_rounds=1``). Fails unless the trace holds
+    """Phase 2o: ``profile_costmodel``. The ``fed`` main path at 10 clients
+    for 3 rounds with ``profile_dir`` set and ``profile_from_round=1`` (a
+    2-round window, one profiler window per training step:
+    utils/tracing.py), then the same configuration with
+    ``cost_model_trace`` reading that directory
+    (``cost_model_trace_rounds=2``); prints the profiled run's peak device
+    memory beside this unprofiled run's. Fails unless the trace holds
     ``dls::group_norm`` and ``dls::conv3x3_wgrad`` kernels with nonzero
     bytes, the ``matmul_conv`` category has nonzero FLOPs, and the last
     record's v6 ``costmodel`` predicts a finite positive round on
@@ -2387,8 +2415,8 @@ def profile_costmodel(torch, gn, wg, work):
     trace_dir = os.path.join(work, "profile")
     shutil.rmtree(trace_dir, ignore_errors=True)
     cfg = dataclasses.replace(
-        path_configs(5, 500, 1000, "WARNING")["fed"], round=3,
-        profile_dir=trace_dir, profile_from_round=2)
+        path_configs(10, 1000, 1000, "WARNING")["fed"], round=3,
+        profile_dir=trace_dir, profile_from_round=1)
     t0 = time.perf_counter()
     prof = run_path(torch, gn, wg, "profile_fed", cfg)
     traced_s = time.perf_counter() - t0
@@ -2421,7 +2449,7 @@ def profile_costmodel(torch, gn, wg, work):
              f"{ledger.get('matmul_conv')}")
     res = run_path(torch, gn, wg, "costmodel_fed", dataclasses.replace(
         cfg, profile_dir=None, cost_model_trace=trace_dir,
-        cost_model_trace_rounds=1))
+        cost_model_trace_rounds=2))
     cm = res["history"][-1].get("costmodel")
     if cm is None or not (math.isfinite(cm["predicted_ms"])
                           and cm["predicted_ms"] > 0
@@ -2437,7 +2465,15 @@ def profile_costmodel(torch, gn, wg, work):
            "costmodel": cm, "fitted_efficiency": fit,
            "profiled_run_seconds": traced_s, "trace_parse_seconds": parse_s,
            "profiled_round_seconds": prof["round_seconds"],
-           "round_seconds": res["round_seconds"]}
+           "round_seconds": res["round_seconds"],
+           "trace_files": len(tracing.trace_files(trace_dir)),
+           "profiled_peak_bytes": prof["peak_memory_bytes"],
+           "unprofiled_peak_bytes": res["peak_memory_bytes"]}
+    log(f"profile_costmodel: peak device memory "
+        f"{prof['peak_memory_bytes'] / 2**30:.2f} GiB profiled (2-round "
+        f"window, {out['trace_files']} trace files) against "
+        f"{res['peak_memory_bytes'] / 2**30:.2f} GiB unprofiled (ratio "
+        f"{prof['peak_memory_bytes'] / res['peak_memory_bytes']:.2f})")
     log(f"profile_costmodel: ledger per round {per_round}; own kernels "
         f"{own}; predicted {cm['predicted_ms']} ms against measured "
         f"{cm['measured_ms']} ms (ratio {cm['model_error_ratio']}), "
@@ -2599,6 +2635,376 @@ def async_fed(torch, gn, wg, log_root):
         f"sync fed; round seconds async {res['round_seconds']}, sync "
         f"{plain['round_seconds']}")
     return res
+
+
+STREAM_KEYS = ("stream_overlap_ratio", "stream_h2d_bytes",
+               "stream_d2h_bytes", "stream_sample_seconds")
+OOM_CLIENTS = 1000
+STREAM_FLAGSHIP_CLIENTS = 400
+STREAM_COHORT, STREAM_SHARD, STREAM_ROUNDS = 256, 16, 8
+STREAM_POPULATIONS = ((100_000, "hashed"), (100_000, "exact"),
+                      (1_000_000, "hashed"))
+CHURN_CLIENTS, CHURN_ROUNDS, CHURN_GROWTH = 1000, 4, 10.0
+
+
+def oom_config():
+    """``oom_hint``'s round: ``fed`` at the flagship settings, 1000
+    clients, the whole population as one chunk (more than the card
+    holds), one round."""
+    import dataclasses
+
+    return dataclasses.replace(
+        path_configs(OOM_CLIENTS, 50000, 2000, "WARNING")["fed"], round=1,
+        client_chunk_size=OOM_CLIENTS)
+
+
+def model_param_count(config) -> int:
+    """The parameters of ``config``'s model on cifar10 (the flat layout's
+    length), counted from the module: nothing is initialized or placed."""
+    from distributed_learning_simulator_tpu_torch.models.registry import (
+        get_model,
+    )
+
+    model = get_model(config.model_name, num_classes=10,
+                      input_shape=(32, 32, 3), **config.model_args)
+    return sum(p.numel() for p in model.parameters())
+
+
+def oom_hint(torch, gn, wg):
+    """Phase 2t: ``oom_hint``. The round of :func:`oom_config` must
+    raise the JAX package's ``_oom_hint`` text for its config and
+    parameter count (a ``client_chunk_size=`` below 1000), chained from a
+    ``torch.OutOfMemoryError``; once the exception is dropped, the card's
+    allocated memory must be back within 64 MiB of its level before the
+    phase. Then ``_assert_client_stack_feasible`` for GTG at N=1000 with
+    ResNet-18 must refuse before anything is allocated."""
+    import dataclasses
+    import gc
+
+    from distributed_learning_simulator_tpu_torch import simulator
+
+    device = torch.device("cuda")
+    config = oom_config()
+    n_params = model_param_count(config)
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    gn.reset_launch_counts()
+    wg.reset_launch_counts()
+    text = cause = None
+    t0 = time.perf_counter()
+    try:
+        simulator.run_simulation(config, setup_logging=False)
+    except RuntimeError as e:
+        text, cause = str(e), type(e.__cause__).__name__
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    after_drop = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.synchronize()
+    after_gc = torch.cuda.memory_allocated()
+    if text is None:
+        fail(f"oom_hint: a {OOM_CLIENTS}-client chunk fit the card")
+    try:
+        with simulator._oom_hint(config, n_params, OOM_CLIENTS, device):
+            raise torch.OutOfMemoryError("CUDA out of memory")
+    except RuntimeError as e:
+        want = str(e)
+    m = re.search(r"Try client_chunk_size=(\d+)\.", text)
+    if text != want or cause != "OutOfMemoryError" or not m or not (
+            int(m.group(1)) < OOM_CLIENTS):
+        fail(f"oom_hint: {text!r} chained from {cause}; expected {want!r} "
+             "chained from OutOfMemoryError")
+    if after_drop - before > 64 * 2**20:
+        fail(f"oom_hint: {(after_drop - before) / 2**20:.1f} MiB still "
+             "allocated after the exception was dropped")
+    gtg = dataclasses.replace(config, distributed_algorithm="GTG_shapley_value")
+    refused = None
+    start = torch.cuda.memory_allocated()
+    try:
+        simulator._assert_client_stack_feasible(gtg, n_params, OOM_CLIENTS,
+                                                device)
+    except ValueError as e:
+        refused = str(e)
+    if refused is None or "parameter stack" not in refused or (
+            torch.cuda.memory_allocated() != start):
+        fail(f"oom_hint: GTG at N={OOM_CLIENTS} not refused before any "
+             f"allocation: {refused!r}")
+    out = {"text": text, "suggested_chunk": int(m.group(1)),
+           "seconds": seconds, "allocated_before": before,
+           "allocated_after_drop": after_drop,
+           "allocated_after_gc": after_gc, "stack_refusal": refused,
+           "launches": {"gn_stats": gn.gn_stats.launches,
+                        "conv3x3_wgrad": wg.conv3x3_wgrad.launches}}
+    log(f"oom_hint: {text!r} after {seconds:.1f} s; allocated "
+        f"{before / 2**20:.1f} MiB before, {after_drop / 2**20:.1f} MiB "
+        f"once dropped, {after_gc / 2**20:.1f} MiB after gc; GTG refused: "
+        f"{refused!r}")
+    return out
+
+
+def stream_flagship_configs():
+    """``stream_flagship``'s resident configurations (each also runs with
+    ``client_residency='streamed'``): ``fed`` at the flagship settings
+    with 400 clients and a hashed 10% cohort (40 clients, one chunk), 3
+    rounds; ``sign_SGD`` as its main path (50 clients, momentum 0.9, f32,
+    the full cohort: one upload, persistent state)."""
+    import dataclasses
+
+    fed = dataclasses.replace(
+        path_configs(STREAM_FLAGSHIP_CLIENTS, 40000, 2000, "WARNING")["fed"],
+        round=3, participation_fraction=0.1, participation_sampler="hashed")
+    sign = path_configs(50, 5000, 2000, "WARNING")["sign_SGD"]
+    return {"fed": fed, "sign_SGD": sign}
+
+
+def _without_stream(history):
+    return [{k: v for k, v in r.items()
+             if k not in ("round_seconds", "stream", "schema_version")}
+            for r in history]
+
+
+def stream_flagship(torch, gn, wg, work):
+    """Phase 2u: ``stream_flagship``. Each configuration of
+    :func:`stream_flagship_configs` resident and streamed, in the order
+    resident, streamed, streamed, resident, each run through run_path's
+    launch gates: every run's global parameters and history must be
+    bitwise the first resident run's, and the streamed records valid v5
+    records (a full cohort's one upload on its first record only). Prints
+    round seconds, the median round after round 0 of each residency, the
+    overlap ratio, H2D MiB and both peaks. Then :func:`trace_residency`
+    for each configuration. Returns ``({name: {label: run}}, {name:
+    trace})``."""
+    import dataclasses
+
+    schema = _schema()
+    out = {}
+    for name, config in stream_flagship_configs().items():
+        # In turns, resident streamed streamed resident, so that the two
+        # meet the same host.
+        order = ("resident", "streamed", "streamed", "resident")
+        runs = {}
+        for residency in order:
+            label = residency if residency not in runs else f"{residency}_2"
+            runs[label] = run_path(
+                torch, gn, wg, f"stream_{name}_{label}",
+                dataclasses.replace(config, client_residency=residency),
+                keep_params=True)
+        res, st = runs["resident"], runs["streamed"]
+        for label, run in runs.items():
+            if _without_stream(res["history"]) != _without_stream(
+                    run["history"]):
+                fail(f"stream_flagship {name}: {label} history differs "
+                     "from resident")
+            for k, v in res["global_params"].items():
+                if not torch.equal(v, run["global_params"][k]):
+                    fail(f"stream_flagship {name}: {label} parameter {k} "
+                         "differs")
+        # A sampled cohort uploads every round; a full cohort once, on the
+        # first record (the later ones are the resident run's v1 records).
+        uploads = (st["history"] if config.cohort_size()
+                   < config.worker_number else st["history"][:1])
+        _check_records(f"stream_{name}", uploads, schema, 5)
+        for rec in st["history"][len(uploads):]:
+            if schema_errors(rec, schema) or "schema_version" in rec:
+                fail(f"stream_{name} round {rec['round']}: not a plain v1 "
+                     "record")
+        for r in runs.values():
+            r.pop("global_params")
+        out[name] = runs
+        steady = {
+            residency: statistics.median(
+                x for label, r in runs.items() if label.startswith(residency)
+                for x in r["round_seconds"][1:])
+            for residency in ("resident", "streamed")}
+        s = st["stream"]
+        log(f"stream_flagship {name}: bitwise resident; round seconds "
+            + "; ".join(f"{label} {r['round_seconds']}"
+                        for label, r in runs.items())
+            + f" (median after round 0: resident {steady['resident']:.4f}, "
+            f"streamed {steady['streamed']:.4f}); overlap "
+            f"{s['stream_overlap_ratio']:.4f}, H2D "
+            f"{s['stream_h2d_bytes'] / 2**20:.1f} MiB, D2H "
+            f"{s['stream_d2h_bytes'] / 2**20:.1f} MiB; peak "
+            f"{res['peak_memory_bytes'] / 2**30:.2f} GiB resident, "
+            f"{st['peak_memory_bytes'] / 2**30:.2f} GiB streamed")
+    traces = {name: trace_residency(torch, gn, wg, config, os.path.join(
+        work, "residency_trace", name))
+        for name, config in stream_flagship_configs().items()}
+    return out, traces
+
+
+def trace_residency(torch, gn, wg, config, trace_root):
+    """One profiled round (round 1 of 2, ``profile_dir`` with
+    ``profile_from_round=1``) of ``config`` resident and then streamed,
+    each through run_path's gates: the round's device busy milliseconds
+    (utils/tracing.parse_device_trace, the sum of its device ops) beside
+    its wall seconds, so that a gap between the two residencies shows as
+    device work or as host time. The profiler synchronizes at each
+    training step (utils/tracing.profile_step), so these wall seconds are
+    the profiled round's, not the plain round's."""
+    import dataclasses
+
+    from distributed_learning_simulator_tpu_torch.utils import tracing
+
+    out = {}
+    for residency in ("resident", "streamed"):
+        trace_dir = os.path.join(trace_root, residency)
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        run = run_path(
+            torch, gn, wg, f"trace_{config.distributed_algorithm}_"
+            f"{residency}", dataclasses.replace(
+                config, client_residency=residency, round=2,
+                profile_dir=trace_dir, profile_from_round=1))
+        dev = tracing.parse_device_trace(trace_dir)
+        out[residency] = {"round_seconds": run["round_seconds"],
+                          "device_ms": dev["device_ms"],
+                          "op_count": dev["op_count"],
+                          "peak_memory_bytes": run["peak_memory_bytes"]}
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    r, s = out["resident"], out["streamed"]
+    log(f"trace {config.distributed_algorithm}: profiled round 1 device "
+        f"busy {r['device_ms']:.1f} ms in {r['op_count']} ops, wall "
+        f"{r['round_seconds'][1]:.4f} s resident; {s['device_ms']:.1f} ms "
+        f"in {s['op_count']} ops, wall {s['round_seconds'][1]:.4f} s "
+        "streamed")
+    return out
+
+
+def stream_population_config(n_clients: int, sampler: str):
+    """bench.py's ``stream`` leg: an MLP on the synthetic dataset, shards
+    of 16, a cohort of 256, 8 rounds, streamed."""
+    from distributed_learning_simulator_tpu_torch.config import (
+        ExperimentConfig,
+    )
+
+    return ExperimentConfig(
+        dataset_name="synthetic", model_name="mlp",
+        distributed_algorithm="fed", worker_number=n_clients,
+        round=STREAM_ROUNDS, epoch=1, learning_rate=0.1,
+        batch_size=STREAM_SHARD, eval_batch_size=512,
+        participation_fraction=STREAM_COHORT / n_clients,
+        participation_sampler=sampler, client_residency="streamed",
+        log_level="WARNING", device="cuda")
+
+
+def stream_population(torch, gn, wg):
+    """Phase 2v: ``stream_population``, bench.py's ``stream`` leg: the
+    synthetic pool min-max scaled into the uint8-compact layout, a
+    population of shards from ``synthetic_stream_shards``, hashed at
+    N = 1e5 and 1e6 and exact at 1e5. Prints the cohort rate, the steady
+    ``sample_ms``, the overlap ratio, the host store's MiB and the device
+    peak; the peak of every run must be at most 1.05x the hashed 1e5
+    run's plus 64 MiB (the device holds the cohort, not the
+    population)."""
+    import numpy as np
+
+    from distributed_learning_simulator_tpu_torch.data.registry import (
+        Dataset,
+        get_dataset,
+    )
+    from distributed_learning_simulator_tpu_torch.data.residency import (
+        synthetic_stream_shards,
+    )
+    from distributed_learning_simulator_tpu_torch.simulator import (
+        run_simulation,
+    )
+
+    ds = get_dataset("synthetic", n_train=4096, n_test=512, seed=0)
+    lo, hi = float(ds.x_train.min()), float(ds.x_train.max())
+
+    def scale(x):
+        return ((x - lo) / (hi - lo)).astype(np.float32)
+
+    ds = Dataset(ds.name, scale(ds.x_train), ds.y_train, scale(ds.x_test),
+                 ds.y_test, ds.num_classes)
+    rows = []
+    shards = {}
+    for n, sampler in STREAM_POPULATIONS:
+        if n not in shards:
+            shards.clear()
+            t0 = time.perf_counter()
+            shards[n] = synthetic_stream_shards(
+                ds.x_train, ds.y_train, n, STREAM_SHARD, seed=0)
+            build_s = time.perf_counter() - t0
+        cd = shards[n]
+        config = stream_population_config(n, sampler)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        result = run_simulation(config, dataset=ds, client_data=cd,
+                                setup_logging=False)
+        torch.cuda.synchronize()
+        hist = result["history"]
+        if len(hist) != config.round or not all(
+                math.isfinite(h["test_loss"]) for h in hist):
+            fail(f"stream_population N={n} {sampler}: {hist}")
+        steady = [h["round_seconds"] for h in hist[1:]]
+        sample_ms = [h["stream"]["sample_ms"] for h in hist[1:]
+                     if "sample_ms" in h.get("stream", {})]
+        rows.append({
+            "n_clients": n, "sampler": sampler,
+            "cohort_rate": STREAM_COHORT * len(steady) / sum(steady),
+            "round_ms": 1e3 * statistics.median(steady),
+            "sample_ms": statistics.median(sample_ms) if sample_ms else None,
+            "overlap_ratio": result["stream_overlap_ratio"],
+            "h2d_mib": result["stream_h2d_bytes"] / 2**20,
+            "host_store_mib": (cd.x.nbytes + cd.y.nbytes + cd.mask.nbytes
+                               + cd.sizes.nbytes) / 2**20,
+            "shards_build_s": build_s,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+        })
+        log(f"stream_population: {rows[-1]}")
+    base = rows[0]["peak_bytes"]
+    for r in rows:
+        if r["peak_bytes"] > 1.05 * base + 64 * 2**20:
+            fail(f"stream_population: peak {r['peak_bytes']} at N="
+                 f"{r['n_clients']} {r['sampler']} against {base} at "
+                 f"N={rows[0]['n_clients']} {rows[0]['sampler']}")
+    return rows
+
+
+def churn_configs():
+    """bench.py's ``churn`` leg on the headline: 1000 IID clients, chunk
+    250, streamed + hashed, a 25% cohort (one chunk), 4 rounds plus the
+    first; static, then dynamic growing toward 10x (``join_rate =
+    round(9 * 1000 / 5)``), departures 0.01, drift 0.02 at factor 0.5."""
+    import dataclasses
+
+    static = dataclasses.replace(
+        headline_config(CHURN_CLIENTS, None, None, 10000, "WARNING"),
+        round=CHURN_ROUNDS + 1, client_residency="streamed",
+        participation_sampler="hashed", participation_fraction=0.25)
+    join_rate = round((CHURN_GROWTH - 1.0) * CHURN_CLIENTS
+                      / (CHURN_ROUNDS + 1))
+    dynamic = dataclasses.replace(
+        static, population="dynamic", join_rate=float(join_rate),
+        depart_rate=0.01, drift_fraction=0.02, drift_factor=0.5)
+    return {"static": static, "dynamic": dynamic}
+
+
+def churn_headline(torch, gn, wg):
+    """Phase 2w: ``churn_headline``: each of :func:`churn_configs` through
+    run_path (no GroupNorm, no wgrad: the CNN has neither); finite losses,
+    a population that grew, and valid v9 records. Prints
+    ``churn_overhead_ratio`` (the dynamic run's median steady round over
+    the static run's, minus one; not gated) and ``population_summary``."""
+    runs = {name: run_path(torch, gn, wg, f"churn_{name}", config,
+                           gn_per_forward=0, wgrad_per_step=0,
+                           n_train=50000)
+            for name, config in churn_configs().items()}
+    dyn = runs["dynamic"]
+    summary = dyn["population_summary"]
+    if not summary or summary["n_registered"] <= CHURN_CLIENTS:
+        fail(f"churn_headline: the population did not grow: {summary}")
+    _check_records("churn_dynamic", dyn["history"], _schema(), 9)
+    med = {name: statistics.median(r["round_seconds"][1:])
+           for name, r in runs.items()}
+    ratio = med["dynamic"] / med["static"] - 1.0
+    log(f"churn_headline: median steady round {med['static']:.4f} s "
+        f"static, {med['dynamic']:.4f} s dynamic, churn_overhead_ratio "
+        f"{ratio:.4f}; population_summary {summary}")
+    return {"runs": runs, "median_round_s": med,
+            "churn_overhead_ratio": ratio}
 
 
 def profile_rounds(torch, name, config):
@@ -3058,6 +3464,18 @@ def main() -> None:
     batching = phase("round_batch", round_batch, torch, gn, wg, log_root)
     paths["async_fed"] = phase("async_fed", async_fed, torch, gn, wg,
                                log_root)
+    oom = phase("oom_hint", oom_hint, torch, gn, wg)
+    streamed, residency_trace = phase("stream_flagship", stream_flagship,
+                                      torch, gn, wg,
+                                      os.path.abspath(args.out))
+    for name, runs in streamed.items():
+        for residency, run in runs.items():
+            paths[f"stream_{name}_{residency}"] = run
+    population = phase("stream_population", stream_population, torch, gn,
+                       wg)
+    churn = phase("churn_headline", churn_headline, torch, gn, wg)
+    for name, run in churn["runs"].items():
+        paths[f"churn_{name}"] = run
     # The ResNet paths at 5 clients (10 before the headline path: the
     # profiler's trace processing took most of the run), the headline at
     # 10 (50 samples each, as at 1000) with a 1000-sample eval.
@@ -3134,6 +3552,9 @@ def main() -> None:
                    "gn_autodiff": autodiff, "client_stats_detect": detect,
                    "threaded_algos": oracle_algos,
                    "profile_costmodel": costmodel, "round_batch": batching,
+                   "oom_hint": oom, "stream_population": population,
+                   "residency_trace": residency_trace,
+                   "churn_overhead_ratio": churn["churn_overhead_ratio"],
                    "phase_seconds": phase_seconds},
                   f, indent=1)
     if "jax" in sys.modules:

@@ -46,12 +46,29 @@ class Algorithm:
     supports_round_batching: bool = False
     #: The round function takes the staleness buffer (async_mode='on').
     supports_async: bool = False
+    #: The algorithm runs under ``client_residency='streamed'``. A sampled
+    #: cohort's round takes the streamed calling convention:
+    #: ``round_fn(global_flat, state_k, x_k, y_k, m_k, part_sizes, idx,
+    #: key, lr_scale=1.0, ...)``, the cohort's slices gathered beforehand
+    #: from the host shard store and ``idx`` its true client ids; the
+    #: cohort's new state is returned, not scattered. FedAvg builds it. A
+    #: full cohort (sign_SGD's vote over everyone, or participation 1)
+    #: keeps the resident round, run on the population's arrays uploaded
+    #: once. The Shapley algorithms refuse.
+    supports_streamed_residency: bool = False
 
     def __init__(self, config):
         self.config = config
 
     def check_cohort(self, n_clients: int) -> None:
         """Validate the actual client count before any training runs."""
+
+    @property
+    def materializes_client_stack(self) -> bool:
+        """Whether the round holds the cohort's ``[cohort, P]`` f32 stack
+        (the simulator sizes it against the device budget first); FedAvg
+        widens it with its materializing path."""
+        return bool(self.keep_client_params)
 
     def make_round_fn(self, apply_fn: Callable, optimizer, layout,
                       n_clients: int, preprocess: Callable | None = None,
@@ -86,6 +103,26 @@ class Algorithm:
         means the round aggregate becomes the next global model
         unchanged."""
         return None
+
+    def cohort_indices(self, round_key, n_clients: int, alive=None,
+                       n_participants=None):
+        """The host's copy of the round's cohort draw from ``round_key``:
+        the true client ids the round trains, or None when the cohort is
+        the whole population. ``alive`` and ``n_participants`` are the
+        dynamic population's draw over the registered index space with the
+        departed masked, at the startup cohort size. The default is the
+        whole population."""
+        return None
+
+    def gather_client_state(self, store, idx):
+        """The cohort's rows of the host store's persistent per-client
+        state (streamed residency's mirror of ops/cohort.cohort_take)."""
+        return store.gather_state(idx)
+
+    def scatter_client_state(self, store, idx, cohort_state) -> None:
+        """Write a round's cohort state (host arrays) back into the host
+        store (the mirror of ops/cohort.cohort_scatter)."""
+        store.scatter_state(idx, cohort_state)
 
     def prepare(self, apply_fn, eval_fn, eval_batches=None) -> None:
         """One-time setup after the engine is built; ``eval_batches`` is

@@ -228,17 +228,29 @@ class FedAvg(Algorithm):
         self._eval_fn = eval_fn
         self._eval_batches = eval_batches
 
-    def cohort_indices(self, round_key, n_clients: int):
+    #: The streamed round is the resident round after the gather
+    #: (``make_round_fn`` builds it under client_residency='streamed'
+    #: with a sampled cohort);
+    #: fed_quant inherits it.
+    supports_streamed_residency = True
+
+    def cohort_indices(self, round_key, n_clients: int, alive=None,
+                       n_participants=None):
         """The round's cohort (true client ids) as ``make_round_fn``'s round
-        draws it from ``round_key``; None under full participation."""
+        draws it from ``round_key``; None under full participation.
+        ``alive`` (bool ``[n_clients]``) and ``n_participants`` are the
+        dynamic population's: a hashed draw over the registered index space
+        with the departed masked, at the startup cohort size
+        (ops/sampling.py validates the mask)."""
         cfg = self.config
-        n_participants = cfg.cohort_size(n_clients)
+        if n_participants is None:
+            n_participants = cfg.cohort_size(n_clients)
         if n_participants == n_clients:
             return None
         with_faults = FailureModel.from_config(cfg) is not None
         return draw_cohort_host(
             round_key_splits(round_key, with_faults)[0], n_clients,
-            n_participants, cfg.participation_sampler.lower(),
+            n_participants, cfg.participation_sampler.lower(), alive=alive,
         )
 
     # Template hooks (identity here; fed_quant overrides them). The payload
@@ -370,7 +382,7 @@ class FedAvg(Algorithm):
 
         def round_fn(global_flat, client_state, cx, cy, cmask, sizes, key,
                      lr_scale=1.0, client_rng=None, payload_salts=None,
-                     async_state=None):
+                     async_state=None, cohort=None, departed=None):
             """``sizes`` is the host f32 ``[n_clients]`` weight vector,
             ``key`` the round key (ops/prng.py); ``client_state`` is None,
             or with ``reset_client_optimizer=False`` each client's optimizer
@@ -391,7 +403,17 @@ class FedAvg(Algorithm):
 
             ``async_state`` (async_mode='on'): the staleness buffer
             (``AsyncFederation.init_state``); the next one is
-            ``aux["async_state"]``."""
+            ``aux["async_state"]``.
+
+            ``cohort`` (the streamed entry below) is ``(ids, rows)``: the
+            arguments are then already the cohort's (its data slices,
+            sizes and state), ``ids`` its true client ids and ``rows`` the
+            rows of ``cx``/``cy``/``cmask`` that hold them, and the
+            cohort's new state is returned unscattered. The same body
+            serves both, which is what makes the two residency modes
+            bitwise equal. ``departed`` (bool per cohort position,
+            population='dynamic') zeroes the weight of a member that
+            departs this round and counts it against the quorum floor."""
             if af is not None and async_state is None:
                 raise ValueError(
                     "async_mode='on' round program needs the async_state "
@@ -401,9 +423,17 @@ class FedAvg(Algorithm):
                 key, fm is not None)
             failed = (fm.draw_failed(fault_key, n_participants)
                       if fm is not None else None)
-            ids = self.cohort_indices(key, n_clients)
-            if ids is None:
-                ids = np.arange(n_clients)
+            if cohort is None:
+                ids = self.cohort_indices(key, n_clients)
+                if ids is None:
+                    ids = np.arange(n_clients)
+                data_rows = ids
+                part_sizes = np.asarray(sizes, dtype=np.float32)[ids]
+                state_k = cohort_take(client_state, ids)
+            else:
+                ids, data_rows = cohort
+                part_sizes = np.asarray(sizes, dtype=np.float32)
+                state_k = client_state
             client_keys = prng.split(train_key, n_participants)
             pos_of = {int(i): p for p, i in enumerate(ids)}
             if materialize:
@@ -428,7 +458,10 @@ class FedAvg(Algorithm):
             elif payload_salts is None:
                 def payload_salts(i):
                     return None
-            part_sizes = np.asarray(sizes, dtype=np.float32)[ids]
+            if departed is not None:
+                # A member departing mid-round contributes nothing: the
+                # rest of the cohort renormalizes, as under dropout.
+                part_sizes = part_sizes * (~departed).astype(np.float32)
             survival = None if failed is None else ~failed
             routed_late = None
             if failed is not None and fm.excludes_update:
@@ -466,7 +499,6 @@ class FedAvg(Algorithm):
             losses = torch.zeros(n_participants, device=global_flat.device)
             accs = torch.zeros_like(losses)
             eval_accs = torch.zeros_like(losses) if client_eval else None
-            state_k = cohort_take(client_state, ids)
             stat_rows = None
             if cs is not None:
                 # Per-client rows, zero for a client the round skips.
@@ -483,7 +515,7 @@ class FedAvg(Algorithm):
                 """The cohort positions ``members`` as one chunk on their
                 first ``slots`` slots; returns their ``[M, P]`` params."""
                 pos = to_device(members, global_flat.device, torch.long)
-                rows = to_device(ids[members], cx.device, torch.long)
+                rows = to_device(data_rows[members], cx.device, torch.long)
                 perms, salts, aug_keys = stack_draws(
                     [client_rng(int(ids[p]), slots) for p in members])
                 old_state = cohort_take(state_k, pos)
@@ -606,6 +638,10 @@ class FedAvg(Algorithm):
                 # Rejected when the survivors fall below min_survivors or the
                 # aggregate is not finite (the plain mean would carry a NaN
                 # upload into the global model for good).
+                if departed is not None:
+                    # Departures alone can push a round below the floor.
+                    survival = (~departed if survival is None
+                                else survival & ~departed)
                 survivor_count = (int(survival.sum()) if survival is not None
                                   else n_participants)
                 rejected = (~finite_flag(new_global)
@@ -647,15 +683,52 @@ class FedAvg(Algorithm):
                 "mean_client_loss": losses.mean(),
                 **agg_aux,
             })
-            if sampled:
-                aux["participants"] = np.asarray(ids)
             if client_eval:
                 aux["client_eval_accuracy"] = eval_accs
+            if cohort is not None:
+                return new_global, state_k, aux
+            if sampled:
+                aux["participants"] = np.asarray(ids)
             if state_k is not None:
                 client_state = cohort_scatter(client_state, ids, state_k)
             return new_global, client_state, aux
 
-        return round_fn
+        if (cfg.client_residency.lower() != "streamed"
+                or cfg.cohort_size(n_clients) >= n_clients):
+            # A full streamed cohort runs the resident round on the
+            # population's arrays, uploaded once.
+            return round_fn
+        dyn = cfg.population.lower() == "dynamic"
+
+        def round_fn_streamed(global_flat, state_k, x_k, y_k, m_k,
+                              part_sizes, idx, key, lr_scale=1.0,
+                              client_rng=None, payload_salts=None,
+                              async_state=None, departed=None):
+            """The streamed calling convention (algorithms/base.py): the
+            cohort's slices arrive gathered from the host shard store,
+            ``idx`` is its true client ids, and the cohort's new state is
+            returned for the streamer to write back. The round key splits
+            as in the resident round (the host drew the cohort from its
+            ``part_key``). ``departed`` (population='dynamic', required
+            there) is the registration stream's departure mask over the
+            cohort."""
+            if dyn and departed is None:
+                raise ValueError(
+                    "population='dynamic' round program needs the "
+                    "departed operand "
+                    "(PopulationModel.cohort_departed_mask)"
+                )
+            cohort = (np.asarray(idx), np.arange(len(idx)))
+            new_global, state_k, aux = round_fn(
+                global_flat, state_k, x_k, y_k, m_k, part_sizes, key,
+                lr_scale, client_rng, payload_salts, async_state,
+                cohort=cohort,
+                departed=(np.asarray(departed, dtype=bool)
+                          if dyn else None))
+            aux["participants"] = cohort[0]
+            return new_global, state_k, aux
+
+        return round_fn_streamed
 
     def make_valuation_audit_fn(self, apply_fn, optimizer, layout,
                                 preprocess=None, device=None):

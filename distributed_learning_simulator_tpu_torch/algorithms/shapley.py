@@ -42,6 +42,7 @@ from __future__ import annotations
 import math
 import os
 import pickle
+import traceback
 from itertools import combinations
 
 import numpy as np
@@ -61,6 +62,7 @@ from distributed_learning_simulator_tpu_torch.telemetry.client_stats import (
     ClientStats,
     attribution_crosscheck,
 )
+from distributed_learning_simulator_tpu_torch.utils.errors import is_device_oom
 from distributed_learning_simulator_tpu_torch.utils.logging import get_logger
 from distributed_learning_simulator_tpu_torch.utils.reporting import (
     cohort_crc,
@@ -357,17 +359,50 @@ class _SubsetEvaluator:
         with torch.no_grad():
             return self._batched[n](models, *eval_batches)["accuracy"]
 
+    def _reraise_oom(self, e, n_models: int, eval_batches,
+                     min_chunk: int = 1):
+        """Re-raise a device OOM of a subset evaluation with the JAX
+        package's hint (``_SubsetEvaluator._reraise_oom``): ``n_models``
+        subset models times the eval set's activations were resident at
+        once; it names ``shapley_eval_chunk`` (never below ``min_chunk``,
+        the cumsum walk's one prefix block) and ``shapley_eval_samples``.
+        The OOM's finished frames are cleared first, so the chained cause
+        holds no tensor."""
+        traceback.clear_frames(e.__traceback__)
+        xb = eval_batches[0]
+        n_eval = int(xb.shape[0]) * int(xb.shape[1])
+        suggestion = max(self._chunk // 4, min_chunk)
+        chunk_advice = (
+            f"Lower shapley_eval_chunk (e.g. {suggestion}) or cap "
+            if suggestion < self._chunk
+            else f"shapley_eval_chunk={self._chunk} is already minimal — cap "
+        )
+        raise RuntimeError(
+            "device OOM inside the Shapley subset evaluator: "
+            f"{n_models} subset models x ~{n_eval} "
+            "eval samples of activations were resident at once. "
+            + chunk_advice +
+            "shapley_eval_samples (subset utilities only; the "
+            "round metric keeps the full test set)."
+        ) from e
+
     def __call__(self, client_params, sizes, masks, prev_global,
                  eval_batches) -> np.ndarray:
         """``masks``: ``[M, n]`` numpy 0/1. Returns ``[M]`` accuracies."""
         accs = []
-        for start in range(0, len(masks), self._chunk):
-            models = subset_weighted_mean(
-                client_params, sizes, masks[start:start + self._chunk],
-                prev_global,
-            )
-            accs.append(self._accuracies(models, eval_batches))
-        return torch.cat(accs).float().cpu().numpy()
+        try:
+            for start in range(0, len(masks), self._chunk):
+                models = subset_weighted_mean(
+                    client_params, sizes, masks[start:start + self._chunk],
+                    prev_global,
+                )
+                accs.append(self._accuracies(models, eval_batches))
+            return torch.cat(accs).float().cpu().numpy()
+        except RuntimeError as e:
+            if not is_device_oom(e):
+                raise
+            accs.clear()
+            self._reraise_oom(e, self._chunk, eval_batches)
 
     def prefix_wave(self, client_params, sizes, carry, carry_t, perm_block,
                     prev_global, eval_batches):
@@ -440,22 +475,33 @@ class _CumsumPrefixWalker:
         carry, carry_t = self._wave_carries(active)
         pending = []
         new_carries = []
-        for start in range(0, len(active), g_size):
-            group = active[start:start + g_size]
-            # A short final block pads its trailing positions with client
-            # 0: that corrupts the carry past position n-1, which no later
-            # block reads.
-            block = np.zeros((g_size, b_size), np.int64)
-            for g, p in enumerate(group):
-                block[g, : j1 - j0] = perms[p][j0:j1]
-            accs, nc, nct = self._ev.prefix_wave(
-                self._stack, self._sizes, carry[start:start + g_size],
-                carry_t[start:start + g_size], block, self._prev_global,
-                self._eval_batches,
-            )
-            pending.append((group, accs))
-            new_carries.append((nc, nct))
-        fetched = torch.stack([a for _, a in pending]).float().cpu().numpy()
+        try:
+            for start in range(0, len(active), g_size):
+                group = active[start:start + g_size]
+                # A short final block pads its trailing positions with
+                # client 0: that corrupts the carry past position n-1,
+                # which no later block reads.
+                block = np.zeros((g_size, b_size), np.int64)
+                for g, p in enumerate(group):
+                    block[g, : j1 - j0] = perms[p][j0:j1]
+                accs, nc, nct = self._ev.prefix_wave(
+                    self._stack, self._sizes, carry[start:start + g_size],
+                    carry_t[start:start + g_size], block, self._prev_global,
+                    self._eval_batches,
+                )
+                pending.append((group, accs))
+                new_carries.append((nc, nct))
+            fetched = torch.stack(
+                [a for _, a in pending]).float().cpu().numpy()
+        except RuntimeError as e:
+            if not is_device_oom(e):
+                raise
+            pending.clear()
+            new_carries.clear()
+            del carry, carry_t
+            # The call's floor is one prefix block of models.
+            self._ev._reraise_oom(e, g_size * b_size, self._eval_batches,
+                                  min_chunk=b_size)
         self._carry = torch.cat([nc for nc, _ in new_carries])
         self._carry_t = torch.cat([t for _, t in new_carries])
         self._row_of = {p: k for k, p in enumerate(active)}
@@ -502,6 +548,10 @@ def _check_shapley_config(config) -> None:
 class _ShapleyBase(FedAvg):
     """What both Shapley algorithms share: the client stack, the subset
     evaluator over flat models, and the per-round artifacts."""
+
+    #: The subset re-evaluation needs the cohort's stack on the device
+    #: every round: no streamed residency (JAX shapley.py).
+    supports_streamed_residency = False
 
     keep_client_params = True
     _default_eval_dtype = "float32"

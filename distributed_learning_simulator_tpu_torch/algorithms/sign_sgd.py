@@ -74,11 +74,18 @@ from distributed_learning_simulator_tpu_torch.robustness.faults import (
 from distributed_learning_simulator_tpu_torch.telemetry.client_stats import (
     ClientStats,
 )
+from distributed_learning_simulator_tpu_torch.utils.tracing import (
+    profile_step,
+)
 
 
 class SignSGD(Algorithm):
     name = "sign_SGD"
     supports_round_batching = True
+    #: Each step's vote takes every client (the constructor refuses
+    #: participation_fraction < 1), so under streamed residency the cohort
+    #: is the population: one upload at the start.
+    supports_streamed_residency = True
 
     def __init__(self, config):
         super().__init__(config)
@@ -249,6 +256,7 @@ class SignSGD(Algorithm):
                         step_agree.append(
                             0.5 + vote.abs().sum() / (2.0 * denom
                                                       * vote.numel()))
+                    profile_step()
                 epoch_loss = torch.stack(step_losses).mean()
                 if cs is not None:
                     epoch_agree.append(torch.stack(step_agree).mean())
@@ -277,6 +285,8 @@ class SignSGD(Algorithm):
             )
             return params, new_state, aux
 
+        # Streamed or not, the cohort is everyone: the resident program
+        # runs on the population's arrays, uploaded once.
         return round_fn
 
     def post_round(self, ctx):

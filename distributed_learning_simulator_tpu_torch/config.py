@@ -30,6 +30,8 @@ CLIENT_STATS_LEVELS = ("off", "on")
 PARTICIPATION_SAMPLERS = ("exact", "hashed")
 SWEEP_STRATEGIES = ("auto", "vmapped", "scheduled")
 POPULATION_MODES = ("static", "dynamic")
+#: The Shapley family (their population refusal names its cause).
+SHAPLEY_ALGORITHMS = ("multiround_shapley_value", "GTG_shapley_value")
 
 
 @dataclass
@@ -402,11 +404,30 @@ class ExperimentConfig:
                 f"unknown client_residency {self.client_residency!r}; "
                 "known: resident, streamed"
             )
+        if (
+            self.client_residency.lower() == "streamed"
+            and self.execution_mode.lower() == "threaded"
+        ):
+            raise ValueError(
+                "client_residency='streamed' requires the vmap "
+                "execution mode (the threaded oracle owns its own "
+                "per-worker data)"
+            )
         if self.population.lower() not in POPULATION_MODES:
             raise ValueError(
                 f"unknown population {self.population!r}; known: "
                 + ", ".join(POPULATION_MODES)
             )
+        if self.join_rate < 0.0:
+            raise ValueError("join_rate must be >= 0")
+        if not 0.0 <= self.depart_rate < 1.0:
+            raise ValueError("depart_rate must be in [0, 1)")
+        if not 0.0 <= self.drift_fraction <= 1.0:
+            raise ValueError("drift_fraction must be in [0, 1]")
+        if not 0.0 <= self.drift_factor <= 1.0:
+            raise ValueError("drift_factor must be in [0, 1]")
+        if self.population.lower() == "dynamic":
+            self._validate_dynamic()
         if self.rounds_per_dispatch < 1:
             raise ValueError("rounds_per_dispatch must be >= 1")
         if (
@@ -583,14 +604,86 @@ class ExperimentConfig:
                     "(single-process mesh_devices sharding is supported)"
                 )
 
+    def _validate_dynamic(self) -> None:
+        """population='dynamic': each composition it does not support is
+        refused with its cause, the JAX package's texts (the multihost
+        refusal is the port's NotImplementedError)."""
+        if self.execution_mode.lower() == "threaded":
+            raise ValueError(
+                "population='dynamic' requires the vmap execution "
+                "mode: the thread-per-client oracle spawns one OS "
+                "thread per client at startup and cannot register "
+                "or retire clients mid-run"
+            )
+        if self.distributed_algorithm not in ("fed", "fed_quant"):
+            cause = (
+                "its utility memo assumes a fixed cohort over a "
+                "fixed population"
+                if self.distributed_algorithm in SHAPLEY_ALGORITHMS
+                else "its round program does not take the dynamic-"
+                     "population departure operand (FedAvg family "
+                     "only: fed, fed_quant)"
+            )
+            raise ValueError(
+                f"algorithm {self.distributed_algorithm!r} does not "
+                f"support population='dynamic': {cause}"
+            )
+        if self.client_residency.lower() != "streamed":
+            raise ValueError(
+                "population='dynamic' requires client_residency="
+                "'streamed': the resident path bakes the population "
+                "length into every device array shape, so each join "
+                "round would recompile the round program; the "
+                "streamed cohort pipeline is population-size-free "
+                "(the host shard store grows by appending)"
+            )
+        if self.participation_sampler.lower() != "hashed":
+            raise ValueError(
+                "population='dynamic' requires participation_sampler"
+                "='hashed': the exact sampler's O(N log N) "
+                "permutation draw has no maskable stream; the hashed "
+                "first-k-distinct stream masks departed indices "
+                "exactly (ops/sampling.py)"
+            )
+        if self.participation_fraction >= 1.0:
+            raise ValueError(
+                "population='dynamic' requires participation_fraction"
+                " < 1: the cohort is pinned at the startup "
+                "population's sampled size so the compiled round "
+                "program never changes shape while N grows; a "
+                "full-participation cohort would have to grow with "
+                "the population"
+            )
+        if self.rounds_per_dispatch > 1:
+            raise ValueError(
+                "population='dynamic' requires rounds_per_dispatch=1:"
+                " registration events (joins/departures/drift) apply "
+                "at host round boundaries, which a fused K-round "
+                "scan dispatch does not expose"
+            )
+        if self.async_mode.lower() == "on":
+            raise ValueError(
+                "population='dynamic' does not compose with "
+                "async_mode='on': the persistent per-client arrival "
+                "speed table is built into the round program at "
+                "trace time for the startup population — a joined "
+                "client has no speed row; set async_mode='off'"
+            )
+        if self.valuation_audit_every > 0:
+            raise ValueError(
+                "population='dynamic' does not compose with "
+                "valuation audits: the auditor replays cohorts from "
+                "a startup snapshot of the packed shards, which "
+                "churn (joins and drifting labels) invalidates; set "
+                "valuation_audit_every=0 (the streaming valuation "
+                "itself composes — its vector grows with the "
+                "population)"
+            )
+
     def _refuse_unported(self) -> None:
         """NotImplementedError for every feature the port lacks so far,
         naming the ROADMAP.md queue 1 item that brings it."""
         checks = (
-            (self.client_residency.lower() == "streamed",
-             "client_residency='streamed'", 15),
-            (self.population.lower() == "dynamic",
-             "population='dynamic'", 15),
             (self.mesh_devices is not None and self.mesh_devices > 1,
              "mesh_devices > 1", 17),
             (self.multihost, "multihost", 17),

@@ -43,6 +43,9 @@ from distributed_learning_simulator_tpu_torch.ops.quantize import (
 from distributed_learning_simulator_tpu_torch.telemetry.recompile import (
     tracked,
 )
+from distributed_learning_simulator_tpu_torch.utils.tracing import (
+    profile_step,
+)
 
 #: Salt advance per rounded leaf (the JAX package's ``0x9E3779B9``).
 SALT_STEP = 0x9E3779B9
@@ -473,6 +476,7 @@ def make_chunk_train_fn(
                         params = params + updates
                 losses.append(loss.detach())
                 accs.append(acc.detach())
+                profile_step()
             epoch_loss = torch.stack(losses).mean(dim=0)
             epoch_acc = torch.stack(accs).mean(dim=0)
             if collect_stats:
@@ -610,7 +614,7 @@ def stack_rounds(values: list):
 
 
 def make_batched_round_fn(round_fn, server_update_fn, eval_fn, length: int,
-                          async_mode: bool = False):
+                          async_mode: bool = False, streamed: bool = False):
     """``length`` federated rounds back to back on the host, with no wait
     on the card between them (config.rounds_per_dispatch; the JAX
     package's ``make_batched_round_fn``, whose ``lax.scan`` this loop
@@ -629,9 +633,18 @@ def make_batched_round_fn(round_fn, server_update_fn, eval_fn, length: int,
     ``aux["async_state"]`` popped and fed to the next round, the last one
     returned (never stacked).
 
+    ``streamed``: the streamed calling convention with a sampled cohort
+    (client_residency='streamed'; parallel/streaming.py). ``cx``, ``cy``,
+    ``cmask`` and ``sizes`` are the dispatch's stacked ``[length, cohort,
+    ...]`` upload and ``idx_k`` its per-round cohort ids (the host drew
+    them from this key chain beforehand); round i gets slice ``[i]`` of
+    each. ``client_state`` is None: the simulator refuses streamed
+    batching with persistent per-client state, since cohorts within a
+    dispatch may overlap.
+
     Returns ``batched(global_flat, client_state, server_state, key, cx, cy,
-    cmask, sizes, eval_batches, lr_vec, async_state=None, round_kwargs=None)
-    -> (global_flat, client_state, server_state, key, metrics_k, aux_k[,
+    cmask, sizes, eval_batches, lr_vec, async_state=None, round_kwargs=None,
+    idx_k=None) -> (global_flat, client_state, server_state, key, metrics_k, aux_k[,
     async_state])``. ``lr_vec`` is the ``[length]`` f32 schedule factors
     (simulator ``lr_factors``); ``round_kwargs[i]`` optional extra
     arguments of round i (tests' draw overrides). ``metrics_k`` and
@@ -640,15 +653,17 @@ def make_batched_round_fn(round_fn, server_update_fn, eval_fn, length: int,
 
     def batched(global_flat, client_state, server_state, key, cx, cy,
                 cmask, sizes, eval_batches, lr_vec, async_state=None,
-                round_kwargs=None):
+                round_kwargs=None, idx_k=None):
         metrics_list, aux_list = [], []
         for i in range(length):
             key, round_key = prng.split(key)
             kw = dict(round_kwargs[i]) if round_kwargs else {}
             if async_mode:
                 kw["async_state"] = async_state
+            operands = ((cx[i], cy[i], cmask[i], sizes[i], idx_k[i])
+                        if streamed else (cx, cy, cmask, sizes))
             new_global, client_state, aux = round_fn(
-                global_flat, client_state, cx, cy, cmask, sizes, round_key,
+                global_flat, client_state, *operands, round_key,
                 lr_scale=float(lr_vec[i]), **kw)
             if async_mode:
                 aux = dict(aux)

@@ -41,13 +41,26 @@ import tempfile
 # match bit for bit.
 VOLATILE_KEYS = ("round_seconds",)
 
+# The timings inside a streamed run's ``stream`` record; its byte counts
+# and sampler still match bit for bit.
+STREAM_VOLATILE_KEYS = (
+    "h2d_seconds", "hidden_seconds", "overlap_ratio", "sample_ms",
+    "d2h_seconds",
+)
+
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
 def strip_volatile(records: list[dict]) -> list[dict]:
-    return [{k: v for k, v in r.items() if k not in VOLATILE_KEYS}
-            for r in records]
+    out = []
+    for r in records:
+        r = {k: v for k, v in r.items() if k not in VOLATILE_KEYS}
+        if isinstance(r.get("stream"), dict):
+            r["stream"] = {k: v for k, v in r["stream"].items()
+                           if k not in STREAM_VOLATILE_KEYS}
+        out.append(r)
+    return out
 
 
 def normalize(records: list[dict]) -> list[dict]:

@@ -41,6 +41,7 @@ import os
 import signal
 import threading
 import time
+import traceback
 from collections.abc import Mapping
 
 import numpy as np
@@ -60,6 +61,9 @@ from distributed_learning_simulator_tpu_torch.data.partition import (
 from distributed_learning_simulator_tpu_torch.data.registry import (
     Dataset,
     get_dataset,
+)
+from distributed_learning_simulator_tpu_torch.data.residency import (
+    HostShardStore,
 )
 from distributed_learning_simulator_tpu_torch.factory import get_algorithm
 from distributed_learning_simulator_tpu_torch.models.bridge import (
@@ -82,11 +86,20 @@ from distributed_learning_simulator_tpu_torch.parallel.engine import (
     make_optimizer,
     pad_eval_set,
 )
+from distributed_learning_simulator_tpu_torch.parallel.streaming import (
+    CohortStreamer,
+    host_client_state,
+    state_to_device,
+)
 from distributed_learning_simulator_tpu_torch.robustness.arrivals import (
     AsyncFederation,
 )
 from distributed_learning_simulator_tpu_torch.robustness.chaos import (
     maybe_crash,
+)
+from distributed_learning_simulator_tpu_torch.robustness.population import (
+    PopulationModel,
+    pop_key_words,
 )
 from distributed_learning_simulator_tpu_torch.telemetry import (
     ClientStats,
@@ -117,6 +130,7 @@ from distributed_learning_simulator_tpu_torch.utils.checkpoint import (
     load_latest_valid_checkpoint,
     save_checkpoint,
 )
+from distributed_learning_simulator_tpu_torch.utils.errors import is_device_oom
 from distributed_learning_simulator_tpu_torch.utils.logging import (
     get_logger,
     set_level,
@@ -223,6 +237,159 @@ def _auto_chunk_size(config, n_params: int, n_clients: int,
     )
     estimate = max(1, int(budget / (4 * param_bytes)))
     return min(estimate, config.cohort_size(n_clients))
+
+
+def _f32_param_bytes(n_params: int) -> int:
+    """Bytes of the model's parameters in f32."""
+    return 4 * int(n_params)
+
+
+def _assert_residency_feasible(config, n_params: int, n_clients: int,
+                               data_bytes: int, device) -> None:
+    """Refuse, with the JAX package's text, a run whose per-client arrays
+    cannot fit the device (JAX simulator.py ``_assert_residency_feasible``).
+
+    Resident: the packed shards and any persistent per-client state are
+    ``[n_clients, ...]`` device stacks for the whole run. Streamed: the
+    device holds the cohort's slice, twice when the next cohort is
+    prefetched while one trains (once when the cohort is everyone: one
+    upload at the start), plus the cohort's persistent state."""
+    budget = _device_budget_bytes(config, device)
+    param_bytes = _f32_param_bytes(n_params)
+    factor = _persistent_state_factor(config)
+    if config.client_residency.lower() == "streamed":
+        cohort = config.cohort_size(n_clients)
+        per_client_data = data_bytes / max(n_clients, 1)
+        buffers = 2 if cohort < n_clients else 1
+        total = buffers * cohort * per_client_data + (
+            factor * cohort * param_bytes
+        )
+        if total > budget:
+            buf_note = (
+                f"{buffers} (double-buffered) x " if buffers > 1
+                else "1 (full-cohort, one startup upload) x "
+            )
+            raise ValueError(
+                "client_residency='streamed' cohort footprint does not "
+                f"fit: {buf_note}{cohort} cohort clients x "
+                f"{per_client_data / 2**20:.1f} MB data + {factor} "
+                f"param-sized state buffer(s) x {param_bytes / 2**20:.0f} "
+                f"MB = {total / 2**30:.1f} GB, over the "
+                f"~{budget / 2**30:.1f} GB device budget. Lower "
+                "participation_fraction (the cohort) or raise "
+                "mesh_devices (streamed residency shards the cohort "
+                "slice over the mesh)."
+            )
+        return
+    total = data_bytes + factor * n_clients * param_bytes
+    if total > budget:
+        state_note = (
+            f" + {factor} param-sized state buffer(s) x {n_clients} "
+            f"clients x {param_bytes / 2**20:.0f} MB"
+            if factor else ""
+        )
+        raise ValueError(
+            "client_residency='resident' keeps every per-client array "
+            f"device-resident: {data_bytes / 2**30:.1f} GB of packed "
+            f"data shards{state_note} = {total / 2**30:.1f} GB, over "
+            f"the ~{budget / 2**30:.1f} GB device budget "
+            f"({config.mesh_devices or 1} device(s)). Set "
+            "client_residency='streamed' to keep the population host-side "
+            "and stream only the sampled cohort, or use more mesh_devices."
+        )
+
+
+def _assert_client_stack_feasible(config, n_params: int, n_clients: int,
+                                  device) -> None:
+    """Refuse, with the JAX package's text, a materializing round
+    (``materializes_client_stack``) whose ``[cohort, P]`` f32 stack cannot
+    fit the device budget; GTG's cumsum walk is budgeted at three stacks
+    (JAX simulator.py ``_assert_client_stack_feasible``). Decided from the
+    parameter count alone, before anything is allocated."""
+    param_bytes = _f32_param_bytes(n_params)
+    cohort = config.cohort_size(n_clients)
+    stack_bytes = cohort * param_bytes
+    carry_note = ""
+    total_bytes = stack_bytes
+    if (
+        config.distributed_algorithm == "GTG_shapley_value"
+        and config.gtg_prefix_mode == "cumsum"
+    ):
+        total_bytes = 3 * stack_bytes
+        carry_note = (
+            " plus up to 2 stack-sized cumsum-walk carry trees = "
+            f"{total_bytes / 2**30:.1f} GB peak"
+        )
+    budget = _device_budget_bytes(config, device)
+    if total_bytes > budget:
+        raise ValueError(
+            f"{config.distributed_algorithm!r} materializes the per-client "
+            f"parameter stack: {cohort} clients x "
+            f"{param_bytes / 2**20:.0f} MB = {stack_bytes / 2**30:.1f} GB"
+            f"{carry_note}, "
+            f"over the ~{budget / 2**30:.1f} GB device budget "
+            f"({config.mesh_devices or 1} device(s)). Use fewer clients, a "
+            "smaller model, or more mesh_devices."
+        )
+
+
+class _oom_hint:
+    """Re-raise a device OOM with the JAX package's ``client_chunk_size``
+    suggestion (JAX simulator.py ``_oom_hint``); at any site but
+    ``"round"`` (``"eval"``, ``"deferred metric fetch"``) it also names
+    ``eval_batch_size``. Wraps each place a round is dispatched,
+    evaluated or fetched: ``with _oom_hint(config, n_params, n_clients,
+    device): ...``.
+
+    The OOM stays chained as the cause with the locals of its finished
+    frames cleared, and the hint is raised from ``__exit__`` itself: a
+    generator context manager would re-raise the OOM inside its own frame,
+    whose finished frame object keeps its caller's, and so every frame up
+    the stack, in a reference cycle with the OOM, holding the run's device
+    memory until the next garbage collection."""
+
+    def __init__(self, config, n_params: int, n_clients: int, device,
+                 site: str = "round"):
+        self._config = config
+        self._n_params = n_params
+        self._n_clients = n_clients
+        self._device = device
+        self._site = site
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc is None or not is_device_oom(exc):
+            return False
+        traceback.clear_frames(tb)
+        config, site = self._config, self._site
+        cohort = config.cohort_size(self._n_clients)
+        current = min(config.client_chunk_size or cohort, cohort)
+        eval_note = (
+            f" This OOM surfaced at {site}: if lowering client_chunk_size "
+            f"doesn't help, also lower eval_batch_size "
+            f"(currently {config.eval_batch_size})."
+            if site != "round" else ""
+        )
+        param_bytes = _f32_param_bytes(self._n_params)
+        estimate = _auto_chunk_size(config, self._n_params, self._n_clients,
+                                    self._device)
+        suggestion = min(estimate, max(1, current // 2))
+        if suggestion >= current:
+            raise RuntimeError(
+                "device memory exceeded even with "
+                f"client_chunk_size={current}; the model "
+                f"(~{param_bytes / 2**20:.0f} MB of params) may not fit this "
+                "device — use a smaller model or more mesh devices."
+                + eval_note
+            ) from exc
+        raise RuntimeError(
+            "device memory exceeded with "
+            f"{current} clients in flight (per-client params/grads/momentum "
+            "and activations scale with client_chunk_size). Try "
+            f"client_chunk_size={suggestion}." + eval_note
+        ) from exc
 
 
 def build_client_data(config: ExperimentConfig, dataset: Dataset) -> ClientData:
@@ -365,11 +532,14 @@ class StackedAuxRow(Mapping):
 
 
 def _algo_checkpoint_state(algorithm, metrics, server_state,
-                           async_state=None, valuation=None) -> dict:
+                           async_state=None, valuation=None,
+                           population=None) -> dict:
     """The checkpoint's ``algo_state``: the last round's metrics, the
     Shapley values so far, the server optimizer's state when there is one,
-    the staleness buffer (async_mode='on') and the valuation vector
-    (client_valuation='on') (JAX simulator.py ``_algo_checkpoint_state``)."""
+    the staleness buffer (async_mode='on'), the valuation vector
+    (client_valuation='on') and the registration stream's state
+    (population='dynamic': cursor, alive mask, joined shards) (JAX
+    simulator.py ``_algo_checkpoint_state``)."""
     algo_state = {"prev_metrics": metrics}
     if hasattr(algorithm, "shapley_values"):
         algo_state["shapley_values"] = algorithm.shapley_values
@@ -379,6 +549,8 @@ def _algo_checkpoint_state(algorithm, metrics, server_state,
         algo_state["async_state"] = async_state
     if valuation is not None:
         algo_state["valuation"] = np.asarray(valuation)
+    if population is not None:
+        algo_state["population"] = population
     return algo_state
 
 
@@ -398,11 +570,14 @@ def _n_leaves(tree) -> int:
 
 def _restore_like(template, saved):
     """``saved`` (host arrays) as tensors on the devices and in the dtypes
-    of ``template``'s leaves (Adam's step count stays on the host)."""
+    of ``template``'s leaves (Adam's step count stays on the host); a numpy
+    leaf (the host shard store's state) stays a numpy array."""
     if isinstance(template, dict):
         return {k: _restore_like(template[k], saved[k]) for k in template}
     if template is None:
         return None
+    if isinstance(template, np.ndarray):
+        return np.array(saved, dtype=template.dtype)
     return torch.as_tensor(np.asarray(saved)).to(template.device,
                                                  template.dtype).clone()
 
@@ -475,6 +650,29 @@ def _resume(config, algorithm, model, sample_hw, layout, device,
     logger.info("resumed from %s at round %d", ckpt_path, start_round)
     return (start_round, global_flat, client_state, server_state,
             algo_state.get("prev_metrics"), ckpt.get("rng_key"), algo_state)
+
+
+def _resume_population(pop, algo_state: dict):
+    """The registration stream's state of a checkpoint, with the JAX
+    package's checks: a dynamic run refuses a checkpoint without it, and a
+    static run one with it."""
+    saved = algo_state.get("population")
+    if pop is not None and saved is None:
+        raise ValueError(
+            "population='dynamic' but the checkpoint has no "
+            "registration-stream state (written with "
+            "population='static'); resume with the configuration "
+            "the checkpoint was written with"
+        )
+    if pop is None and saved is not None:
+        raise ValueError(
+            "checkpoint was written with population='dynamic' "
+            "but population='static' now (the grown population "
+            "and alive mask would be silently discarded); resume "
+            "with the configuration the checkpoint was written "
+            "with"
+        )
+    return saved
 
 
 def _resume_async(async_ctl, async_state, algo_state: dict):
@@ -554,9 +752,6 @@ def run_simulation(
     if client_data is None:
         client_data = build_client_data(config, dataset)
     n_clients = client_data.n_clients
-    cx = torch.as_tensor(client_data.x, device=device)
-    cy = torch.as_tensor(client_data.y, dtype=torch.int64, device=device)
-    cmask = torch.as_tensor(client_data.mask, device=device)
     xb, yb, mb = pad_eval_set(
         dataset.x_test, dataset.y_test, config.eval_batch_size
     )
@@ -619,6 +814,52 @@ def run_simulation(
             "async_mode='on': its round program has no staleness buffer "
             "to hold late uploads; set async_mode='off'"
         )
+    # Client residency (data/residency.py, parallel/streaming.py):
+    # 'streamed' keeps the population's arrays in a host shard store and
+    # uploads the sampled cohort a dispatch, the next one while the
+    # current one trains; a full cohort (participation_fraction 1, e.g.
+    # sign_SGD) is uploaded once and the round is the resident one.
+    streamed = config.client_residency.lower() == "streamed"
+    if streamed and not algorithm.supports_streamed_residency:
+        raise ValueError(
+            f"algorithm {config.distributed_algorithm!r} does not support "
+            "client_residency='streamed': its round program assumes a "
+            "device-resident per-client stack (the Shapley family's "
+            "subset re-evaluation); set client_residency='resident'"
+        )
+    cohort_n = config.cohort_size(n_clients)
+    stream_sampled = streamed and cohort_n < n_clients
+    stream_full = streamed and not stream_sampled
+    # Dynamic population (robustness/population.py): None when static.
+    # The cohort stays at the startup population's size while N grows.
+    pop = PopulationModel.from_config(config, n_clients, cohort_n,
+                                      dataset=dataset)
+    if pop is not None and not stream_sampled:
+        raise ValueError(
+            "population='dynamic' needs a sampled streamed cohort "
+            f"(cohort {cohort_n} of {n_clients} clients is the whole "
+            "population at this worker_number); raise worker_number or "
+            "lower participation_fraction"
+        )
+    n_params = global_flat.numel()
+    _assert_residency_feasible(
+        config, n_params, n_clients,
+        client_data.x.nbytes + client_data.y.nbytes
+        + client_data.mask.nbytes + client_data.sizes.nbytes, device,
+    )
+    if algorithm.materializes_client_stack:
+        _assert_client_stack_feasible(config, n_params, n_clients, device)
+    if K > 1 and stream_sampled and _persistent_state_factor(config):
+        # Cohorts inside one dispatch may overlap, and the host store
+        # cannot take a round's state back mid-dispatch.
+        raise ValueError(
+            "client_residency='streamed' with rounds_per_dispatch > 1 "
+            "does not compose with persistent per-client state "
+            "(reset_client_optimizer=False / momentum sign_SGD under "
+            "sampling): cohorts within one dispatch may overlap and the "
+            "host store cannot be updated mid-dispatch; set "
+            "rounds_per_dispatch=1 or client_residency='resident'"
+        )
     evaluate = make_eval_fn(apply_fn)
     algorithm.prepare(apply_fn, evaluate, eval_batches)
     # The round programs count their first-seen call signatures for the
@@ -632,6 +873,10 @@ def run_simulation(
         client_sizes=client_data.sizes,
         device=device,
     )
+    # A full streamed cohort gets the resident round function (the
+    # algorithm builds the streamed convention only for a sampled cohort):
+    # the population's arrays are uploaded once below and the round runs
+    # as the resident one, so the two residency modes are bitwise equal.
     round_fn = tracked("round_fn", round_fn)
     # Optional server-side optimizer (FedAvgM / FedAdam) on the aggregate.
     server_state = server_update = None
@@ -648,8 +893,14 @@ def run_simulation(
         server_init, server_update = server
         server_update = tracked("server_update", server_update)
         server_state = server_init(global_flat)
-    client_state = algorithm.init_client_state(optimizer, global_flat,
-                                               n_clients)
+    state_proto = None
+    if streamed:
+        # The population's state on the host: never a device stack.
+        client_state, state_proto = host_client_state(
+            algorithm, optimizer, global_flat, n_clients)
+    else:
+        client_state = algorithm.init_client_state(optimizer, global_flat,
+                                                   n_clients)
     # The staleness buffer (async_mode='on'): carried round to round,
     # checkpointed and restored, like the client state.
     async_state = (async_ctl.init_state(global_flat)
@@ -658,6 +909,7 @@ def run_simulation(
     start_round = 0
     prev_metrics = None
     resumed_valuation = None
+    resumed_population = None
     if config.resume and config.checkpoint_dir:
         (start_round, resumed_global, client_state, server_state,
          prev_metrics, resumed_key, algo_state) = _resume(
@@ -670,7 +922,56 @@ def run_simulation(
         if algo_state is not None:
             async_state = _resume_async(async_ctl, async_state, algo_state)
             resumed_valuation = algo_state.get("valuation")
+            resumed_population = _resume_population(pop, algo_state)
     checkpointing = bool(config.checkpoint_dir and config.checkpoint_every)
+
+    # --- placement ------------------------------------------------------------
+    store = streamer = None
+    stream_rec_startup = None  # the full cohort's one upload, on round 0
+    if streamed:
+        # A dynamic population relabels drifting clients in place: the
+        # store takes its own copy of the labels.
+        store_y = (np.array(client_data.y, copy=True) if pop is not None
+                   else client_data.y)
+        store = HostShardStore(
+            client_data.x, store_y, client_data.mask, client_data.sizes,
+            state=(client_state if stream_sampled
+                   and resumed_population is None else None),
+        )
+        if resumed_population is not None:
+            # Resume mid-growth: the startup store grows by the
+            # checkpoint's joined shards, then takes the (grown) state.
+            pop.restore(resumed_population, store)
+            if client_state is not None:
+                store.attach_state(client_state)
+            logger.info(
+                "population resumed at cursor %d: %d registered, %d "
+                "alive (%d joined, %d departed)",
+                pop.cursor, pop.n_registered, int(pop.alive.sum()),
+                pop.totals["joins"], pop.totals["departs"],
+            )
+        streamer = CohortStreamer(store, algorithm, n_clients, device)
+        if stream_full:
+            (cx, cy, cmask, _, _), stream_rec_startup = streamer.upload_full()
+            client_state = state_to_device(client_state, state_proto)
+        else:
+            cx = cy = cmask = None
+            client_state = None
+            logger.info(
+                "client_residency='streamed': %d clients host-resident "
+                "(%.2f GB), cohort %d per dispatch",
+                n_clients, store.data_bytes() / 2**30, cohort_n,
+            )
+    else:
+        cx = torch.as_tensor(client_data.x, device=device)
+        cy = torch.as_tensor(client_data.y, dtype=torch.int64, device=device)
+        cmask = torch.as_tensor(client_data.mask, device=device)
+    # A joiner's state rows (stateful streamed runs): one client's initial
+    # state, repeated per joiner.
+    pop_state_proto = None
+    if pop is not None and store.state is not None:
+        pop_state_proto = host_client_state(
+            algorithm, optimizer, global_flat, 1)[0]
 
     # --- telemetry ------------------------------------------------------------
     # Phase timing, the recompile counter and the memory watermark; span
@@ -699,11 +1000,17 @@ def run_simulation(
             )
         # Every phase boundary is also a span, at any telemetry_level.
         phase_timer = SpanPhaseTimer(phase_timer, span_recorder)
+        if streamer is not None:
+            streamer.span_recorder = span_recorder
     client_stats_cfg = ClientStats.from_config(config)
     valuation_cfg = ClientValuation.from_config(config)
     vstate = auditor = None
     if valuation_cfg is not None:
-        vstate = ValuationState(n_clients)
+        # Indexed by true client id: under streamed residency it lives in
+        # the store and grows with a dynamic population.
+        vstate = ValuationState(
+            store.n_clients if store is not None else n_clients,
+            store=store)
         if resumed_valuation is not None:
             vstate.load(resumed_valuation)
         elif start_round > 0:
@@ -715,7 +1022,8 @@ def run_simulation(
         if valuation_cfg.audit_every > 0:
             auditor = ValuationAuditor(
                 config, valuation_cfg, algorithm, apply_fn, optimizer,
-                layout, preprocess, evaluate, (cx, cy, cmask), eval_batches,
+                layout, preprocess, evaluate,
+                store if stream_sampled else (cx, cy, cmask), eval_batches,
                 n_clients, device,
                 budget_bytes=_device_budget_bytes(config, device),
             )
@@ -746,10 +1054,15 @@ def run_simulation(
                 path, round_idx,
                 params_to_jax(layout.unflatten(params),
                               jax_paths(model, sample_shape[:2])),
-                c_state,
+                # Sampled streamed: the store, after the round's writeback.
+                store.state if stream_sampled else c_state,
                 _algo_checkpoint_state(
                     algorithm, metrics, s_state, a_state,
-                    vstate.values if vstate is not None else None),
+                    vstate.values if vstate is not None else None,
+                    # The state the next round draws from: this round's
+                    # events are applied before its checkpoint.
+                    pop.checkpoint_state(store) if pop is not None
+                    else None),
                 rng_key,
             )
 
@@ -784,6 +1097,9 @@ def run_simulation(
         # wait-for-everyone counterfactual) and the buffer occupancy.
         "sim_async_s": 0.0, "sim_sync_s": 0.0, "buffer_occupancy": [],
         "valuation_last_audit": None, "costmodel": None,
+        # Dynamic population: quorum-rejected rounds that also lost cohort
+        # members to departures.
+        "churn_rejected": 0,
     }
     metrics_path = os.path.join(log_dir, "metrics.jsonl") if log_dir else None
     completed_round = start_round - 1
@@ -792,7 +1108,8 @@ def run_simulation(
     seen_dispatch_sizes: set[int] = set()
 
     def emit_record(round_idx, metrics, mean_client_loss, fetched, ctx,
-                    tel_rec_fn, phase_round, audit_fn=None):
+                    tel_rec_fn, phase_round, audit_fn=None, stream_rec=None,
+                    population_rec=None):
         """One round's record from already-fetched host values: post_round,
         the record's sub-objects, the history and the metrics.jsonl line.
         Shared by the one-round loop and the dispatch flush, so that the
@@ -907,6 +1224,17 @@ def run_simulation(
                 run_rounds=config.round,
             )
             telemetry["costmodel"] = cm_rec
+        pop_rec = None
+        if population_rec is not None:
+            # Rejected by churn: the quorum rejected the round and cohort
+            # members departed in it.
+            pop_rec = dict(population_rec)
+            pop_rec["rejected_by_churn"] = bool(
+                record.get("round_rejected")
+                and pop_rec.get("cohort_departs", 0) > 0
+            )
+            if pop_rec["rejected_by_churn"]:
+                telemetry["churn_rejected"] += 1
         tel_rec = tel_rec_fn()
         spans_rec = None
         if span_recorder is not None:
@@ -914,7 +1242,8 @@ def run_simulation(
             spans_rec = span_recorder.round_summary(round_idx)
             span_recorder.flush()
         record = build_round_record(record, tel_rec, cs_rec, async_rec,
-                                    None, cm_rec, val_rec, spans=spans_rec)
+                                    stream_rec, cm_rec, val_rec,
+                                    population=pop_rec, spans=spans_rec)
         history.append(record)
         if metrics_path:
             with open(metrics_path, "a") as f:
@@ -972,7 +1301,9 @@ def run_simulation(
         round_idx, aux = p["round"], p["aux"]
         keys = fetch_keys(aux, client_stats_cfg is not None
                           and client_stats_cfg.fetch_round(round_idx))
-        with phase_timer.phase(round_idx, "host_sync"):
+        with phase_timer.phase(round_idx, "host_sync"), _oom_hint(
+                config, n_params, n_clients, device,
+                site="deferred metric fetch"):
             fetched = fetch_to_host({
                 "metrics": p["metrics_dev"],
                 "mean_client_loss": aux["mean_client_loss"],
@@ -1022,7 +1353,9 @@ def run_simulation(
                 )
 
         emit_record(round_idx, metrics, float(fetched["mean_client_loss"]),
-                    tel, ctx, tel_rec_fn, round_idx, audit_fn=audit_fn)
+                    tel, ctx, tel_rec_fn, round_idx, audit_fn=audit_fn,
+                    stream_rec=p.get("stream"),
+                    population_rec=p.get("population"))
         if checkpointing and (round_idx + 1) % config.checkpoint_every == 0:
             save(round_idx, metrics, p["new_global"], p["client_state"],
                  p["server_state"], p["async_state"], p["key"])
@@ -1046,7 +1379,9 @@ def run_simulation(
         keys = fetch_keys(aux_k, bool(fetch_rounds))
         stat_keys = [k_ for k_ in ("client_stats", "quant_mse",
                                    "vote_agreement") if k_ in keys]
-        with phase_timer.phase(last, "host_sync"):
+        with phase_timer.phase(last, "host_sync"), _oom_hint(
+                config, n_params, n_clients, device,
+                site="deferred metric fetch"):
             fetched = fetch_to_host({
                 "metrics": d["metrics"],
                 "mean_client_loss": aux_k["mean_client_loss"],
@@ -1095,7 +1430,11 @@ def run_simulation(
             emit_record(round_idx, metrics,
                         float(fetched["mean_client_loss"][i]), row, ctx,
                         tel_rec_fn if round_idx == last else (lambda: None),
-                        last)
+                        last,
+                        # The dispatch's transfer stats, on its last record
+                        # as its phase times.
+                        stream_rec=(d.get("stream") if round_idx == last
+                                    else None))
         # Dispatches end at checkpoint boundaries, so the cadence fires on
         # a dispatch's last round only, where the carried state is that
         # round's.
@@ -1107,7 +1446,7 @@ def run_simulation(
     def eval_flat(flat, *batches):
         return server_eval(layout.unflatten(flat), *batches)
 
-    batched_fns: dict[int, object] = {}
+    batched_fns: dict = {}
 
     def dispatch_len(start: int) -> int:
         """min(K, rounds left, rounds to the next checkpoint)."""
@@ -1129,96 +1468,242 @@ def run_simulation(
             profile_stack.enter_context(profile_session(config.profile_dir))
             profile_from = None
 
+    def stream_plan(from_key, k: int):
+        """The cohorts of a dispatch of ``k`` rounds, drawn on the host
+        from the key chain (the dispatch's own ``key, round_key =
+        split(key)`` steps), and the key after it: what lets the next
+        dispatch's cohorts upload before this one returns."""
+        hk = from_key
+        idx_list = []
+        for _ in range(k):
+            hk, rk = prng.split(hk)
+            idx_list.append(streamer.cohort_for(rk))
+        return idx_list, hk
+
+    def run_dispatch(round_idx: int, k: int, last: int, stream_next):
+        """One dispatch of ``k > 1`` rounds; returns the next dispatch's
+        prefetched cohort plan (sampled streamed runs) or None."""
+        nonlocal global_flat, client_state, server_state, key, async_state
+        nonlocal stream_rec_startup
+        prev_global = global_flat
+        round_kwargs = ([
+            {"client_rng": client_rng_fn(r)}
+            for r in range(round_idx, last + 1)
+        ] if client_rng_fn else None)
+        lr_vec = lr_factors(config, round_idx, k)
+        stream_rec = None
+        plan_next = None
+        with annotate(f"fl_rounds_{round_idx}_{last}"), _oom_hint(
+                config, n_params, n_clients, device):
+            if stream_sampled:
+                fn = batched_fns.get(("streamed", k))
+                if fn is None:
+                    fn = batched_fns[("streamed", k)] = tracked(
+                        "batched", make_batched_round_fn(
+                            round_fn, server_update, eval_flat, k,
+                            async_mode=async_ctl is not None,
+                            streamed=True))
+                if stream_next is not None and stream_next[0] == round_idx:
+                    idx_list, hk_after = stream_next[1:]
+                else:
+                    # The first dispatch (or a resume): its draws get their
+                    # own `sample` window.
+                    with phase_timer.phase(last, "sample"):
+                        idx_list, hk_after = stream_plan(key, k)
+                (sx, sy, sm, ssz, sidx), stream_rec = streamer.acquire(
+                    idx_list, stack=True)
+                if k > 1:
+                    stream_rec["dispatch_rounds"] = k
+                with phase_timer.phase(last, "client_step") as ph:
+                    out = fn(global_flat, None, server_state, key, sx, sy,
+                             sm, ssz, eval_batches, lr_vec,
+                             async_state=async_state,
+                             round_kwargs=round_kwargs, idx_k=sidx)
+                    (global_flat, _, server_state, key, metrics_k,
+                     aux_k) = out[:6]
+                    if async_ctl is not None:
+                        async_state = out[6]
+                    # The next dispatch's cohorts upload while this one
+                    # computes; their draws move from client_step to
+                    # `sample`.
+                    nxt = last + 1
+                    if nxt < config.round and not preempt["flag"]:
+                        k2 = dispatch_len(nxt)
+                        t_s = time.perf_counter()
+                        idx2, hk2 = stream_plan(hk_after, k2)
+                        phase_timer.carve(last, "sample",
+                                          time.perf_counter() - t_s,
+                                          "client_step")
+                        plan_next = (nxt, idx2, hk2)
+                        streamer.prefetch(idx2, stack=True)
+                    ph.fence((global_flat, metrics_k))
+            else:
+                if stream_rec_startup is not None:
+                    # The full cohort's one upload, on the first record.
+                    stream_rec, stream_rec_startup = stream_rec_startup, None
+                    if k > 1:
+                        stream_rec["dispatch_rounds"] = k
+                fn = batched_fns.get(k)
+                if fn is None:
+                    fn = batched_fns[k] = tracked(
+                        "batched", make_batched_round_fn(
+                            round_fn, server_update, eval_flat, k,
+                            async_mode=async_ctl is not None))
+                with phase_timer.phase(last, "client_step") as ph:
+                    out = fn(global_flat, client_state, server_state, key,
+                             cx, cy, cmask, client_data.sizes, eval_batches,
+                             lr_vec, async_state=async_state,
+                             round_kwargs=round_kwargs)
+                    (global_flat, client_state, server_state, key,
+                     metrics_k, aux_k) = out[:6]
+                    if async_ctl is not None:
+                        async_state = out[6]
+                    ph.fence((global_flat, metrics_k))
+        if recompile is not None:
+            recompile.attribute(last)
+        flush_dispatch({
+            "round_start": round_idx, "k": k,
+            "metrics": metrics_k, "aux": aux_k,
+            "new_global": global_flat, "prev_global": prev_global,
+            "client_state": client_state,
+            "server_state": server_state,
+            "async_state": async_state, "key": key,
+            "stream": stream_rec,
+        })
+        return plan_next
+
+    def run_round(round_idx: int, next_idx):
+        """One round (K=1); returns the next round's prefetched cohort
+        (sampled streamed static runs) or None."""
+        nonlocal global_flat, client_state, server_state, key, async_state
+        nonlocal stream_rec_startup
+        lr_scale = float(lr_factors(config, round_idx, 1)[0])
+        key, round_key = prng.split(key)
+        kw = {}
+        if client_rng_fn:
+            kw["client_rng"] = client_rng_fn(round_idx)
+        if async_ctl is not None:
+            kw["async_state"] = async_state
+        stream_rec = pop_rec = None
+        next_out = None
+        if streamer is not None:
+            streamer.span_round = round_idx
+        with annotate(f"fl_round_{round_idx}"), _oom_hint(
+                config, n_params, n_clients, device):
+            if stream_sampled:
+                pop_events = pop_words = dep_mask = None
+                if pop is not None:
+                    # The cohort comes from the registered index space
+                    # before this round's events, the departed masked; the
+                    # events apply after the round (a joiner is drawn from
+                    # the next round; a departure in this cohort rides the
+                    # departed operand). Drift first, so that a sampled
+                    # drifting client trains on this round's labels.
+                    pop_words = pop_key_words(round_key, pop.seed)
+                    with phase_timer.phase(round_idx, "sample"):
+                        idx_np = streamer.cohort_for(
+                            round_key, n=pop.n_registered, alive=pop.alive,
+                            k=cohort_n)
+                    pop_events = pop.draw_events(pop_words, round_idx)
+                    dep_mask = pop.cohort_departed_mask(pop_events, idx_np)
+                    pop.apply_drift(store, round_idx, idx_np)
+                    kw["departed"] = dep_mask
+                elif next_idx is not None:
+                    idx_np = next_idx
+                else:
+                    # The first round (or a resume): its draw is not hidden
+                    # behind a previous round.
+                    with phase_timer.phase(round_idx, "sample"):
+                        idx_np = streamer.cohort_for(round_key)
+                (sx, sy, sm, ssz, sidx), stream_rec = streamer.acquire(
+                    [idx_np])
+                state_k = (streamer.gather_state(idx_np, state_proto)
+                           if store.state is not None else None)
+                with phase_timer.phase(round_idx, "client_step") as ph:
+                    new_global, new_state_k, aux = round_fn(
+                        global_flat, state_k, sx, sy, sm, ssz, sidx,
+                        round_key, lr_scale=lr_scale, **kw)
+                    # The next round's cohort uploads while this one
+                    # computes; its draw moves from client_step to
+                    # `sample`. A dynamic population draws after its
+                    # events instead.
+                    if (pop is None and round_idx + 1 < config.round
+                            and not preempt["flag"]):
+                        _, next_key = prng.split(key)
+                        next_out = streamer.cohort_for(next_key)
+                        phase_timer.carve(
+                            round_idx, "sample",
+                            streamer.last_sample_seconds, "client_step")
+                        streamer.prefetch([next_out])
+                    ph.fence((new_global, aux))
+                # The store is the source of truth between rounds.
+                streamer.writeback(idx_np, new_state_k, stream_rec)
+                if pop is not None:
+                    pop.apply(pop_events, store, state_proto=pop_state_proto,
+                              words=pop_words)
+                    pop_rec = pop.round_record(
+                        pop_events, int(np.count_nonzero(dep_mask)))
+            else:
+                if stream_rec_startup is not None:
+                    # The full cohort's one upload, on the first record.
+                    stream_rec, stream_rec_startup = stream_rec_startup, None
+                with phase_timer.phase(round_idx, "client_step") as ph:
+                    new_global, client_state, aux = round_fn(
+                        global_flat, client_state, cx, cy, cmask,
+                        client_data.sizes, round_key,
+                        lr_scale=lr_scale, **kw,
+                    )
+                    ph.fence((new_global, aux))
+            if async_ctl is not None:
+                # The buffer rides to the next round.
+                aux = dict(aux)
+                async_state = aux.pop("async_state")
+            if server_update is not None:
+                # A rejected round leaves the params and the server
+                # optimizer's state as they were.
+                with phase_timer.phase(round_idx, "aggregate") as ph:
+                    new_global, server_state = server_update(
+                        global_flat, new_global, server_state,
+                        aux.get("round_rejected"))
+                    ph.fence(new_global)
+        with annotate("server_eval"), _oom_hint(
+                config, n_params, n_clients, device, site="eval"):
+            with phase_timer.phase(round_idx, "eval") as ph:
+                metrics_dev = server_eval(
+                    layout.unflatten(new_global), *eval_batches)
+                ph.fence(metrics_dev)
+        if recompile is not None:
+            recompile.attribute(round_idx)
+        prev_global, global_flat = global_flat, new_global
+        finalize({
+            "round": round_idx, "round_key": round_key,
+            "aux": aux, "metrics_dev": metrics_dev,
+            "new_global": new_global, "prev_global": prev_global,
+            "client_state": client_state,
+            "server_state": server_state,
+            "async_state": async_state, "key": key,
+            "stream": stream_rec, "population": pop_rec,
+        })
+        return next_out
+
     if recompile is not None:
         recompile.start()
     try:
         with profile_stack:
             round_idx = start_round
+            # The next round's (or dispatch's) prefetched cohort.
+            stream_next = None
             while round_idx < config.round:
                 maybe_profile(round_idx)
                 if K > 1:
                     k = dispatch_len(round_idx)
                     last = round_idx + k - 1
-                    if k not in batched_fns:
-                        batched_fns[k] = tracked(
-                            "batched", make_batched_round_fn(
-                                round_fn, server_update, eval_flat, k,
-                                async_mode=async_ctl is not None))
-                    prev_global = global_flat
-                    round_kwargs = ([
-                        {"client_rng": client_rng_fn(r)}
-                        for r in range(round_idx, last + 1)
-                    ] if client_rng_fn else None)
-                    with phase_timer.phase(last, "client_step") as ph:
-                        out = batched_fns[k](
-                            global_flat, client_state, server_state, key,
-                            cx, cy, cmask, client_data.sizes, eval_batches,
-                            lr_factors(config, round_idx, k),
-                            async_state=async_state,
-                            round_kwargs=round_kwargs)
-                        (global_flat, client_state, server_state, key,
-                         metrics_k, aux_k) = out[:6]
-                        if async_ctl is not None:
-                            async_state = out[6]
-                        ph.fence((global_flat, metrics_k))
-                    if recompile is not None:
-                        recompile.attribute(last)
-                    flush_dispatch({
-                        "round_start": round_idx, "k": k,
-                        "metrics": metrics_k, "aux": aux_k,
-                        "new_global": global_flat, "prev_global": prev_global,
-                        "client_state": client_state,
-                        "server_state": server_state,
-                        "async_state": async_state, "key": key,
-                    })
+                    stream_next = run_dispatch(round_idx, k, last,
+                                               stream_next)
                     completed_round = last
                     round_idx = last + 1
                 else:
-                    lr_scale = float(lr_factors(config, round_idx, 1)[0])
-                    key, round_key = prng.split(key)
-                    kw = {}
-                    if client_rng_fn:
-                        kw["client_rng"] = client_rng_fn(round_idx)
-                    if async_ctl is not None:
-                        kw["async_state"] = async_state
-                    with annotate(f"fl_round_{round_idx}"):
-                        with phase_timer.phase(round_idx,
-                                               "client_step") as ph:
-                            new_global, client_state, aux = round_fn(
-                                global_flat, client_state, cx, cy, cmask,
-                                client_data.sizes, round_key,
-                                lr_scale=lr_scale, **kw,
-                            )
-                            ph.fence((new_global, aux))
-                        if async_ctl is not None:
-                            # The buffer rides to the next round.
-                            aux = dict(aux)
-                            async_state = aux.pop("async_state")
-                        if server_update is not None:
-                            # A rejected round leaves the params and the
-                            # server optimizer's state as they were.
-                            with phase_timer.phase(round_idx,
-                                                   "aggregate") as ph:
-                                new_global, server_state = server_update(
-                                    global_flat, new_global, server_state,
-                                    aux.get("round_rejected"))
-                                ph.fence(new_global)
-                    with annotate("server_eval"):
-                        with phase_timer.phase(round_idx, "eval") as ph:
-                            metrics_dev = server_eval(
-                                layout.unflatten(new_global), *eval_batches)
-                            ph.fence(metrics_dev)
-                    if recompile is not None:
-                        recompile.attribute(round_idx)
-                    prev_global, global_flat = global_flat, new_global
-                    finalize({
-                        "round": round_idx, "round_key": round_key,
-                        "aux": aux, "metrics_dev": metrics_dev,
-                        "new_global": new_global, "prev_global": prev_global,
-                        "client_state": client_state,
-                        "server_state": server_state,
-                        "async_state": async_state, "key": key,
-                    })
+                    stream_next = run_round(round_idx, stream_next)
                     completed_round = round_idx
                     round_idx += 1
                 if preempt["flag"]:
@@ -1239,6 +1724,9 @@ def run_simulation(
             recompile.stop()
         if installed:
             signal.signal(signal.SIGTERM, prev_sigterm)
+        if streamer is not None:
+            # No upload outlives the run; the store keeps its state.
+            streamer.close()
 
     preempted_at = None
     if preempt["flag"]:
@@ -1280,7 +1768,8 @@ def run_simulation(
     survivor_counts = telemetry["survivor_counts"]
     return {
         "global_params": layout.unflatten(global_flat),
-        "client_state": client_state,
+        # Sampled streamed: the population's state in the host store.
+        "client_state": store.state if stream_sampled else client_state,
         "history": history,
         "algorithm": algorithm,
         "final_accuracy": history[-1]["test_accuracy"] if history else None,
@@ -1321,11 +1810,21 @@ def run_simulation(
             if telemetry["buffer_occupancy"] else None
         ),
         "client_residency": config.client_residency,
-        "stream_overlap_ratio": None,
-        "stream_h2d_bytes": None,
-        "stream_d2h_bytes": None,
+        # Streamed residency's transfer totals; None when resident.
+        "stream_overlap_ratio": (
+            streamer.overlap_ratio() if streamer is not None else None
+        ),
+        "stream_h2d_bytes": (
+            streamer.totals["h2d_bytes"] if streamer is not None else None
+        ),
+        "stream_d2h_bytes": (
+            streamer.totals["d2h_bytes"] if streamer is not None else None
+        ),
         "participation_sampler": config.participation_sampler,
-        "stream_sample_seconds": None,
+        "stream_sample_seconds": (
+            streamer.totals["sample_seconds"] if streamer is not None
+            else None
+        ),
         "stream_dcn_bytes": None,
         "multihost_summary": None,
         # The v6 costmodel sub-object of the run's last record.
@@ -1338,7 +1837,10 @@ def run_simulation(
         "valuation_state": vstate,
         "gtg_memo_hit_rate": getattr(algorithm, "gtg_memo_hit_rate", None),
         "population": config.population,
-        "population_summary": None,
+        "population_summary": (
+            pop.summary(telemetry["churn_rejected"]) if pop is not None
+            else None
+        ),
         "span_trace": config.span_trace,
         "span_summary": span_summary,
         "preempted_at": preempted_at,

@@ -94,6 +94,17 @@ class PhaseTimer:
         """Pop the round's accumulated phase seconds (empty if none)."""
         return self._acc.pop(round_idx, {})
 
+    def carve(self, round_idx: int, name: str, seconds: float,
+              source: str) -> None:
+        """Move ``seconds`` of host work out of the open ``source`` phase
+        into phase ``name``: the streamed cohort draw for the next round
+        runs inside ``client_step`` so that it overlaps the card, and its
+        cost still shows as ``sample``. The negative share nets out when
+        ``source`` closes, so phases stay disjoint."""
+        acc = self._acc.setdefault(round_idx, {})
+        acc[name] = acc.get(name, 0.0) + seconds
+        acc[source] = acc.get(source, 0.0) - seconds
+
 
 class NullPhaseTimer:
     """``telemetry_level='off'``: the same API, no clocks, no records."""
@@ -105,6 +116,10 @@ class NullPhaseTimer:
         yield _FenceBox()
 
     def take(self, round_idx: int) -> None:
+        return None
+
+    def carve(self, round_idx: int, name: str, seconds: float,
+              source: str) -> None:
         return None
 
 

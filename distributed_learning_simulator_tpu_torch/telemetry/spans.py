@@ -398,3 +398,7 @@ class SpanPhaseTimer:
 
     def take(self, round_idx: int):
         return self._inner.take(round_idx)
+
+    def carve(self, round_idx: int, name: str, seconds: float,
+              source: str) -> None:
+        self._inner.carve(round_idx, name, seconds, source)

@@ -157,22 +157,29 @@ def spearman_corr(a, b) -> float | None:
 class ValuationState:
     """The per-client valuation vector (host numpy ``[N]``).
 
-    ``store`` is the JAX package's streamed-residency home of the vector
-    (its ``HostShardStore``), which the port does not have yet: passing one
-    raises (ROADMAP.md queue 1 item 15)."""
+    Under ``client_residency='streamed'`` the vector lives in the host
+    shard store (``store.valuation``, data/residency.py), the one owner of
+    every population-sized array between rounds, and grows with it under a
+    dynamic population; a resident run owns the array itself. Either way a
+    round updates its cohort's entries."""
 
     def __init__(self, n_clients: int, store=None):
+        self._store = store
         if store is not None:
-            raise NotImplementedError(
-                "a valuation vector attached to a host shard store "
-                "(client_residency='streamed') is not ported to the PyTorch "
-                "package yet (ROADMAP.md queue 1 item 15)"
-            )
-        self._values = np.zeros(n_clients, dtype=np.float64)
+            if store.valuation is None:
+                store.attach_valuation(np.zeros(n_clients, dtype=np.float64))
+            if store.valuation.shape[0] != n_clients:
+                raise ValueError(
+                    "store valuation length "
+                    f"{store.valuation.shape[0]} != n_clients {n_clients}"
+                )
+        else:
+            self._values = np.zeros(n_clients, dtype=np.float64)
 
     @property
     def values(self) -> np.ndarray:
-        return self._values
+        return (self._store.valuation if self._store is not None
+                else self._values)
 
     def load(self, values) -> None:
         """Restore a checkpoint's saved vector."""
@@ -184,7 +191,10 @@ class ValuationState:
                 f"{self.values.shape[0]}; resume with the configuration "
                 "the checkpoint was written with"
             )
-        self._values = values
+        if self._store is not None:
+            self._store.attach_valuation(values)
+        else:
+            self._values = values
 
     def fold(self, ids, scores, loss_delta: float, decay: float) -> None:
         """One round's decayed fold: participants move toward ``loss_delta
@@ -294,8 +304,9 @@ class ValuationAuditor:
                  optimizer, layout, preprocess, eval_fn, client_data,
                  eval_batches, n_clients: int, device, budget_bytes=None):
         """``client_data`` is the run's ``(cx, cy, cmask)`` shards on the
-        device; ``budget_bytes`` the device budget the replayed stack must
-        fit (None: unchecked)."""
+        device, or under streamed residency its host shard store, from
+        which each audit uploads its cohort's shards; ``budget_bytes`` the
+        device budget the replayed stack must fit (None: unchecked)."""
         self._config = config
         self._cv = cv
         cohort = config.cohort_size(n_clients)
@@ -315,7 +326,12 @@ class ValuationAuditor:
         )
         self._layout = layout
         self._eval_fn = eval_fn
-        self._cx, self._cy, self._cmask = client_data
+        self._device = device
+        self._store = None
+        if isinstance(client_data, tuple):
+            self._cx, self._cy, self._cmask = client_data
+        else:
+            self._store = client_data
         self._eval_batches = eval_batches
         self._n = n_clients
         self._evaluator = None
@@ -374,8 +390,18 @@ class ValuationAuditor:
         _, train_key, payload_key, _, _ = round_key_splits(
             round_key, with_faults=False)
         client_keys = prng.split(train_key, int(idx.shape[0]))
-        return self._stack_fn(prev_global, self._cx, self._cy, self._cmask,
-                              idx, client_keys, payload_key, lr_scale)
+        if self._store is None:
+            return self._stack_fn(prev_global, self._cx, self._cy,
+                                  self._cmask, idx, client_keys, payload_key,
+                                  lr_scale)
+        # Streamed: the cohort's shards, uploaded as the resident run holds
+        # them, indexed by cohort position.
+        x, y, m, _ = self._store.gather_data(idx)
+        return self._stack_fn(
+            prev_global, torch.as_tensor(x, device=self._device),
+            torch.as_tensor(y, dtype=torch.int64, device=self._device),
+            torch.as_tensor(m, device=self._device),
+            np.arange(idx.shape[0]), client_keys, payload_key, lr_scale)
 
     def run(self, round_idx: int, round_key, prev_global, ids,
             values: np.ndarray, sizes, lr_scale: float = 1.0) -> dict:

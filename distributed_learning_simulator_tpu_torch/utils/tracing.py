@@ -2,9 +2,10 @@
 their traces (utils/tracing.py of the JAX package, over torch.profiler).
 
 ``profile_session(profile_dir)`` records the enclosed rounds with CPU and
-CUDA activities, ``record_shapes=True`` and ``with_flops=True``, and
-writes one Chrome trace (``<profile_dir>/<stamp>.pt.trace.json.gz``) when
-it closes. ``annotate(name)`` is ``torch.profiler.record_function``.
+CUDA activities, ``record_shapes=True`` and ``with_flops=True``, one window
+per training step (:func:`profile_step`), and writes each window's Chrome
+trace (``<profile_dir>/<stamp>_<window>.pt.trace.json.gz``) when it
+closes. ``annotate(name)`` is ``torch.profiler.record_function``.
 
 The reader turns such a trace into device-op records:
 
@@ -41,6 +42,7 @@ import json
 import os
 import re
 import time
+import warnings
 
 import torch
 
@@ -400,12 +402,42 @@ def annotate(name: str):
     return torch.profiler.record_function(name)
 
 
+#: The open profiling session (one at a time), for :func:`profile_step`.
+_SESSION: dict = {"prof": None}
+
+
+def profile_step() -> None:
+    """A training-step boundary: when a :func:`profile_session` is open,
+    its current window closes (written as a trace of its own) and the next
+    one opens. Nothing without a session. The chunk train functions call
+    it after each step."""
+    prof = _SESSION["prof"]
+    if prof is None:
+        return
+    if torch.cuda.is_available():
+        # The window's kernels finish inside it.
+        torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # each window's events its own
+        prof.step()
+
+
 @contextlib.contextmanager
 def profile_session(profile_dir: str | None):
     """Profile the enclosed block into ``profile_dir`` (nothing if None):
     CPU activity, and CUDA activity when a card is present, with shapes
-    and FLOPs recorded; the Chrome trace is written when the block
-    exits."""
+    and FLOPs recorded.
+
+    The session is a run of windows, one per training step
+    (:func:`profile_step`) and one for whatever follows the last step,
+    each written when it closes as ``<stamp>_<window>.pt.trace.json.gz``
+    with its ``.pt.flops.json``; the reader sums every trace in the
+    directory. With recorded shapes the profiler keeps a weak reference to
+    each operator's inputs until its window's results are dropped, and a
+    weak reference to one of functorch's batched tensors keeps the tensor
+    it wraps alive: over a whole session that held every activation of
+    every vmapped step (tens of GB at a ResNet-18 chunk). A window holds
+    one step's."""
     if not profile_dir:
         yield
         return
@@ -414,30 +446,45 @@ def profile_session(profile_dir: str | None):
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
     # Recorded shapes come with each operator's "Concrete Inputs", which
-    # keep the inputs of functorch's batched operators alive until the
-    # session ends (a round's activations: tens of GB at a ResNet-18
-    # chunk); the reader needs only the shapes and dtypes.
+    # hold the inputs themselves; the reader needs only shapes and dtypes.
     concrete = getattr(torch._C._profiler,
                        "_set_record_concrete_inputs_enabled_val", None)
     if concrete is not None:
         concrete(False)
-    prof = torch.profiler.profile(activities=activities, record_shapes=True,
-                                  with_flops=True)
-    prof.start()
-    try:
-        yield
-    finally:
-        prof.stop()
-        if concrete is not None:
-            concrete(True)
-        base = os.path.join(profile_dir, time.strftime("%Y%m%d_%H%M%S")
-                            + f"_{os.getpid()}")
+    base = os.path.join(profile_dir, time.strftime("%Y%m%d_%H%M%S")
+                        + f"_{os.getpid()}")
+    windows = iter(range(1_000_000))
+
+    def write(p) -> None:
+        path = f"{base}_{next(windows):05d}"
         # The operators' FLOPs by their trace ``External id`` (the Kineto
         # event's correlation id).
         flops = {
             str(e.correlation_id()): int(e.flops())
-            for e in prof.profiler.kineto_results.events() if e.flops()
+            for e in p.profiler.kineto_results.events() if e.flops()
         }
-        with open(base + ".pt.flops.json", "w") as f:
+        with open(path + ".pt.flops.json", "w") as f:
             json.dump(flops, f)
-        prof.export_chrome_trace(base + ".pt.trace.json.gz")
+        p.export_chrome_trace(path + ".pt.trace.json.gz")
+
+    with warnings.catch_warnings():
+        # A one-step window has no warmup, and each window's events are
+        # its own: both on purpose.
+        warnings.simplefilter("ignore")
+        prof = torch.profiler.profile(
+            activities=activities, record_shapes=True, with_flops=True,
+            schedule=torch.profiler.schedule(wait=0, warmup=0, active=1),
+            on_trace_ready=write)
+        prof.start()
+    _SESSION["prof"] = prof
+    try:
+        yield
+    finally:
+        _SESSION["prof"] = None
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            prof.stop()
+        if concrete is not None:
+            concrete(True)

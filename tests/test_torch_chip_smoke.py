@@ -4,6 +4,7 @@ each of several broken copies invalid), and the script refuses to run,
 printing no result, without a GPU or outside the repository."""
 
 import copy
+import dataclasses
 import json
 import os
 import shutil
@@ -164,3 +165,59 @@ def test_robustness_phase_configs(tmp_path):
     assert (crash.worker_number, crash.client_chunk_size,
             crash.min_survivors, crash.checkpoint_dir) == (20, 10, 12, None)
     assert chip_smoke.chunk_steps(fedopt, 5000) == 3 * 4 * 2
+
+
+def test_oom_phase_config_and_param_count():
+    """``oom_hint``'s round trains its 1000 clients as one chunk (what the
+    card cannot hold), and ``model_param_count`` (the module's parameters)
+    is the flat layout's length, which the expected hint text is built
+    from."""
+    from distributed_learning_simulator_tpu_torch.models.bridge import (
+        jax_leaf_order,
+    )
+    from distributed_learning_simulator_tpu_torch.models.registry import (
+        ParamLayout,
+        get_model,
+        init_params,
+    )
+
+    cfg = chip_smoke.oom_config()
+    cfg.validate()
+    assert cfg.cohort_size() == cfg.client_chunk_size == 1000
+    assert (cfg.model_name, cfg.local_compute_dtype, cfg.round) == (
+        "resnet18", "bfloat16", 1)
+    small = dict(stage_sizes=[1], width=8)
+    model = get_model("resnet18", num_classes=10, input_shape=(32, 32, 3),
+                      **small)
+    layout = ParamLayout.from_params(init_params(model, (32, 32), seed=0),
+                                     jax_leaf_order(model, (32, 32)))
+    assert chip_smoke.model_param_count(
+        dataclasses.replace(cfg, model_args=small)) == sum(layout.numels)
+
+
+def test_stream_phase_configs():
+    """The streamed phases' configurations validate as they run: the
+    flagship's hashed cohort of 40 is exactly one chunk, sign_SGD's cohort
+    is its whole population, the stream leg's cohort is 256 at every
+    population, and the churn leg's join rate is the growth formula's."""
+    flagship = chip_smoke.stream_flagship_configs()
+    fed, sign = flagship["fed"], flagship["sign_SGD"]
+    for cfg in (fed, sign):
+        for residency in ("resident", "streamed"):
+            dataclasses.replace(cfg, client_residency=residency).validate()
+    assert fed.cohort_size() == fed.client_chunk_size == 40
+    assert (fed.worker_number, fed.participation_sampler, fed.round) == (
+        400, "hashed", 3)
+    assert sign.cohort_size() == sign.worker_number == 50
+    assert sign.momentum == 0.9 and sign.local_compute_dtype == "float32"
+    for n, sampler in chip_smoke.STREAM_POPULATIONS:
+        cfg = chip_smoke.stream_population_config(n, sampler).validate()
+        assert cfg.cohort_size() == 256 and cfg.batch_size == 16
+        assert cfg.client_residency == "streamed"
+    churn = chip_smoke.churn_configs()
+    for cfg in churn.values():
+        cfg.validate()
+        assert cfg.cohort_size() == cfg.client_chunk_size == 250
+        assert cfg.round == 5
+    assert churn["dynamic"].join_rate == round(9 * 1000 / 5) == 1800
+    assert churn["static"].population == "static"

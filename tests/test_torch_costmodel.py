@@ -287,7 +287,10 @@ def test_cpu_profile_degrades_in_both_packages(tiny_config, tmp_path):
         _jax_tiny(tiny_config), profile_dir=trace, profile_from_round=1,
         telemetry_level="basic"), setup_logging=False)
     assert profiled["post_warmup_compiles"] == 0
-    assert len(tracing.trace_files(trace)) == 1
+    # One trace per profiler window: a window per training step of rounds
+    # 1-2 (the 4 clients as one chunk, 128 samples at batch 32: 4 steps a
+    # round) and one for what follows the last step.
+    assert len(tracing.trace_files(trace)) == 2 * 4 + 1
     assert tracing.categorize_ops(trace) == {}
     kept = _Kept()
     loggers = [logging.getLogger(n) for n in ("dls_torch", "dls_tpu")]

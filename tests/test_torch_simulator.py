@@ -137,9 +137,11 @@ def test_probes_raise_as_in_jax():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--client_residency", "streamed"], "item 15"),
+    (["--client_residency", "streamed", "--mesh_devices", "2"], "item 17"),
     (["--mesh_devices", "2"], "item 17"),
-    (["--population", "dynamic"], "item 15"),
+    (["--population", "dynamic", "--client_residency", "streamed",
+      "--participation_sampler", "hashed", "--participation_fraction", "0.5",
+      "--multihost", "true"], "item 17"),
     (["--multihost", "true"], "item 17"),
     (["--sweep_points", "learning_rate=0.1,0.2"], "item 16"),
     (["--sweep_seeds", "0,1"], "item 16"),

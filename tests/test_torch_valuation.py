@@ -151,8 +151,25 @@ def test_state_correlations_and_record_equal_jax(seed):
     assert states[0].top() == states[1].top()
     assert states[0].bottom(3) == states[1].bottom(3)
     assert states[0].summary({"round": 2}) == states[1].summary({"round": 2})
-    with pytest.raises(NotImplementedError, match="item 15"):
-        valuation.ValuationState(12, store=object())
+    # Under streamed residency the vector lives in the host shard store
+    # and folds there, as in the JAX package.
+    from distributed_learning_simulator_tpu.data.residency import (
+        HostShardStore as JaxStore,
+    )
+    from distributed_learning_simulator_tpu_torch.data.residency import (
+        HostShardStore,
+    )
+
+    arrays = (np.zeros((12, 2, 3), np.float32), np.zeros((12, 2), np.int32),
+              np.ones((12, 2), np.float32), np.full(12, 2.0, np.float32))
+    stores = (HostShardStore(*arrays), JaxStore(*arrays))
+    homed = (valuation.ValuationState(12, store=stores[0]),
+             jval.ValuationState(12, store=stores[1]))
+    for st, store in zip(homed, stores):
+        st.load(states[0].values.copy())
+        st.fold(np.asarray([3, 1]), np.asarray([0.5, -1.0]), 0.25, 0.9)
+        assert st.values is store.valuation
+    np.testing.assert_array_equal(homed[0].values, homed[1].values)
 
 
 def test_scores_match_jax():
