@@ -155,8 +155,9 @@ together), then runs these phases and exits non-zero if any of them fails:
    convolution category, a finite positive predicted round on
    ``h100-sxm-1`` in the v6 record; the ledger, the predicted-to-measured
    ratio and the fitted efficiencies printed); ``round_batch`` (``fed``
-   and ``sign_SGD`` at 50 clients, 4 rounds at ``rounds_per_dispatch`` 1
-   and 4: bitwise equal histories and params, no synchronizing CUDA call
+   and ``sign_SGD`` at 20 clients in one chunk, 4 rounds at
+   ``rounds_per_dispatch`` 1 and 4: bitwise equal histories and params,
+   no synchronizing CUDA call
    inside a dispatch; the headline's round seconds at K=1 and K=4);
    ``async_fed`` (``fed``, 50 clients, 3 rounds, bimodal arrivals,
    deadline 1.5, buffer 8: schema-v4 records, a buffer apply, and
@@ -184,6 +185,26 @@ together), then runs these phases and exits non-zero if any of them fails:
    cohort, 4 rounds plus the first, static then dynamic toward 10x
    growth: finite losses, a grown population, valid v9 records;
    ``churn_overhead_ratio`` and ``population_summary`` printed).
+   Then the sweep engine, each fleet through ``run_sweep`` with its counts
+   set to 0 just before it and read just after: ``sweep_fleet`` (ResNet-18
+   at full width on the flagship's partition, 20 clients, 2 rounds; (a) f32
+   model and local state, seeds {0, 1}, chunk 20, and (b) bf16 local
+   state, seeds {0, 1} x lr {0.02, 0.01}, chunk 10: each chunk position of
+   every experiment one program of 40 models, so each GroupNorm kernel
+   launches 20 times per forward and the wgrad kernel 4 times per step as
+   on the solo path, and the fleet makes one solo run's training forwards
+   and one eval forward per round; each point against its solo run on the
+   shared data: (a) ``cohort_hash`` exact and test losses at rtol 1e-4,
+   bitwise equality printed, (b) the ``vmapped`` strategy with one
+   program, the lr-0.02 points at rtol 2e-3, the lr-0.01 points
+   different; round seconds per experiment beside the solo runs' and the
+   peaks printed); ``sweep_scheduled`` (bench.py's ``_sweep_leg``: the MLP,
+   32 clients, 6 rounds; an 8-seed fleet against 8 serial solo runs,
+   ``sweep_amortization_ratio`` and ``bit_identical`` printed with no
+   gate on speed; the 2-hash 8-point scheduled sweep at
+   ``compile_reuse_fraction`` 0.875, every history bitwise its solo run's;
+   a 4-point sweep crashed after 2 points and resumed from its
+   ``sweep_dir``, stitched bitwise, with valid v8 records).
 3. A profiler pass per algorithm (5 clients, 2 rounds) and one of the
    headline (10 clients, 2 rounds): device busy time, idle share, and the
    host operators with the most self time. Then the batched layers alone
@@ -195,8 +216,8 @@ together), then runs these phases and exits non-zero if any of them fails:
    of the batched layouts (``layout_ab``): ``fed`` and multi-round Shapley
    with the port's vmap rules, with GroupNorm always folding the models
    into its batch, and with functorch's own convolution rule in place of
-   ops/conv.py's, in the order A B C C B A after a run of each path that
-   is not kept. Each phase's wall seconds are logged and kept.
+   ops/conv.py's, each once in the order A B C after a run of each path
+   that is not kept. Each phase's wall seconds are logged and kept.
 4. Prints the kernels' JSON line, the card's name and power limit, and as
    its last line ``{"ok": true, "device": {...}}``.
 
@@ -1007,7 +1028,7 @@ def chunk_steps(config, n_train: int) -> int:
 def run_path(torch, gn, wg, name, config, post_round_probe=None,
              gn_per_forward=GN_PER_FORWARD, wgrad_per_step=WGRAD_PER_STEP,
              setup_logging=False, n_train=None, keep_params=False,
-             extra_rounds=0):
+             extra_rounds=0, dataset=None, client_data=None):
     """Phase 2: one main path through run_simulation, with every launch
     count set to 0 just before it and read just after; each GroupNorm
     kernel must launch ``gn_per_forward`` times per model forward and the
@@ -1020,7 +1041,9 @@ def run_path(torch, gn, wg, name, config, post_round_probe=None,
     The training forwards must be at most :func:`chunk_steps` (``n_train``
     defaults to ``config.n_train``; ``extra_rounds`` rounds of training
     more, such as the valuation audit's replay). Keeps the run's peak
-    device memory; ``keep_params`` returns the final global model too."""
+    device memory; ``keep_params`` returns the final global model too.
+    ``dataset`` and ``client_data`` are run_simulation's injection points
+    (a sweep point's solo run on the sweep's shared data)."""
     from distributed_learning_simulator_tpu_torch import factory
     from distributed_learning_simulator_tpu_torch.algorithms import shapley
     from distributed_learning_simulator_tpu_torch.models import registry
@@ -1072,7 +1095,7 @@ def run_path(torch, gn, wg, name, config, post_round_probe=None,
     hook = torch.nn.modules.module.register_module_forward_hook(count)
     try:
         result = run_simulation(
-            config,
+            config, dataset=dataset, client_data=client_data,
             setup_logging=setup_logging or post_round_probe is not None)
     finally:
         hook.remove()
@@ -2513,9 +2536,15 @@ def _sync_points(torch, batched):
     return wrapper
 
 
+#: ``round_batch``'s ResNet paths: 20 clients, one chunk of the flagship's
+#: 40 (50 clients until the sweep phases came).
+ROUND_BATCH_CLIENTS = 20
+
+
 def round_batch(torch, gn, wg, log_root):
-    """Phase 2p: ``round_batch``. ``fed`` and ``sign_SGD`` (50 clients, cut
-    like the main paths) for 4 rounds at ``rounds_per_dispatch`` 1 and 4:
+    """Phase 2p: ``round_batch``. ``fed`` and ``sign_SGD`` (20 clients in
+    one chunk, cut like the main paths) for 4 rounds at
+    ``rounds_per_dispatch`` 1 and 4:
     the histories (timings aside) and final params must be bitwise equal,
     and no synchronizing CUDA call may run inside a dispatch of 4 rounds
     (the dispatch runs under ``torch.cuda.set_sync_debug_mode``; its one
@@ -2538,7 +2567,7 @@ def round_batch(torch, gn, wg, log_root):
     out = {}
     simulator.make_batched_round_fn = checked
     try:
-        paths = path_configs(50, 5000, 2000, "WARNING")
+        paths = path_configs(ROUND_BATCH_CLIENTS, 2000, 2000, "WARNING")
         for name in ("fed", "sign_SGD"):
             cfg = dataclasses.replace(paths[name], round=4)
             one = run_path(torch, gn, wg, f"{name}_k1", cfg,
@@ -3007,6 +3036,359 @@ def churn_headline(torch, gn, wg):
             "churn_overhead_ratio": ratio}
 
 
+SWEEP_CLIENTS = 20  # sweep_fleet's flagship partition, 2 rounds
+#: sweep_fleet (b)'s lr axis; the first is the flagship's, the fleet's base.
+SWEEP_LRS = (0.02, 0.01)
+#: bench.py's ``_sweep_leg`` shape: MLP, 32 clients, 6 rounds, 8 seeds.
+SWEEP_MLP_CLIENTS, SWEEP_MLP_ROUNDS, SWEEP_MLP_POINTS = 32, 6, 8
+#: The fields a fleet point's history holds to its solo run's.
+SWEEP_KEYS = ("test_accuracy", "test_loss", "mean_client_loss",
+              "cohort_hash")
+
+
+def sweep_fleet_configs():
+    """``sweep_fleet``'s two fleets, each a config with its sweep knobs set
+    (what ``run_sweep`` takes from a user): ResNet-18 at full width on the
+    flagship's partition (Dirichlet(0.1), shard cap 100, batch 25,
+    momentum 0.9) at 20 clients, 2 rounds, one 1000-sample eval batch.
+    ``f32``: f32 model and local state, seeds {0, 1}, chunk 20 (40 models
+    a program); ``bf16``: the flagship's bf16 local state, seeds {0, 1} x
+    lr {0.02, 0.01}, chunk 10 (4 x 10 = 40 models a program)."""
+    import dataclasses
+
+    base = path_configs(SWEEP_CLIENTS, 2000, 1000, "WARNING")["fed"]
+    return {
+        "f32": dataclasses.replace(
+            base, local_compute_dtype="float32",
+            model_args={"dtype": "float32"}, client_chunk_size=20,
+            sweep_seeds="0,1", sweep_strategy="vmapped"),
+        "bf16": dataclasses.replace(
+            base, client_chunk_size=10, sweep_seeds="0,1",
+            sweep_points=json.dumps([{"learning_rate": lr}
+                                     for lr in SWEEP_LRS])),
+    }
+
+
+def run_sweep_path(torch, gn, wg, name, config, dataset, client_data):
+    """One sweep through ``run_sweep`` with every launch count set to 0
+    just before it and read just after: each GroupNorm kernel must launch
+    20 times per model forward (a forward is every experiment's chunk) and
+    the wgrad kernel 4 times per training step, with finite losses; keeps
+    the forwards, the launches and the peak device memory."""
+    from distributed_learning_simulator_tpu_torch.models.resnet import (
+        ResNet18,
+    )
+    from distributed_learning_simulator_tpu_torch.simulator import run_sweep
+
+    forwards = {"train": 0, "eval": 0}
+
+    def count(module, args, output):
+        if isinstance(module, ResNet18):
+            forwards["train" if torch.is_grad_enabled() else "eval"] += 1
+
+    gn.reset_launch_counts()
+    wg.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hook = torch.nn.modules.module.register_module_forward_hook(count)
+    t0 = time.perf_counter()
+    try:
+        out = run_sweep(config, dataset=dataset, client_data=client_data)
+    finally:
+        hook.remove()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"gn_stats": gn.gn_stats.launches,
+                "gn_normalize": gn.gn_normalize.launches,
+                "conv3x3_wgrad": wg.conv3x3_wgrad.launches}
+    total_fwd = forwards["train"] + forwards["eval"]
+    for kernel in ("gn_stats", "gn_normalize"):
+        if launches[kernel] != GN_PER_FORWARD * total_fwd:
+            fail(f"{name}: {kernel} launched {launches[kernel]} times for "
+                 f"{total_fwd} forwards (expected {GN_PER_FORWARD} each)")
+    if launches["conv3x3_wgrad"] != WGRAD_PER_STEP * forwards["train"]:
+        fail(f"{name}: conv3x3_wgrad launched "
+             f"{launches['conv3x3_wgrad']} times for {forwards['train']} "
+             f"training steps (expected {WGRAD_PER_STEP} each)")
+    for p in out["points"]:
+        if not all(math.isfinite(r["test_loss"]) for r in p["history"]):
+            fail(f"{name} point {p['index']}: non-finite test loss")
+    return {"result": out, "forwards": forwards, "launches": launches,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "wall_seconds": wall}
+
+
+def sweep_fleet(torch, gn, wg):
+    """Phase 2x: ``sweep_fleet``. Each fleet of
+    :func:`sweep_fleet_configs` through ``run_sweep`` on the base config's
+    data (``run_sweep_path``'s gates), then each needed point alone through
+    run_path on the same data. Both: the fleet's training forwards equal
+    one solo run's (every experiment's chunk j is one forward), one eval
+    forward per round (the E models in one vmapped forward of the one eval
+    batch). ``f32``: each point's ``cohort_hash`` equal to its solo run's
+    and its test losses at rtol 1e-4 (``compare_chunks``' tolerance) or,
+    where two solo runs of the point differ (the f32 path is not
+    deterministic on an H100: two runs of one seed about 1e-4 apart in
+    test loss after two rounds), by no more than twice their spread, as
+    ``crash_resume`` holds a resumed run; whether the histories are
+    bitwise equal is printed. ``bf16``: the
+    ``vmapped`` strategy with one program; the lr-0.02 points' first-round
+    test losses within rtol 2e-3 of their solo runs (the dither hashes the
+    f32 bits, so the reassociated sums of 40-model convolutions redraw
+    coordinates, and the second round of these diverging runs drifts
+    further: up to 2.9e-3 on an H100, printed), and in every round each
+    lr-0.02 point nearer its solo run than the same seed's lr-0.01 point
+    is (the lr factor moves a run further than the batching does). Prints
+    the fleet's round seconds per
+    experiment (the round's wall over E) beside the solo runs' round
+    seconds, and the peak memories."""
+    from distributed_learning_simulator_tpu_torch.data.registry import (
+        get_dataset,
+    )
+    from distributed_learning_simulator_tpu_torch.simulator import (
+        build_client_data,
+    )
+    from distributed_learning_simulator_tpu_torch.sweep import SweepSpec
+
+    out = {}
+    for name, config in sweep_fleet_configs().items():
+        ds = get_dataset(config.dataset_name, data_dir=config.data_dir,
+                         seed=config.seed, n_train=config.n_train,
+                         n_test=config.n_test, **config.dataset_args)
+        cd = build_client_data(config, ds)
+        fleet = run_sweep_path(torch, gn, wg, f"sweep_fleet {name}",
+                               config, ds, cd)
+        res = fleet["result"]
+        if res["strategy"] != "vmapped" or res["programs_compiled"] != 1:
+            fail(f"sweep_fleet {name}: strategy {res['strategy']}, "
+                 f"{res['programs_compiled']} programs (expected vmapped, "
+                 "1)")
+        points = SweepSpec.from_config(config).points
+        solos, spreads = {}, {}
+        for point in points:
+            lr = point.config.learning_rate
+            if name == "bf16" and lr != SWEEP_LRS[0]:
+                continue
+            runs = [run_path(
+                torch, gn, wg, f"sweep_fleet {name} solo seed "
+                f"{point.config.seed} lr {lr}", point.config, dataset=ds,
+                client_data=cd) for _ in range(2 if name == "f32" else 1)]
+            solos[point.index] = runs[0]
+            spreads[point.index] = [
+                max(abs(a["test_loss"] - b["test_loss"])
+                    for b in (r["history"][i] for r in runs))
+                for i, a in enumerate(runs[0]["history"])]
+        solo_fwd = {s["forwards"]["train"] for s in solos.values()}
+        n_eval = config.round * -(-config.n_test // config.eval_batch_size)
+        if solo_fwd != {fleet["forwards"]["train"]} or (
+                fleet["forwards"]["eval"] != n_eval):
+            fail(f"sweep_fleet {name}: forwards {fleet['forwards']}, solo "
+                 f"runs' training forwards {sorted(solo_fwd)}, expected "
+                 f"{n_eval} eval forwards: the fleet did not train its "
+                 "experiments together")
+        bitwise = {}
+        for p in res["points"]:
+            solo = solos.get(p["index"])
+            if solo is None:
+                continue
+            hs, hf = solo["history"], p["history"]
+            bitwise[p["index"]] = all(
+                a.get(k) == b.get(k) for a, b in zip(hs, hf)
+                for k in SWEEP_KEYS)
+            rtol = 1e-4 if name == "f32" else 2e-3
+            gated = hs if name == "f32" else hs[:1]
+            for a, b, spread in zip(gated, hf, spreads[p["index"]]):
+                bound = max(rtol * abs(a["test_loss"]), 2 * spread)
+                if a.get("cohort_hash") != b.get("cohort_hash") or not (
+                        abs(a["test_loss"] - b["test_loss"]) <= bound):
+                    fail(f"sweep_fleet {name} point {p['index']} round "
+                         f"{a['round']}: cohort {b.get('cohort_hash')} / "
+                         f"{a.get('cohort_hash')}, test loss "
+                         f"{b['test_loss']} against the solo run's "
+                         f"{a['test_loss']} (rtol {rtol}, two solo runs "
+                         f"{spread:.3e} apart)")
+        gaps = {}
+        if name == "bf16":
+            losses = {(p["seed"], p["learning_rate"]):
+                      [r["test_loss"] for r in p["history"]]
+                      for p in res["points"]}
+            for p in res["points"]:
+                if p["index"] in solos:
+                    solo_losses = [r["test_loss"] for r in
+                                   solos[p["index"]]["history"]]
+                    gaps[p["seed"]] = [
+                        (abs(f - s0), abs(g - s0)) for f, g, s0 in zip(
+                            losses[(p["seed"], SWEEP_LRS[0])],
+                            losses[(p["seed"], SWEEP_LRS[1])], solo_losses)]
+            for seed, rounds in gaps.items():
+                if not all(near < far for near, far in rounds):
+                    fail(f"sweep_fleet bf16 seed {seed}: test-loss gaps to "
+                         f"the lr-{SWEEP_LRS[0]} solo run {rounds} (lr "
+                         f"{SWEEP_LRS[0]}, lr {SWEEP_LRS[1]}): the lr factor "
+                         "did not move the run further than the batching")
+        fleet_secs = [[r["round_seconds"] for r in p["history"]]
+                      for p in res["points"]]
+        solo_secs = {i: s["round_seconds"] for i, s in solos.items()}
+        out[name] = {
+            "forwards": fleet["forwards"], "launches": fleet["launches"],
+            "solo_train_forwards": sorted(solo_fwd),
+            "round_seconds_per_experiment": fleet_secs,
+            "solo_round_seconds": solo_secs,
+            "wall_seconds": fleet["wall_seconds"],
+            "peak_memory_bytes": fleet["peak_memory_bytes"],
+            "solo_peak_memory_bytes": {
+                i: s["peak_memory_bytes"] for i, s in solos.items()},
+            "bitwise_equal_to_solo": bitwise,
+            "solo_test_loss_spread": spreads,
+            "lr_gaps_to_solo": gaps,
+            "test_losses": [[r["test_loss"] for r in p["history"]]
+                            for p in res["points"]],
+        }
+        log(f"sweep_fleet {name}: {len(res['points'])} experiments, "
+            f"forwards {fleet['forwards']} (each solo run "
+            f"{sorted(solo_fwd)} training), launches {fleet['launches']}; "
+            f"round seconds per experiment {fleet_secs} against solo "
+            f"{solo_secs}; peak {fleet['peak_memory_bytes'] / 2**30:.2f} "
+            f"GiB (solo {[round(s['peak_memory_bytes'] / 2**30, 2) for s in solos.values()]}); "
+            f"bitwise equal to solo {bitwise}; two solo runs' test losses "
+            f"apart by {spreads}; test losses {out[name]['test_losses']}, "
+            f"solo {[[r['test_loss'] for r in s['history']] for s in solos.values()]}"
+            + (f"; gaps to the lr-{SWEEP_LRS[0]} solo runs (lr "
+               f"{SWEEP_LRS[0]}, lr {SWEEP_LRS[1]}) {gaps}" if gaps else ""))
+    return out
+
+
+def sweep_mlp_config():
+    """bench.py's ``_sweep_leg`` base: the MLP on the synthetic set, 32
+    clients of 32 samples, 6 rounds, batch 16, lr 0.1."""
+    from distributed_learning_simulator_tpu_torch.config import (
+        ExperimentConfig,
+    )
+
+    return ExperimentConfig(
+        dataset_name="synthetic", model_name="mlp",
+        distributed_algorithm="fed", worker_number=SWEEP_MLP_CLIENTS,
+        round=SWEEP_MLP_ROUNDS, epoch=1, learning_rate=0.1, batch_size=16,
+        n_train=SWEEP_MLP_CLIENTS * 32, n_test=512, log_level="WARNING",
+        dataset_args={"difficulty": 0.5}, compilation_cache_dir=None,
+        device="cuda")
+
+
+def sweep_scheduled(torch, work):
+    """Phase 2y: ``sweep_scheduled``, bench.py's ``_sweep_leg`` on the
+    card (:func:`sweep_mlp_config`). An 8-seed fleet against the 8 solo
+    runs one after another on the shared data: ``sweep_amortization_ratio``
+    (serial wall over the fleet's) and ``bit_identical`` printed, no gate
+    on speed. The 2-hash 8-point scheduled sweep (seeds {0, 1} x 6-9
+    rounds): ``compile_reuse_fraction`` 0.875 and every point's history
+    bitwise its solo run's. A 4-point scheduled sweep into a ``sweep_dir``
+    under ``work`` crashed after 2 points (``DLS_SWEEP_CRASH_AFTER``) and
+    resumed: 2 points loaded, 2 run, the histories bitwise the
+    uninterrupted sweep's, every persisted record a valid v8 record."""
+    import dataclasses
+
+    from distributed_learning_simulator_tpu_torch.data.registry import (
+        get_dataset,
+    )
+    from distributed_learning_simulator_tpu_torch.simulator import (
+        build_client_data,
+        run_simulation,
+        run_sweep,
+    )
+    from distributed_learning_simulator_tpu_torch.sweep import SweepSpec
+
+    base = sweep_mlp_config()
+    ds = get_dataset("synthetic", n_train=base.n_train, n_test=base.n_test,
+                     seed=base.seed, difficulty=0.5)
+    cd = build_client_data(base, ds)
+
+    def solo(**changes):
+        return run_simulation(dataclasses.replace(base, **changes),
+                              dataset=ds, client_data=cd,
+                              setup_logging=False)["history"]
+
+    def same(a, b):
+        return len(a) == len(b) and all(
+            x.get(k) == y.get(k) for x, y in zip(a, b) for k in SWEEP_KEYS)
+
+    seeds = list(range(SWEEP_MLP_POINTS))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solos = [solo(seed=s) for s in seeds]
+    torch.cuda.synchronize()
+    serial = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fleet = run_sweep(SweepSpec(base, [{"seed": s} for s in seeds],
+                                strategy="vmapped"),
+                      dataset=ds, client_data=cd)
+    torch.cuda.synchronize()
+    fleet_wall = time.perf_counter() - t0
+    bit_identical = all(same(h, p["history"])
+                        for h, p in zip(solos, fleet["points"]))
+    ratio = serial / fleet_wall
+    sched_points = [{"seed": s, "round": r} for s in (0, 1)
+                    for r in range(SWEEP_MLP_ROUNDS, SWEEP_MLP_ROUNDS + 4)]
+    sched = run_sweep(SweepSpec(base, sched_points, strategy="scheduled"),
+                      dataset=ds, client_data=cd)
+    hashes = {p["config_hash"] for p in sched["points"]}
+    if (sched["compile_reuse_fraction"] != 0.875
+            or sched["programs_compiled"] != 1 or len(hashes) != 2):
+        fail(f"sweep_scheduled: compile_reuse_fraction "
+             f"{sched['compile_reuse_fraction']}, programs "
+             f"{sched['programs_compiled']}, {len(hashes)} config hashes "
+             "(expected 0.875, 1, 2)")
+    for p in sched["points"]:
+        if not same(solo(seed=p["seed"], round=p["rounds"]), p["history"]):
+            fail(f"sweep_scheduled point {p['index']}: history differs "
+                 "from its solo run")
+    sweep_dir = os.path.join(work, "sweep_resume")
+    shutil.rmtree(sweep_dir, ignore_errors=True)
+    points = [{"seed": s} for s in range(4)]
+    os.environ["DLS_SWEEP_CRASH_AFTER"] = "2"
+    try:
+        run_sweep(SweepSpec(base, points, strategy="scheduled",
+                            sweep_dir=sweep_dir), dataset=ds,
+                  client_data=cd)
+        fail("sweep_scheduled: the chaos crash did not fire")
+    except RuntimeError as e:
+        if "chaos" not in str(e):
+            raise
+    finally:
+        del os.environ["DLS_SWEEP_CRASH_AFTER"]
+    resumed = run_sweep(SweepSpec(base, points, strategy="scheduled",
+                                  sweep_dir=sweep_dir, resume=True),
+                        dataset=ds, client_data=cd)
+    straight = run_sweep(SweepSpec(base, points, strategy="scheduled"),
+                         dataset=ds, client_data=cd)
+    if (resumed["resumed_points"], resumed["executed_points"]) != (2, 2):
+        fail(f"sweep_scheduled resume: {resumed['resumed_points']} loaded, "
+             f"{resumed['executed_points']} run (expected 2 and 2)")
+    for pr, ps in zip(resumed["points"], straight["points"]):
+        if not same(pr["history"], ps["history"]):
+            fail(f"sweep_scheduled resume: point {pr['index']} differs "
+                 "from the uninterrupted sweep's")
+    with open(os.path.join(sweep_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    if len(records) != 4 * base.round:
+        fail(f"sweep_scheduled resume: {len(records)} records (expected "
+             f"{4 * base.round})")
+    _check_records("sweep_scheduled resume", records, _schema(), 8)
+    log(f"sweep_scheduled: {SWEEP_MLP_POINTS}-seed fleet {fleet_wall:.3f} "
+        f"s against {serial:.3f} s serial (sweep_amortization_ratio "
+        f"{ratio:.4f}), bit_identical {bit_identical}; 2-hash scheduled "
+        f"sweep compile_reuse_fraction {sched['compile_reuse_fraction']}, "
+        f"bitwise to solo; resume stitched bitwise, {len(records)} v8 "
+        "records")
+    return {"serial_wall_s": serial, "fleet_wall_s": fleet_wall,
+            "sweep_amortization_ratio": ratio,
+            "bit_identical": bit_identical,
+            "compile_reuse_fraction": sched["compile_reuse_fraction"],
+            "programs_compiled": sched["programs_compiled"],
+            "experiments_per_hour": fleet["experiments_per_hour"],
+            "resume": {"resumed": resumed["resumed_points"],
+                       "executed": resumed["executed_points"]}}
+
+
 def profile_rounds(torch, name, config):
     """Phase 3, where a round's time goes (informational, not a check): one
     algorithm at 10 clients, 2 rounds, under torch.profiler (whose trace
@@ -3258,10 +3640,11 @@ def layout_ab(torch, gn, wg, log_root: str):
     """Phase 3c: an end-to-end A/B of the batched layouts (``layout_arm``)
     on ``fed`` (the main path's configuration: chunks of 40 and 10) and on
     multi-round Shapley (N=4: one batch of 16 subset models a round), each
-    run through run_path's gates, the arms in the order A B C C B A after
-    one run of each path that is not kept (without it, the arm at the ends
-    of the order was the slowest on ``fed`` in three calls, once while
-    running the same training code as another arm). Keeps each run's
+    run through run_path's gates, each arm once in the order A B C after
+    one run of each path that is not kept (without it, the arm run first
+    was the slowest on ``fed`` in three calls, once while running the same
+    training code as another arm; A B C C B A until the sweep phases
+    came). Keeps each run's
     second-round seconds and its subset evaluations per second
     (informational: host variance moves round times between runs)."""
     configs = {
@@ -3273,7 +3656,7 @@ def layout_ab(torch, gn, wg, log_root: str):
         run_path(torch, gn, wg, f"{name} [warm-up, not kept]", config,
                  post_round_probe=[] if "shapley" in name else None)
     runs = []
-    for arm in LAYOUT_ARMS + LAYOUT_ARMS[::-1]:
+    for arm in LAYOUT_ARMS:
         for name, config in configs.items():
             probes = [] if "shapley" in name else None
             with layout_arm(torch, arm):
@@ -3476,6 +3859,11 @@ def main() -> None:
     churn = phase("churn_headline", churn_headline, torch, gn, wg)
     for name, run in churn["runs"].items():
         paths[f"churn_{name}"] = run
+    fleets = phase("sweep_fleet", sweep_fleet, torch, gn, wg)
+    for name, run in fleets.items():
+        paths[f"sweep_fleet_{name}"] = run
+    scheduled = phase("sweep_scheduled", sweep_scheduled, torch,
+                      os.path.abspath(args.out))
     # The ResNet paths at 5 clients (10 before the headline path: the
     # profiler's trace processing took most of the run), the headline at
     # 10 (50 samples each, as at 1000) with a 1000-sample eval.
@@ -3555,6 +3943,7 @@ def main() -> None:
                    "oom_hint": oom, "stream_population": population,
                    "residency_trace": residency_trace,
                    "churn_overhead_ratio": churn["churn_overhead_ratio"],
+                   "sweep_scheduled": scheduled,
                    "phase_seconds": phase_seconds},
                   f, indent=1)
     if "jax" in sys.modules:

@@ -66,6 +66,10 @@ split into one key per client, and each client's into one salt per leaf.
 ``process_client_payload`` takes a chunk's ``[M, P]`` uploads with their
 ``[M, n_leaves]`` salts.
 
+``make_fleet_round_fn`` is the round body over a sweep's E experiments
+(sweep/engine.py): each experiment's host draws as in its solo round, and
+chunk j of every experiment trained as one program of E x M models.
+
 With ``client_stats='on'`` (telemetry/client_stats.py) the round also
 returns ``aux["client_stats"]``, the cohort's ``[N, S]`` stats matrix: the
 chunk train function reports each client's first-step loss and mean squared
@@ -168,6 +172,73 @@ def chunk_keys(group_key, n_members: int, chunk: int | None):
     return list(prng.split(group_key, n_members // chunk + 1))
 
 
+def _bucket_sizes(cfg, client_sizes, materialize: bool, sampled: bool):
+    """The client sizes the size-aware schedule plans with
+    (``bucket_client_work`` on the mean path under full participation with
+    a chunk size), or None for the plain path."""
+    chunk = cfg.client_chunk_size
+    if (
+        client_sizes is not None
+        and cfg.bucket_client_work
+        and not materialize
+        and not sampled
+        and chunk is not None
+        and chunk > 0
+    ):
+        return np.asarray(client_sizes, dtype=np.int64)
+    return None
+
+
+def _bucket_plan(bucket_sizes, bsz: int, chunk: int, total_steps: int):
+    """{steps -> client indices}: clients sorted by needed step count, cut
+    into chunks, chunks grouped by their largest member's steps; empty
+    clients go to the s=0 group."""
+    steps_c = np.minimum(-(-bucket_sizes // bsz), total_steps)
+    groups: dict[int, list[np.ndarray]] = {}
+    empty = np.flatnonzero(steps_c == 0)
+    if empty.size:
+        groups[0] = [empty]
+    nonzero = np.flatnonzero(steps_c > 0)
+    order = nonzero[np.argsort(-steps_c[nonzero], kind="stable")]
+    for start in range(0, order.size, chunk):
+        sl = order[start:start + chunk]
+        groups.setdefault(int(steps_c[sl[0]]), []).append(sl)
+    return {s: np.concatenate(g) for s, g in groups.items()}
+
+
+def reduction_schedule(bucket_sizes, bsz: int, chunk, n_participants: int,
+                       shard_size: int, payload_key):
+    """The mean path's reduction order: ``[(slots, [(chunk payload key,
+    [cohort positions, ...]), ...]), ...]``. The group keys are the JAX
+    program's: ``payload_key`` for the plain path, else one split per plan
+    group (the s=0 group, last, trains nothing). It depends on the shared
+    client sizes only, never on the cohort drawn, so every experiment of a
+    sweep fleet has the same groups and chunks."""
+    plan = None
+    if bucket_sizes is not None:
+        plan = _bucket_plan(bucket_sizes, bsz, chunk, shard_size // bsz)
+        if len(plan) <= 1:
+            plan = None  # uniform work: the plain path
+    if plan is None:
+        groups = [(shard_size, np.arange(n_participants))]
+        group_keys = [payload_key]
+    else:
+        groups = [(s * bsz, idx) for s, idx in
+                  sorted(plan.items(), reverse=True) if s > 0]
+        group_keys = prng.split(payload_key, len(plan))
+    out = []
+    for (slots, idx), gk in zip(groups, group_keys):
+        if chunk is None or chunk <= 0 or chunk >= idx.size:
+            chunks = [idx]
+        else:
+            chunks = [idx[i:i + chunk] for i in range(0, idx.size, chunk)]
+        keys = chunk_keys(gk, idx.size, chunk)
+        out.append((slots, [
+            (keys[j], [int(p) for p in ch]) for j, ch in enumerate(chunks)
+        ]))
+    return out
+
+
 def _select(rejected: torch.Tensor, old, new):
     """``old`` where the device bool ``rejected`` holds, else ``new``, leaf
     by leaf over a tensor or a dict of them; a leaf on another device (the
@@ -268,15 +339,33 @@ class FedAvg(Algorithm):
     def process_aggregated(self, global_params, salts):
         return global_params, {}
 
+    def _chunk_train_fn(self, apply_fn, optimizer, layout, preprocess,
+                        device, collect_stats: bool = False):
+        """The round's chunk train function
+        (:func:`~..parallel.engine.make_chunk_train_fn`) at the config's
+        local settings, with the client param transform."""
+        cfg = self.config
+        return make_chunk_train_fn(
+            apply_fn, optimizer, layout,
+            local_epochs=cfg.epoch,
+            batch_size=cfg.batch_size,
+            preprocess=preprocess,
+            compute_dtype=(torch.bfloat16
+                           if cfg.local_compute_dtype == "bfloat16"
+                           else None),
+            device=device,
+            param_transform=self.client_param_transform(),
+            reset_optimizer=cfg.reset_client_optimizer,
+            augment=get_augment(cfg.augment),
+            collect_stats=collect_stats,
+        )
+
     def make_round_fn(self, apply_fn, optimizer, layout, n_clients: int,
                       preprocess=None, client_sizes=None, device=None):
         self.check_cohort(n_clients)
         cfg = self.config
         bsz = cfg.batch_size
         chunk = cfg.client_chunk_size
-        compute_dtype = (
-            torch.bfloat16 if cfg.local_compute_dtype == "bfloat16" else None
-        )
         self.segments = Segments(layout.numels, device)
         transform = self.client_param_transform()
         augment = get_augment(cfg.augment)
@@ -304,81 +393,16 @@ class FedAvg(Algorithm):
                 "client_eval needs prepare(apply_fn, eval_fn, eval_batches) "
                 "before make_round_fn"
             )
-        train_chunk = make_chunk_train_fn(
-            apply_fn, optimizer, layout,
-            local_epochs=cfg.epoch,
-            batch_size=bsz,
-            preprocess=preprocess,
-            compute_dtype=compute_dtype,
-            device=device,
-            param_transform=transform,
-            reset_optimizer=cfg.reset_client_optimizer,
-            augment=augment,
-            collect_stats=cs is not None,
-        )
+        train_chunk = self._chunk_train_fn(apply_fn, optimizer, layout,
+                                           preprocess, device,
+                                           collect_stats=cs is not None)
         n_leaves = len(layout.numels)
         evaluate_models = (
             make_models_eval_fn(self._eval_fn, layout, transform)
             if client_eval else None
         )
 
-        bucket_sizes = None
-        if (
-            client_sizes is not None
-            and cfg.bucket_client_work
-            and not materialize
-            and not sampled
-            and chunk is not None
-            and chunk > 0
-        ):
-            bucket_sizes = np.asarray(client_sizes, dtype=np.int64)
-
-        def _bucket_plan(total_steps: int):
-            """{steps -> client indices}: clients sorted by needed step
-            count, cut into chunks, chunks grouped by their largest
-            member's steps; empty clients go to the s=0 group."""
-            steps_c = np.minimum(-(-bucket_sizes // bsz), total_steps)
-            groups: dict[int, list[np.ndarray]] = {}
-            empty = np.flatnonzero(steps_c == 0)
-            if empty.size:
-                groups[0] = [empty]
-            nonzero = np.flatnonzero(steps_c > 0)
-            order = nonzero[np.argsort(-steps_c[nonzero], kind="stable")]
-            for start in range(0, order.size, chunk):
-                sl = order[start:start + chunk]
-                groups.setdefault(int(steps_c[sl[0]]), []).append(sl)
-            return {s: np.concatenate(g) for s, g in groups.items()}
-
-        def schedule(shard_size: int, payload_key):
-            """The reduction order: ``[(slots, [(chunk payload key, [cohort
-            positions, ...]), ...]), ...]``. The group keys are the JAX
-            program's: ``payload_key`` for the plain path, else one split
-            per plan group (the s=0 group, last, trains nothing)."""
-            plan = None
-            if bucket_sizes is not None:
-                plan = _bucket_plan(shard_size // bsz)
-                if len(plan) <= 1:
-                    plan = None  # uniform work: the plain path
-            if plan is None:
-                groups = [(shard_size, np.arange(n_participants))]
-                group_keys = [payload_key]
-            else:
-                groups = [(s * bsz, idx) for s, idx in
-                          sorted(plan.items(), reverse=True) if s > 0]
-                group_keys = prng.split(payload_key, len(plan))
-            out = []
-            for (slots, idx), gk in zip(groups, group_keys):
-                if chunk is None or chunk <= 0 or chunk >= idx.size:
-                    chunks = [idx]
-                else:
-                    chunks = [idx[i:i + chunk]
-                              for i in range(0, idx.size, chunk)]
-                keys = chunk_keys(gk, idx.size, chunk)
-                out.append((slots, [
-                    (keys[j], [int(p) for p in ch])
-                    for j, ch in enumerate(chunks)
-                ]))
-            return out
+        bucket_sizes = _bucket_sizes(cfg, client_sizes, materialize, sampled)
 
         def round_fn(global_flat, client_state, cx, cy, cmask, sizes, key,
                      lr_scale=1.0, client_rng=None, payload_salts=None,
@@ -440,7 +464,9 @@ class FedAvg(Algorithm):
                 plan = [(cx.shape[1], [(payload_key,
                                         list(range(n_participants)))])]
             else:
-                plan = schedule(cx.shape[1], payload_key)
+                plan = reduction_schedule(bucket_sizes, bsz, chunk,
+                                          n_participants, cx.shape[1],
+                                          payload_key)
             if client_rng is None:
                 def client_rng(i, n_slots):
                     return client_draws(client_keys[pos_of[i]], n_slots,
@@ -730,6 +756,158 @@ class FedAvg(Algorithm):
 
         return round_fn_streamed
 
+    def make_fleet_round_fn(self, apply_fn, optimizer, layout,
+                            n_clients: int, preprocess=None,
+                            client_sizes=None, device=None):
+        """The round body over E experiments at once (the sweep fleet,
+        sweep/engine.py): ``fleet_round(globals_e [E, P], cx, cy, cmask,
+        sizes, round_keys, lr_scale=1.0) -> (new_globals [E, P], auxes)``,
+        ``round_keys`` the E experiments' round keys and ``auxes`` their E
+        aux dicts, each the one the solo round returns.
+
+        Per experiment, on the host, exactly as the solo round draws them:
+        the round key's splits, the cohort, the failure mask, the weights
+        and each member's batch orders and rounding salt. Shared on the
+        device: the loop over the reduction order's chunks. Chunk j of
+        every experiment trains as one ``train_chunk`` call of E x M rows,
+        row ``e * M + m`` experiment e's member m, from e's global model
+        (each row rounded to bf16 with its own salt, as in the solo
+        chunk), and each experiment then accumulates the solo contraction
+        of its weights with its own contiguous slice of the uploads, in
+        the solo order. ``lr_scale`` is a float for every row or an f32
+        ``[E]`` factor per experiment. Per experiment after the loop: the
+        empty-cohort keep, the quorum select and the downlink hook.
+
+        Serves what ``SweepSpec.fleet_compatible`` admits: the mean path
+        with the optimizer reset every round, optionally a cohort sample,
+        the size-aware schedule (its plan depends on the shared sizes
+        only), a failure model and a quorum."""
+        self.check_cohort(n_clients)
+        cfg = self.config
+        if (self.materializes_client_stack or self.payload_salted
+                or not cfg.reset_client_optimizer):
+            raise ValueError(
+                "the experiment fleet runs fed's mean path without "
+                "persistent client state (SweepSpec.fleet_compatible)"
+            )
+        bsz = cfg.batch_size
+        chunk = cfg.client_chunk_size
+        augment = get_augment(cfg.augment)
+        n_participants = cfg.cohort_size(n_clients)
+        sampled = n_participants < n_clients
+        fm = FailureModel.from_config(cfg)
+        min_survivors = cfg.min_survivors
+        quorum = fm is not None or min_survivors > 0
+        train_chunk = self._chunk_train_fn(apply_fn, optimizer, layout,
+                                           preprocess, device)
+        bucket_sizes = _bucket_sizes(cfg, client_sizes, False, sampled)
+
+        def plan_experiment(key, sizes):
+            """One experiment's host draws for the round (the solo round's
+            first half)."""
+            _, train_key, payload_key, _, fault_key = round_key_splits(
+                key, fm is not None)
+            failed = (fm.draw_failed(fault_key, n_participants)
+                      if fm is not None else None)
+            ids = self.cohort_indices(key, n_clients)
+            if ids is None:
+                ids = np.arange(n_clients)
+            part_sizes = np.asarray(sizes, dtype=np.float32)[ids]
+            if failed is not None and fm.excludes_update:
+                part_sizes = part_sizes * (~failed).astype(np.float32)
+            total = part_sizes.sum(dtype=np.float32)
+            return {
+                "ids": ids, "failed": failed, "total": total,
+                "norm_w": part_sizes / np.maximum(total, np.float32(1e-12)),
+                "client_keys": prng.split(train_key, n_participants),
+                "payload_key": payload_key,
+            }
+
+        def fleet_round(globals_e, cx, cy, cmask, sizes, round_keys,
+                        lr_scale=1.0):
+            n_exp = len(round_keys)
+            dev = globals_e.device
+            exps = [plan_experiment(k, sizes) for k in round_keys]
+            # The groups and chunks depend on the shared sizes only; fed
+            # reads no chunk payload key, so any experiment's plan serves.
+            plan = reduction_schedule(bucket_sizes, bsz, chunk,
+                                      n_participants, cx.shape[1],
+                                      exps[0]["payload_key"])
+            row_scale = lr_scale
+            losses = [torch.zeros(n_participants, device=dev)
+                      for _ in range(n_exp)]
+            accs = [torch.zeros_like(v) for v in losses]
+            new = [torch.zeros_like(g, dtype=torch.float32)
+                   for g in globals_e]
+            for slots, chunks in plan:
+                group_acc = [torch.zeros_like(v) for v in new]
+                for _, members in chunks:
+                    m = len(members)
+                    pos = to_device(members, dev, torch.long)
+                    rows = to_device(
+                        np.concatenate([x["ids"][members] for x in exps]),
+                        cx.device, torch.long)
+                    perms, salts, aug_keys = stack_draws([
+                        client_draws(x["client_keys"][p], slots, cfg.epoch,
+                                     augment=augment is not None)
+                        for x in exps for p in members
+                    ])
+                    if isinstance(lr_scale, torch.Tensor):
+                        row_scale = lr_scale.repeat_interleave(m)
+                    params, _, metrics = train_chunk(
+                        globals_e.repeat_interleave(m, dim=0),
+                        cx[rows, :slots], cy[rows, :slots],
+                        cmask[rows, :slots], perms, salts,
+                        aug_keys=aug_keys, lr_scale=row_scale,
+                    )
+                    for e, x in enumerate(exps):
+                        sl = slice(e * m, (e + 1) * m)
+                        losses[e][pos] = metrics["loss"][sl]
+                        accs[e][pos] = metrics["accuracy"][sl]
+                        uploads = params[sl]
+                        if x["failed"] is not None and fm.corrupts_upload:
+                            uploads = fm.corrupt_stack(
+                                uploads, x["failed"][members])
+                        uploads = self.process_client_payload(uploads,
+                                                              None)[0]
+                        w = to_device(x["norm_w"][members], uploads.device)
+                        group_acc[e] += torch.tensordot(
+                            w, uploads.float(), dims=1)
+                for e in range(n_exp):
+                    new[e] += group_acc[e]
+            out, auxes = [], []
+            for e, x in enumerate(exps):
+                new_global = new[e] if x["total"] > 0 else globals_e[e]
+                aux = {}
+                rejected = None
+                if quorum:
+                    survivor_count = (
+                        int((~x["failed"]).sum()) if x["failed"] is not None
+                        else n_participants)
+                    rejected = (~finite_flag(new_global)
+                                | bool(survivor_count < min_survivors))
+                    aux["survivor_count"] = survivor_count
+                    aux["round_rejected"] = rejected
+                new_global, agg_aux = self.process_aggregated(new_global,
+                                                              None)
+                if rejected is not None:
+                    new_global = torch.where(
+                        rejected, globals_e[e].to(new_global.dtype),
+                        new_global)
+                aux.update({
+                    "client_loss": losses[e],
+                    "client_accuracy": accs[e],
+                    "mean_client_loss": losses[e].mean(),
+                    **agg_aux,
+                })
+                if sampled:
+                    aux["participants"] = np.asarray(x["ids"])
+                out.append(new_global)
+                auxes.append(aux)
+            return torch.stack(out), auxes
+
+        return fleet_round
+
     def make_valuation_audit_fn(self, apply_fn, optimizer, layout,
                                 preprocess=None, device=None):
         """The valuation audit's replay of a round's cohort training
@@ -750,22 +928,9 @@ class FedAvg(Algorithm):
         group's slots only, so there (as in the JAX package) the replay is
         the unscheduled round's training, not the scheduled one's."""
         cfg = self.config
-        compute_dtype = (
-            torch.bfloat16 if cfg.local_compute_dtype == "bfloat16" else None
-        )
         augment = get_augment(cfg.augment)
-        train_chunk = make_chunk_train_fn(
-            apply_fn, optimizer, layout,
-            local_epochs=cfg.epoch,
-            batch_size=cfg.batch_size,
-            preprocess=preprocess,
-            compute_dtype=compute_dtype,
-            device=device,
-            param_transform=self.client_param_transform(),
-            reset_optimizer=cfg.reset_client_optimizer,
-            augment=augment,
-            collect_stats=False,
-        )
+        train_chunk = self._chunk_train_fn(apply_fn, optimizer, layout,
+                                           preprocess, device)
         chunk = cfg.client_chunk_size
 
         def audit_stack(global_flat, cx, cy, cmask, ids, client_keys,

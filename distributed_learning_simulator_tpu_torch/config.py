@@ -232,6 +232,46 @@ class ExperimentConfig:
                 f"unknown sweep_strategy {self.sweep_strategy!r}; known: "
                 + ", ".join(SWEEP_STRATEGIES)
             )
+        if self.sweep_resume and not self.sweep_dir:
+            raise ValueError(
+                "sweep_resume=True needs sweep_dir (where the completed "
+                "points were persisted)"
+            )
+        if self.sweep_seeds or self.sweep_points:
+            # Sweep-wide refusals (the one authoritative copy; sweep/
+            # spec.py re-checks per point because overrides can
+            # introduce any of these).
+            if self.execution_mode.lower() == "threaded":
+                raise ValueError(
+                    "execution_mode='threaded' does not support sweeps: "
+                    "the thread-per-client oracle owns one OS thread per "
+                    "client per experiment and shares no compiled "
+                    "program; run threaded points as solo runs"
+                )
+            if self.distributed_algorithm in SHAPLEY_ALGORITHMS:
+                raise ValueError(
+                    f"algorithm {self.distributed_algorithm!r} does not "
+                    "support sweeps: its post_round drives data-dependent "
+                    "subset evaluation that must observe every round "
+                    "synchronously; run Shapley configs as solo runs"
+                )
+            if (
+                self.client_residency.lower() == "streamed"
+                and self.rounds_per_dispatch > 1
+            ):
+                raise ValueError(
+                    "client_residency='streamed' with rounds_per_dispatch"
+                    " > 1 does not compose with sweeps: the scheduler "
+                    "cannot host-replay K stacked cohort plans across "
+                    "points sharing one streamer; set "
+                    "rounds_per_dispatch=1 or client_residency='resident'"
+                )
+            if self.multihost:
+                raise ValueError(
+                    "sweeps do not compose with multihost: every process "
+                    "would re-run the whole point list; shard the sweep "
+                    "across hosts by splitting the point list instead"
+                )
         if self.cost_model_trace_rounds < 1:
             raise ValueError("cost_model_trace_rounds must be >= 1")
         from distributed_learning_simulator_tpu_torch.telemetry.topologies import (  # noqa: E501
@@ -687,7 +727,6 @@ class ExperimentConfig:
             (self.mesh_devices is not None and self.mesh_devices > 1,
              "mesh_devices > 1", 17),
             (self.multihost, "multihost", 17),
-            (bool(self.sweep_seeds or self.sweep_points), "sweeps", 16),
         )
         for refused, what, item in checks:
             if refused:

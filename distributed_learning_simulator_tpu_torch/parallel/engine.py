@@ -372,6 +372,12 @@ def make_chunk_train_fn(
     opt_state, metrics)``: M clients' local runs as one program, the JAX
     package's ``vmap(local_train)`` over a chunk.
 
+    ``global_flat`` is the one ``[P]`` model every member starts from, or
+    an ``[M, P]`` stack of per-member starting models (a sweep fleet's
+    chunk: experiment e's rows start from e's global model). ``lr_scale``
+    is a float for every member or an f32 ``[M]`` tensor of per-member
+    factors on the params' device.
+
     ``xs, ys, mask`` are the members' ``[M, n_slots, ...]`` shards,
     ``epoch_perms`` ``[M, E, n_slots]`` their batch orders (a permutation
     of the slots per epoch), ``sr_salts`` their M bf16 rounding salts,
@@ -427,12 +433,13 @@ def make_chunk_train_fn(
         m = xs.shape[0]
         salts = list(sr_salts)
         with torch.no_grad():
+            # Never written in place: every step makes a new stack.
+            start = (global_flat.expand(m, *global_flat.shape)
+                     if global_flat.dim() == 1 else global_flat)
             if sr_enabled:
-                params, salts = rounder(
-                    global_flat.expand(m, *global_flat.shape), salts)
+                params, salts = rounder(start, salts)
             else:
-                # Never written in place: every step makes a new stack.
-                params = global_flat.expand(m, *global_flat.shape)
+                params = start
             if reset_optimizer:
                 opt_state = optimizer.init(params)
         steps = xs.shape[1] // batch_size
@@ -462,7 +469,14 @@ def make_chunk_train_fn(
                     updates, opt_state = optimizer.update(
                         grads, opt_state, params
                     )
-                    if lr_scale != 1.0:
+                    if isinstance(lr_scale, torch.Tensor):
+                        # One factor per row (a sweep fleet's experiments):
+                        # the scalar's f32 product row by row, and a row's
+                        # factor 1.0 leaves its update as it was.
+                        updates = (updates.float() * lr_scale[:, None]).to(
+                            updates.dtype
+                        )
+                    elif lr_scale != 1.0:
                         # f32 math, original dtype kept (JAX: the round
                         # schedule factor multiplies the final update).
                         updates = (updates.float() * lr_scale).to(
@@ -599,6 +613,55 @@ def make_models_eval_fn(eval_fn: Callable, layout,
         return batched(models, xb, yb, mb)
 
     return tracked("evaluate_models", evaluate_models)
+
+
+def make_experiment_round_fn(fleet_round_fn, lr_schedule: bool):
+    """The sweep fleet's round over a leading experiment axis (sweep/
+    engine.py; the JAX package's ``make_experiment_round_fn``, a
+    ``jax.vmap`` of the whole round).
+
+    The port's round plans on the host (the key chain, the cohort, the
+    draws), so it is not vmapped: the experiment axis is folded into the
+    chunk's model axis instead. ``fleet_round_fn`` is the algorithm's
+    fleet form of its round body (``FedAvg.make_fleet_round_fn``): every
+    experiment's chunk j trains as one program of E x M rows. Each
+    experiment carries its own global model and key chain and replays the
+    solo loop's ``key, round_key = split(key)`` before its round; the
+    client data, masks and sizes are shared (the sweep's data contract).
+
+    ``lr_schedule`` (the JAX operand rule): when True the returned function
+    takes an f32 ``[E]`` vector, per experiment its lr factor times the
+    round's schedule factor; when False the round runs at the scalar 1.0,
+    as a solo round without a schedule.
+
+    Returns ``fleet(params_e [E, P], keys_e, cx, cy, cmask, sizes[,
+    lr_vec]) -> (new_params_e, new_keys_e, auxes)``, ``keys_e`` a list of E
+    keys and ``auxes`` the E solo aux dicts. Per-client state is not
+    carried (the sweep spec refuses it for fleets)."""
+
+    def fleet(params_e, keys_e, cx, cy, cmask, sizes, lr_vec=None):
+        keys_next, round_keys = [], []
+        for key in keys_e:
+            key, round_key = prng.split(key)
+            keys_next.append(key)
+            round_keys.append(round_key)
+        lr_scale = 1.0
+        if lr_schedule:
+            lr_scale = to_device(np.asarray(lr_vec, dtype=np.float32),
+                                 params_e.device)
+        new_params, auxes = fleet_round_fn(params_e, cx, cy, cmask, sizes,
+                                           round_keys, lr_scale=lr_scale)
+        return new_params, keys_next, auxes
+
+    return fleet
+
+
+def make_experiment_eval_fn(eval_fn: Callable, layout):
+    """The fleet's server eval of its E global models, one vmapped forward
+    per eval batch (:func:`make_models_eval_fn`; the JAX package's
+    ``make_experiment_eval_fn``): ``evaluate(params_e [E, P], xb, yb, mb)
+    -> {"loss": [E], "accuracy": [E]}``."""
+    return make_models_eval_fn(eval_fn, layout)
 
 
 def stack_rounds(values: list):

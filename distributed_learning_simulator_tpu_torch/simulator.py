@@ -29,6 +29,10 @@ with the staleness buffer (v4). ``--rounds_per_dispatch K`` runs K rounds
 back to back with one metric fetch (the same records and parameters as
 K=1). ``--execution_mode threaded`` runs the threaded oracle
 (execution/threaded.py) instead of the round loop.
+
+``--sweep_seeds 0,1,2`` and/or ``--sweep_points '[{"learning_rate":
+0.05}, ...]'`` run a sweep of experiments instead of one (sweep/engine.py;
+``--sweep_strategy``, ``--sweep_dir``, ``--sweep_resume``).
 """
 
 from __future__ import annotations
@@ -1848,8 +1852,31 @@ def run_simulation(
     }
 
 
+def run_sweep(config_or_spec, dataset=None, client_data=None):
+    """Multi-experiment front door (sweep/): run a fleet of experiments —
+    trained together where the points allow, scheduled through
+    config-hash-grouped warm programs where they don't. A re-export, so
+    that ``simulator`` stays the one entry module; the engine lives in
+    sweep/engine.py (imported when called)."""
+    from distributed_learning_simulator_tpu_torch.sweep import (
+        run_sweep as _run_sweep,
+    )
+
+    return _run_sweep(config_or_spec, dataset=dataset,
+                      client_data=client_data)
+
+
 def main(argv: list[str] | None = None):
-    return run_simulation(get_config(argv))
+    from distributed_learning_simulator_tpu_torch.sweep.spec import (
+        SweepSpec,
+    )
+
+    config = get_config(argv)
+    if SweepSpec.active(config):
+        # Sweep knobs set (sweep_seeds / sweep_points): the process runs
+        # a fleet of experiments instead of one (sweep/engine.py).
+        return run_sweep(config)
+    return run_simulation(config)
 
 
 if __name__ == "__main__":

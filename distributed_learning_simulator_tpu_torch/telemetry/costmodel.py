@@ -26,8 +26,8 @@ category's bytes or FLOPs over its device time, against the H100 row's
 peaks); PERF.md gives the fit, the card and its power limit. The model
 predicts device time; a round's wall clock adds the host's share on top.
 
-``sweep_cost_record`` (the sweep engine's $/sweep) comes with the sweeps
-(ROADMAP.md item 16).
+``sweep_cost_record`` prices a sweep (sweep/engine.py): the shared round
+program's prediction times the sweep's round occupancy, per topology.
 """
 
 from __future__ import annotations
@@ -196,3 +196,72 @@ def costmodel_record(ledger: dict, *, trace_rounds: int = 1,
     if run_rounds:
         record["run_rounds"] = run_rounds
     return record
+
+
+def sweep_cost_record(ledger: dict, *, trace_rounds: int = 1,
+                      points: int, rounds_total: int,
+                      programs_compiled: int,
+                      executed_points: int | None = None,
+                      anchor: str = DEFAULT_ANCHOR,
+                      topologies: dict | None = None,
+                      efficiency: dict | None = None,
+                      param_bytes: int | None = None) -> dict:
+    """$/sweep: price the round program ONCE, multiply by the sweep's
+    round occupancy per topology (sweep/engine.py; the JAX package's
+    ``sweep_cost_record``, the same formulas).
+
+    ``ledger`` describes the sweep's (shared) round program over
+    ``trace_rounds`` traced rounds; ``rounds_total`` is the sweep's
+    total round occupancy (sum of every point's horizon — a vmapped
+    fleet of E experiments over R rounds occupies E*R experiment-rounds
+    even though it dispatches R programs, because each dispatch does E
+    experiments' device work); ``programs_compiled`` over
+    ``executed_points`` (default ``points``; a partially-resumed sweep
+    built programs only for the points it actually ran) gives the
+    program-reuse bookkeeping (``compile_reuse_fraction`` — every point
+    past each group's first rides a warm program). Device-work cost does
+    NOT amortize, so ``usd_per_sweep`` scales with occupancy while the
+    program column scales with programs.
+    """
+    if points < 1:
+        raise ValueError(f"points must be >= 1, got {points}")
+    if rounds_total < 1:
+        raise ValueError(f"rounds_total must be >= 1, got {rounds_total}")
+    if executed_points is None:
+        executed_points = points
+    topos = topologies if topologies is not None else TOPOLOGIES
+    per_topology = {}
+    for name in sorted(topos):
+        topo = topos[name]
+        pred = predict_round(
+            ledger, topo, trace_rounds=trace_rounds,
+            efficiency=efficiency, param_bytes=param_bytes,
+        )
+        usd_per_round = (
+            pred["predicted_ms"] / 3.6e6 * topo.chips
+            * topo.usd_per_chip_hour
+        )
+        per_topology[name] = {
+            "chips": topo.chips,
+            "predicted_round_ms": round(pred["predicted_ms"], 3),
+            "bottleneck": pred["bottleneck"],
+            "usd_per_sweep": round(usd_per_round * rounds_total, 6),
+            "usd_per_point": round(
+                usd_per_round * rounds_total / points, 6
+            ),
+        }
+    return {
+        "anchor_topology": (
+            topos[anchor].name if anchor in topos
+            else get_topology(anchor).name
+        ),
+        "points": points,
+        "rounds_total": rounds_total,
+        "programs_compiled": programs_compiled,
+        "compile_reuse_fraction": (
+            round(max(0.0, 1.0 - programs_compiled / executed_points), 4)
+            if executed_points else None
+        ),
+        "trace_rounds": trace_rounds,
+        "per_topology": per_topology,
+    }

@@ -221,3 +221,38 @@ def test_stream_phase_configs():
         assert cfg.round == 5
     assert churn["dynamic"].join_rate == round(9 * 1000 / 5) == 1800
     assert churn["static"].population == "static"
+
+
+def test_sweep_phase_configs():
+    """The sweep phases' configurations validate as they run: both
+    ``sweep_fleet`` fleets resolve to the ``vmapped`` strategy with 40
+    models a chunk program (2 experiments x chunk 20, and 4 x 10 with the
+    flagship's lr as the fleet's base), ``sweep_scheduled`` is bench.py's
+    ``_sweep_leg`` shape, and ``round_batch``'s 20 clients are one chunk."""
+    from distributed_learning_simulator_tpu_torch.sweep import SweepSpec
+
+    fleets = chip_smoke.sweep_fleet_configs()
+    for name, cfg in fleets.items():
+        spec = SweepSpec.from_config(cfg)
+        assert spec.resolve_strategy() == "vmapped", name
+        assert cfg.worker_number == cfg.cohort_size() == 20
+        assert len(spec.points) * cfg.client_chunk_size == 40
+        assert (cfg.model_name, cfg.round, cfg.max_shard_size,
+                cfg.dirichlet_alpha, cfg.batch_size, cfg.momentum) == (
+            "resnet18", 2, 100, 0.1, 25, 0.9)
+        assert -(-cfg.n_test // cfg.eval_batch_size) == 1
+    f32, bf16 = fleets["f32"], fleets["bf16"]
+    assert (f32.local_compute_dtype, f32.model_args) == (
+        "float32", {"dtype": "float32"})
+    assert bf16.local_compute_dtype == "bfloat16"
+    points = SweepSpec.from_config(bf16).points
+    assert [(p.seed, p.learning_rate) for p in points] == [
+        (0, 0.02), (1, 0.02), (0, 0.01), (1, 0.01)]
+    assert points[0].config.learning_rate == bf16.learning_rate
+    mlp = chip_smoke.sweep_mlp_config().validate()
+    assert (mlp.model_name, mlp.worker_number, mlp.round, mlp.n_train,
+            mlp.batch_size) == ("mlp", 32, 6, 1024, 16)
+    rb = chip_smoke.path_configs(chip_smoke.ROUND_BATCH_CLIENTS, 2000, 2000,
+                                 "WARNING")
+    for cfg in rb.values():
+        assert cfg.cohort_size() == 20 <= cfg.client_chunk_size

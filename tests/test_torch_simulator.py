@@ -18,6 +18,7 @@ import torch
 from distributed_learning_simulator_tpu.config import (
     ExperimentConfig as JaxConfig,
 )
+from distributed_learning_simulator_tpu.sweep import spec as jspec
 from distributed_learning_simulator_tpu.utils import reporting as jreporting
 from distributed_learning_simulator_tpu_torch.config import (
     ExperimentConfig,
@@ -143,12 +144,31 @@ def test_probes_raise_as_in_jax():
       "--participation_sampler", "hashed", "--participation_fraction", "0.5",
       "--multihost", "true"], "item 17"),
     (["--multihost", "true"], "item 17"),
-    (["--sweep_points", "learning_rate=0.1,0.2"], "item 16"),
-    (["--sweep_seeds", "0,1"], "item 16"),
 ])
 def test_unported_features_refuse(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         run_simulation(get_config(TINY + flags), setup_logging=False)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--sweep_seeds", "0,1"],
+    ["--sweep_points", "learning_rate=0.1,0.2"],
+])
+def test_cli_sweeps(flags):
+    """The sweep knobs route ``main`` to ``run_sweep``: a seed fleet
+    returns a sweep result; a ``--sweep_points`` that is not JSON raises
+    the JAX package's error."""
+    if flags[0] == "--sweep_seeds":
+        out = main(TINY + flags + ["--round", "2"])
+        assert "strategy" in out and out["strategy"] == "vmapped"
+        assert [p["seed"] for p in out["points"]] == [0, 1]
+        return
+    with pytest.raises(ValueError) as port_err:
+        main(TINY + flags)
+    with pytest.raises(ValueError) as jax_err:
+        jspec._parse_points_field(flags[1])
+    assert type(port_err.value) is type(jax_err.value)
+    assert str(port_err.value) == str(jax_err.value)
 
 
 def test_cuda_device_without_a_card_raises():
@@ -171,6 +191,7 @@ def test_importing_the_port_loads_no_jax():
         "import distributed_learning_simulator_tpu_torch.__main__\n"
         "import distributed_learning_simulator_tpu_torch.execution.threaded\n"
         "import distributed_learning_simulator_tpu_torch.telemetry\n"
+        "import distributed_learning_simulator_tpu_torch.sweep\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'distributed_learning_simulator_tpu'))\n"
         "assert not bad, bad\n"
