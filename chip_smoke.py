@@ -171,8 +171,9 @@ together), then runs these phases and exits non-zero if any of them fails:
    refused by ``_assert_client_stack_feasible`` before any allocation);
    ``stream_flagship`` (``fed`` at the flagship settings, 400 clients, a
    hashed 10% cohort, 3 rounds, resident and ``client_residency=
-   'streamed'`` in turns (A B B A), and ``sign_SGD`` as its main path
-   in the same turns, through run_path's gates: params and history
+   'streamed'`` in turns (A B; A B B A until the multihost phase came),
+   and ``sign_SGD`` as its main path in the same turns, through
+   run_path's gates: params and history
    bitwise equal, valid v5 records; round seconds, overlap ratio, H2D MiB
    and both peaks printed; then for each, one profiled round resident and
    one streamed, their device busy ms beside their wall seconds);
@@ -195,7 +196,8 @@ together), then runs these phases and exits non-zero if any of them fails:
    on the solo path, and the fleet makes one solo run's training forwards
    and one eval forward per round; each point against its solo run on the
    shared data: (a) ``cohort_hash`` exact and test losses at rtol 1e-4,
-   bitwise equality printed, (b) the ``vmapped`` strategy with one
+   two solo runs of a point bitwise equal, bitwise equality to the fleet
+   printed, (b) the ``vmapped`` strategy with one
    program, the lr-0.02 points at rtol 2e-3, the lr-0.01 points
    different; round seconds per experiment beside the solo runs' and the
    peaks printed); ``sweep_scheduled`` (bench.py's ``_sweep_leg``: the MLP,
@@ -205,6 +207,24 @@ together), then runs these phases and exits non-zero if any of them fails:
    ``compile_reuse_fraction`` 0.875, every history bitwise its solo run's;
    a 4-point sweep crashed after 2 points and resumed from its
    ``sweep_dir``, stitched bitwise, with valid v8 records).
+   Then the client-axis mesh across processes (``multihost_fed``):
+   ``sweep_fleet``'s ResNet-18 ``fed`` at 20 clients, chunk 10, bf16
+   local state, 2 rounds, ``span_trace='on'``, no size-aware schedule, launched as two ranks on
+   ``cuda:0`` through the CLI's ``main`` (``--multihost true
+   --coordinator_address 127.0.0.1:<port> --num_processes 2 --process_id
+   r --mesh_devices 2``: one solo chunk a rank, a gloo group) and once as
+   one process without a mesh. Both ranks must exit 0 within their
+   timeout (else both are killed), report CUDA params and the backend
+   gloo, hold bitwise equal global params after every round, launch the
+   GroupNorm and wgrad kernels, with their training launches summing to
+   the solo run's and each rank's eval launches equal to the solo run's
+   (every rank evaluates the global model); round 0's params must equal
+   the solo run's bitwise or at rtol 1e-6 and the later test losses be
+   within rtol 2e-3; process 1's clock offset must be within its
+   uncertainty + 5 ms; a one-process ``mesh_devices=2`` on the one card
+   must raise the shortfall ValueError. Prints each rank's round seconds
+   beside the solo run's, the bytes and seconds of the gathers per round
+   and each rank's peak memory.
 3. A profiler pass per algorithm (5 clients, 2 rounds) and one of the
    headline (10 clients, 2 rounds): device busy time, idle share, and the
    host operators with the most self time. Then the batched layers alone
@@ -2796,9 +2816,9 @@ def _without_stream(history):
 def stream_flagship(torch, gn, wg, work):
     """Phase 2u: ``stream_flagship``. Each configuration of
     :func:`stream_flagship_configs` resident and streamed, in the order
-    resident, streamed, streamed, resident, each run through run_path's
-    launch gates: every run's global parameters and history must be
-    bitwise the first resident run's, and the streamed records valid v5
+    resident, streamed, each run through run_path's
+    launch gates: the streamed run's global parameters and history must be
+    bitwise the resident run's, and the streamed records valid v5
     records (a full cohort's one upload on its first record only). Prints
     round seconds, the median round after round 0 of each residency, the
     overlap ratio, H2D MiB and both peaks. Then :func:`trace_residency`
@@ -2809,9 +2829,9 @@ def stream_flagship(torch, gn, wg, work):
     schema = _schema()
     out = {}
     for name, config in stream_flagship_configs().items():
-        # In turns, resident streamed streamed resident, so that the two
-        # meet the same host.
-        order = ("resident", "streamed", "streamed", "resident")
+        # Resident, then streamed (A B: the second pair of A B B A went to
+        # pay for the multihost_fed phase).
+        order = ("resident", "streamed")
         runs = {}
         for residency in order:
             label = residency if residency not in runs else f"{residency}_2"
@@ -3126,12 +3146,12 @@ def sweep_fleet(torch, gn, wg):
     one solo run's (every experiment's chunk j is one forward), one eval
     forward per round (the E models in one vmapped forward of the one eval
     batch). ``f32``: each point's ``cohort_hash`` equal to its solo run's
-    and its test losses at rtol 1e-4 (``compare_chunks``' tolerance) or,
-    where two solo runs of the point differ (the f32 path is not
-    deterministic on an H100: two runs of one seed about 1e-4 apart in
-    test loss after two rounds), by no more than twice their spread, as
-    ``crash_resume`` holds a resumed run; whether the histories are
-    bitwise equal is printed. ``bf16``: the
+    and its test losses at rtol 1e-4 (``compare_chunks``' tolerance), and
+    two solo runs of each point bitwise equal (the run takes only cuDNN's
+    deterministic algorithms: without them, two f32 runs of one seed
+    drifted up to 1e-3 apart in test loss after two rounds on an H100);
+    whether the fleet's histories are bitwise its solo runs' is printed.
+    ``bf16``: the
     ``vmapped`` strategy with one program; the lr-0.02 points' first-round
     test losses within rtol 2e-3 of their solo runs (the dither hashes the
     f32 bits, so the reassociated sums of 40-model convolutions redraw
@@ -3178,6 +3198,13 @@ def sweep_fleet(torch, gn, wg):
                 max(abs(a["test_loss"] - b["test_loss"])
                     for b in (r["history"][i] for r in runs))
                 for i, a in enumerate(runs[0]["history"])]
+            if any(a.get(k) != b.get(k) for r in runs[1:]
+                   for a, b in zip(runs[0]["history"], r["history"])
+                   for k in SWEEP_KEYS):
+                fail(f"sweep_fleet {name} seed {point.config.seed}: two "
+                     f"solo runs differ (test losses apart by "
+                     f"{spreads[point.index]}): a seeded run must "
+                     "reproduce bitwise")
         solo_fwd = {s["forwards"]["train"] for s in solos.values()}
         n_eval = config.round * -(-config.n_test // config.eval_batch_size)
         if solo_fwd != {fleet["forwards"]["train"]} or (
@@ -3197,16 +3224,15 @@ def sweep_fleet(torch, gn, wg):
                 for k in SWEEP_KEYS)
             rtol = 1e-4 if name == "f32" else 2e-3
             gated = hs if name == "f32" else hs[:1]
-            for a, b, spread in zip(gated, hf, spreads[p["index"]]):
-                bound = max(rtol * abs(a["test_loss"]), 2 * spread)
+            for a, b in zip(gated, hf):
                 if a.get("cohort_hash") != b.get("cohort_hash") or not (
-                        abs(a["test_loss"] - b["test_loss"]) <= bound):
+                        abs(a["test_loss"] - b["test_loss"])
+                        <= rtol * abs(a["test_loss"])):
                     fail(f"sweep_fleet {name} point {p['index']} round "
                          f"{a['round']}: cohort {b.get('cohort_hash')} / "
                          f"{a.get('cohort_hash')}, test loss "
                          f"{b['test_loss']} against the solo run's "
-                         f"{a['test_loss']} (rtol {rtol}, two solo runs "
-                         f"{spread:.3e} apart)")
+                         f"{a['test_loss']} (rtol {rtol})")
         gaps = {}
         if name == "bf16":
             losses = {(p["seed"], p["learning_rate"]):
@@ -3387,6 +3413,284 @@ def sweep_scheduled(torch, work):
             "experiments_per_hour": fleet["experiments_per_hour"],
             "resume": {"resumed": resumed["resumed_points"],
                        "executed": resumed["executed_points"]}}
+
+
+MULTIHOST_TIMEOUT_S = 480  # both ranks' whole run, the kernels loaded
+MULTIHOST_LOSS_RTOL = 2e-3  # sweep_fleet's bf16 band for later rounds
+CLOCK_SLACK_S = 5e-3
+
+
+def cli_flags(config) -> list[str]:
+    """The CLI flags that give ``config``: every field that differs from
+    its default."""
+    import dataclasses
+
+    from distributed_learning_simulator_tpu_torch.config import (
+        ExperimentConfig,
+    )
+
+    defaults = ExperimentConfig()
+    flags = []
+    for f in dataclasses.fields(config):
+        value = getattr(config, f.name)
+        if f.name == "dataset_args" or value == getattr(defaults, f.name):
+            continue
+        flags += [f"--{f.name}",
+                  json.dumps(value) if isinstance(value, dict)
+                  else str(value)]
+    return flags
+
+
+def rank_worker(out_path: str, argv: list[str]) -> None:
+    """One process of ``multihost_fed``: the CLI's ``main(argv)`` with
+    each round's global params digested (and round 0's saved beside
+    ``out_path``), the kernels' launches split into training and server
+    eval, then this process's clock offset; writes ``out_path``."""
+    import hashlib
+
+    import torch
+
+    from distributed_learning_simulator_tpu_torch import factory, simulator
+    from distributed_learning_simulator_tpu_torch.config import get_config
+    from distributed_learning_simulator_tpu_torch.ops import gn_cuda as gn
+    from distributed_learning_simulator_tpu_torch.ops import wgrad_cuda as wg
+    from distributed_learning_simulator_tpu_torch.parallel import (
+        mesh as mesh_mod,
+    )
+    from distributed_learning_simulator_tpu_torch.parallel import multihost
+
+    def counts():
+        return {"gn_stats": gn.gn_stats.launches,
+                "gn_normalize": gn.gn_normalize.launches,
+                "conv3x3_wgrad": wg.conv3x3_wgrad.launches}
+
+    cls = factory._ALGORITHMS[get_config(argv).distributed_algorithm]
+    original = cls.post_round
+    digests = []
+
+    def probed(self, ctx):
+        flat = ctx.global_params.detach().float().cpu()
+        digests.append(hashlib.sha256(flat.numpy().tobytes()).hexdigest())
+        if ctx.round_idx == 0:
+            torch.save(flat, out_path + ".round0.pt")
+        return original(self, ctx)
+
+    eval_launches = dict.fromkeys(counts(), 0)
+    make_eval = simulator.make_eval_fn
+
+    def counted_eval_fn(*args, **kwargs):
+        evaluate = make_eval(*args, **kwargs)
+
+        def counted(*a, **k):
+            before = counts()
+            out = evaluate(*a, **k)
+            for name, n in counts().items():
+                eval_launches[name] += n - before[name]
+            return out
+
+        return counted
+
+    cls.post_round = probed
+    simulator.make_eval_fn = counted_eval_fn
+    gn.reset_launch_counts()
+    wg.reset_launch_counts()
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    result = simulator.main(argv)
+    if cuda:
+        torch.cuda.synchronize()
+    launches = counts()
+    offset, uncertainty = multihost.estimate_clock_alignment()
+    mesh = result["mesh"]
+    with open(out_path, "w") as f:
+        json.dump({
+            "device": result["device"],
+            "params_device": {str(v.device)
+                              for v in result["global_params"].values()
+                              }.pop(),
+            "mesh": None if mesh is None else mesh.describe(),
+            "rank": multihost.process_index(),
+            "digests": digests,
+            "test_loss": [h["test_loss"] for h in result["history"]],
+            "round_seconds": [h["round_seconds"]
+                              for h in result["history"]],
+            "launches": launches,
+            "eval_launches": eval_launches,
+            "train_launches": {k: launches[k] - eval_launches[k]
+                               for k in launches},
+            "gathers": dict(mesh_mod.GATHER_STATS),
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated() if cuda
+                                  else None),
+            "clock": {"offset_s": offset, "uncertainty_s": uncertainty},
+        }, f)
+
+
+def launch_ranks(work: str, runs: dict, timeout: float) -> dict:
+    """Start every ``runs[name]`` (CLI flags) as a :func:`rank_worker`
+    process at once; wait for all within ``timeout``, killing every one
+    of them when the time runs out or one fails. Returns ``{name: its
+    output}``."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = {}
+    for name, flags in runs.items():
+        out = os.path.join(work, f"{name}.json")
+        log_path = os.path.join(work, f"{name}.log")
+        with open(log_path, "w") as log_f:
+            procs[name] = (subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank-worker",
+                 out, "--", *flags],
+                cwd=repo, env=env, stdout=log_f, stderr=subprocess.STDOUT),
+                out, log_path)
+    deadline = time.monotonic() + timeout
+    failed = None
+    while failed is None and any(p.poll() is None
+                                 for p, _, _ in procs.values()):
+        for name, (p, _, _) in procs.items():
+            if p.poll() not in (None, 0):
+                failed = f"{name} exited {p.returncode}"
+        if time.monotonic() > deadline:
+            failed = f"timed out after {timeout:.0f}s"
+        time.sleep(0.2)
+    for name, (p, _, _) in procs.items():
+        if failed is None and p.returncode != 0:
+            failed = f"{name} exited {p.returncode}"
+    if failed is not None:
+        for p, _, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        tails = "\n".join(
+            f"--- {name}:\n" + open(log_path).read()[-3000:]
+            for name, (_, _, log_path) in procs.items())
+        fail(f"multihost_fed: {failed}; every process stopped\n{tails}")
+    out = {}
+    for name, (_, path, _) in procs.items():
+        with open(path) as f:
+            out[name] = json.load(f)
+        out[name]["round0_path"] = path + ".round0.pt"
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multihost_config(work: str):
+    """``multihost_fed``'s configuration: ``sweep_fleet``'s ResNet-18
+    ``fed`` (module docstring) at chunk 10 with span journals, logging
+    under ``work``; without the size-aware schedule, which a mesh withholds,
+    so that the solo run trains the same chunks."""
+    import dataclasses
+
+    return dataclasses.replace(
+        path_configs(SWEEP_CLIENTS, 2000, 1000, "INFO")["fed"],
+        client_chunk_size=10, span_trace="on", bucket_client_work=False,
+        log_root=os.path.join(work, "log"))
+
+
+def multihost_fed(torch, work: str) -> dict:
+    """Phase 2z: ``multihost_fed`` (module docstring): two ranks of the
+    client-axis mesh on the one card, against the same run in one process
+    without a mesh, and the one-process shortfall refusal."""
+    import dataclasses
+
+    from distributed_learning_simulator_tpu_torch.simulator import (
+        run_simulation,
+    )
+
+    import gc
+
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    # The ranks share the card with this process: hand its cached blocks
+    # back first (the residency traces alone reserve ~55 GiB).
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"multihost_fed: this process holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    config = multihost_config(work)
+    flags = cli_flags(dataclasses.replace(
+        config, span_dir=os.path.join(work, "spans")))
+    address = f"127.0.0.1:{free_port()}"
+    ranks = launch_ranks(work, {
+        f"rank{r}": flags + [
+            "--multihost", "true", "--coordinator_address", address,
+            "--num_processes", "2", "--process_id", str(r),
+            "--mesh_devices", "2"]
+        for r in range(2)}, MULTIHOST_TIMEOUT_S)
+    solo = launch_ranks(work, {"solo": cli_flags(dataclasses.replace(
+        config, span_dir=os.path.join(work, "spans_solo")))},
+        MULTIHOST_TIMEOUT_S)["solo"]
+    r0, r1 = ranks["rank0"], ranks["rank1"]
+    for name, r in ranks.items():
+        if (r["device"] != "cuda:0" or r["params_device"] != "cuda:0"
+                or r["mesh"] is None or r["mesh"]["backend"] != "gloo"
+                or r["mesh"]["devices"] != ["cuda:0", "cuda:0"]):
+            fail(f"multihost_fed {name}: device {r['device']}, params on "
+                 f"{r['params_device']}, mesh {r['mesh']}")
+        if min(r["launches"].values()) <= 0:
+            fail(f"multihost_fed {name}: a kernel never launched "
+                 f"{r['launches']}")
+        if r["eval_launches"] != solo["eval_launches"]:
+            fail(f"multihost_fed {name}: eval launches {r['eval_launches']}"
+                 f", the solo run's {solo['eval_launches']}")
+    summed = {k: r0["train_launches"][k] + r1["train_launches"][k]
+              for k in r0["train_launches"]}
+    if summed != solo["train_launches"]:
+        fail(f"multihost_fed: the ranks' training launches sum to {summed}, "
+             f"the solo run's are {solo['train_launches']}")
+    if r0["digests"] != r1["digests"] or len(r0["digests"]) != config.round:
+        fail("multihost_fed: the ranks' global params differ after a round")
+    p_rank = torch.load(r0["round0_path"])
+    p_solo = torch.load(solo["round0_path"])
+    for r in (r0, r1, solo):  # 45 MB each
+        os.remove(r["round0_path"])
+    max_diff = float((p_rank - p_solo).abs().max())
+    bitwise = bool(torch.equal(p_rank, p_solo))
+    if not (bitwise or torch.allclose(p_rank, p_solo, rtol=1e-6, atol=0)):
+        fail(f"multihost_fed: round 0 params differ from the solo run's by "
+             f"up to {max_diff:.3e} (beyond rtol 1e-6)")
+    for rnd, (a, b) in enumerate(zip(r0["test_loss"], solo["test_loss"])):
+        if not math.isclose(a, b, rel_tol=MULTIHOST_LOSS_RTOL):
+            fail(f"multihost_fed round {rnd}: test loss {a} against the "
+                 f"solo run's {b} (beyond rtol {MULTIHOST_LOSS_RTOL})")
+    clock = r1["clock"]
+    if abs(clock["offset_s"]) > clock["uncertainty_s"] + CLOCK_SLACK_S:
+        fail(f"multihost_fed: process 1's clock offset {clock}")
+    try:
+        run_simulation(dataclasses.replace(
+            config, mesh_devices=2, span_trace="off", span_dir=None,
+            round=1), setup_logging=False)
+    except ValueError as e:
+        if "requested 2 mesh devices but only 1 visible" not in str(e):
+            raise
+        shortfall = str(e)
+    else:
+        fail("multihost_fed: a one-process mesh_devices=2 ran on one card")
+    rounds = config.round
+    log(f"multihost_fed: ranks bitwise equal every round; round 0 "
+        f"{'bitwise' if bitwise else 'not bitwise'} the solo run's (max "
+        f"|diff| {max_diff:.3e}); test loss ranks {r0['test_loss']} solo "
+        f"{solo['test_loss']}; round seconds rank0 {r0['round_seconds']} "
+        f"rank1 {r1['round_seconds']} solo {solo['round_seconds']}; "
+        f"gathers a round rank0 "
+        f"{r0['gathers']['bytes'] / rounds / 2**20:.1f} MiB in "
+        f"{r0['gathers']['seconds'] / rounds:.4f}s "
+        f"({r0['gathers']['calls']} calls in all); peak memory rank0 "
+        f"{r0['peak_memory_bytes'] / 2**30:.2f} GiB rank1 "
+        f"{r1['peak_memory_bytes'] / 2**30:.2f} GiB solo "
+        f"{solo['peak_memory_bytes'] / 2**30:.2f} GiB; launches rank0 "
+        f"{r0['launches']} rank1 {r1['launches']} solo {solo['launches']}; "
+        f"clock offset {clock}; shortfall refused: {shortfall}")
+    return {"ranks": ranks, "solo": solo, "round0_bitwise": bitwise,
+            "round0_max_abs_diff": max_diff, "shortfall": shortfall}
 
 
 def profile_rounds(torch, name, config):
@@ -3745,6 +4049,12 @@ def redesign_lines(rows, wgrad_rows):
 
 
 def main() -> None:
+    if "--rank-worker" in sys.argv:
+        # A multihost_fed process: chip_smoke.py --rank-worker OUT -- FLAGS
+        at = sys.argv.index("--rank-worker")
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        rank_worker(sys.argv[at + 1], sys.argv[sys.argv.index("--") + 1:])
+        return
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=os.path.join("build", "chip_smoke"),
                         help="directory for chip_smoke.json")
@@ -3864,6 +4174,11 @@ def main() -> None:
         paths[f"sweep_fleet_{name}"] = run
     scheduled = phase("sweep_scheduled", sweep_scheduled, torch,
                       os.path.abspath(args.out))
+    multihost = phase("multihost_fed", multihost_fed, torch,
+                      os.path.join(os.path.abspath(args.out), "multihost"))
+    for name, run in dict(multihost["ranks"],
+                          solo=multihost["solo"]).items():
+        paths[f"multihost_fed_{name}"] = run
     # The ResNet paths at 5 clients (10 before the headline path: the
     # profiler's trace processing took most of the run), the headline at
     # 10 (50 samples each, as at 1000) with a 1000-sample eval.
@@ -3944,6 +4259,8 @@ def main() -> None:
                    "residency_trace": residency_trace,
                    "churn_overhead_ratio": churn["churn_overhead_ratio"],
                    "sweep_scheduled": scheduled,
+                   "multihost_fed": {k: v for k, v in multihost.items()
+                                     if k not in ("ranks", "solo")},
                    "phase_seconds": phase_seconds},
                   f, indent=1)
     if "jax" in sys.modules:

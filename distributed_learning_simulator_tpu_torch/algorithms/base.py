@@ -72,10 +72,18 @@ class Algorithm:
 
     def make_round_fn(self, apply_fn: Callable, optimizer, layout,
                       n_clients: int, preprocess: Callable | None = None,
-                      client_sizes=None, device=None) -> Callable:
+                      client_sizes=None, device=None,
+                      mesh=None) -> Callable:
         """Return ``round_fn(global_flat, client_state, cx, cy, cmask,
         sizes, key, lr_scale=1.0, client_rng=None, payload_salts=None) ->
         (new_global_flat, new_client_state, aux)``.
+
+        ``client_sizes`` (the host's per-client sample counts) enables the
+        static size-aware regrouping of the chunks where the algorithm has
+        one (FedAvg's ``bucket_client_work``); the simulator passes None
+        under a mesh, whose blocks own the client axis's layout. With
+        ``mesh`` (parallel/mesh.py) the client arrays and the state are
+        ``Blocks`` over it.
 
         ``key`` is the round key of the JAX package's key chain
         (ops/prng.py); every draw of the round derives from it as in the

@@ -99,6 +99,17 @@ weights, the same contraction), the late ones a second weighted sum with
 their discounted weights, which the buffer absorbs; the round returns the
 next buffer state as ``aux["async_state"]`` with the v4 record's scalars.
 
+Under a client-axis mesh (parallel/mesh.py; ``make_round_fn(...,
+mesh=)``) the client arrays and the state are split into equal blocks,
+one a device (or a process). Every process draws the whole round on the
+host, as above; each local block trains the cohort positions whose
+clients it holds, the solo order's chunks cut at its bounds, from its own
+copy of the global model and on its own state rows. The blocks' weighted
+sums (mean path) or stack rows (materializing path), and their
+per-position losses and statistics, are gathered (never reduced by a
+backend) and combined in block order, so every process holds the same
+bits; with one chunk a block that is the solo round's sum exactly.
+
 A round never waits on the card to decide anything: the quorum verdict,
 a robust rule's finiteness fallback and the buffer's trigger are selects
 on the device (``aux["round_rejected"]`` is a device bool), and host
@@ -121,6 +132,7 @@ from distributed_learning_simulator_tpu_torch.ops.cohort import (
     cohort_take,
     set_rows,
     to_device,
+    tree_map,
 )
 from distributed_learning_simulator_tpu_torch.ops.quantize import Segments
 from distributed_learning_simulator_tpu_torch.ops.sampling import (
@@ -133,6 +145,11 @@ from distributed_learning_simulator_tpu_torch.parallel.engine import (
     make_chunk_train_fn,
     make_models_eval_fn,
     stack_draws,
+)
+from distributed_learning_simulator_tpu_torch.parallel.mesh import (
+    Blocks,
+    gather_blocks,
+    replicate,
 )
 from distributed_learning_simulator_tpu_torch.robustness.arrivals import (
     AsyncFederation,
@@ -252,6 +269,26 @@ def _select(rejected: torch.Tensor, old, new):
     return torch.where(rejected, old, new)
 
 
+#: The per-position client statistics rows the round fills
+#: (telemetry/client_stats.py), besides the loss and the probe.
+_STAT_ROWS = ("loss_first", "grad_sq_mean", "update_sq", "nonfinite_count")
+
+
+class _Place:
+    """Where a round trains cohort positions: the global model there, the
+    client arrays and their first row, the persistent state (indexed by
+    cohort position, or under a mesh by the block's client row), the
+    per-position vectors and the chunk train function. One for the whole
+    cohort, or one per local mesh block."""
+
+    def __init__(self, gl, x, y, m, row0, state, by_row, vec, train):
+        self.gl, self.x, self.y, self.m = gl, x, y, m
+        self.row0, self.state, self.by_row = row0, state, by_row
+        self.vec, self.train = vec, train
+        self.acc = self.late = None  # the block's weighted sums (mean path)
+        self.rows: list[torch.Tensor] = []  # its stack rows (materializing)
+
+
 class FedAvg(Algorithm):
     name = "fed"
     #: Whether the payload hooks use salts (the round derives them only then).
@@ -361,7 +398,14 @@ class FedAvg(Algorithm):
         )
 
     def make_round_fn(self, apply_fn, optimizer, layout, n_clients: int,
-                      preprocess=None, client_sizes=None, device=None):
+                      preprocess=None, client_sizes=None, device=None,
+                      mesh=None):
+        """The round function (see the module docstring). With ``mesh``
+        (parallel/mesh.py) ``cx``/``cy``/``cmask`` and the client state
+        are :class:`~..parallel.mesh.Blocks`: each local block trains its
+        own clients, the chunks of the solo order cut at block bounds, and
+        the blocks' partial sums (or stack rows) are gathered and combined
+        in block order; the state comes back as Blocks."""
         self.check_cohort(n_clients)
         cfg = self.config
         bsz = cfg.batch_size
@@ -396,6 +440,27 @@ class FedAvg(Algorithm):
         train_chunk = self._chunk_train_fn(apply_fn, optimizer, layout,
                                            preprocess, device,
                                            collect_stats=cs is not None)
+        train_fns = {None if device is None else torch.device(device):
+                     train_chunk}
+        eval_sets = {}
+
+        def train_on(dev):
+            """The chunk train function of a mesh block's device."""
+            fn = train_fns.get(dev)
+            if fn is None:
+                fn = train_fns[dev] = self._chunk_train_fn(
+                    apply_fn, optimizer, layout, preprocess, dev,
+                    collect_stats=cs is not None)
+            return fn
+
+        def eval_on(dev):
+            """The eval batches (client_eval) on ``dev``."""
+            batches = eval_sets.get(dev)
+            if batches is None:
+                batches = eval_sets[dev] = tuple(
+                    t.to(dev) for t in self._eval_batches)
+            return batches
+
         n_leaves = len(layout.numels)
         evaluate_models = (
             make_models_eval_fn(self._eval_fn, layout, transform)
@@ -453,7 +518,8 @@ class FedAvg(Algorithm):
                     ids = np.arange(n_clients)
                 data_rows = ids
                 part_sizes = np.asarray(sizes, dtype=np.float32)[ids]
-                state_k = cohort_take(client_state, ids)
+                state_k = (cohort_take(client_state, ids) if mesh is None
+                           else None)
             else:
                 ids, data_rows = cohort
                 part_sizes = np.asarray(sizes, dtype=np.float32)
@@ -522,82 +588,176 @@ class FedAvg(Algorithm):
                 part_sizes = part_sizes * on_time.astype(np.float32)
             total = part_sizes.sum(dtype=np.float32)
             norm_w = part_sizes / np.maximum(total, np.float32(1e-12))
-            losses = torch.zeros(n_participants, device=global_flat.device)
-            accs = torch.zeros_like(losses)
-            eval_accs = torch.zeros_like(losses) if client_eval else None
-            stat_rows = None
+            home = global_flat.device
+            vec_names = ["loss", "accuracy"]
+            if client_eval:
+                vec_names.append("eval_accuracy")
             if cs is not None:
-                # Per-client rows, zero for a client the round skips.
-                k = cs.probe_size(layout.numels)
-                stat_rows = {
-                    name: torch.zeros_like(losses) for name in (
-                        "loss_first", "grad_sq_mean", "update_sq",
-                        "nonfinite_count")
-                }
-                stat_rows["stat_probe"] = torch.zeros(
-                    (n_participants, k), device=losses.device)
+                vec_names += list(_STAT_ROWS)
+                probe_k = cs.probe_size(layout.numels)
+            # The per-position vectors: one row each, the probe k wide.
+            vec_shapes = {name: (n_participants,) for name in vec_names}
+            if cs is not None:
+                vec_shapes["stat_probe"] = (n_participants, probe_k)
 
-            def train(members, slots):
+            def vectors(dev) -> dict:
+                """The per-position vectors on ``dev``; a position another
+                place trains, or the round skips, stays zero."""
+                return {name: torch.zeros(shape, device=dev)
+                        for name, shape in vec_shapes.items()}
+
+            if mesh is None:
+                places = {None: _Place(global_flat, cx, cy, cmask, 0, state_k,
+                                       False, vectors(home), train_chunk)}
+            else:
+                # Each local block trains the positions whose clients it
+                # holds, from its own copy of the global model, on its
+                # state rows (copied: the round returns new state).
+                gls = replicate(global_flat, mesh)
+                places = {}
+                for b in mesh.local_blocks():
+                    dev = mesh.devices[b]
+                    places[b] = _Place(
+                        gls[b], cx.parts[b], cy.parts[b], cmask.parts[b],
+                        int(cx.bounds[b]),
+                        None if client_state is None
+                        else tree_map(torch.clone, client_state.parts[b]),
+                        True, vectors(dev), train_on(dev))
+                owner = cx.block_of(data_rows)
+
+            def pieces(members):
+                """``members`` split by the place that trains them, in
+                block order; another process's positions are left out."""
+                if mesh is None:
+                    return [(places[None], list(members))]
+                out = []
+                for b, place in places.items():
+                    part = [p for p in members if owner[p] == b]
+                    if part:
+                        out.append((place, part))
+                return out
+
+            def train(members, slots, place):
                 """The cohort positions ``members`` as one chunk on their
                 first ``slots`` slots; returns their ``[M, P]`` params."""
-                pos = to_device(members, global_flat.device, torch.long)
-                rows = to_device(data_rows[members], cx.device, torch.long)
+                pos = to_device(members, place.gl.device, torch.long)
+                rows = to_device(np.asarray(data_rows)[members] - place.row0,
+                                 place.x.device, torch.long)
                 perms, salts, aug_keys = stack_draws(
                     [client_rng(int(ids[p]), slots) for p in members])
-                old_state = cohort_take(state_k, pos)
-                params, state, metrics = train_chunk(
-                    global_flat, cx[rows, :slots], cy[rows, :slots],
-                    cmask[rows, :slots], perms, salts, aug_keys=aug_keys,
+                st_idx = rows if place.by_row else pos
+                old_state = cohort_take(place.state, st_idx)
+                params, state, metrics = place.train(
+                    place.gl, place.x[rows, :slots], place.y[rows, :slots],
+                    place.m[rows, :slots], perms, salts, aug_keys=aug_keys,
                     lr_scale=lr_scale, opt_state=old_state,
                 )
-                if state_k is not None:
+                if place.state is not None:
                     if failed is not None and fm.freezes_client_state:
                         state = fm.freeze_failed_state(failed[members],
                                                        old_state, state)
-                    set_rows(state_k, pos, state)
-                losses[pos] = metrics["loss"]
-                accs[pos] = metrics["accuracy"]
-                if stat_rows is not None:
+                    set_rows(place.state, st_idx, state)
+                place.vec["loss"][pos] = metrics["loss"]
+                place.vec["accuracy"][pos] = metrics["accuracy"]
+                if cs is not None:
                     for name in ("loss_first", "grad_sq_mean"):
-                        stat_rows[name][pos] = metrics[name]
+                        place.vec[name][pos] = metrics[name]
                 return params
 
-            def payload(members, params):
+            def payload(members, params, place):
                 """The members' uploads: the corrupt modes damage the raw
                 params first, as the client's own payload transform would
                 see them."""
                 if failed is not None and fm.corrupts_upload:
                     params = fm.corrupt_stack(params, failed[members])
-                if stat_rows is not None:
+                if cs is not None:
                     # What the server receives: after the corruption,
                     # before the payload hook.
-                    pos = to_device(members, global_flat.device, torch.long)
-                    up = cs.add_upload_stats({}, global_flat, params,
+                    pos = to_device(members, place.gl.device, torch.long)
+                    up = cs.add_upload_stats({}, place.gl, params,
                                              layout.numels)
                     for name, v in up.items():
-                        stat_rows[name][pos] = v
+                        place.vec[name][pos] = v
                 salts = [payload_salts(int(ids[p])) for p in members]
                 if salts[0] is None:
                     salts = None
                 return self.process_client_payload(params, salts)[0]
 
+            def combine(p_numel: int) -> dict:
+                """Under a mesh, every block's vectors and weighted sums (or
+                stack rows) gathered in block order onto this process's
+                device: the vectors summed (one nonzero term a position),
+                the sums kept per block, the stack rows in place."""
+                f32 = torch.float32
+                spec = {name: (shape, f32)
+                        for name, shape in vec_shapes.items()}
+                counts = np.bincount(owner, minlength=mesh.size)
+                if materialize:
+                    spec["stack"] = ((int(counts.max()), p_numel), f32)
+                else:
+                    spec["acc"] = ((p_numel,), f32)
+                    if late_w is not None:
+                        spec["late"] = ((p_numel,), f32)
+                parts = {}
+                for b, place in places.items():
+                    dev = place.gl.device
+                    part = dict(place.vec)
+                    if materialize:
+                        rows = torch.zeros(spec["stack"][0], device=dev)
+                        if place.rows:
+                            rows[:counts[b]] = torch.cat(place.rows)
+                        part["stack"] = rows
+                    else:
+                        zero = torch.zeros(p_numel, device=dev)
+                        part["acc"] = zero if place.acc is None else place.acc
+                        if late_w is not None:
+                            part["late"] = (zero if place.late is None
+                                            else place.late)
+                    parts[b] = part
+                got = gather_blocks(mesh, parts, spec, home)
+                out = {name: got[name].sum(0) for name in vec_shapes}
+                if materialize:
+                    stack = torch.empty((n_participants, p_numel), dtype=f32,
+                                        device=home)
+                    for b in range(mesh.size):
+                        at = np.flatnonzero(owner == b)
+                        stack[to_device(at, home, torch.long)] = (
+                            got["stack"][b, :at.size])
+                    out["stack"] = stack
+                else:
+                    out["acc"] = got["acc"]
+                    out["late"] = got.get("late")
+                return out
+
             aux = {}
+            gathered = None
             if materialize:
                 stack = torch.empty((n_participants,) + global_flat.shape,
                                     dtype=torch.float32,
                                     device=global_flat.device)
                 step = chunk if chunk else n_participants
+                n_slots = cx.shape[1]
                 for start in range(0, n_participants, step):
                     members = list(range(start,
                                          min(start + step, n_participants)))
-                    # f32, as the JAX package casts the stack for the rules.
-                    params = train(members, cx.shape[1]).float()
-                    if client_eval:
-                        eval_accs[start:start + len(members)] = (
-                            evaluate_models(params, *self._eval_batches)[
-                                "accuracy"])
-                    stack[start:start + len(members)] = payload(members,
-                                                                params)
+                    for place, part in pieces(members):
+                        # f32, as the JAX package casts the stack for the
+                        # rules.
+                        params = train(part, n_slots, place).float()
+                        if client_eval:
+                            dev = place.gl.device
+                            place.vec["eval_accuracy"][
+                                to_device(part, dev, torch.long)] = (
+                                evaluate_models(params, *eval_on(dev))[
+                                    "accuracy"])
+                        rows = payload(part, params, place)
+                        if mesh is None:
+                            stack[start:start + len(part)] = rows
+                        else:
+                            place.rows.append(rows)
+                if mesh is not None:
+                    gathered = combine(global_flat.numel())
+                    stack = gathered["stack"]
                 if late_w is not None:
                     late_sum = torch.tensordot(
                         to_device(late_w, stack.device), stack, dims=1)
@@ -621,20 +781,48 @@ class FedAvg(Algorithm):
                     late_acc = (torch.zeros_like(new_global)
                                 if late_w is not None else None)
                     for _, members in chunks:
-                        uploads = payload(members, train(members, slots))
-                        w = to_device(norm_w[members], uploads.device)
-                        group_acc += torch.tensordot(w, uploads.float(),
-                                                     dims=1)
-                        if late_acc is not None:
-                            # The late row: a second contraction of the same
-                            # uploads, so the fresh row's ops are those of
-                            # the synchronous round.
-                            lw = to_device(late_w[members], uploads.device)
-                            late_acc += torch.tensordot(lw, uploads.float(),
-                                                        dims=1)
+                        for place, part in pieces(members):
+                            uploads = payload(part, train(part, slots, place),
+                                              place)
+                            w = to_device(norm_w[part], uploads.device)
+                            contrib = torch.tensordot(w, uploads.float(),
+                                                      dims=1)
+                            late_c = None
+                            if late_w is not None:
+                                # The late row: a second contraction of the
+                                # same uploads, so the fresh row's ops are
+                                # those of the synchronous round.
+                                lw = to_device(late_w[part], uploads.device)
+                                late_c = torch.tensordot(lw, uploads.float(),
+                                                         dims=1)
+                            if mesh is None:
+                                group_acc += contrib
+                                if late_c is not None:
+                                    late_acc += late_c
+                            else:
+                                place.acc = (contrib if place.acc is None
+                                             else place.acc + contrib)
+                                if late_c is not None:
+                                    place.late = (late_c if place.late is None
+                                                  else place.late + late_c)
                     new_global += group_acc
                     if late_acc is not None:
                         late_sum += late_acc
+                if mesh is not None:
+                    # The blocks' partial sums, gathered (not reduced by the
+                    # backend) and added in block order: every process
+                    # holds the same bits.
+                    gathered = combine(global_flat.numel())
+                    for b in range(mesh.size):
+                        new_global += gathered["acc"][b]
+                        if late_w is not None:
+                            late_sum += gathered["late"][b]
+            vec = places[None].vec if mesh is None else gathered
+            losses, accs = vec["loss"], vec["accuracy"]
+            eval_accs = vec.get("eval_accuracy")
+            stat_rows = ({name: vec[name]
+                          for name in _STAT_ROWS + ("stat_probe",)}
+                         if cs is not None else None)
             if af is not None:
                 # The buffer: insert the late batch, fire the trigger, mix
                 # the buffered mean delta in. A round the whole cohort
@@ -715,6 +903,13 @@ class FedAvg(Algorithm):
                 return new_global, state_k, aux
             if sampled:
                 aux["participants"] = np.asarray(ids)
+            if mesh is not None:
+                if client_state is not None:
+                    client_state = Blocks(mesh, [
+                        places[b].state if b in places else None
+                        for b in range(mesh.size)], client_state.bounds,
+                        client_state.shape)
+                return new_global, client_state, aux
             if state_k is not None:
                 client_state = cohort_scatter(client_state, ids, state_k)
             return new_global, client_state, aux

@@ -29,8 +29,11 @@ instead (:class:`_CumsumPrefixWalker`); ``masked`` forms every prefix by
 the mask product. ``shapley_eval_dtype`` (``auto``: f32 for multiround,
 bf16 for GTG) rounds the stack's values to bf16 once per round; the
 weights and every product stay f32, so a subset model is f32 either way,
-as in the JAX package. The evaluator runs on one device (``mesh_devices >
-1`` is refused: ROADMAP.md queue 1 item 17).
+as in the JAX package. Under a single-process mesh (``mesh_devices > 1``,
+:func:`eval_mesh_devices`) each call's model-batch axis is split over a
+``subsets`` mesh, ``shapley_eval_chunk`` models a device with the stack
+and the eval batches copied to each: every device runs the serial walk's
+own calls, so the utilities are bit-identical to the serial walk's.
 
 Artifacts as in the JAX package: ``metric_<round>.pkl`` in the run's log
 directory holds ``{sorted subset tuple: utility}`` for every subset
@@ -42,6 +45,7 @@ from __future__ import annotations
 import math
 import os
 import pickle
+import time
 import traceback
 from itertools import combinations
 
@@ -70,6 +74,22 @@ from distributed_learning_simulator_tpu_torch.utils.reporting import (
 
 _EVAL_CHUNK = 16  # subset models formed per product
 _PREFIX_BLOCK = 16  # GTG permutation prefixes fetched per wave
+#: Axis name of the subset evaluators' mesh.
+SUBSET_AXIS = "subsets"
+
+
+def eval_mesh_devices(config) -> int | None:
+    """How many devices the subset evaluators split their model-batch axis
+    over: ``config.mesh_devices`` when one process owns the whole mesh,
+    else None (the serial evaluator). Multihost stays serial: the GTG walk
+    is data-dependent host control flow, which each process replays on
+    its own; so does the threaded oracle."""
+    d = getattr(config, "mesh_devices", None) or 1
+    if d <= 1 or getattr(config, "multihost", False):
+        return None
+    if getattr(config, "execution_mode", "vmap").lower() == "threaded":
+        return None
+    return int(d)
 
 
 class SubsetMemo(dict):
@@ -326,15 +346,68 @@ class _SubsetEvaluator:
 
     ``eval_fn(flat_model, xb, yb, mb) -> {"accuracy": ...}`` evaluates one
     flat model; it is vmapped over each chunk's models. A call's
-    accuracies are fetched to the host once, at the end of the call."""
+    accuracies are fetched to the host once, at the end of the call.
+
+    With ``mesh_devices`` D > 1 (and ``device``, the run's device, whose
+    kind the mesh takes: D CPU slots or ``cuda:0 .. D-1``) a wave covers
+    ``chunk x D`` models, ``chunk`` a device, each device's product and
+    forward exactly the serial walk's chunk: the subset models' rows are
+    independent, so the utilities are bit-identical. The per-round
+    operands are copied to the devices once a round (``release_round``
+    drops the copies)."""
 
     def __init__(self, eval_fn, chunk: int = _EVAL_CHUNK,
-                 eval_dtype: str = "float32"):
+                 eval_dtype: str = "float32",
+                 mesh_devices: int | None = None, device="cpu"):
         self._chunk = int(chunk)
         self._eval_fn = eval_fn
         self._batched = {}  # number of eval batch tensors -> vmapped eval_fn
         self._eval_dtype = {"float32": torch.float32,
                             "bfloat16": torch.bfloat16}[str(eval_dtype)]
+        self._mesh = None
+        if mesh_devices is not None and mesh_devices > 1:
+            from distributed_learning_simulator_tpu_torch.parallel.mesh import (  # noqa: E501
+                make_mesh,
+            )
+
+            self._mesh = make_mesh(int(mesh_devices), axis_name=SUBSET_AXIS,
+                                   device=device)
+        self._copies: dict = {}  # role -> (source, per-device copies)
+
+    @property
+    def devices(self) -> int:
+        """Devices the model-batch axis is split over (1: serial)."""
+        return 1 if self._mesh is None else self._mesh.size
+
+    @property
+    def call_width(self) -> int:
+        """Subset models per wave: the chunk times the mesh width."""
+        return self._chunk * self.devices
+
+    def _on_devices(self, role: str, tree) -> list:
+        """``tree`` (a tensor, a tuple of them, or a host value) on each
+        mesh device, copied once a round per role (the walk calls the
+        evaluator many times with the same operands); ``[tree]`` for the
+        serial evaluator."""
+        if self._mesh is None:
+            return [tree]
+        cached = self._copies.get(role)
+        if cached is not None and cached[0] is tree:
+            return cached[1]
+
+        def move(t, dev):
+            if isinstance(t, tuple):
+                return tuple(move(v, dev) for v in t)
+            return t.to(dev) if isinstance(t, torch.Tensor) else t
+
+        copies = [move(tree, dev) for dev in self._mesh.devices]
+        self._copies[role] = (tree, copies)
+        return copies
+
+    def release_round(self) -> None:
+        """Drop the round's per-device copies at the end of a walk (a
+        no-op for the serial evaluator)."""
+        self._copies.clear()
 
     @property
     def eval_dtype(self) -> torch.dtype:
@@ -391,13 +464,19 @@ class _SubsetEvaluator:
         """``masks``: ``[M, n]`` numpy 0/1. Returns ``[M]`` accuracies."""
         accs = []
         try:
-            for start in range(0, len(masks), self._chunk):
+            # The serial chunks in order, chunk j on mesh device j mod D.
+            stacks = self._on_devices("stack", client_params)
+            prevs = self._on_devices("prev_global", prev_global)
+            batches = self._on_devices("batches", tuple(eval_batches))
+            for j, start in enumerate(range(0, len(masks), self._chunk)):
+                d = j % self.devices
                 models = subset_weighted_mean(
-                    client_params, sizes, masks[start:start + self._chunk],
-                    prev_global,
+                    stacks[d], sizes, masks[start:start + self._chunk],
+                    prevs[d],
                 )
-                accs.append(self._accuracies(models, eval_batches))
-            return torch.cat(accs).float().cpu().numpy()
+                accs.append(self._accuracies(models, batches[d]))
+            home = accs[0].device  # one fetch for the whole call
+            return torch.cat([a.to(home) for a in accs]).float().cpu().numpy()
         except RuntimeError as e:
             if not is_device_oom(e):
                 raise
@@ -410,12 +489,27 @@ class _SubsetEvaluator:
         prefix positions from their carried running sums, and evaluate the
         G*B prefix models. Returns ``(accs [G, B], new carry [G, P], new
         carry totals [G])``."""
-        cs, totals = block_prefix_cumsum(client_params, sizes, perm_block,
-                                         carry, carry_t)
-        models = prefix_means_from_cumsum(cs, totals, prev_global)
-        g, b = models.shape[:2]
-        accs = self._accuracies(models.reshape(g * b, -1), eval_batches)
-        return accs.reshape(g, b), cs[:, -1], totals[:, -1]
+        # Under a subset mesh G is D serial groups: device d advances rows
+        # [d G/D, (d + 1) G/D), and the results come back to carry's
+        # device.
+        g = len(perm_block) // self.devices
+        stacks = self._on_devices("stack", client_params)
+        prevs = self._on_devices("prev_global", prev_global)
+        batches = self._on_devices("batches", tuple(eval_batches))
+        out = []
+        for d in range(self.devices):
+            rows, dev = slice(d * g, (d + 1) * g), stacks[d].device
+            cs, totals = block_prefix_cumsum(
+                stacks[d], sizes, perm_block[rows], carry[rows].to(dev),
+                carry_t[rows].to(dev))
+            models = prefix_means_from_cumsum(cs, totals, prevs[d])
+            gb, b = models.shape[:2]
+            accs = self._accuracies(models.reshape(gb * b, -1), batches[d])
+            out.append((accs.reshape(gb, b), cs[:, -1], totals[:, -1]))
+        if len(out) == 1:
+            return out[0]
+        return tuple(torch.cat([o[i].to(carry.device) for o in out])
+                     for i in range(3))
 
 
 class _CumsumPrefixWalker:
@@ -439,7 +533,10 @@ class _CumsumPrefixWalker:
         self._prev_global = prev_global
         self._eval_batches = tuple(eval_batches)
         self._block = min(_PREFIX_BLOCK, n)
-        self._group = max(1, evaluator._chunk // self._block)
+        # Under a subset mesh the group scales by its width: each device
+        # advances the serial group's worth of permutations.
+        self._group = max(1, evaluator._chunk // self._block) * (
+            evaluator.devices)
         self._carry = None
         self._carry_t = None
         self._row_of: dict[int, int] = {}
@@ -570,10 +667,12 @@ class _ShapleyBase(FedAvg):
         self._layout = layout
 
     def make_round_fn(self, apply_fn, optimizer, layout, n_clients: int,
-                      preprocess=None, client_sizes=None, device=None):
+                      preprocess=None, client_sizes=None, device=None,
+                      mesh=None):
         self.bind_layout(layout)
         return super().make_round_fn(apply_fn, optimizer, layout, n_clients,
-                                     preprocess, client_sizes, device)
+                                     preprocess, client_sizes, device,
+                                     mesh=mesh)
 
     def prepare(self, apply_fn, eval_fn, eval_batches=None):
         super().prepare(apply_fn, eval_fn, eval_batches)
@@ -585,6 +684,9 @@ class _ShapleyBase(FedAvg):
             eval_flat, chunk=self.config.shapley_eval_chunk,
             eval_dtype=_resolve_eval_dtype(self.config,
                                            self._default_eval_dtype),
+            mesh_devices=eval_mesh_devices(self.config),
+            device=(eval_batches[0].device if eval_batches is not None
+                    else "cpu"),
         )
 
     def _subset_eval_batches(self, ctx):
@@ -656,6 +758,7 @@ class MultiRoundShapley(_ShapleyBase):
             ctx.sizes, masks, ctx.prev_global_params,
             self._subset_eval_batches(ctx),
         )
+        self._evaluator.release_round()
         utilities = {
             frozenset(np.flatnonzero(m).tolist()): float(u)
             for m, u in zip(masks, utilities_arr)
@@ -782,6 +885,7 @@ class GTGShapley(_ShapleyBase):
                 "iteration alone draws N permutations; the cap will be "
                 "exceeded and convergence cannot fire", cap, n,
             )
+        t_walk = time.perf_counter()
         sv_arr, n_perms, converged = gtg_walk(
             self._evaluator, client_params, ctx.sizes,
             ctx.prev_global_params, eval_batches, n, self._rng,
@@ -789,9 +893,23 @@ class GTGShapley(_ShapleyBase):
             converge_criteria=self.converge_criteria, trunc_ref=trunc_ref,
             prefix_mode=self.config.gtg_prefix_mode, memo=memo,
         )
+        walk_seconds = time.perf_counter() - t_walk
+        self._evaluator.release_round()
         sv = {i: float(v) for i, v in enumerate(sv_arr)}
         self.shapley_values[ctx.round_idx] = sv
         memo_extra = {}
+        if self._evaluator.devices > 1:
+            # The split walk's provenance, the v10 ``gtg`` sub-object: only
+            # when the walk was split, so serial records stay as they were.
+            memo_extra["gtg"] = {
+                "devices": self._evaluator.devices,
+                "evals_per_s": (
+                    round(memo.evaluated / walk_seconds, 1)
+                    if walk_seconds > 0 and memo.evaluated else None
+                ),
+                "wave_width": self._evaluator.call_width,
+                "walk_seconds": round(walk_seconds, 3),
+            }
         if cross_round:
             self._memo_store[cohort_key] = dict(memo)
             self.gtg_memo_hit_rate = memo.hit_rate()

@@ -35,6 +35,11 @@ and step count stay as they were. The quorum guard rejects a round whose
 survivors fall below ``min_survivors`` or whose voted params are not
 finite, returning the round-start params.
 
+Under a client-axis mesh (parallel/mesh.py) each local block takes its
+clients' partial vote every step, the solo chunks cut at its bounds, and
+the blocks' integer-valued sign sums are gathered and added (exact in any
+order), so every block applies the same vote.
+
 With ``client_stats='on'`` the round reports ``aux["vote_agreement"]``: the
 shared params leave no per-client update to score, so the round statistic
 is the majority vote's mean agreement, ``1/2 + mean|vote| / (2 V)`` over
@@ -43,6 +48,8 @@ unanimous step; 0.5: coin-flip directions). A pure read of the vote.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -67,6 +74,11 @@ from distributed_learning_simulator_tpu_torch.parallel.engine import (
     chunk_decoder,
     make_loss_fn,
 )
+from distributed_learning_simulator_tpu_torch.parallel.mesh import (
+    Blocks,
+    gather_blocks,
+    replicate,
+)
 from distributed_learning_simulator_tpu_torch.robustness.faults import (
     FailureModel,
     finite_flag,
@@ -77,6 +89,19 @@ from distributed_learning_simulator_tpu_torch.telemetry.client_stats import (
 from distributed_learning_simulator_tpu_torch.utils.tracing import (
     profile_step,
 )
+
+
+class _Voters(NamedTuple):
+    """Where a round's clients ``[lo, hi)`` vote: their device, their rows
+    of the client arrays, and their momentum and step rows."""
+
+    device: torch.device
+    x: torch.Tensor
+    y: torch.Tensor
+    m: torch.Tensor
+    lo: int
+    hi: int
+    state: dict
 
 
 class SignSGD(Algorithm):
@@ -138,9 +163,14 @@ class SignSGD(Algorithm):
         }
 
     def make_round_fn(self, apply_fn, optimizer, layout, n_clients: int,
-                      preprocess=None, client_sizes=None, device=None):
-        # client_sizes is unused: the vote synchronizes every client at
-        # every step, so all clients run the same step count.
+                      preprocess=None, client_sizes=None, device=None,
+                      mesh=None):
+        """The vote round. client_sizes is unused: the vote synchronizes
+        every client at every step, so all clients run the same step
+        count. With ``mesh`` (parallel/mesh.py) the client arrays and the
+        state are Blocks: each local block takes its clients' partial vote
+        every step (the solo chunks cut at its bounds), and the blocks'
+        integer vote sums are gathered and added, which is exact."""
         cfg = self.config
         lr, mu, wd = cfg.learning_rate, cfg.momentum, cfg.weight_decay
         dampening, nesterov = cfg.dampening, cfg.nesterov
@@ -163,6 +193,50 @@ class SignSGD(Algorithm):
         min_survivors = cfg.min_survivors
         quorum = fm is not None or min_survivors > 0
         cs = ClientStats.from_config(cfg)
+
+        def vote_part(params, voters: _Voters, idx, s_rows):
+            """One step's partial vote of ``voters`` (their minibatch rows
+            ``idx``, their survival ``s_rows``), a chunk of the solo order
+            at a time cut at their bounds: their f32 sign sum and loss sum.
+            Their momenta update in place."""
+            lo, hi = voters.lo, voters.hi
+            bx = batched_take(voters.x, idx)
+            by = batched_take(voters.y, idx)
+            bm = batched_take(voters.m, idx)
+            is_first = voters.state["steps"] == 0
+            momenta = voters.state.get("momenta")
+            vote = torch.zeros_like(params, dtype=torch.float32)
+            loss_sum = torch.zeros((), dtype=torch.float32,
+                                   device=params.device)
+            for c0 in range(0, n_clients, chunk):
+                s0, s1 = max(c0, lo), min(c0 + chunk, hi)
+                if s0 >= s1:
+                    continue
+                rows = slice(s0 - lo, s1 - lo)
+                xb = bx[rows] if decode is None else decode(bx[rows])
+                grads, (losses, _) = grad_fn(params, xb, by[rows], bm[rows])
+                with torch.no_grad():
+                    direction = grads
+                    if has_momentum:
+                        m_new = momentum_leaf(
+                            momenta[rows], grads, is_first[rows, None], mu,
+                            dampening,
+                        )
+                        direction = direction_leaf(grads, m_new, mu,
+                                                   nesterov)
+                    signs = torch.sign(direction)
+                    if s_rows is not None:
+                        s_c = s_rows[rows]
+                        signs = signs * s_c[:, None]
+                        losses = losses * s_c
+                        if has_momentum:
+                            m_new = torch.where(s_c[:, None] > 0, m_new,
+                                                momenta[rows])
+                    if has_momentum:
+                        momenta[rows] = m_new
+                    vote += signs.sum(dim=0)
+                    loss_sum += losses.sum()
+            return vote, loss_sum
 
         def round_fn(global_flat, client_state, cx, cy, cmask, sizes,
                      key, lr_scale=1.0, client_rng=None,
@@ -191,66 +265,80 @@ class SignSGD(Algorithm):
                         for ks in perm_keys
                     ], 0
             client_perms = [client_rng(i, shard)[0] for i in range(n_clients)]
-            params = global_flat
-            if has_momentum:
-                momenta = client_state["momenta"]
-                step_counts = client_state["steps"]
+            home = global_flat.device
+            # Where the clients vote: one place for all of them, or under a
+            # mesh each local block for its rows [lo, hi) on its device,
+            # with its momentum and step rows.
+            if mesh is None:
+                state = dict(client_state) if has_momentum else {
+                    "steps": torch.zeros(n_clients, dtype=torch.int32,
+                                         device=home)}
+                places = {None: _Voters(home, cx, cy, cmask, 0, n_clients,
+                                        state)}
             else:
-                momenta = None
-                step_counts = torch.zeros(n_clients, dtype=torch.int32,
-                                          device=global_flat.device)
+                places = {}
+                for b in mesh.local_blocks():
+                    lo, hi = int(cx.bounds[b]), int(cx.bounds[b + 1])
+                    dev = mesh.devices[b]
+                    state = dict(client_state.parts[b]) if has_momentum else {
+                        "steps": torch.zeros(hi - lo, dtype=torch.int32,
+                                             device=dev)}
+                    places[b] = _Voters(dev, cx.parts[b], cy.parts[b],
+                                        cmask.parts[b], lo, hi, state)
+            surv_of = {b: (None if surv is None
+                           else surv[v.lo:v.hi].to(v.device))
+                       for b, v in places.items()}
+            params = global_flat
+            params_of = {b: global_flat.to(v.device)
+                         for b, v in places.items()}
             epoch_loss = None
             epoch_agree = []
             for e in range(epochs):
-                perms = to_device(torch.stack([p[e] for p in client_perms]),
-                                  cx.device)
+                perms_of = {
+                    b: to_device(torch.stack(
+                        [p[e] for p in client_perms[v.lo:v.hi]]), v.device)
+                    for b, v in places.items()
+                }
                 step_losses, step_agree = [], []
                 for step in range(steps):
-                    idx = perms[:, step * bsz:(step + 1) * bsz]  # [C, B]
-                    bx = batched_take(cx, idx)
-                    by = batched_take(cy, idx)
-                    bm = batched_take(cmask, idx)
-                    is_first = step_counts == 0
-                    vote = torch.zeros_like(params, dtype=torch.float32)
-                    loss_sum = torch.zeros((), dtype=torch.float32,
-                                           device=params.device)
-                    for c0 in range(0, n_clients, chunk):
-                        rows = slice(c0, c0 + chunk)
-                        xb = bx[rows] if decode is None else decode(bx[rows])
-                        grads, (losses, _) = grad_fn(params, xb, by[rows],
-                                                     bm[rows])
-                        with torch.no_grad():
-                            direction = grads
-                            if has_momentum:
-                                m_new = momentum_leaf(
-                                    momenta[rows], grads,
-                                    is_first[rows, None], mu, dampening,
-                                )
-                                direction = direction_leaf(grads, m_new, mu,
-                                                           nesterov)
-                            signs = torch.sign(direction)
-                            if surv is not None:
-                                s_c = surv[rows]
-                                signs = signs * s_c[:, None]
-                                losses = losses * s_c
-                                if has_momentum:
-                                    m_new = torch.where(s_c[:, None] > 0,
-                                                        m_new, momenta[rows])
-                            if has_momentum:
-                                momenta[rows] = m_new
-                            vote += signs.sum(dim=0)
-                            loss_sum += losses.sum()
+                    parts = {}
+                    for b, v in places.items():
+                        parts[b] = vote_part(
+                            params_of[b], v,
+                            perms_of[b][:, step * bsz:(step + 1) * bsz],
+                            surv_of[b])
+                    if mesh is None:
+                        vote, loss_sum = parts[None]
+                    else:
+                        # The blocks' vote and loss sums, gathered and added
+                        # in block order (the votes exactly).
+                        got = gather_blocks(mesh, {
+                            b: {"vote": v, "loss": lsum.reshape(1)}
+                            for b, (v, lsum) in parts.items()
+                        }, {"vote": (tuple(params.shape), torch.float32),
+                            "loss": ((1,), torch.float32)}, home)
+                        vote = torch.zeros_like(params, dtype=torch.float32)
+                        loss_sum = torch.zeros((), dtype=torch.float32,
+                                               device=home)
+                        for b in range(mesh.size):
+                            vote += got["vote"][b]
+                            loss_sum += got["loss"][b, 0]
                     with torch.no_grad():
                         if surv is None or n_surv > 0:
                             # No survivor, no step (not even weight decay).
                             params = vote_apply_leaf(
                                 params, torch.sign(vote), lr, wd)
-                    if surv is None:
-                        step_counts = step_counts + 1
-                        denom = n_clients
+                    if mesh is None:
+                        params_of = {None: params}
                     else:
-                        step_counts = step_counts + surv.to(torch.int32)
-                        denom = float(max(n_surv, 1))
+                        copies = replicate(params, mesh)
+                        params_of = {b: copies[b] for b in places}
+                    for b, v in places.items():
+                        v.state["steps"] = v.state["steps"] + (
+                            1 if surv_of[b] is None
+                            else surv_of[b].to(torch.int32))
+                    denom = (n_clients if surv is None
+                             else float(max(n_surv, 1)))
                     step_losses.append(loss_sum / denom)
                     if cs is not None:
                         step_agree.append(
@@ -279,10 +367,13 @@ class SignSGD(Algorithm):
                                      params)
                 aux["survivor_count"] = survivor_count
                 aux["round_rejected"] = rejected
-            new_state = (
-                {"momenta": momenta, "steps": step_counts}
-                if has_momentum else None
-            )
+            new_state = None
+            if has_momentum and mesh is None:
+                new_state = places[None].state
+            elif has_momentum:
+                new_state = Blocks(mesh, [
+                    places[b].state if b in places else None
+                    for b in range(mesh.size)], cx.bounds)
             return params, new_state, aux
 
         # Streamed or not, the cohort is everyone: the resident program

@@ -722,11 +722,19 @@ class ExperimentConfig:
 
     def _refuse_unported(self) -> None:
         """NotImplementedError for every feature the port lacks so far,
-        naming the ROADMAP.md queue 1 item that brings it."""
+        naming the ROADMAP.md queue 1 item that brings it: a mesh or
+        multihost is ported for resident runs; what only streamed runs
+        and sweeps use of it is not."""
+        mesh = self.mesh_devices is not None and self.mesh_devices > 1
         checks = (
-            (self.mesh_devices is not None and self.mesh_devices > 1,
-             "mesh_devices > 1", 17),
-            (self.multihost, "multihost", 17),
+            (self.client_residency.lower() == "streamed"
+             and (mesh or self.multihost),
+             "client_residency='streamed' with mesh_devices > 1 or "
+             "multihost (the distributed shard store and the cohort "
+             "streamer over a mesh)", "17b"),
+            (bool(self.sweep_seeds or self.sweep_points) and mesh,
+             "a sweep with mesh_devices > 1 (the experiment-axis mesh)",
+             "17b"),
         )
         for refused, what, item in checks:
             if refused:

@@ -96,6 +96,23 @@ def count_launch(wrapper) -> None:
         wrapper.launches += 1
 
 
+def device_guard(t):
+    """``t``'s card made the current CUDA device around a launch: the
+    kernels launch on the current device (and the wgrad library encodes its
+    tensor maps there), so a block of a mesh on ``cuda:1`` must not launch
+    with ``cuda:0`` current."""
+    import torch
+
+    return torch.cuda.device(t.device)
+
+
+def launch_stream(t) -> int:
+    """The handle of the current stream of ``t``'s card."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 #: Build logs (nvcc's stdout+stderr, including ``-Xptxas -v``) by source
 #: name, for callers that want to print register and shared-memory use.
 BUILD_LOGS: dict[str, str] = {}

@@ -58,6 +58,8 @@ import torch
 
 from distributed_learning_simulator_tpu_torch.ops._build import (
     count_launch,
+    device_guard,
+    launch_stream,
     load_library,
     locked_once,
 )
@@ -247,10 +249,11 @@ def gn_stats(x: torch.Tensor, g: int, eps: float, split: int | None = None):
     mean = torch.empty((b, g), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
     fn = getattr(_lib(), f"dls_gn_stats_{suffix}")
-    err = fn(
-        x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), b, hw, c, g, eps,
-        split, torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with device_guard(x):
+        err = fn(
+            x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), b, hw, c, g, eps,
+            split, launch_stream(x),
+        )
     _raise_on_error(err, "gn_stats_kernel")
     count_launch(gn_stats)
     return mean, rstd
@@ -312,12 +315,13 @@ def _normalize(x, mean, rstd, scale, bias, out_dtype, after_stats: bool,
     fn = getattr(
         _lib(), f"dls_gn_normalize_{suffix}_{_KERNEL_DTYPES[scale.dtype]}"
     )
-    err = fn(
-        x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), scale.data_ptr(),
-        bias.data_ptr(), y.data_ptr(), b, hw, c, g, plan.slices,
-        plan.rows_per_slice, rows_per_model, int(after_stats),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with device_guard(x):
+        err = fn(
+            x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), y.data_ptr(), b, hw, c, g, plan.slices,
+            plan.rows_per_slice, rows_per_model, int(after_stats),
+            launch_stream(x),
+        )
     _raise_on_error(err, "gn_normalize_kernel")
     count_launch(gn_normalize)
     return y

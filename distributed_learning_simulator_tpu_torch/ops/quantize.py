@@ -60,19 +60,23 @@ class Segments:
     def __init__(self, numels: Sequence[int], device=None):
         self.numels = tuple(int(n) for n in numels)
         self.device = device
-        self._ids = None  # built at first use: int64, one per element
+        # Built at first use on each device a value arrives from (a mesh
+        # trains on several): int64, one per element.
+        self._ids: dict = {}
 
     def spread(self, per_leaf: torch.Tensor) -> torch.Tensor:
         """``[..., n_leaves]`` -> one value per element along the last
-        dim (broadcastable)."""
+        dim (broadcastable), on ``per_leaf``'s device."""
         if len(self.numels) == 1:
             return per_leaf
-        if self._ids is None:
-            self._ids = torch.repeat_interleave(
-                torch.arange(len(self.numels), device=self.device),
-                to_device(self.numels, self.device),
+        device = per_leaf.device
+        ids = self._ids.get(device)
+        if ids is None:
+            ids = self._ids[device] = torch.repeat_interleave(
+                torch.arange(len(self.numels), device=device),
+                to_device(self.numels, device),
             )
-        return per_leaf[..., self._ids]
+        return per_leaf[..., ids]
 
 
 class QuantizedTensor(NamedTuple):

@@ -45,6 +45,8 @@ import torch.nn.functional as F
 
 from distributed_learning_simulator_tpu_torch.ops._build import (
     count_launch,
+    device_guard,
+    launch_stream,
     load_library,
     locked_once,
 )
@@ -234,11 +236,13 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor,
         partial = torch.empty(n * plan.n_chunks * 9 * c * c,
                               dtype=torch.float32, device=x.device)
     fn = getattr(_lib(), f"dls_wgrad_{suffix}")
-    err = fn(
-        x.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        n, b, h, w, c, plan.n_chunks,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    # The library encodes its TMA tensor maps and launches on the current
+    # device: x's.
+    with device_guard(x):
+        err = fn(
+            x.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            n, b, h, w, c, plan.n_chunks, launch_stream(x),
+        )
     _raise_on_error(err)
     count_launch(conv3x3_wgrad)
     return out

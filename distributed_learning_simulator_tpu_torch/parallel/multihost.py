@@ -1,0 +1,257 @@
+"""Multi-process initialization over ``torch.distributed`` (parallel/
+multihost.py of the JAX package).
+
+``--multihost`` brings up a process group before any device query; after
+it the mesh (parallel/mesh.py) lists every process's device in rank order
+and the round programs gather the client-axis blocks across processes.
+
+The group is **gloo** on the CPU and on the card alike: NCCL refuses two
+ranks on one GPU, and a gloo group runs both. Collectives of CUDA tensors
+are staged explicitly through pinned host buffers (parallel/mesh.py
+``gather_blocks``). Every process holds one device: the CPU, or
+``cuda:(local_rank % device_count)`` where ``local_rank`` is
+``$LOCAL_RANK`` (a launcher's) or else the process id.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from distributed_learning_simulator_tpu_torch.utils.logging import get_logger
+
+#: The process group's backend (see the module docstring).
+BACKEND = "gloo"
+#: Seconds a collective waits for its peers before it raises: a rank that
+#: died or diverged turns into an error on the others, not a hang.
+TIMEOUT_S = 300.0
+
+# The coordinator this process initialized against (None when the group
+# came up elsewhere): torch.distributed does not expose it, so a re-call
+# naming a different one while the counts match is caught here.
+_initialized_coordinator: str | None = None
+
+
+def distributed_initialized() -> bool:
+    """Whether a torch.distributed process group is up in this process."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def process_index() -> int:
+    """This process's rank (0 without a group)."""
+    return dist.get_rank() if distributed_initialized() else 0
+
+
+def process_count() -> int:
+    """The number of processes in the group (1 without a group)."""
+    return dist.get_world_size() if distributed_initialized() else 1
+
+
+def local_rank() -> int:
+    """This process's index among the processes of its host: a launcher's
+    ``$LOCAL_RANK``, else its rank."""
+    return int(os.environ.get("LOCAL_RANK", process_index()))
+
+
+def local_device(name: str) -> torch.device:
+    """The one device this process contributes to a multi-process mesh:
+    ``cuda`` becomes ``cuda:(local_rank % device_count)`` (a ``cuda:N``
+    the caller named stays as it is), anything else is taken as given."""
+    device = torch.device(name)
+    if (device.type == "cuda" and device.index is None
+            and torch.cuda.is_available()):
+        return torch.device("cuda", local_rank() % torch.cuda.device_count())
+    return device
+
+
+def _global_device_count() -> int:
+    if distributed_initialized():
+        return process_count()
+    return torch.cuda.device_count() if torch.cuda.is_available() else 1
+
+
+def initialize_multihost(
+    coordinator_address: str | None = None,
+    num_processes: int | None = None,
+    process_id: int | None = None,
+) -> int:
+    """Bring up the process group; returns the global device count (one
+    device per process).
+
+    With no arguments, a launcher's environment (``MASTER_ADDR``,
+    ``WORLD_SIZE``, ``RANK``) is used when it is there; in a plain
+    single-process environment the call degrades to a logged no-op. Safe
+    to re-call when the group is up (a second run_simulation in one
+    process) as long as explicit flags match the live group. With
+    EXPLICIT flags and no group, failures are fatal: a misconfigured
+    two-process launch must not split into two independent single-process
+    runs that each write a full set of artifacts."""
+    global _initialized_coordinator
+
+    logger = get_logger()
+    explicit = any(
+        v is not None for v in (coordinator_address, num_processes, process_id)
+    )
+    if distributed_initialized():
+        if explicit:
+            if (
+                num_processes is not None
+                and dist.get_world_size() != num_processes
+            ) or (
+                process_id is not None and dist.get_rank() != process_id
+            ):
+                raise RuntimeError(
+                    "torch.distributed is already initialized as process "
+                    f"{dist.get_rank()}/{dist.get_world_size()}, which "
+                    "does not match the explicit multihost flags "
+                    f"(num_processes={num_processes}, "
+                    f"process_id={process_id}); refusing to proceed"
+                )
+            if coordinator_address is not None:
+                if (
+                    _initialized_coordinator is not None
+                    and _initialized_coordinator != coordinator_address
+                ):
+                    raise RuntimeError(
+                        "torch.distributed is already initialized against "
+                        f"coordinator {_initialized_coordinator!r} but the "
+                        f"caller asked for {coordinator_address!r}; "
+                        "refusing to silently reuse a different cluster"
+                    )
+                if _initialized_coordinator is None:
+                    logger.warning(
+                        "torch.distributed was initialized outside "
+                        "initialize_multihost; cannot verify it points at "
+                        "the requested coordinator %r",
+                        coordinator_address,
+                    )
+        logger.info("torch.distributed already initialized; reusing it")
+    else:
+        timeout = datetime.timedelta(seconds=TIMEOUT_S)
+        try:
+            if explicit:
+                if None in (coordinator_address, num_processes, process_id):
+                    raise ValueError(
+                        "coordinator_address, num_processes and process_id "
+                        "are all required"
+                    )
+                dist.init_process_group(
+                    backend=BACKEND,
+                    init_method=f"tcp://{coordinator_address}",
+                    world_size=int(num_processes), rank=int(process_id),
+                    timeout=timeout,
+                )
+                _initialized_coordinator = coordinator_address
+            elif all(k in os.environ
+                     for k in ("MASTER_ADDR", "WORLD_SIZE", "RANK")):
+                dist.init_process_group(backend=BACKEND, init_method="env://",
+                                        timeout=timeout)
+            else:
+                raise RuntimeError(
+                    "no coordinator configured and no launcher environment "
+                    "(MASTER_ADDR, WORLD_SIZE, RANK) to detect"
+                )
+        except (RuntimeError, ValueError) as e:
+            if explicit:
+                raise RuntimeError(
+                    "torch.distributed.init_process_group failed with "
+                    "explicit multihost flags (coordinator_address="
+                    f"{coordinator_address!r}, "
+                    f"num_processes={num_processes}, "
+                    f"process_id={process_id}); refusing to degrade to a "
+                    "single-process run"
+                ) from e
+            logger.info(
+                "torch.distributed.init_process_group skipped (single "
+                "process): %s", e,
+            )
+    n = _global_device_count()
+    logger.info(
+        "multihost: process %d/%d, %d global devices, backend %s",
+        process_index(), process_count(), n,
+        dist.get_backend() if distributed_initialized() else None,
+    )
+    return n
+
+
+def allgather_wall_stamps(stamp: float) -> np.ndarray:
+    """One wall-clock stamp per process, gathered at full precision: the
+    ``[n_hosts]`` float64 vector in rank order (gloo gathers float64
+    as it is, so no split-float packing is needed). Collective."""
+    if not distributed_initialized():
+        return np.asarray([stamp], dtype=np.float64)
+    mine = torch.tensor([stamp], dtype=torch.float64)
+    out = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, mine)
+    return torch.cat(out).numpy()
+
+
+def estimate_clock_alignment() -> tuple[float, float]:
+    """This process's wall-clock offset against process 0 and its
+    uncertainty, for the span journal headers (telemetry/spans.py).
+
+    Two back-to-back gathers: every process stamps ``clock.wall()`` as soon
+    as the first releases (all release within one collective latency of
+    each other), and the second publishes the stamps. The offset is
+    ``my_stamp - stamp_0`` (positive: this clock reads ahead). Each
+    process times its own span across the two collectives; the earliest
+    to be released waits in the second for the last, so the largest span
+    of any process bounds how far apart the stamps were taken, and that
+    largest span (a third, tiny gather) is the uncertainty. ``(0.0,
+    0.0)`` for a single process."""
+    if process_count() <= 1:
+        return 0.0, 0.0
+    from distributed_learning_simulator_tpu_torch.telemetry import clock
+
+    zeros = torch.zeros(1, dtype=torch.int32)
+    dist.all_gather([torch.empty_like(zeros)
+                     for _ in range(dist.get_world_size())], zeros)
+    t_release = clock.monotonic()
+    stamp = clock.wall()
+    stamps = allgather_wall_stamps(stamp)
+    spans = allgather_wall_stamps(clock.monotonic() - t_release)
+    return float(stamp - stamps[0]), float(spans.max())
+
+
+def mesh_devices_per_host(mesh) -> list[int]:
+    """Per-process device counts of a mesh, checked for contiguous
+    per-process blocks (the process sequence must be sorted) and for a
+    device on every process; the input of the distributed shard store's
+    ownership bounds."""
+    procs = list(mesh.ranks)
+    n_hosts = process_count()
+    if sorted(procs) != procs:
+        raise ValueError(
+            "mesh device order interleaves processes "
+            f"(process sequence {procs}); the distributed shard store "
+            "needs each host's mesh shards contiguous — build the mesh "
+            "in rank order"
+        )
+    counts = [0] * n_hosts
+    for p in procs:
+        counts[p] += 1
+    missing = [h for h, c in enumerate(counts) if c == 0]
+    if missing:
+        raise ValueError(
+            f"mesh spans {len(set(procs))} of {n_hosts} processes "
+            f"(processes {missing} contribute no device); "
+            "client_residency='streamed' under multihost needs every "
+            "host addressable in the mesh — set mesh_devices to the "
+            "global device count"
+        )
+    return counts
+
+
+def allgather_int64(values) -> np.ndarray:
+    """``values`` of every process as a ``[n_hosts, len(values)]`` int64
+    array in rank order (one row without a group). Collective."""
+    mine = torch.as_tensor(np.asarray(values, dtype=np.int64))
+    if not distributed_initialized():
+        return mine.numpy()[None]
+    out = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, mine)
+    return torch.stack(out).numpy()

@@ -30,6 +30,12 @@ back to back with one metric fetch (the same records and parameters as
 K=1). ``--execution_mode threaded`` runs the threaded oracle
 (execution/threaded.py) instead of the round loop.
 
+``--mesh_devices k`` splits the client axis over k devices
+(parallel/mesh.py: CPU slots, or one process's cards); ``--multihost true
+--coordinator_address H:P --num_processes n --process_id r`` runs one
+process of n over a gloo process group (parallel/multihost.py), the mesh
+over every process's device and only process 0 writing artifacts.
+
 ``--sweep_seeds 0,1,2`` and/or ``--sweep_points '[{"learning_rate":
 0.05}, ...]'`` run a sweep of experiments instead of one (sweep/engine.py;
 ``--sweep_strategy``, ``--sweep_dir``, ``--sweep_resume``).
@@ -46,6 +52,7 @@ import signal
 import threading
 import time
 import traceback
+import zlib
 from collections.abc import Mapping
 
 import numpy as np
@@ -89,6 +96,19 @@ from distributed_learning_simulator_tpu_torch.parallel.engine import (
     make_eval_fn,
     make_optimizer,
     pad_eval_set,
+)
+from distributed_learning_simulator_tpu_torch.parallel.mesh import (
+    Blocks,
+    make_mesh,
+    shard_client_data,
+)
+from distributed_learning_simulator_tpu_torch.parallel.multihost import (
+    allgather_int64,
+    estimate_clock_alignment,
+    initialize_multihost,
+    local_device,
+    process_count,
+    process_index,
 )
 from distributed_learning_simulator_tpu_torch.parallel.streaming import (
     CohortStreamer,
@@ -184,6 +204,11 @@ def resolve_device(name: str) -> torch.device:
         # package's f32 numerics.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        # Only cuDNN's deterministic algorithms: some of its f32 grouped
+        # convolution algorithms accumulate with float atomics, so two runs
+        # of one seed drifted apart. A seeded run reproduces bitwise, as
+        # the JAX package's runs do.
+        torch.backends.cudnn.deterministic = True
     return device
 
 
@@ -592,11 +617,11 @@ def _resume(config, algorithm, model, sample_hw, layout, device,
     ``config.checkpoint_dir``, with the JAX package's structure and
     configuration checks. Returns ``(start_round, global_flat or None,
     client_state, server_state, prev_metrics, key or None, algo_state or
-    None)``."""
+    None, ckpt_path or None)``."""
     logger = get_logger()
     ckpt_path, ckpt = load_latest_valid_checkpoint(config.checkpoint_dir)
     if ckpt_path is None:
-        return 0, None, client_state, server_state, None, None, None
+        return 0, None, client_state, server_state, None, None, None, None
     paths = jax_paths(model, sample_hw)
     if sorted(paths.values()) != tree_paths(ckpt["global_params"]):
         raise ValueError(
@@ -653,7 +678,8 @@ def _resume(config, algorithm, model, sample_hw, layout, device,
     start_round = ckpt["round_idx"] + 1
     logger.info("resumed from %s at round %d", ckpt_path, start_round)
     return (start_round, global_flat, client_state, server_state,
-            algo_state.get("prev_metrics"), ckpt.get("rng_key"), algo_state)
+            algo_state.get("prev_metrics"), ckpt.get("rng_key"), algo_state,
+            ckpt_path)
 
 
 def _resume_population(pop, algo_state: dict):
@@ -726,7 +752,8 @@ def run_simulation(
     """
     config.validate()
     if config.execution_mode.lower() == "threaded":
-        # Honoured from every entry point, as in the JAX package.
+        # Honoured from every entry point, as in the JAX package; it
+        # refuses multihost before any process group comes up.
         from distributed_learning_simulator_tpu_torch.execution.threaded import (  # noqa: E501
             run_threaded_simulation,
         )
@@ -735,9 +762,27 @@ def run_simulation(
             config, dataset=dataset, client_data=client_data,
             setup_logging=setup_logging,
         )
-    device = resolve_device(config.device)
+    # Multihost: the process group comes up before any device query, then
+    # the clock offset against process 0 for the span journals.
+    span_on = config.span_trace.lower() == "on"
+    clock_offset = clock_unc = 0.0
+    if config.multihost:
+        initialize_multihost(
+            coordinator_address=config.coordinator_address,
+            num_processes=config.num_processes,
+            process_id=config.process_id,
+        )
+        if span_on:
+            clock_offset, clock_unc = estimate_clock_alignment()
+    device = resolve_device(str(local_device(config.device))
+                            if config.multihost else config.device)
     logger = get_logger()
     set_level(config.log_level)
+    # Only process 0 writes artifacts (the log file, metrics.jsonl,
+    # checkpoints): every process runs the same rounds.
+    is_primary = process_index() == 0
+    if not is_primary:
+        setup_logging = False
     log_dir = None
     if setup_logging:
         log_path, log_dir = set_run_artifacts(
@@ -756,6 +801,19 @@ def run_simulation(
     if client_data is None:
         client_data = build_client_data(config, dataset)
     n_clients = client_data.n_clients
+    # The client-axis mesh (parallel/mesh.py): the whole client axis splits
+    # into equal blocks, one a device.
+    mesh = None
+    if config.mesh_devices and config.mesh_devices > 1:
+        mesh = make_mesh(config.mesh_devices, device=device)
+        if n_clients % config.mesh_devices != 0:
+            raise ValueError(
+                f"worker_number ({n_clients}) must be a multiple of "
+                f"mesh_devices ({config.mesh_devices})"
+            )
+    # The static size-aware regrouping is withheld under sharding, where
+    # the blocks own the client axis's layout (as in the JAX package).
+    sharded = config.multihost or mesh is not None
     xb, yb, mb = pad_eval_set(
         dataset.x_test, dataset.y_test, config.eval_batch_size
     )
@@ -874,8 +932,8 @@ def run_simulation(
     round_fn = algorithm.make_round_fn(
         apply_fn, optimizer, layout, n_clients,
         preprocess=preprocess,
-        client_sizes=client_data.sizes,
-        device=device,
+        client_sizes=None if sharded else client_data.sizes,
+        device=device, mesh=mesh,
     )
     # A full streamed cohort gets the resident round function (the
     # algorithm builds the streamed convention only for a sampled cohort):
@@ -916,9 +974,24 @@ def run_simulation(
     resumed_population = None
     if config.resume and config.checkpoint_dir:
         (start_round, resumed_global, client_state, server_state,
-         prev_metrics, resumed_key, algo_state) = _resume(
+         prev_metrics, resumed_key, algo_state, ckpt_path) = _resume(
             config, algorithm, model, sample_shape[:2], layout, device,
             client_state, server_state)
+        if config.multihost and process_count() > 1:
+            # Every process restores from its own view of checkpoint_dir:
+            # they must have restored the same checkpoint, or they would
+            # run different rounds.
+            basename = os.path.basename(ckpt_path) if ckpt_path else ""
+            gathered = allgather_int64(
+                [start_round, zlib.crc32(basename.encode())])
+            if not (gathered == gathered[0]).all():
+                raise RuntimeError(
+                    "multihost resume mismatch: processes restored "
+                    "different checkpoints (per-process [start_round, "
+                    f"path_crc32] = {gathered.tolist()}); checkpoint_dir "
+                    "must be a shared filesystem visible to every host "
+                    "with an identical checkpoint set"
+                )
         if resumed_global is not None:
             global_flat = resumed_global
         if resumed_key is not None:
@@ -970,6 +1043,16 @@ def run_simulation(
         cx = torch.as_tensor(client_data.x, device=device)
         cy = torch.as_tensor(client_data.y, dtype=torch.int64, device=device)
         cmask = torch.as_tensor(client_data.mask, device=device)
+    # The valuation audit replays cohorts from the unsharded arrays.
+    audit_data = store if stream_sampled else (cx, cy, cmask)
+    if mesh is not None:
+        # Each block's rows and persistent state on its device; the global
+        # model, the server state and the eval set stay on this process's.
+        cx, cy, cmask = shard_client_data((cx, cy, cmask), mesh)
+        client_state = shard_client_data(client_state, mesh)
+        logger.info("client axis sharded over %d devices (%s, backend %s)",
+                    mesh.size, ", ".join(str(d) for d in mesh.devices),
+                    mesh.backend)
     # A joiner's state rows (stateful streamed runs): one client's initial
     # state, repeated per joiner.
     pop_state_proto = None
@@ -985,8 +1068,9 @@ def run_simulation(
     phase_timer = make_phase_timer(tel_level)
     recompile = RecompileMonitor() if tel_level != "off" else None
     span_recorder = None
-    if config.span_trace.lower() == "on":
+    if span_on:
         span_recorder = SpanRecorder(
+            host_id=process_index(), n_hosts=process_count(),
             capacity=config.span_buffer_size,
             flush_last_k=config.span_flush_last_k,
         )
@@ -994,7 +1078,9 @@ def run_simulation(
         if span_journal_dir:
             logger.info(
                 "span journal: %s (clock offset %+.6fs ± %.6fs vs host 0)",
-                span_recorder.attach(span_journal_dir), 0.0, 0.0,
+                span_recorder.attach(span_journal_dir, clock_offset,
+                                     clock_unc),
+                clock_offset, clock_unc,
             )
         else:
             logger.warning(
@@ -1027,7 +1113,7 @@ def run_simulation(
             auditor = ValuationAuditor(
                 config, valuation_cfg, algorithm, apply_fn, optimizer,
                 layout, preprocess, evaluate,
-                store if stream_sampled else (cx, cy, cmask), eval_batches,
+                audit_data, eval_batches,
                 n_clients, device,
                 budget_bytes=_device_budget_bytes(config, device),
             )
@@ -1052,6 +1138,12 @@ def run_simulation(
     def save(round_idx: int, metrics, params, c_state, s_state, a_state,
              rng_key) -> str:
         path = os.path.join(config.checkpoint_dir, f"round_{round_idx}.ckpt")
+        if isinstance(c_state, Blocks):
+            # The whole state for the one file (a gather every process
+            # makes).
+            c_state = c_state.full(device)
+        if not is_primary:
+            return path
 
         def write():
             save_checkpoint(
@@ -1122,6 +1214,8 @@ def run_simulation(
         with annotate("post_round"), phase_timer.phase(phase_round,
                                                        "post_round"):
             extra = algorithm.post_round(ctx) or {}
+        # The split GTG walk's provenance is the v10 ``gtg`` sub-object.
+        gtg_rec = extra.pop("gtg", None)
         now = time.perf_counter()
         # Within a dispatch its wall lands on its first round.
         record = build_base_round_record(
@@ -1247,7 +1341,8 @@ def run_simulation(
             span_recorder.flush()
         record = build_round_record(record, tel_rec, cs_rec, async_rec,
                                     stream_rec, cm_rec, val_rec,
-                                    population=pop_rec, spans=spans_rec)
+                                    population=pop_rec, gtg=gtg_rec,
+                                    spans=spans_rec)
         history.append(record)
         if metrics_path:
             with open(metrics_path, "a") as f:
@@ -1773,16 +1868,20 @@ def run_simulation(
     return {
         "global_params": layout.unflatten(global_flat),
         # Sampled streamed: the population's state in the host store.
-        "client_state": store.state if stream_sampled else client_state,
+        "client_state": (
+            store.state if stream_sampled
+            else client_state.full(device) if isinstance(client_state,
+                                                         Blocks)
+            else client_state),
         "history": history,
         "algorithm": algorithm,
         "final_accuracy": history[-1]["test_accuracy"] if history else None,
         "total_seconds": total,
         "client_rounds_per_sec": n_rounds * n_clients / max(total, 1e-9),
         "client_chunk_size": config.client_chunk_size,
-        # The JAX package's keys, at the values its run gives them with
-        # each feature the port does not have yet off.
-        "mesh": None,
+        # The client-axis mesh (devices, owning ranks, backend) or None;
+        # the JAX package's keys of a streamed multihost run stay None.
+        "mesh": mesh,
         "rounds_rejected": telemetry["rounds_rejected"],
         "telemetry_level": tel_level,
         # 0 on a shape-stable run; None with telemetry off.

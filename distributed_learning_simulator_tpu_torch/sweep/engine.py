@@ -18,8 +18,8 @@ Two execution strategies behind the :class:`~.spec.SweepSpec` front door
   batched arithmetic is row for row that of the solo chunk:
   tests/test_torch_sweep.py). A fleet round makes as many training
   forwards as one solo round, and one eval forward per eval batch for all
-  E models. Packing the experiment axis over a mesh waits for
-  ``mesh_devices`` (ROADMAP.md item 17; the config refuses it).
+  E models. Packing the experiment axis over a mesh waits for ROADMAP.md
+  queue 1 item 17b (the config refuses a sweep with ``mesh_devices``).
 
 * **scheduled** — heterogeneous points group by
   ``utils/reporting.config_hash`` and each group runs sequentially
@@ -94,7 +94,7 @@ from distributed_learning_simulator_tpu_torch.utils.reporting import (
 _CRASH_ENV = "DLS_SWEEP_CRASH_AFTER"
 
 #: Axis name of the experiment mesh (the JAX package's fleet packing over
-#: a mesh; in the port it waits for ROADMAP.md item 17).
+#: a mesh; in the port it waits for ROADMAP.md queue 1 item 17b).
 EXPERIMENT_AXIS = "experiments"
 
 #: The round's aux values a record reads.

@@ -355,6 +355,7 @@ class ValuationAuditor:
             from distributed_learning_simulator_tpu_torch.algorithms.shapley import (  # noqa: E501
                 _SubsetEvaluator,
                 cap_eval_batches,
+                eval_mesh_devices,
             )
 
             layout, eval_fn = self._layout, self._eval_fn
@@ -368,6 +369,10 @@ class ValuationAuditor:
             self._evaluator = _SubsetEvaluator(
                 eval_flat, chunk=self._config.shapley_eval_chunk,
                 eval_dtype="float32" if dtype == "auto" else dtype,
+                # The run's single-process mesh splits the walk's subset
+                # axis too (bit-identical to the serial walk).
+                mesh_devices=eval_mesh_devices(self._config),
+                device=self._eval_batches[0].device,
             )
             self._capped_batches = cap_eval_batches(
                 self._eval_batches, self._config.shapley_eval_samples,
@@ -450,6 +455,7 @@ class ValuationAuditor:
             memo=memo,
             starts_per_iteration=min(self._cv.audit_permutations, n),
         )
+        evaluator.release_round()
         if cross_round:
             self._memo_store = {key: dict(memo)}
         self._sv_sum[idx] += sv_arr

@@ -139,11 +139,13 @@ def test_probes_raise_as_in_jax():
 
 @pytest.mark.parametrize("flags,item", [
     (["--client_residency", "streamed", "--mesh_devices", "2"], "item 17"),
-    (["--mesh_devices", "2"], "item 17"),
+    # A resident mesh and multihost run since ROADMAP item 17a; what a
+    # sweep and streamed residency make of them is item 17b.
+    (["--mesh_devices", "2", "--sweep_seeds", "0,1"], "item 17"),
     (["--population", "dynamic", "--client_residency", "streamed",
       "--participation_sampler", "hashed", "--participation_fraction", "0.5",
       "--multihost", "true"], "item 17"),
-    (["--multihost", "true"], "item 17"),
+    (["--multihost", "true", "--client_residency", "streamed"], "item 17"),
 ])
 def test_unported_features_refuse(flags, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -177,6 +179,25 @@ def test_cuda_device_without_a_card_raises():
     with pytest.raises(RuntimeError, match="is_available"):
         run_simulation(get_config(TINY + ["--device", "cuda"]),
                        setup_logging=False)
+
+
+def test_cuda_device_sets_reproducible_f32_numerics(monkeypatch):
+    """A CUDA run takes full-f32 convolutions and matmuls (no TF32) and only
+    cuDNN's deterministic algorithms, so a seeded run reproduces bitwise."""
+    from distributed_learning_simulator_tpu_torch.simulator import (
+        resolve_device,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for module, flag, value in (
+            (torch.backends.cudnn, "allow_tf32", True),
+            (torch.backends.cuda.matmul, "allow_tf32", True),
+            (torch.backends.cudnn, "deterministic", False)):
+        monkeypatch.setattr(module, flag, value)
+    assert resolve_device("cuda") == torch.device("cuda")
+    assert torch.backends.cudnn.deterministic
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
 
 
 def test_importing_the_port_loads_no_jax():

@@ -238,9 +238,14 @@ def test_refusals_match_jax_text(tiny_config, name):
 
 
 def test_unported_options_stay_refused_under_threaded(tiny_config):
+    """Multihost is ported for the vmap mode; the threaded oracle refuses
+    it with the JAX package's text."""
     cfg = port_config(_cfg(tiny_config, "fed"), multihost=True)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError) as err:
         run_simulation(cfg, setup_logging=False)
+    assert str(err.value) == (
+        "execution_mode='threaded' does not support multihost; "
+        "use the vmap execution mode")
 
 
 def test_two_runs_bitwise_equal(tiny_config):
