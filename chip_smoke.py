@@ -175,8 +175,9 @@ together), then runs these phases and exits non-zero if any of them fails:
    and ``sign_SGD`` as its main path in the same turns, through
    run_path's gates: params and history
    bitwise equal, valid v5 records; round seconds, overlap ratio, H2D MiB
-   and both peaks printed; then for each, one profiled round resident and
-   one streamed, their device busy ms beside their wall seconds);
+   and both peaks printed; then for ``fed`` one profiled round resident
+   and one streamed (one a residency since the ``multihost_stream`` phase
+   came), their device busy ms beside their wall seconds);
    ``stream_population`` (bench.py's ``stream`` leg: an MLP on
    ``synthetic_stream_shards`` populations of 16-sample shards, a cohort
    of 256, 8 rounds, hashed at N = 1e5 and 1e6 and exact at 1e5: cohort
@@ -225,6 +226,44 @@ together), then runs these phases and exits non-zero if any of them fails:
    must raise the shortfall ValueError. Prints each rank's round seconds
    beside the solo run's, the bytes and seconds of the gathers per round
    and each rank's peak memory.
+   Then streamed residency across processes (``multihost_stream``, the
+   distributed shard store): ResNet-18 ``fed`` at full width on the
+   flagship's partition, 40 clients, a hashed half cohort, momentum 0.9
+   with ``reset_client_optimizer=False`` (persistent state: both exchange
+   directions), seed 1, chunk 10, f32 local state (the config refuses
+   persistent state beside bf16 compute), 2 rounds, a checkpoint every
+   round and span journals on, launched as two ranks on ``cuda:0``
+   (``--client_residency streamed --multihost true ... --mesh_devices 2``:
+   each rank owns 20 clients and trains its 10 cohort rows as one chunk)
+   and once as one streamed process without a mesh (both checkpointing
+   every round), then as the witness: one streamed process handed each
+   cohort in the ranks' owner-grouped rows, ``draw_pos`` keeping every
+   client's keys (``--owner-order``), which moves only the row order, so
+   the aggregate's summation order, against the one-process run. Both
+   ranks must exit 0 within their
+   timeout (else both are killed), hold bitwise equal global params and
+   test metrics after every round and report the cohort hashes of the
+   one-process run; in round 0 (every client trains from the same model,
+   so only the aggregate's summation order may move) their params must be
+   within 1e-6 of the largest of the one-process run's, their test loss
+   and accuracy within rtol 1e-4, and each rank's shard must hold the
+   one-process run's state rows of its clients bitwise; every row of
+   round 1's per-client state, as each rank's forward exchange hands it to
+   the round, must be bitwise the one-process run's round-0 checkpoint
+   row of that client (one exchanged row at least, of a client that
+   trained in round 0); their params and test metrics must equal the
+   witness's bit for bit every round; in round 1 the test loss within
+   rtol 1e-3 of the one-process run and the accuracy within two test
+   samples (f32 ResNet training at this lr amplifies the rounding of the
+   summation order: the witness's spread, printed beside the ranks');
+   each rank's training
+   launches of both GroupNorm kernels and the wgrad kernel must be the
+   count its block predicts (rounds x steps x chunks of its 10 rows x 20
+   or 4), its eval launches the one-process run's; every round must leave
+   a manifest and one shard a rank. Prints
+   the spill rows and exchanged bytes each round, each rank's
+   ``dcn_wait`` and ``dcn`` seconds and barrier skew, each rank's round
+   seconds beside the one-process run's and each rank's peak memory.
 3. A profiler pass per algorithm (5 clients, 2 rounds) and one of the
    headline (10 clients, 2 rounds): device busy time, idle share, and the
    host operators with the most self time. Then the batched layers alone
@@ -236,7 +275,7 @@ together), then runs these phases and exits non-zero if any of them fails:
    of the batched layouts (``layout_ab``): ``fed`` and multi-round Shapley
    with the port's vmap rules, with GroupNorm always folding the models
    into its batch, and with functorch's own convolution rule in place of
-   ops/conv.py's, each once in the order A B C after a run of each path
+   ops/conv.py's, each once in the order A B C after a run of ``fed``
    that is not kept. Each phase's wall seconds are logged and kept.
 4. Prints the kernels' JSON line, the card's name and power limit, and as
    its last line ``{"ok": true, "device": {...}}``.
@@ -2822,8 +2861,8 @@ def stream_flagship(torch, gn, wg, work):
     records (a full cohort's one upload on its first record only). Prints
     round seconds, the median round after round 0 of each residency, the
     overlap ratio, H2D MiB and both peaks. Then :func:`trace_residency`
-    for each configuration. Returns ``({name: {label: run}}, {name:
-    trace})``."""
+    for ``fed`` (one profiled round a residency). Returns ``({name:
+    {label: run}}, {"fed": trace})``."""
     import dataclasses
 
     schema = _schema()
@@ -2877,9 +2916,11 @@ def stream_flagship(torch, gn, wg, work):
             f"{s['stream_d2h_bytes'] / 2**20:.1f} MiB; peak "
             f"{res['peak_memory_bytes'] / 2**30:.2f} GiB resident, "
             f"{st['peak_memory_bytes'] / 2**30:.2f} GiB streamed")
-    traces = {name: trace_residency(torch, gn, wg, config, os.path.join(
-        work, "residency_trace", name))
-        for name, config in stream_flagship_configs().items()}
+    # One profiled round per arm (resident, streamed), on ``fed``: the
+    # four traces of both paths took most of this phase.
+    config = stream_flagship_configs()["fed"]
+    traces = {"fed": trace_residency(torch, gn, wg, config, os.path.join(
+        work, "residency_trace", "fed"))}
     return out, traces
 
 
@@ -3441,11 +3482,15 @@ def cli_flags(config) -> list[str]:
     return flags
 
 
-def rank_worker(out_path: str, argv: list[str]) -> None:
+def rank_worker(out_path: str, argv: list[str],
+                owner_order: bool = False) -> None:
     """One process of ``multihost_fed``: the CLI's ``main(argv)`` with
     each round's global params digested (and round 0's saved beside
     ``out_path``), the kernels' launches split into training and server
-    eval, then this process's clock offset; writes ``out_path``."""
+    eval, then this process's clock offset; writes ``out_path``.
+    ``owner_order``: a one-process streamed run is handed each cohort in
+    the rows that two ranks of the distributed store would train it in
+    (:func:`_owner_ordered`)."""
     import hashlib
 
     import torch
@@ -3490,7 +3535,29 @@ def rank_worker(out_path: str, argv: list[str]) -> None:
 
         return counted
 
+    # The distributed store's per-client state as each round receives it:
+    # its rows' ids, which rows came by the exchange, and, from round 1 on
+    # (when clients hold state of their own), the rows themselves (the
+    # round trains from copies, so these stay as they were sent).
+    from distributed_learning_simulator_tpu_torch.parallel import streaming
+
+    received = []
+    dist_gather = streaming.DistributedCohortStreamer.gather_state
+
+    def probed_gather(self, ex, like):
+        state = dist_gather(self, ex, like)
+        if state is not None:
+            received.append((
+                self.span_round, ex.plan.idx_perm[ex.blo:ex.bhi],
+                ex.in_rows_rel,
+                next(p for p in state.parts if p is not None)
+                if self.span_round else None))
+        return state
+
     cls.post_round = probed
+    streaming.DistributedCohortStreamer.gather_state = probed_gather
+    if owner_order:
+        _owner_ordered(streaming, get_config(argv))
     simulator.make_eval_fn = counted_eval_fn
     gn.reset_launch_counts()
     wg.reset_launch_counts()
@@ -3513,6 +3580,14 @@ def rank_worker(out_path: str, argv: list[str]) -> None:
             "rank": multihost.process_index(),
             "digests": digests,
             "test_loss": [h["test_loss"] for h in result["history"]],
+            "test_accuracy": [h["test_accuracy"]
+                              for h in result["history"]],
+            "cohort_hash": [h.get("cohort_hash") for h in result["history"]],
+            # The distributed shard store's round records and totals.
+            "multihost": [h.get("multihost") for h in result["history"]],
+            "spans": [h.get("spans") for h in result["history"]],
+            "multihost_summary": result["multihost_summary"],
+            "stream_dcn_bytes": result["stream_dcn_bytes"],
             "round_seconds": [h["round_seconds"]
                               for h in result["history"]],
             "launches": launches,
@@ -3523,13 +3598,80 @@ def rank_worker(out_path: str, argv: list[str]) -> None:
             "peak_memory_bytes": (torch.cuda.max_memory_allocated() if cuda
                                   else None),
             "clock": {"offset_s": offset, "uncertainty_s": uncertainty},
+            "received_state": [
+                {"round": rnd, "ids": ids.tolist(),
+                 "exchanged_rows": rows.tolist(),
+                 "digests": None if tree is None else _row_digests(
+                     [t.detach().cpu().numpy() for t in _key_leaves(tree)])}
+                for rnd, ids, rows, tree in received],
         }, f)
 
 
-def launch_ranks(work: str, runs: dict, timeout: float) -> dict:
+def _owner_ordered(streaming, config) -> None:
+    """The one-process streamer (``CohortStreamer``) hands each round its
+    cohort in the rows of two ranks of the distributed store: owner-grouped
+    rows (data/residency.plan_owner_assembly over two equal owner slices
+    and two cohort blocks), each row's keys and failure flag taken from its
+    draw position through ``draw_pos``, its state gathered and written back
+    by client id. Only the row order moves against the draw-order run."""
+    import numpy as np
+
+    from distributed_learning_simulator_tpu_torch.data.residency import (
+        host_axis_bounds,
+        plan_owner_assembly,
+    )
+
+    owners = host_axis_bounds(config.worker_number, [1, 1])
+    cohort = config.cohort_size()
+    blocks = np.array([0, cohort // 2, cohort], np.int64)
+    plans = {}
+    base = streaming.CohortStreamer
+    acquire = base.acquire_plan
+
+    def plan(self, idx):
+        p = plan_owner_assembly(np.asarray(idx, np.int64), owners, blocks)
+        plans[p.idx_perm.tobytes()] = p
+        return p.idx_perm
+
+    def acquire_plan(self, rows):
+        (x, y, m, s, idx, _), stats, rows = acquire(self, rows)
+        return ((x, y, m, s, idx, plans[rows.tobytes()].draw_pos), stats,
+                rows)
+
+    base.plan = plan
+    base.acquire_plan = acquire_plan
+    base.cohort_ids = lambda self, rows: plans[rows.tobytes()].idx
+
+
+def _key_leaves(tree) -> list:
+    """A state tree's leaves in key order (a bare array is one leaf)."""
+    return ([tree[k] for k in sorted(tree)] if isinstance(tree, dict)
+            else [tree])
+
+
+def _row_digests(leaves) -> list[str]:
+    """One sha256 a row over the bytes of that row of every leaf (numpy
+    leaves in key order)."""
+    import hashlib
+
+    import numpy as np
+
+    out = []
+    for i in range(leaves[0].shape[0]):
+        h = hashlib.sha256()
+        for leaf in leaves:
+            h.update(np.ascontiguousarray(leaf[i]).tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+def launch_ranks(work: str, runs: dict, timeout: float,
+                 phase: str = "multihost_fed",
+                 worker_options: tuple = ()) -> dict:
     """Start every ``runs[name]`` (CLI flags) as a :func:`rank_worker`
-    process at once; wait for all within ``timeout``, killing every one
-    of them when the time runs out or one fails. Returns ``{name: its
+    process at once (``worker_options``, e.g. ``("--owner-order",)``,
+    passed to each worker); wait for all within ``timeout``, killing every
+    one of them when the time runs out or one fails. Returns ``{name: its
     output}``."""
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=repo)
@@ -3540,7 +3682,7 @@ def launch_ranks(work: str, runs: dict, timeout: float) -> dict:
         with open(log_path, "w") as log_f:
             procs[name] = (subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--rank-worker",
-                 out, "--", *flags],
+                 out, *worker_options, "--", *flags],
                 cwd=repo, env=env, stdout=log_f, stderr=subprocess.STDOUT),
                 out, log_path)
     deadline = time.monotonic() + timeout
@@ -3564,7 +3706,7 @@ def launch_ranks(work: str, runs: dict, timeout: float) -> dict:
         tails = "\n".join(
             f"--- {name}:\n" + open(log_path).read()[-3000:]
             for name, (_, _, log_path) in procs.items())
-        fail(f"multihost_fed: {failed}; every process stopped\n{tails}")
+        fail(f"{phase}: {failed}; every process stopped\n{tails}")
     out = {}
     for name, (_, path, _) in procs.items():
         with open(path) as f:
@@ -3691,6 +3833,262 @@ def multihost_fed(torch, work: str) -> dict:
         f"clock offset {clock}; shortfall refused: {shortfall}")
     return {"ranks": ranks, "solo": solo, "round0_bitwise": bitwise,
             "round0_max_abs_diff": max_diff, "shortfall": shortfall}
+
+
+MULTIHOST_STREAM_CLIENTS = 40
+MULTIHOST_STREAM_RTOL = 1e-4  # round 0: only the summation order moves
+# Later rounds: f32 training from params a rounding apart (the witness).
+MULTIHOST_STREAM_LATER_RTOL = 1e-3
+
+
+def multihost_stream_config(work: str):
+    """``multihost_stream``'s configuration: the flagship ``fed`` (module
+    docstring) at 40 clients, a hashed half cohort, persistent momentum,
+    chunk 10, a checkpoint every round, span journals, streamed; logging
+    under ``work``; without the size-aware schedule, which a mesh
+    withholds, so that the one-process run trains as many steps. The local
+    state is f32: persistent optimizer state with bf16 local compute is
+    refused (the JAX package's rule, config.py)."""
+    import dataclasses
+
+    return dataclasses.replace(
+        path_configs(MULTIHOST_STREAM_CLIENTS, 4000, 1000, "INFO")["fed"],
+        # Seed 1: round 1 spills client 6, which trained in round 0, so
+        # the forward exchange carries momentum of its own.
+        seed=1, local_compute_dtype="float32",
+        client_chunk_size=10, participation_fraction=0.5,
+        participation_sampler="hashed", reset_client_optimizer=False,
+        client_residency="streamed", bucket_client_work=False,
+        span_trace="on", log_root=os.path.join(work, "log"))
+
+
+def _gib(n) -> str:
+    return "n/a" if n is None else f"{n / 2**30:.2f} GiB"
+
+
+def _state_rows(path: str, lo: int, hi: int):
+    """Rows ``lo:hi`` of the per-client state a checkpoint (a whole one or
+    a rank's shard, utils/checkpoint.py) holds, as numpy leaves in key
+    order."""
+    from distributed_learning_simulator_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+    )
+
+    state = load_checkpoint(path)["client_state"]
+    return [leaf[lo:hi] for leaf in _key_leaves(state)]
+
+
+def multihost_stream(torch, work: str, config=None) -> dict:
+    """Phase 2zb: ``multihost_stream`` (module docstring): two ranks of
+    the distributed shard store on the one card, against one streamed
+    process without a mesh. ``config`` replaces the phase's (the CPU
+    tests' tiny MLP)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if config is None:
+        config = multihost_stream_config(work)
+    device = "cuda:0" if config.device == "cuda" else config.device
+    ckpt, solo_ckpt = os.path.join(work, "shards"), os.path.join(work, "solo")
+    address = f"127.0.0.1:{free_port()}"
+    ranks = launch_ranks(work, {
+        f"rank{r}": cli_flags(dataclasses.replace(
+            config, span_dir=os.path.join(work, "spans"),
+            checkpoint_dir=ckpt, checkpoint_every=1)) + [
+            "--multihost", "true", "--coordinator_address", address,
+            "--num_processes", "2", "--process_id", str(r),
+            "--mesh_devices", "2"]
+        for r in range(2)}, MULTIHOST_TIMEOUT_S, "multihost_stream")
+    solo = launch_ranks(work, {"solo": cli_flags(dataclasses.replace(
+        config, span_dir=os.path.join(work, "spans_solo"),
+        checkpoint_dir=solo_ckpt, checkpoint_every=1))},
+        MULTIHOST_TIMEOUT_S, "multihost_stream")["solo"]
+    # The witness: the one-process streamed run handed the ranks'
+    # owner-grouped rows (draw_pos keeps each client's keys). It moves only
+    # the row order against the one-process run, so its spread from it is
+    # what the summation order alone gives; the ranks must match it bit
+    # for bit, which leaves nothing to the exchange.
+    witness = launch_ranks(work, {"witness": cli_flags(dataclasses.replace(
+        config, span_trace="off"))}, MULTIHOST_TIMEOUT_S, "multihost_stream",
+        worker_options=("--owner-order",))["witness"]
+    os.remove(witness["round0_path"])
+    p_rank = torch.load(ranks["rank0"]["round0_path"])
+    p_solo = torch.load(solo["round0_path"])
+    round0_diff = float((p_rank - p_solo).abs().max())
+    scale = float(p_solo.abs().max())
+    for r in (*ranks.values(), solo):  # 45 MB each
+        os.remove(r["round0_path"])
+    r0, r1 = ranks["rank0"], ranks["rank1"]
+    rounds = config.round
+    cohort = config.cohort_size()
+    block = cohort // 2
+    steps = -(-config.max_shard_size // config.batch_size) * config.epoch
+    chunks = -(-block // config.client_chunk_size)
+    predicted = {"gn_stats": rounds * steps * chunks * GN_PER_FORWARD,
+                 "gn_normalize": rounds * steps * chunks * GN_PER_FORWARD,
+                 "conv3x3_wgrad": rounds * steps * chunks * WGRAD_PER_STEP}
+    for name, r in ranks.items():
+        if (r["device"] != device or r["mesh"] is None
+                or r["mesh"]["backend"] != "gloo"):
+            fail(f"multihost_stream {name}: device {r['device']}, mesh "
+                 f"{r['mesh']}")
+        if r["train_launches"] != predicted:
+            fail(f"multihost_stream {name}: training launches "
+                 f"{r['train_launches']}, its block predicts {predicted}")
+        if r["eval_launches"] != solo["eval_launches"]:
+            fail(f"multihost_stream {name}: eval launches "
+                 f"{r['eval_launches']}, the solo run's "
+                 f"{solo['eval_launches']}")
+        if r["cohort_hash"] != solo["cohort_hash"]:
+            fail(f"multihost_stream {name}: cohorts {r['cohort_hash']}, the "
+                 f"solo run's {solo['cohort_hash']}")
+        summary = r["multihost_summary"]
+        if (summary is None or summary["hosts"] != 2
+                or summary["owned_clients"] != config.worker_number // 2):
+            fail(f"multihost_stream {name}: store summary {summary}")
+    if r0["digests"] != r1["digests"] or len(r0["digests"]) != rounds:
+        fail("multihost_stream: the ranks' global params differ after a "
+             "round")
+    for rnd in range(rounds):
+        names = [f"round_{rnd}.manifest.json"] + [
+            f"round_{rnd}.host{h}-of-2.ckptshard" for h in range(2)]
+        missing = [n for n in names
+                   if not os.path.exists(os.path.join(ckpt, n))]
+        if missing:
+            fail(f"multihost_stream: round {rnd} lacks {missing}")
+    # Round 0 starts every client from the same model: each client's
+    # training, upload and new momentum are the one-process run's bitwise
+    # (its keys follow it through draw_pos), and only the aggregate's
+    # summation order moves. So the params agree to rounding, the test
+    # metrics at rtol 1e-4, and each rank's shard holds exactly the
+    # one-process run's state rows of the clients it owns: the exchange
+    # and the owners' writeback checked bit for bit.
+    owned = config.worker_number // 2
+    solo_rows = _state_rows(os.path.join(solo_ckpt, "round_0.ckpt"), 0,
+                            config.worker_number)
+    state_equal = all(
+        all(np.array_equal(a, b[h * owned:(h + 1) * owned]) for a, b in zip(
+            _state_rows(os.path.join(ckpt, f"round_0.host{h}-of-2"
+                                     ".ckptshard"), 0, owned), solo_rows))
+        for h in range(2))
+    # Round 1 is the first whose clients hold state of their own: every
+    # row of each rank's block, as the forward exchange hands it to the
+    # round, must be the one-process run's round-0 state of that client.
+    solo_digests = _row_digests(solo_rows)
+    del solo_rows
+    trained = {i for r in (r0, r1) for rec in r["received_state"]
+               if rec["round"] == 0 for i in rec["ids"]}
+    received = {"rows": 0, "exchanged": 0, "trained_rows": 0,
+                "trained_exchanged": 0, "mismatched": []}
+    for name, r in ranks.items():
+        recs = [rec for rec in r["received_state"] if rec["round"] == 1]
+        if len(recs) != 1:
+            fail(f"multihost_stream {name}: {len(recs)} state gathers in "
+                 f"round 1")
+        rec = recs[0]
+        exchanged = set(rec["exchanged_rows"])
+        for row, (i, digest) in enumerate(zip(rec["ids"], rec["digests"])):
+            received["rows"] += 1
+            received["exchanged"] += row in exchanged
+            received["trained_rows"] += i in trained
+            received["trained_exchanged"] += row in exchanged and i in trained
+            if digest != solo_digests[i]:
+                received["mismatched"].append((name, row, i))
+    shard_mib = os.path.getsize(os.path.join(
+        ckpt, "round_0.host0-of-2.ckptshard")) / 2**20
+    shutil.rmtree(ckpt)  # ~0.9 GB a shard
+    shutil.rmtree(solo_ckpt)
+    # Later rounds train from params a rounding apart, which f32 ResNet
+    # training at this lr amplifies: the witness, which moves nothing but
+    # the row order, spreads as far from the one-process run as the ranks
+    # do. Test loss at rtol 1e-3, accuracy within two test samples.
+    n_test = config.n_test
+    bands = {
+        "test_loss": [(MULTIHOST_STREAM_RTOL if rnd == 0
+                       else MULTIHOST_STREAM_LATER_RTOL) * abs(b)
+                      for rnd, b in enumerate(solo["test_loss"])],
+        "test_accuracy": [MULTIHOST_STREAM_RTOL * abs(b) if rnd == 0
+                          else 2.0 / n_test
+                          for rnd, b in enumerate(solo["test_accuracy"])],
+    }
+    spread = {
+        who: [abs(a - b) / abs(b) for a, b in zip(r["test_loss"],
+                                                  solo["test_loss"])]
+        for who, r in (("ranks", r0), ("witness", witness))}
+    witness_bitwise = (witness["digests"] == r0["digests"]
+                       and witness["test_loss"] == r0["test_loss"]
+                       and witness["test_accuracy"] == r0["test_accuracy"])
+    log(f"multihost_stream: round 0 params max |rank - solo| "
+        f"{round0_diff:.3e} (max |p| {scale:.3e}); round 0 state rows "
+        f"{'bitwise' if state_equal else 'NOT bitwise'} the solo run's; "
+        f"round 1 received state {received}; test loss ranks "
+        f"{r0['test_loss']} solo {solo['test_loss']} witness (owner "
+        f"order) {witness['test_loss']}, params and metrics "
+        f"{'bitwise' if witness_bitwise else 'NOT bitwise'} the ranks'; "
+        f"relative spread from solo {spread}; accuracy ranks "
+        f"{r0['test_accuracy']} solo "
+        f"{solo['test_accuracy']} witness {witness['test_accuracy']}; bands "
+        f"{bands}")
+    if round0_diff > 1e-6 * scale:
+        fail(f"multihost_stream: round 0 params {round0_diff:.3e} from the "
+             f"solo run's (beyond 1e-6 x {scale:.3e})")
+    if not state_equal:
+        fail("multihost_stream: a rank's round 0 shard holds state rows "
+             "other than the solo run's")
+    if not received["trained_exchanged"]:
+        fail(f"multihost_stream: no row exchanged for round 1 held state "
+             f"of its own ({received}): the check saw only initial state")
+    if received["mismatched"] or received["rows"] != cohort:
+        fail(f"multihost_stream: round 1's received state rows (rank, row, "
+             f"client) {received['mismatched']} are not the solo run's "
+             f"round-0 state of those clients ({received['rows']} rows "
+             f"checked)")
+    if not witness_bitwise:
+        fail(f"multihost_stream: the ranks' params or test metrics differ "
+             f"from the one-process run on the same owner-grouped rows "
+             f"(test loss {r0['test_loss']} against "
+             f"{witness['test_loss']})")
+    if witness["cohort_hash"] != solo["cohort_hash"]:
+        fail(f"multihost_stream: the witness drew cohorts "
+             f"{witness['cohort_hash']}, the solo run {solo['cohort_hash']}")
+    for key in ("test_loss", "test_accuracy"):
+        for rnd, (a, b, band) in enumerate(zip(r0[key], solo[key],
+                                               bands[key])):
+            if abs(a - b) > band:
+                fail(f"multihost_stream round {rnd}: {key} {a} against the "
+                     f"solo run's {b} (band {band:.3e})")
+    if (r0["test_loss"], r0["test_accuracy"]) != (r1["test_loss"],
+                                                  r1["test_accuracy"]):
+        fail("multihost_stream: the ranks' test metrics differ")
+    exchange = [
+        {"spill_rows": r0["multihost"][i]["spill_rows"],
+         "dcn_mib": r0["multihost"][i]["dcn_bytes"] / 2**20,
+         "dcn_wait_s": [r["spans"][i]["dcn_wait_s"] for r in (r0, r1)],
+         "dcn_s": [r["spans"][i]["dcn_transfer_s"] for r in (r0, r1)],
+         "skew_ms": [r["spans"][i].get("spill_skew_ms") for r in (r0, r1)]}
+        for i in range(rounds)]
+    log(f"multihost_stream: ranks bitwise equal every round; cohorts the "
+        f"solo run's; exchange by round {exchange}; round "
+        f"seconds rank0 {r0['round_seconds']} rank1 {r1['round_seconds']} "
+        f"solo {solo['round_seconds']}; peak memory rank0 "
+        f"{_gib(r0['peak_memory_bytes'])} rank1 "
+        f"{_gib(r1['peak_memory_bytes'])} solo "
+        f"{_gib(solo['peak_memory_bytes'])}; launches rank0 "
+        f"{r0['launches']} rank1 {r1['launches']} (training predicted "
+        f"{predicted}) solo {solo['launches']}; a shard {shard_mib:.1f} MiB")
+    return {"ranks": ranks, "solo": solo, "witness": witness,
+            "witness_bitwise": witness_bitwise,
+            "exchange": exchange, "bands": bands, "spread": spread,
+            "round0_max_abs_diff": round0_diff,
+            "round0_state_bitwise": state_equal,
+            "round1_received_state": received,
+            "predicted_train_launches": predicted, "shard_mib": shard_mib}
 
 
 def profile_rounds(torch, name, config):
@@ -3945,10 +4343,11 @@ def layout_ab(torch, gn, wg, log_root: str):
     on ``fed`` (the main path's configuration: chunks of 40 and 10) and on
     multi-round Shapley (N=4: one batch of 16 subset models a round), each
     run through run_path's gates, each arm once in the order A B C after
-    one run of each path that is not kept (without it, the arm run first
+    one run of ``fed`` that is not kept (without it, the arm run first
     was the slowest on ``fed`` in three calls, once while running the same
     training code as another arm; A B C C B A until the sweep phases
-    came). Keeps each run's
+    came; Shapley's own warm-up run went with the ``multihost_stream``
+    phase). Keeps each run's
     second-round seconds and its subset evaluations per second
     (informational: host variance moves round times between runs)."""
     configs = {
@@ -3956,9 +4355,7 @@ def layout_ab(torch, gn, wg, log_root: str):
         "multiround_shapley_value":
             extra_path_configs(log_root)["multiround_shapley_value"],
     }
-    for name, config in configs.items():
-        run_path(torch, gn, wg, f"{name} [warm-up, not kept]", config,
-                 post_round_probe=[] if "shapley" in name else None)
+    run_path(torch, gn, wg, "fed [warm-up, not kept]", configs["fed"])
     runs = []
     for arm in LAYOUT_ARMS:
         for name, config in configs.items():
@@ -4053,7 +4450,9 @@ def main() -> None:
         # A multihost_fed process: chip_smoke.py --rank-worker OUT -- FLAGS
         at = sys.argv.index("--rank-worker")
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        rank_worker(sys.argv[at + 1], sys.argv[sys.argv.index("--") + 1:])
+        end = sys.argv.index("--")
+        rank_worker(sys.argv[at + 1], sys.argv[end + 1:],
+                    owner_order="--owner-order" in sys.argv[at + 2:end])
         return
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=os.path.join("build", "chip_smoke"),
@@ -4179,6 +4578,12 @@ def main() -> None:
     for name, run in dict(multihost["ranks"],
                           solo=multihost["solo"]).items():
         paths[f"multihost_fed_{name}"] = run
+    mh_stream = phase("multihost_stream", multihost_stream, torch,
+                      os.path.join(os.path.abspath(args.out),
+                                   "multihost_stream"))
+    for name, run in dict(mh_stream["ranks"], solo=mh_stream["solo"],
+                          witness=mh_stream["witness"]).items():
+        paths[f"multihost_stream_{name}"] = run
     # The ResNet paths at 5 clients (10 before the headline path: the
     # profiler's trace processing took most of the run), the headline at
     # 10 (50 samples each, as at 1000) with a 1000-sample eval.
@@ -4261,6 +4666,9 @@ def main() -> None:
                    "sweep_scheduled": scheduled,
                    "multihost_fed": {k: v for k, v in multihost.items()
                                      if k not in ("ranks", "solo")},
+                   "multihost_stream": {
+                       k: v for k, v in mh_stream.items()
+                       if k not in ("ranks", "solo", "witness")},
                    "phase_seconds": phase_seconds},
                   f, indent=1)
     if "jax" in sys.modules:

@@ -512,6 +512,7 @@ class FedAvg(Algorithm):
                 key, fm is not None)
             failed = (fm.draw_failed(fault_key, n_participants)
                       if fm is not None else None)
+            draw_pos = None
             if cohort is None:
                 ids = self.cohort_indices(key, n_clients)
                 if ids is None:
@@ -521,11 +522,20 @@ class FedAvg(Algorithm):
                 state_k = (cohort_take(client_state, ids) if mesh is None
                            else None)
             else:
-                ids, data_rows = cohort
+                ids, data_rows, draw_pos = cohort
                 part_sizes = np.asarray(sizes, dtype=np.float32)
                 state_k = client_state
             client_keys = prng.split(train_key, n_participants)
-            pos_of = {int(i): p for p, i in enumerate(ids)}
+            # The key position of each client: its cohort position, or,
+            # under the owner-permuted layout, the draw position of the
+            # client at each row, which keeps every client's training
+            # draws those of the draw-order round.
+            key_pos = (np.arange(len(ids)) if draw_pos is None
+                       else np.asarray(draw_pos))
+            if failed is not None and draw_pos is not None:
+                # The fault stream is positional in draw order too.
+                failed = failed[key_pos]
+            pos_of = {int(i): int(p) for i, p in zip(ids, key_pos)}
             if materialize:
                 plan = [(cx.shape[1], [(payload_key,
                                         list(range(n_participants)))])]
@@ -899,16 +909,17 @@ class FedAvg(Algorithm):
             })
             if client_eval:
                 aux["client_eval_accuracy"] = eval_accs
+            if mesh is not None and client_state is not None:
+                client_state = Blocks(mesh, [
+                    places[b].state if b in places else None
+                    for b in range(mesh.size)], client_state.bounds,
+                    client_state.shape)
             if cohort is not None:
-                return new_global, state_k, aux
+                return new_global, (state_k if mesh is None
+                                    else client_state), aux
             if sampled:
                 aux["participants"] = np.asarray(ids)
             if mesh is not None:
-                if client_state is not None:
-                    client_state = Blocks(mesh, [
-                        places[b].state if b in places else None
-                        for b in range(mesh.size)], client_state.bounds,
-                        client_state.shape)
                 return new_global, client_state, aux
             if state_k is not None:
                 client_state = cohort_scatter(client_state, ids, state_k)
@@ -924,7 +935,8 @@ class FedAvg(Algorithm):
         def round_fn_streamed(global_flat, state_k, x_k, y_k, m_k,
                               part_sizes, idx, key, lr_scale=1.0,
                               client_rng=None, payload_salts=None,
-                              async_state=None, departed=None):
+                              async_state=None, departed=None,
+                              draw_pos=None):
             """The streamed calling convention (algorithms/base.py): the
             cohort's slices arrive gathered from the host shard store,
             ``idx`` is its true client ids, and the cohort's new state is
@@ -932,14 +944,25 @@ class FedAvg(Algorithm):
             as in the resident round (the host drew the cohort from its
             ``part_key``). ``departed`` (population='dynamic', required
             there) is the registration stream's departure mask over the
-            cohort."""
+            cohort. Under a mesh the slices and the state are ``Blocks``
+            over the cohort rows.
+
+            ``draw_pos`` (int per cohort row; the distributed shard store,
+            parallel/streaming.DistributedCohortStreamer) is the DRAW
+            position of the client at each row: the owner-sharded assembly
+            permutes the cohort into owner-contiguous rows
+            (data/residency.plan_owner_assembly), and the round takes the
+            training keys and the failure mask of each row's draw position,
+            so every client trains as in the draw-order round and only the
+            summation order moves (the JAX package's ``cohort_round``)."""
             if dyn and departed is None:
                 raise ValueError(
                     "population='dynamic' round program needs the "
                     "departed operand "
                     "(PopulationModel.cohort_departed_mask)"
                 )
-            cohort = (np.asarray(idx), np.arange(len(idx)))
+            cohort = (np.asarray(idx), np.arange(len(idx)),
+                      None if draw_pos is None else np.asarray(draw_pos))
             new_global, state_k, aux = round_fn(
                 global_flat, state_k, x_k, y_k, m_k, part_sizes, key,
                 lr_scale, client_rng, payload_salts, async_state,

@@ -240,17 +240,24 @@ class SignSGD(Algorithm):
 
         def round_fn(global_flat, client_state, cx, cy, cmask, sizes,
                      key, lr_scale=1.0, client_rng=None,
-                     payload_salts=None):
+                     payload_salts=None, draw_pos=None):
             """``key`` is the round key; ``client_rng(client, n_slots) ->
             (epoch_perms, _)`` optionally replaces its draws. ``sizes``
             (the vote is unweighted), ``lr_scale`` (config.py refuses lr
-            schedules for sign_SGD) and ``payload_salts`` are not read."""
+            schedules for sign_SGD) and ``payload_salts`` are not read.
+            ``draw_pos`` (int per client row) is the draw position of the
+            client at each row of a permuted layout: the row takes that
+            position's batch orders and failure flag, as the FedAvg
+            family's streamed round takes its keys (the distributed shard
+            store's full cohort is the identity layout)."""
             shard = cx.shape[1]
             steps = shard // bsz
+            key_pos = (np.arange(n_clients) if draw_pos is None
+                       else np.asarray(draw_pos))
             surv = None
             if fm is not None:
                 key, fault_key = prng.split(key)
-                failed = fm.draw_failed(fault_key, n_clients)
+                failed = fm.draw_failed(fault_key, n_clients)[key_pos]
                 n_surv = int((~failed).sum())
                 surv = to_device(~failed, global_flat.device, torch.float32)
             if client_rng is None:
@@ -260,7 +267,8 @@ class SignSGD(Algorithm):
                 def client_rng(i, n_slots):
                     return [
                         torch.from_numpy(
-                            prng.permutation(ks[i], n_slots).astype(np.int64)
+                            prng.permutation(ks[key_pos[i]],
+                                             n_slots).astype(np.int64)
                         )
                         for ks in perm_keys
                     ], 0

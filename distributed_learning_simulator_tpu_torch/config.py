@@ -8,11 +8,11 @@ the card the port's traces come from.
 The field comments are short; the JAX package's config.py documents each
 knob in full.
 
-``validate()`` keeps the JAX package's value checks and raises
-``NotImplementedError`` for every feature this port does not have yet,
-naming the ROADMAP.md queue item that will bring it. Nothing is silently
-ignored: a field the port does not read is either inert for the FedAvg
-main path in the JAX package too (the other algorithms' knobs), or refused.
+``validate()`` keeps the JAX package's checks, with its texts: the port
+accepts every configuration the JAX package accepts and refuses the
+others as it does. Nothing is silently ignored: a field the port does not
+read is inert for the FedAvg main path in the JAX package too (the other
+algorithms' knobs).
 """
 
 from __future__ import annotations
@@ -206,7 +206,6 @@ class ExperimentConfig:
 
     def validate(self) -> "ExperimentConfig":
         self._validate_values()
-        self._refuse_unported()
         return self
 
     def _validate_values(self) -> None:
@@ -444,15 +443,115 @@ class ExperimentConfig:
                 f"unknown client_residency {self.client_residency!r}; "
                 "known: resident, streamed"
             )
-        if (
-            self.client_residency.lower() == "streamed"
-            and self.execution_mode.lower() == "threaded"
-        ):
-            raise ValueError(
-                "client_residency='streamed' requires the vmap "
-                "execution mode (the threaded oracle owns its own "
-                "per-worker data)"
-            )
+        if self.client_residency.lower() == "streamed":
+            if self.execution_mode.lower() == "threaded":
+                raise ValueError(
+                    "client_residency='streamed' requires the vmap "
+                    "execution mode (the threaded oracle owns its own "
+                    "per-worker data)"
+                )
+            if self.multihost:
+                # The distributed shard store (data/residency.py
+                # DistributedShardStore, parallel/streaming.py
+                # DistributedCohortStreamer): each process owns an
+                # N/num_hosts client slice and serves its own cohort
+                # members; only the per-round ownership imbalance crosses
+                # between processes. The refusals below are the JAX
+                # package's, with its texts.
+                if self.mesh_devices is None or self.mesh_devices < 2:
+                    raise ValueError(
+                        "client_residency='streamed' under multihost "
+                        "needs mesh_devices set to the GLOBAL device "
+                        "count: the distributed shard store serves each "
+                        "host's cohort members into its addressable "
+                        "shards of the client-axis PartitionSpec, so "
+                        "there must be a mesh spanning every process"
+                    )
+                if (
+                    self.participation_fraction < 1.0
+                    and self.participation_sampler.lower() != "hashed"
+                ):
+                    raise ValueError(
+                        "client_residency='streamed' under multihost "
+                        "requires participation_sampler='hashed' for "
+                        "sampled cohorts: every host replays the full "
+                        "cohort independently each round, and only the "
+                        "O(cohort) hashed draw keeps that replay free "
+                        "at million-client populations (the exact "
+                        "sampler pays an O(N log N) permutation PER "
+                        "HOST per round)"
+                    )
+                if self.rounds_per_dispatch > 1:
+                    raise ValueError(
+                        "client_residency='streamed' under multihost "
+                        "requires rounds_per_dispatch=1: a fused "
+                        "K-round dispatch would need K owner-sharded "
+                        "assemblies and spill exchanges inside one "
+                        "program, which the host-side exchange cannot "
+                        "serve mid-dispatch"
+                    )
+                if (
+                    self.distributed_algorithm == "fed_quant"
+                    and self.participation_fraction < 1.0
+                ):
+                    raise ValueError(
+                        "client_residency='streamed' under multihost "
+                        "does not compose with fed_quant at sampled "
+                        "cohorts: its uplink stochastic-quantization "
+                        "keys split per cohort ROW, so the "
+                        "owner-permuted layout would dither each "
+                        "client's upload with a different key than "
+                        "the 1-process run (silently breaking the "
+                        "per-client bit-identity contract the "
+                        "draw_pos operand provides for training "
+                        "draws); use participation_fraction=1, plain "
+                        "'fed', or client_residency='resident'"
+                    )
+                if self.async_mode.lower() == "on":
+                    raise ValueError(
+                        "client_residency='streamed' under multihost "
+                        "does not compose with async_mode='on': the "
+                        "staleness buffer's late-upload row has been "
+                        "validated on single-host meshes only; use "
+                        "client_residency='resident' for async "
+                        "multihost runs"
+                    )
+                if self.client_stats.lower() == "on":
+                    raise ValueError(
+                        "client_residency='streamed' under multihost "
+                        "does not compose with client_stats='on': the "
+                        "per-client stats matrix is client-axis sharded "
+                        "across processes and the host-side detector "
+                        "fetch would need a cross-host gather every "
+                        "round; use resident multihost for client stats"
+                    )
+                if self.client_valuation.lower() == "on":
+                    raise ValueError(
+                        "client_residency='streamed' under multihost "
+                        "does not compose with client_valuation='on': "
+                        "the streaming valuation vector is a full-N "
+                        "host array with ONE owner, which the "
+                        "host-sharded store deliberately no longer has"
+                    )
+                if self.participation_fraction >= 1.0 and (
+                    (
+                        self.distributed_algorithm == "sign_SGD"
+                        and self.momentum != 0.0
+                    )
+                    or not self.reset_client_optimizer
+                ):
+                    raise ValueError(
+                        "client_residency='streamed' under multihost "
+                        "does not compose with persistent per-client "
+                        "state at full participation (momentum "
+                        "sign_SGD / reset_client_optimizer=False): the "
+                        "full-population state stack stays "
+                        "device-resident across rounds, which the "
+                        "per-host store cannot checkpoint-own; sampled "
+                        "cohorts (participation_fraction < 1) carry "
+                        "state through the owner exchange, or use "
+                        "client_residency='resident'"
+                    )
         if self.population.lower() not in POPULATION_MODES:
             raise ValueError(
                 f"unknown population {self.population!r}; known: "
@@ -646,8 +745,7 @@ class ExperimentConfig:
 
     def _validate_dynamic(self) -> None:
         """population='dynamic': each composition it does not support is
-        refused with its cause, the JAX package's texts (the multihost
-        refusal is the port's NotImplementedError)."""
+        refused with its cause, the JAX package's texts."""
         if self.execution_mode.lower() == "threaded":
             raise ValueError(
                 "population='dynamic' requires the vmap execution "
@@ -701,6 +799,14 @@ class ExperimentConfig:
                 "at host round boundaries, which a fused K-round "
                 "scan dispatch does not expose"
             )
+        if self.multihost:
+            raise ValueError(
+                "population='dynamic' does not compose with "
+                "multihost: joins grow the store and would "
+                "re-partition the distributed shard store's "
+                "ownership bounds mid-run; run dynamic populations "
+                "on one host's mesh"
+            )
         if self.async_mode.lower() == "on":
             raise ValueError(
                 "population='dynamic' does not compose with "
@@ -719,29 +825,6 @@ class ExperimentConfig:
                 "itself composes — its vector grows with the "
                 "population)"
             )
-
-    def _refuse_unported(self) -> None:
-        """NotImplementedError for every feature the port lacks so far,
-        naming the ROADMAP.md queue 1 item that brings it: a mesh or
-        multihost is ported for resident runs; what only streamed runs
-        and sweeps use of it is not."""
-        mesh = self.mesh_devices is not None and self.mesh_devices > 1
-        checks = (
-            (self.client_residency.lower() == "streamed"
-             and (mesh or self.multihost),
-             "client_residency='streamed' with mesh_devices > 1 or "
-             "multihost (the distributed shard store and the cohort "
-             "streamer over a mesh)", "17b"),
-            (bool(self.sweep_seeds or self.sweep_points) and mesh,
-             "a sweep with mesh_devices > 1 (the experiment-axis mesh)",
-             "17b"),
-        )
-        for refused, what, item in checks:
-            if refused:
-                raise NotImplementedError(
-                    f"{what} is not ported to the PyTorch package yet "
-                    f"(ROADMAP.md queue 1 item {item})"
-                )
 
 
 def _add_args(parser: argparse.ArgumentParser) -> None:

@@ -255,3 +255,37 @@ def allgather_int64(values) -> np.ndarray:
     out = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
     dist.all_gather(out, mine)
     return torch.stack(out).numpy()
+
+
+def allgather_rows(arrays) -> list[np.ndarray]:
+    """Each of ``arrays`` (numpy, of the same shapes and dtypes on every
+    process) from every process: one ``[n_hosts, *shape]`` array each, in
+    rank order. One gloo ``all_gather`` carries all of them, their bytes
+    packed into one uint8 buffer (pinned where there is a card). The
+    distributed shard store's spill exchange (parallel/streaming.py).
+    Collective."""
+    flat = [np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+            for a in arrays]
+    width = sum(f.size for f in flat)
+    send = torch.empty(width, dtype=torch.uint8,
+                       pin_memory=torch.cuda.is_available())
+    off = 0
+    for f in flat:
+        send[off:off + f.size] = torch.from_numpy(f)
+        off += f.size
+    if distributed_initialized():
+        recv = [torch.empty_like(send, pin_memory=False)
+                for _ in range(dist.get_world_size())]
+        dist.all_gather(recv, send)
+    else:
+        recv = [send]
+    out = []
+    off = 0
+    for a, f in zip(arrays, flat):
+        a = np.asarray(a)
+        out.append(np.stack([
+            r[off:off + f.size].numpy().view(a.dtype).reshape(a.shape)
+            for r in recv]))
+        off += f.size
+    return out
+

@@ -34,7 +34,11 @@ K=1). ``--execution_mode threaded`` runs the threaded oracle
 (parallel/mesh.py: CPU slots, or one process's cards); ``--multihost true
 --coordinator_address H:P --num_processes n --process_id r`` runs one
 process of n over a gloo process group (parallel/multihost.py), the mesh
-over every process's device and only process 0 writing artifacts.
+over every process's device and only process 0 writing artifacts. With
+``--client_residency streamed`` as well, each process owns a slice of the
+population (the distributed shard store, parallel/streaming.py
+``DistributedCohortStreamer``) and writes its own checkpoint shard, with
+a manifest from process 0 (utils/checkpoint.py).
 
 ``--sweep_seeds 0,1,2`` and/or ``--sweep_points '[{"learning_rate":
 0.05}, ...]'`` run a sweep of experiments instead of one (sweep/engine.py;
@@ -74,7 +78,9 @@ from distributed_learning_simulator_tpu_torch.data.registry import (
     get_dataset,
 )
 from distributed_learning_simulator_tpu_torch.data.residency import (
+    DistributedShardStore,
     HostShardStore,
+    host_axis_bounds,
 )
 from distributed_learning_simulator_tpu_torch.factory import get_algorithm
 from distributed_learning_simulator_tpu_torch.models.bridge import (
@@ -104,14 +110,17 @@ from distributed_learning_simulator_tpu_torch.parallel.mesh import (
 )
 from distributed_learning_simulator_tpu_torch.parallel.multihost import (
     allgather_int64,
+    allgather_wall_stamps,
     estimate_clock_alignment,
     initialize_multihost,
     local_device,
+    mesh_devices_per_host,
     process_count,
     process_index,
 )
 from distributed_learning_simulator_tpu_torch.parallel.streaming import (
     CohortStreamer,
+    DistributedCohortStreamer,
     host_client_state,
     state_to_device,
 )
@@ -135,6 +144,7 @@ from distributed_learning_simulator_tpu_torch.telemetry import (
     peak_hbm_bytes,
     tracked,
 )
+from distributed_learning_simulator_tpu_torch.telemetry import clock
 from distributed_learning_simulator_tpu_torch.telemetry.costmodel import (
     costmodel_record,
     ledger_totals,
@@ -151,8 +161,17 @@ from distributed_learning_simulator_tpu_torch.telemetry.valuation import (
 )
 from distributed_learning_simulator_tpu_torch.utils.checkpoint import (
     gc_checkpoints,
+    gc_sharded_checkpoints,
+    latest_checkpoint,
     load_latest_valid_checkpoint,
+    load_latest_valid_sharded_checkpoint,
+    manifest_checkpoint_path,
+    manifest_rounds,
     save_checkpoint,
+    save_shard_checkpoint,
+    shard_checkpoint_path,
+    validate_manifest,
+    write_manifest,
 )
 from distributed_learning_simulator_tpu_torch.utils.errors import is_device_oom
 from distributed_learning_simulator_tpu_torch.utils.logging import (
@@ -611,15 +630,56 @@ def _restore_like(template, saved):
                                                  template.dtype).clone()
 
 
+def _load_resume_checkpoint(config, sharded: bool, n_clients: int,
+                            owner_bounds=None):
+    """The checkpoint a resume restores, as ``(path, payload)`` or
+    ``(None, None)``: the newest valid single file, or, for a multihost
+    streamed run (``sharded``), this rank's shard of the newest round
+    whose manifest landed, checked against the live topology; its path is
+    then the manifest's, the same on every rank. Each layout refuses a
+    directory the other wrote, with the JAX package's texts."""
+    directory = config.checkpoint_dir
+    if not sharded:
+        ckpt_path, ckpt = load_latest_valid_checkpoint(directory)
+        if ckpt_path is None and manifest_rounds(directory):
+            raise RuntimeError(
+                f"checkpoint dir {directory!r} holds "
+                "per-host sharded checkpoints (a multihost streamed "
+                "run wrote them); resume under the multihost "
+                "streamed topology they were written with — this "
+                "run is "
+                + ("multihost resident"
+                   if config.multihost else "single-process")
+            )
+        return ckpt_path, ckpt
+    n_procs = process_count()
+    manifest, ckpt = load_latest_valid_sharded_checkpoint(
+        directory, process_index(), n_procs)
+    if manifest is None:
+        if latest_checkpoint(directory):
+            raise RuntimeError(
+                "multihost streamed resume found only a "
+                "single-file checkpoint in "
+                f"{directory!r}: it was written by "
+                "a single-process run and cannot be re-split "
+                "into per-host shards; resume it on the "
+                "topology it was written with"
+            )
+        return None, None
+    validate_manifest(manifest, n_hosts=n_procs, n_clients=n_clients,
+                      owner_bounds=owner_bounds)
+    return manifest_checkpoint_path(directory, manifest["round"]), ckpt
+
+
 def _resume(config, algorithm, model, sample_hw, layout, device,
-            client_state, server_state):
-    """Restore a run from the newest valid checkpoint in
-    ``config.checkpoint_dir``, with the JAX package's structure and
+            client_state, server_state, loaded):
+    """Restore a run from ``loaded``, the ``(path, payload)`` of
+    :func:`_load_resume_checkpoint`, with the JAX package's structure and
     configuration checks. Returns ``(start_round, global_flat or None,
     client_state, server_state, prev_metrics, key or None, algo_state or
     None, ckpt_path or None)``."""
     logger = get_logger()
-    ckpt_path, ckpt = load_latest_valid_checkpoint(config.checkpoint_dir)
+    ckpt_path, ckpt = loaded
     if ckpt_path is None:
         return 0, None, client_state, server_state, None, None, None, None
     paths = jax_paths(model, sample_hw)
@@ -801,16 +861,42 @@ def run_simulation(
     if client_data is None:
         client_data = build_client_data(config, dataset)
     n_clients = client_data.n_clients
-    # The client-axis mesh (parallel/mesh.py): the whole client axis splits
-    # into equal blocks, one a device.
+    # Client residency (data/residency.py, parallel/streaming.py):
+    # 'streamed' keeps the population's arrays in a host shard store and
+    # uploads the sampled cohort a dispatch, the next one while the
+    # current one trains; a full cohort (participation_fraction 1, e.g.
+    # sign_SGD) is uploaded once and the round is the resident one.
+    streamed = config.client_residency.lower() == "streamed"
+    cohort_n = config.cohort_size(n_clients)
+    stream_sampled = streamed and cohort_n < n_clients
+    stream_full = streamed and not stream_sampled
+    # The client-axis mesh (parallel/mesh.py): the device-resident client
+    # axis splits into equal blocks, one a device: the population, or
+    # under sampled streaming the cohort.
     mesh = None
     if config.mesh_devices and config.mesh_devices > 1:
         mesh = make_mesh(config.mesh_devices, device=device)
-        if n_clients % config.mesh_devices != 0:
+        shard_len = cohort_n if stream_sampled else n_clients
+        if shard_len % config.mesh_devices != 0:
+            what = ("cohort size (participation_fraction x worker_number)"
+                    if stream_sampled else "worker_number")
             raise ValueError(
-                f"worker_number ({n_clients}) must be a multiple of "
+                f"{what} ({shard_len}) must be a multiple of "
                 f"mesh_devices ({config.mesh_devices})"
             )
+    # The distributed shard store (streamed x multihost): each process
+    # owns a contiguous slice of the population, the mesh's per-process
+    # device split sets the bounds, and each round's cohort is assembled
+    # owner-sharded (parallel/streaming.DistributedCohortStreamer). One
+    # process, multihost or not, runs the single-host streamed path.
+    mh = streamed and config.multihost and process_count() > 1
+    mh_owner_bounds = mh_block_bounds = None
+    if mh:
+        devs_per_host = mesh_devices_per_host(mesh)
+        mh_owner_bounds = host_axis_bounds(n_clients, devs_per_host)
+        # Full cohort: the upload axis is the client axis.
+        mh_block_bounds = (host_axis_bounds(cohort_n, devs_per_host)
+                           if stream_sampled else mh_owner_bounds)
     # The static size-aware regrouping is withheld under sharding, where
     # the blocks own the client axis's layout (as in the JAX package).
     sharded = config.multihost or mesh is not None
@@ -876,12 +962,6 @@ def run_simulation(
             "async_mode='on': its round program has no staleness buffer "
             "to hold late uploads; set async_mode='off'"
         )
-    # Client residency (data/residency.py, parallel/streaming.py):
-    # 'streamed' keeps the population's arrays in a host shard store and
-    # uploads the sampled cohort a dispatch, the next one while the
-    # current one trains; a full cohort (participation_fraction 1, e.g.
-    # sign_SGD) is uploaded once and the round is the resident one.
-    streamed = config.client_residency.lower() == "streamed"
     if streamed and not algorithm.supports_streamed_residency:
         raise ValueError(
             f"algorithm {config.distributed_algorithm!r} does not support "
@@ -889,9 +969,6 @@ def run_simulation(
             "device-resident per-client stack (the Shapley family's "
             "subset re-evaluation); set client_residency='resident'"
         )
-    cohort_n = config.cohort_size(n_clients)
-    stream_sampled = streamed and cohort_n < n_clients
-    stream_full = streamed and not stream_sampled
     # Dynamic population (robustness/population.py): None when static.
     # The cohort stays at the startup population's size while N grows.
     pop = PopulationModel.from_config(config, n_clients, cohort_n,
@@ -957,9 +1034,14 @@ def run_simulation(
         server_state = server_init(global_flat)
     state_proto = None
     if streamed:
-        # The population's state on the host: never a device stack.
+        # The population's state on the host: never a device stack. Under
+        # the distributed store each process holds its own clients' rows
+        # only (every client's initial state is the same).
+        n_state = (int(mh_owner_bounds[process_index() + 1]
+                       - mh_owner_bounds[process_index()])
+                   if mh else n_clients)
         client_state, state_proto = host_client_state(
-            algorithm, optimizer, global_flat, n_clients)
+            algorithm, optimizer, global_flat, n_state)
     else:
         client_state = algorithm.init_client_state(optimizer, global_flat,
                                                    n_clients)
@@ -976,7 +1058,8 @@ def run_simulation(
         (start_round, resumed_global, client_state, server_state,
          prev_metrics, resumed_key, algo_state, ckpt_path) = _resume(
             config, algorithm, model, sample_shape[:2], layout, device,
-            client_state, server_state)
+            client_state, server_state,
+            _load_resume_checkpoint(config, mh, n_clients, mh_owner_bounds))
         if config.multihost and process_count() > 1:
             # Every process restores from its own view of checkpoint_dir:
             # they must have restored the same checkpoint, or they would
@@ -1001,6 +1084,7 @@ def run_simulation(
             resumed_valuation = algo_state.get("valuation")
             resumed_population = _resume_population(pop, algo_state)
     checkpointing = bool(config.checkpoint_dir and config.checkpoint_every)
+    ckpt_name = "round_{}.manifest.json" if mh else "round_{}.ckpt"
 
     # --- placement ------------------------------------------------------------
     store = streamer = None
@@ -1010,11 +1094,19 @@ def run_simulation(
         # store takes its own copy of the labels.
         store_y = (np.array(client_data.y, copy=True) if pop is not None
                    else client_data.y)
-        store = HostShardStore(
-            client_data.x, store_y, client_data.mask, client_data.sizes,
-            state=(client_state if stream_sampled
-                   and resumed_population is None else None),
-        )
+        if mh:
+            # This process keeps only its own slice of the population.
+            store = DistributedShardStore(
+                client_data.x, store_y, client_data.mask, client_data.sizes,
+                state=client_state if stream_sampled else None,
+                host_id=process_index(), owner_bounds=mh_owner_bounds,
+            )
+        else:
+            store = HostShardStore(
+                client_data.x, store_y, client_data.mask, client_data.sizes,
+                state=(client_state if stream_sampled
+                       and resumed_population is None else None),
+            )
         if resumed_population is not None:
             # Resume mid-growth: the startup store grows by the
             # checkpoint's joined shards, then takes the (grown) state.
@@ -1027,18 +1119,34 @@ def run_simulation(
                 pop.cursor, pop.n_registered, int(pop.alive.sum()),
                 pop.totals["joins"], pop.totals["departs"],
             )
-        streamer = CohortStreamer(store, algorithm, n_clients, device)
+        if mh:
+            streamer = DistributedCohortStreamer(
+                store, algorithm, n_clients, device, mesh, mh_block_bounds,
+                client_data.sizes)
+        else:
+            streamer = CohortStreamer(store, algorithm, n_clients, device,
+                                      mesh=mesh)
         if stream_full:
+            # Under the distributed store every rank uploads its own slice
+            # as its block (the config refuses persistent state there).
             (cx, cy, cmask, _, _), stream_rec_startup = streamer.upload_full()
             client_state = state_to_device(client_state, state_proto)
         else:
             cx = cy = cmask = None
             client_state = None
-            logger.info(
-                "client_residency='streamed': %d clients host-resident "
-                "(%.2f GB), cohort %d per dispatch",
-                n_clients, store.data_bytes() / 2**30, cohort_n,
-            )
+            if mh:
+                logger.info(
+                    "distributed shard store: host %d/%d owns %d of %d "
+                    "clients (%.2f GB shard), cohort %d per dispatch",
+                    store.host_id, store.n_hosts, store.n_owned,
+                    n_clients, store.data_bytes() / 2**30, cohort_n,
+                )
+            else:
+                logger.info(
+                    "client_residency='streamed': %d clients host-resident "
+                    "(%.2f GB), cohort %d per dispatch",
+                    n_clients, store.data_bytes() / 2**30, cohort_n,
+                )
     else:
         cx = torch.as_tensor(client_data.x, device=device)
         cy = torch.as_tensor(client_data.y, dtype=torch.int64, device=device)
@@ -1048,8 +1156,11 @@ def run_simulation(
     if mesh is not None:
         # Each block's rows and persistent state on its device; the global
         # model, the server state and the eval set stay on this process's.
-        cx, cy, cmask = shard_client_data((cx, cy, cmask), mesh)
-        client_state = shard_client_data(client_state, mesh)
+        # A sampled streamed cohort lands in blocks a round; the
+        # distributed store's full upload already did.
+        if not mh:
+            cx, cy, cmask = shard_client_data((cx, cy, cmask), mesh)
+            client_state = shard_client_data(client_state, mesh)
         logger.info("client axis sharded over %d devices (%s, backend %s)",
                     mesh.size, ", ".join(str(d) for d in mesh.devices),
                     mesh.backend)
@@ -1092,6 +1203,7 @@ def run_simulation(
         phase_timer = SpanPhaseTimer(phase_timer, span_recorder)
         if streamer is not None:
             streamer.span_recorder = span_recorder
+            streamer.clock_offset_s = clock_offset
     client_stats_cfg = ClientStats.from_config(config)
     valuation_cfg = ClientValuation.from_config(config)
     vstate = auditor = None
@@ -1135,8 +1247,72 @@ def run_simulation(
             "amortizes the fetch (one device_get per dispatch)"
         )
 
+    def save_sharded(round_idx: int, metrics, params, s_state, a_state,
+                     rng_key) -> str:
+        """This process's checkpoint shard (its clients' state rows and the
+        replicated global state), then a barrier over the round, then
+        process 0's manifest, which commits the round (the JAX package's
+        ``_save_sharded_checkpoint``). A process that dies between its
+        shard and the barrier leaves the round without a manifest, and a
+        resume falls back one interval."""
+        n_procs = process_count()
+        save_shard_checkpoint(
+            config.checkpoint_dir, round_idx, process_index(), n_procs,
+            {
+                "global_params": params_to_jax(
+                    layout.unflatten(params),
+                    jax_paths(model, sample_shape[:2])),
+                "client_state": store.state if stream_sampled else None,
+                "algo_state": _algo_checkpoint_state(
+                    algorithm, metrics, s_state, a_state),
+                "rng_key": np.asarray(rng_key, dtype=np.uint32),
+            },
+            span_recorder=span_recorder,
+        )
+        if span_recorder is not None:
+            # The barrier's skew: a stamp gather ahead of the agreement
+            # check, its length set by the slowest shard write; it rides
+            # the next round's record.
+            wid = span_recorder.begin("ckpt_barrier_wait", "dcn_wait",
+                                      round_idx=round_idx, eager=True)
+            stamps = allgather_wall_stamps(clock.wall() - clock_offset)
+            skew_ms = float(stamps.max() - stamps.min()) * 1e3
+            span_recorder.end(wid, skew_ms=round(skew_ms, 3))
+            span_recorder.note_pending_skew("ckpt_skew_ms", skew_ms)
+        agreed = allgather_int64([round_idx])
+        if not (agreed == round_idx).all():
+            raise RuntimeError(
+                "sharded checkpoint barrier disagreement: processes "
+                f"are checkpointing different rounds "
+                f"({agreed.ravel().tolist()}) — SPMD round sequencing "
+                "diverged"
+            )
+        if is_primary:
+            write_manifest(
+                config.checkpoint_dir, round_idx,
+                {
+                    "n_hosts": n_procs,
+                    "n_clients": n_clients,
+                    "owner_bounds": [int(b) for b in mh_owner_bounds],
+                    "cohort": cohort_n,
+                    "mesh_devices": int(config.mesh_devices),
+                    "shards": [
+                        os.path.basename(shard_checkpoint_path(
+                            config.checkpoint_dir, round_idx, h, n_procs))
+                        for h in range(n_procs)
+                    ],
+                },
+                span_recorder=span_recorder,
+            )
+            gc_sharded_checkpoints(config.checkpoint_dir,
+                                   config.checkpoint_keep_last)
+        return manifest_checkpoint_path(config.checkpoint_dir, round_idx)
+
     def save(round_idx: int, metrics, params, c_state, s_state, a_state,
              rng_key) -> str:
+        if mh:
+            return save_sharded(round_idx, metrics, params, s_state, a_state,
+                                rng_key)
         path = os.path.join(config.checkpoint_dir, f"round_{round_idx}.ckpt")
         if isinstance(c_state, Blocks):
             # The whole state for the one file (a gather every process
@@ -1205,7 +1381,7 @@ def run_simulation(
 
     def emit_record(round_idx, metrics, mean_client_loss, fetched, ctx,
                     tel_rec_fn, phase_round, audit_fn=None, stream_rec=None,
-                    population_rec=None):
+                    population_rec=None, multihost_rec=None):
         """One round's record from already-fetched host values: post_round,
         the record's sub-objects, the history and the metrics.jsonl line.
         Shared by the one-round loop and the dispatch flush, so that the
@@ -1342,6 +1518,7 @@ def run_simulation(
         record = build_round_record(record, tel_rec, cs_rec, async_rec,
                                     stream_rec, cm_rec, val_rec,
                                     population=pop_rec, gtg=gtg_rec,
+                                    multihost=multihost_rec,
                                     spans=spans_rec)
         history.append(record)
         if metrics_path:
@@ -1454,7 +1631,8 @@ def run_simulation(
         emit_record(round_idx, metrics, float(fetched["mean_client_loss"]),
                     tel, ctx, tel_rec_fn, round_idx, audit_fn=audit_fn,
                     stream_rec=p.get("stream"),
-                    population_rec=p.get("population"))
+                    population_rec=p.get("population"),
+                    multihost_rec=p.get("multihost"))
         if checkpointing and (round_idx + 1) % config.checkpoint_every == 0:
             save(round_idx, metrics, p["new_global"], p["client_state"],
                  p["server_state"], p["async_state"], p["key"])
@@ -1683,7 +1861,7 @@ def run_simulation(
             kw["client_rng"] = client_rng_fn(round_idx)
         if async_ctl is not None:
             kw["async_state"] = async_state
-        stream_rec = pop_rec = None
+        stream_rec = pop_rec = mh_rec = None
         next_out = None
         if streamer is not None:
             streamer.span_round = round_idx
@@ -1707,36 +1885,50 @@ def run_simulation(
                     dep_mask = pop.cohort_departed_mask(pop_events, idx_np)
                     pop.apply_drift(store, round_idx, idx_np)
                     kw["departed"] = dep_mask
+                    plan = streamer.plan(idx_np)
                 elif next_idx is not None:
-                    idx_np = next_idx
+                    plan = next_idx
                 else:
                     # The first round (or a resume): its draw is not hidden
-                    # behind a previous round.
+                    # behind a previous round. Under the distributed store
+                    # this window also holds the owner assembly and its
+                    # exchange.
                     with phase_timer.phase(round_idx, "sample"):
-                        idx_np = streamer.cohort_for(round_key)
-                (sx, sy, sm, ssz, sidx), stream_rec = streamer.acquire(
-                    [idx_np])
-                state_k = (streamer.gather_state(idx_np, state_proto)
+                        plan = streamer.plan(streamer.cohort_for(round_key))
+                (sx, sy, sm, ssz, sidx, draw_pos), stream_rec, plan = (
+                    streamer.acquire_plan(plan))
+                if draw_pos is not None:
+                    # Owner-permuted rows (the distributed store): the
+                    # round takes each row's keys from its draw position.
+                    kw["draw_pos"] = draw_pos
+                state_k = (streamer.gather_state(plan, state_proto)
                            if store.state is not None else None)
                 with phase_timer.phase(round_idx, "client_step") as ph:
                     new_global, new_state_k, aux = round_fn(
                         global_flat, state_k, sx, sy, sm, ssz, sidx,
                         round_key, lr_scale=lr_scale, **kw)
                     # The next round's cohort uploads while this one
-                    # computes; its draw moves from client_step to
-                    # `sample`. A dynamic population draws after its
-                    # events instead.
+                    # computes; its draw (and, under the distributed store,
+                    # its exchange: a collective, so on the main thread at
+                    # this point on every rank) moves from client_step to
+                    # `sample`. A dynamic population draws after its events
+                    # instead.
                     if (pop is None and round_idx + 1 < config.round
                             and not preempt["flag"]):
                         _, next_key = prng.split(key)
-                        next_out = streamer.cohort_for(next_key)
-                        phase_timer.carve(
-                            round_idx, "sample",
-                            streamer.last_sample_seconds, "client_step")
-                        streamer.prefetch([next_out])
+                        t_s = clock.monotonic()
+                        next_out = streamer.plan(streamer.cohort_for(next_key))
+                        phase_timer.carve(round_idx, "sample",
+                                          clock.monotonic() - t_s,
+                                          "client_step")
+                        streamer.prefetch_plan(next_out)
                     ph.fence((new_global, aux))
                 # The store is the source of truth between rounds.
-                streamer.writeback(idx_np, new_state_k, stream_rec)
+                streamer.writeback(plan, new_state_k, stream_rec)
+                mh_rec = streamer.multihost_record(plan, stream_rec or {})
+                # The record's cohort_hash from the draw-order cohort (the
+                # rows may be owner-permuted), comparable across topologies.
+                aux["participants"] = streamer.cohort_ids(plan)
                 if pop is not None:
                     pop.apply(pop_events, store, state_proto=pop_state_proto,
                               words=pop_words)
@@ -1746,6 +1938,12 @@ def run_simulation(
                 if stream_rec_startup is not None:
                     # The full cohort's one upload, on the first record.
                     stream_rec, stream_rec_startup = stream_rec_startup, None
+                if streamer is not None:
+                    # Under the distributed store every round's record
+                    # names this rank's slice; nothing spills (the owner
+                    # bounds are the blocks).
+                    mh_rec = streamer.multihost_record(None,
+                                                       stream_rec or {})
                 with phase_timer.phase(round_idx, "client_step") as ph:
                     new_global, client_state, aux = round_fn(
                         global_flat, client_state, cx, cy, cmask,
@@ -1782,6 +1980,7 @@ def run_simulation(
             "server_state": server_state,
             "async_state": async_state, "key": key,
             "stream": stream_rec, "population": pop_rec,
+            "multihost": mh_rec,
         })
         return next_out
 
@@ -1836,7 +2035,7 @@ def run_simulation(
             span_recorder.flush_inflight("sigterm")
         if config.checkpoint_dir and completed_round >= start_round:
             forced_path = os.path.join(config.checkpoint_dir,
-                                       f"round_{completed_round}.ckpt")
+                                       ckpt_name.format(completed_round))
             if not os.path.exists(forced_path):
                 save(completed_round, prev_metrics, global_flat,
                      client_state, server_state, async_state, key)
@@ -1879,8 +2078,7 @@ def run_simulation(
         "total_seconds": total,
         "client_rounds_per_sec": n_rounds * n_clients / max(total, 1e-9),
         "client_chunk_size": config.client_chunk_size,
-        # The client-axis mesh (devices, owning ranks, backend) or None;
-        # the JAX package's keys of a streamed multihost run stay None.
+        # The client-axis mesh (devices, owning ranks, backend) or None.
         "mesh": mesh,
         "rounds_rejected": telemetry["rounds_rejected"],
         "telemetry_level": tel_level,
@@ -1928,8 +2126,23 @@ def run_simulation(
             streamer.totals["sample_seconds"] if streamer is not None
             else None
         ),
-        "stream_dcn_bytes": None,
-        "multihost_summary": None,
+        # The distributed shard store: this rank's slice and the run's
+        # exchange traffic; None on one process.
+        "stream_dcn_bytes": streamer.totals["dcn_bytes"] if mh else None,
+        "multihost_summary": (
+            {
+                "hosts": store.n_hosts,
+                "host_id": store.host_id,
+                "owned_clients": store.n_owned,
+                "shard_bytes": int(
+                    store.data_bytes()
+                    + (store.state_bytes() if store.state is not None
+                       else 0)),
+                "spill_rows": int(streamer.totals["spill_rows"]),
+                "dcn_bytes": int(streamer.totals["dcn_bytes"]),
+            }
+            if mh else None
+        ),
         # The v6 costmodel sub-object of the run's last record.
         "costmodel": telemetry["costmodel"],
         "client_valuation": config.client_valuation,

@@ -18,8 +18,10 @@ Two execution strategies behind the :class:`~.spec.SweepSpec` front door
   batched arithmetic is row for row that of the solo chunk:
   tests/test_torch_sweep.py). A fleet round makes as many training
   forwards as one solo round, and one eval forward per eval batch for all
-  E models. Packing the experiment axis over a mesh waits for ROADMAP.md
-  queue 1 item 17b (the config refuses a sweep with ``mesh_devices``).
+  E models. With ``mesh_devices > 1`` the experiment axis is packed over
+  the mesh (parallel/mesh.py): each device owns E/n whole experiments and
+  trains them as a fleet of its own, on its copy of the shared data (the
+  spec refuses an E that is not a multiple of n).
 
 * **scheduled** — heterogeneous points group by
   ``utils/reporting.config_hash`` and each group runs sequentially
@@ -77,6 +79,7 @@ from distributed_learning_simulator_tpu_torch.parallel.engine import (
     make_optimizer,
     pad_eval_set,
 )
+from distributed_learning_simulator_tpu_torch.parallel.mesh import make_mesh
 from distributed_learning_simulator_tpu_torch.sweep.spec import SweepSpec
 from distributed_learning_simulator_tpu_torch.utils.logging import (
     get_logger,
@@ -93,8 +96,7 @@ from distributed_learning_simulator_tpu_torch.utils.reporting import (
 #: resume stitches bitwise. Inert in production.
 _CRASH_ENV = "DLS_SWEEP_CRASH_AFTER"
 
-#: Axis name of the experiment mesh (the JAX package's fleet packing over
-#: a mesh; in the port it waits for ROADMAP.md queue 1 item 17b).
+#: Axis name of the experiment mesh (the fleet packed over a mesh).
 EXPERIMENT_AXIS = "experiments"
 
 #: The round's aux values a record reads.
@@ -229,12 +231,13 @@ class _Program:
         params = init_params(self.model, self.init_hw, seed=seed)
         return self.layout.flatten(params).to(self.device)
 
-    def fleet_round_fn(self):
-        """The algorithm's fleet form of this program's round body."""
+    def fleet_round_fn(self, device=None):
+        """The algorithm's fleet form of this program's round body, on
+        ``device`` (the program's by default)."""
         return self.algorithm.make_fleet_round_fn(
             self.apply_fn, self.optimizer, self.layout, self.n_clients,
             preprocess=self.preprocess, client_sizes=self.client_sizes,
-            device=self.device,
+            device=self.device if device is None else device,
         )
 
 
@@ -544,12 +547,33 @@ def _run_fleet(spec: SweepSpec, points, dataset, client_data,
     )
     lr_schedule_active = cfg.lr_schedule.lower() != "constant"
     lr_active = lr_schedule_active or bool(np.any(lr_mults != 1.0))
-    fleet_round = make_experiment_round_fn(prog.fleet_round_fn(), lr_active)
     fleet_eval = make_experiment_eval_fn(prog.eval_fn, prog.layout)
+    # The experiment-axis mesh: group g of experiments on its device, with
+    # the shared data there and a round function built for it (one group
+    # on the program's device without a mesh).
+    groups = [(prog.device, 0, n_exp)]
+    if cfg.mesh_devices and cfg.mesh_devices > 1:
+        mesh = make_mesh(cfg.mesh_devices, axis_name=EXPERIMENT_AXIS,
+                         device=prog.device)
+        bounds = (n_exp * np.arange(mesh.size + 1)) // mesh.size
+        groups = [(mesh.devices[g], int(bounds[g]), int(bounds[g + 1]))
+                  for g in range(mesh.size)]
+        logger.info(
+            "sweep fleet: %d experiments packed over %d mesh devices",
+            n_exp, mesh.size,
+        )
+    round_fns, data_on = {}, {}
+    for dev, _, _ in groups:
+        if dev not in round_fns:
+            round_fns[dev] = make_experiment_round_fn(
+                prog.fleet_round_fn(dev), lr_active)
+            data_on[dev] = (
+                tuple(t.to(dev) for t in (cx, cy, cmask)),
+                tuple(t.to(dev) for t in eval_batches))
     logger.info(
         "sweep fleet: %d experiments, %d x %d models per chunk program",
-        n_exp, n_exp, cfg.client_chunk_size or cfg.cohort_size(
-            prog.n_clients),
+        n_exp, groups[0][2] - groups[0][1],
+        cfg.client_chunk_size or cfg.cohort_size(prog.n_clients),
     )
     histories: list[list[dict]] = [[] for _ in points]
     telemetry = [
@@ -562,13 +586,27 @@ def _run_fleet(spec: SweepSpec, points, dataset, client_data,
         if lr_active:
             factor = lr_factors(cfg, round_idx, 1)[0]
             lr_args = (lr_mults * np.float32(factor),)
-        with _oom_hint(cfg, prog.n_params, prog.n_clients, prog.device):
-            params_e, keys_e, auxes = fleet_round(
-                params_e, keys_e, cx, cy, cmask, sizes, *lr_args
-            )
-        with _oom_hint(cfg, prog.n_params, prog.n_clients, prog.device,
-                       site="eval"):
-            metrics_dev = fleet_eval(params_e, *eval_batches)
+        new_params, new_keys, auxes, metric_parts = [], [], [], []
+        for dev, lo, hi in groups:
+            (gx, gy, gm), g_eval = data_on[dev]
+            with _oom_hint(cfg, prog.n_params, prog.n_clients, dev):
+                p_g, k_g, a_g = round_fns[dev](
+                    params_e[lo:hi].to(dev), keys_e[lo:hi], gx, gy, gm,
+                    sizes, *(lr[lo:hi] for lr in lr_args))
+            with _oom_hint(cfg, prog.n_params, prog.n_clients, dev,
+                           site="eval"):
+                metric_parts.append(fleet_eval(p_g, *g_eval))
+            new_params.append(p_g.to(prog.device))
+            new_keys += k_g
+            auxes += a_g
+        keys_e = new_keys
+        if len(groups) == 1:  # no mesh: nothing to join
+            params_e, metrics_dev = new_params[0], metric_parts[0]
+        else:
+            params_e = torch.cat(new_params)
+            metrics_dev = {k: torch.cat([m[k].to(prog.device)
+                                         for m in metric_parts])
+                           for k in metric_parts[0]}
         with _oom_hint(cfg, prog.n_params, prog.n_clients, prog.device,
                        site="deferred metric fetch"):
             fetched = fetch_to_host({

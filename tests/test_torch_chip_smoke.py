@@ -223,6 +223,29 @@ def test_stream_phase_configs():
     assert churn["static"].population == "static"
 
 
+def test_multihost_stream_phase_config(tmp_path):
+    """``multihost_stream``'s configuration validates with the ranks'
+    flags: a hashed cohort of 20 of 40 clients, so each rank's block of 10
+    is one chunk, persistent momentum (both exchange directions) on f32
+    local state, ResNet-18 at the flagship's partition."""
+    cfg = chip_smoke.multihost_stream_config(str(tmp_path))
+    ranked = dataclasses.replace(
+        cfg, multihost=True, mesh_devices=2, num_processes=2, process_id=0,
+        coordinator_address="127.0.0.1:1", checkpoint_dir=str(tmp_path),
+        checkpoint_every=1)
+    ranked.validate()
+    cfg.validate()
+    assert cfg.cohort_size() == 20 and cfg.cohort_size() // 2 == (
+        cfg.client_chunk_size)
+    assert (cfg.momentum, cfg.reset_client_optimizer,
+            cfg.local_compute_dtype, cfg.participation_sampler) == (
+        0.9, False, "float32", "hashed")
+    assert (cfg.model_name, cfg.max_shard_size, cfg.dirichlet_alpha,
+            cfg.batch_size, cfg.round) == ("resnet18", 100, 0.1, 25, 2)
+    flags = chip_smoke.cli_flags(cfg)
+    assert "--client_residency" in flags and "--span_trace" in flags
+
+
 def test_sweep_phase_configs():
     """The sweep phases' configurations validate as they run: both
     ``sweep_fleet`` fleets resolve to the ``vmapped`` strategy with 40

@@ -22,7 +22,8 @@ rows) are gathered and combined in block order.
   prefix block; the v10 ``gtg`` record of an end-to-end run.
 * The JAX texts of the uneven-clients refusal and of the device
   shortfall (a CUDA mesh asking for more cards than there are never runs
-  on the CPU), and the refusals of what stays for ROADMAP item 17b.
+  on the CPU); streamed residency and sweeps over a mesh validate as the
+  JAX package's do.
 * The kernel wrappers launch inside a device guard (mocked: one card
   cannot show a device mismatch).
 """
@@ -82,6 +83,24 @@ CASES = {
         round=1), 2),
     "GTG_shapley_value": (dict(distributed_algorithm="GTG_shapley_value",
                                shapley_eval_samples=64, round=1), 2),
+    # Streamed residency over the mesh: the cohort's blocks a round (with
+    # their state rows), or the whole population's blocks once.
+    "fed_streamed_state": (dict(
+        client_residency="streamed", worker_number=16,
+        participation_fraction=0.5, participation_sampler="hashed",
+        momentum=0.9, reset_client_optimizer=False, client_chunk_size=3),
+        2),
+    "fed_streamed_dropout": (dict(
+        client_residency="streamed", worker_number=16,
+        participation_fraction=0.5, failure_mode="dropout",
+        failure_prob=0.3, client_chunk_size=2), 4),
+    "fed_streamed_batched": (dict(
+        client_residency="streamed", worker_number=16, round=4,
+        participation_fraction=0.5, participation_sampler="hashed",
+        rounds_per_dispatch=2, client_chunk_size=4), 2),
+    "sign_SGD_streamed": (dict(distributed_algorithm="sign_SGD",
+                               learning_rate=0.01,
+                               client_residency="streamed"), 4),
 }
 
 
@@ -116,10 +135,14 @@ def test_mesh_run_matches_jax_mesh_run(name):
                 [sv_p[i] for i in sorted(sv_p)],
                 [sv_j[i] for i in sorted(sv_j)], atol=2.0 / 64)
     if changes.get("reset_client_optimizer") is False:
-        # The per-client state comes back whole, as the serial run's.
+        # The per-client state comes back whole, as the serial run's (the
+        # streamed run's from its host store).
         solo = run_simulation(port_config(jcfg, mesh_devices=None),
                               setup_logging=False)
         state, want_state = pres["client_state"], solo["client_state"]
+        if changes.get("client_residency") == "streamed":
+            state, want_state = (torch.as_tensor(state),
+                                 torch.as_tensor(want_state))
         assert isinstance(state, torch.Tensor)  # SGD's momentum stack
         assert state.shape == want_state.shape
         torch.testing.assert_close(state, want_state, rtol=1e-5, atol=1e-6)
@@ -220,9 +243,22 @@ def test_uneven_clients_rejected_with_the_jax_text():
     dict(sweep_seeds="0,1", mesh_devices=2),
 ])
 def test_item_17b_stays_refused(changes):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 17b"):
+    """What ROADMAP item 17b brought (streamed residency over a mesh or
+    processes, the sweep's experiment-axis mesh): each configuration now
+    validates where the JAX package's does, and is refused with the JAX
+    text where it is not (multihost streaming without a global mesh)."""
+    jerr = perr = None
+    try:
+        JaxConfig(**dict(TINY, **changes)).validate()
+    except ValueError as e:
+        jerr = e
+    try:
         ExperimentConfig(**dict(TINY, **changes)).validate()
+    except ValueError as e:
+        perr = e
+    assert (perr is None) == (jerr is None), (perr, jerr)
+    if jerr is not None:
+        assert str(perr) == str(jerr)
 
 
 def test_resident_mesh_and_multihost_validate():

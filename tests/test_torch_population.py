@@ -304,9 +304,17 @@ def test_refusal_texts_equal_jax(overrides):
 
 
 def test_base_validates_and_multihost_is_item_17():
+    """A dynamic population over processes (ROADMAP item 17b's store
+    cannot re-partition its owners mid-run) is refused with the JAX
+    package's cause, as the JAX package refuses it."""
     port_config(_jcfg()).validate()
-    with pytest.raises(NotImplementedError, match="item 17"):
-        port_config(_jcfg(), multihost=True).validate()
+    jcfg = _jcfg(multihost=True, mesh_devices=2)
+    with pytest.raises(ValueError) as jerr:
+        jcfg.validate()
+    with pytest.raises(ValueError) as err:
+        port_config(jcfg).validate()
+    assert str(err.value) == str(jerr.value)
+    assert "re-partition the distributed shard store" in str(err.value)
 
 
 def test_static_offgate_hash_and_history():

@@ -27,6 +27,7 @@ from distributed_learning_simulator_tpu_torch.config import (
 from distributed_learning_simulator_tpu_torch.simulator import (
     main,
     run_simulation,
+    run_sweep,
 )
 from distributed_learning_simulator_tpu_torch.utils import reporting
 from distributed_learning_simulator_tpu_torch.utils.logging import get_logger
@@ -138,18 +139,30 @@ def test_probes_raise_as_in_jax():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--client_residency", "streamed", "--mesh_devices", "2"], "item 17"),
-    # A resident mesh and multihost run since ROADMAP item 17a; what a
-    # sweep and streamed residency make of them is item 17b.
-    (["--mesh_devices", "2", "--sweep_seeds", "0,1"], "item 17"),
+    (["--client_residency", "streamed", "--mesh_devices", "2"], None),
+    (["--mesh_devices", "2", "--sweep_seeds", "0,1"], None),
     (["--population", "dynamic", "--client_residency", "streamed",
       "--participation_sampler", "hashed", "--participation_fraction", "0.5",
-      "--multihost", "true"], "item 17"),
-    (["--multihost", "true", "--client_residency", "streamed"], "item 17"),
+      "--multihost", "true", "--mesh_devices", "2"],
+     "population='dynamic' does not compose with multihost"),
+    (["--multihost", "true", "--client_residency", "streamed"],
+     "needs mesh_devices set to the GLOBAL device count"),
 ])
 def test_unported_features_refuse(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        run_simulation(get_config(TINY + flags), setup_logging=False)
+    """ROADMAP item 17b's configurations, once refused as unported: the
+    CLI now runs them (a one-process mesh of CPU slots, a meshed sweep),
+    or refuses them with the JAX package's cause, before any process
+    group comes up."""
+    if item is None:
+        config = get_config(TINY + flags + ["--round", "1"])
+        if config.sweep_seeds:
+            history = run_sweep(config)["points"][0]["history"]
+        else:
+            history = run_simulation(config, setup_logging=False)["history"]
+        assert len(history) == 1
+    else:
+        with pytest.raises(ValueError, match=item):
+            run_simulation(get_config(TINY + flags), setup_logging=False)
 
 
 @pytest.mark.parametrize("flags", [

@@ -16,8 +16,8 @@ twins of the JAX package's tests/test_streaming.py cases that need no mesh.
 * The host shard store's gather, scatter, range checks and byte accounting,
   and ``synthetic_stream_shards``, equal the JAX package's on the same
   numpy inputs (exact).
-* Config validation and refusals carry the JAX texts; a mesh or multihost
-  is still refused (NotImplementedError, ROADMAP item 17).
+* Config validation and refusals carry the JAX texts (a mesh and
+  multihost: tests/test_torch_distributed_store.py).
 * The v5 stream records validate against the checked-in schema; the
   ``sample`` phase, the sampler fields and ``scripts/report_run.py``'s
   transfer row read them as they read the JAX package's.
@@ -89,10 +89,12 @@ def test_config_validation():
     with pytest.raises(ValueError, match="vmap execution mode"):
         ExperimentConfig(client_residency="streamed",
                          execution_mode="threaded").validate()
-    # A mesh and multihost are item 17's.
-    for kw in (dict(mesh_devices=2), dict(multihost=True)):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            ExperimentConfig(client_residency="streamed", **kw).validate()
+    # Over a mesh it validates; over processes it needs the global mesh
+    # (ROADMAP item 17b, the JAX package's refusal).
+    ExperimentConfig(client_residency="streamed", mesh_devices=2).validate()
+    with pytest.raises(ValueError, match="GLOBAL device count"):
+        ExperimentConfig(client_residency="streamed",
+                         multihost=True).validate()
     ExperimentConfig(client_residency="streamed").validate()
     assert ExperimentConfig().client_residency == "resident"
 

@@ -322,6 +322,37 @@ def test_fleet_matches_jax_run_sweep(seed_fleet):
                              f"seed {pp['seed']}")
 
 
+@pytest.mark.parametrize("mesh_devices,seeds", [(2, (0, 1)),
+                                                 (2, (0, 1, 2, 3)),
+                                                 (4, (0, 1, 2, 3))])
+def test_fleet_mesh_packing(shared, mesh_devices, seeds):
+    """The experiment-axis mesh (each device owns E/n whole experiments,
+    the JAX package's tests/test_sweep.py ``test_fleet_mesh_packing``):
+    every cohort stream exact against the solo runs, the metrics within
+    rel 1e-5; and the JAX package's meshed fleet within its parity band."""
+    base, ds, cd = shared
+    meshed = dataclasses.replace(base, round=2, mesh_devices=mesh_devices)
+    out = run_sweep(SweepSpec(meshed, [{"seed": s} for s in seeds],
+                              strategy="vmapped"),
+                    dataset=ds, client_data=cd)
+    assert out["strategy"] == "vmapped"
+    for p in out["points"]:
+        solo = _solo(shared, seed=p["seed"], round=2)
+        assert len(solo) == len(p["history"])
+        for rs, rf in zip(solo, p["history"]):
+            assert rs["cohort_hash"] == rf["cohort_hash"]
+            for k in ("test_accuracy", "test_loss", "mean_client_loss"):
+                assert rs[k] == pytest.approx(rf[k], rel=1e-5), (
+                    p["seed"], k)
+    if mesh_devices == 2 and len(seeds) == 2:
+        ref = jax_sweep(jspec.SweepSpec(
+            _jax(round=2, mesh_devices=2), [{"seed": s} for s in seeds],
+            strategy="vmapped"))
+        for pp, pj in zip(out["points"], ref["points"]):
+            _assert_close_to_jax(pp["history"], pj["history"],
+                                 f"meshed seed {pp['seed']}")
+
+
 def test_fleet_point_independence(shared):
     """A point's history does not depend on who else is in the fleet —
     what sweep-level resume (running only the missing points) rests on."""
