@@ -115,7 +115,8 @@ together), then runs these phases and exits non-zero if any of them fails:
    killed with SIGKILL after round 1 and resumed here (bitwise equal to
    the straight runs when they are bitwise equal to each other, else
    within twice their spread), and a child that gets SIGTERM after round
-   1 (exit 0, ``preempted_at``, its final checkpoint on disk);
+   1 (exit 0, ``preempted_at`` the round in flight, round 2 under pipelined
+   rounds, its final checkpoint on disk);
    ``gn_autodiff``: a chunk-40 bf16 training step with
    ``gn_custom_backward`` False and True, the forward bitwise equal, the
    gradients within 2**-8 of the largest element, the launch counts
@@ -154,11 +155,17 @@ together), then runs these phases and exits non-zero if any of them fails:
    ``dls::conv3x3_wgrad`` kernels with bytes in the trace, FLOPs in the
    convolution category, a finite positive predicted round on
    ``h100-sxm-1`` in the v6 record; the ledger, the predicted-to-measured
-   ratio and the fitted efficiencies printed); ``round_batch`` (``fed``
-   and ``sign_SGD`` at 20 clients in one chunk, 4 rounds at
-   ``rounds_per_dispatch`` 1 and 4: bitwise equal histories and params,
+   ratio and the fitted efficiencies printed); ``pipeline_ab`` (the
+   headline and ResNet-18 ``fed`` at 20 clients, chunk 10, bf16, 3
+   rounds, ``telemetry_level='basic'``, each with ``pipeline_rounds``
+   false and true in the order A B A B: every arm's records equal to the
+   first's field by field apart from the timings, its final params
+   bitwise; each arm's median round seconds over rounds 1 and later and
+   its ``host_sync`` seconds printed); ``round_batch`` (``fed``
+   and ``sign_SGD`` at 20 clients in one chunk, 3 rounds at
+   ``rounds_per_dispatch`` 1 and 3: bitwise equal histories and params,
    no synchronizing CUDA call
-   inside a dispatch; the headline's round seconds at K=1 and K=4);
+   inside a dispatch; the headline's round seconds at K=3 and K=1);
    ``async_fed`` (``fed``, 50 clients, 3 rounds, bimodal arrivals,
    deadline 1.5, buffer 8: schema-v4 records, a buffer apply, and
    ``round_deadline=inf`` bitwise equal to the synchronous run).
@@ -213,8 +220,9 @@ together), then runs these phases and exits non-zero if any of them fails:
    local state, 2 rounds, ``span_trace='on'``, no size-aware schedule, launched as two ranks on
    ``cuda:0`` through the CLI's ``main`` (``--multihost true
    --coordinator_address 127.0.0.1:<port> --num_processes 2 --process_id
-   r --mesh_devices 2``: one solo chunk a rank, a gloo group) and once as
-   one process without a mesh. Both ranks must exit 0 within their
+   r --mesh_devices 2``: one solo chunk a rank, a gloo group) and, after
+   them, once as one process without a mesh. Both ranks must exit 0
+   within their
    timeout (else both are killed), report CUDA params and the backend
    gloo, hold bitwise equal global params after every round, launch the
    GroupNorm and wgrad kernels, with their training launches summing to
@@ -235,10 +243,11 @@ together), then runs these phases and exits non-zero if any of them fails:
    round and span journals on, launched as two ranks on ``cuda:0``
    (``--client_residency streamed --multihost true ... --mesh_devices 2``:
    each rank owns 20 clients and trains its 10 cohort rows as one chunk)
-   and once as one streamed process without a mesh (both checkpointing
-   every round), then as the witness: one streamed process handed each
-   cohort in the ranks' owner-grouped rows, ``draw_pos`` keeping every
-   client's keys (``--owner-order``), which moves only the row order, so
+   and, after them and one at a time, once as one streamed process
+   without a mesh at the ranks' chunk size (both checkpointing every
+   round) and as the witness: one streamed process handed each cohort in the ranks'
+   owner-grouped rows, ``draw_pos`` keeping every
+   client's keys (``--owner-order=2``), which moves only the row order, so
    the aggregate's summation order, against the one-process run. Both
    ranks must exit 0 within their
    timeout (else both are killed), hold bitwise equal global params and
@@ -1772,9 +1781,11 @@ def crash_resume(torch, gn, wg, config, work: str):
     if not, the stitched run must differ from the first straight run by
     no more than twice what the second does, and the phase prints the
     largest difference and the ops PyTorch names as nondeterministic. A
-    second child, at the same time, gets SIGTERM after round 1 (no
-    checkpoint cadence): it must exit 0 with ``preempted_at`` set and its
-    final checkpoint on disk."""
+    second child, at the same time, gets SIGTERM after round 1's record (no
+    checkpoint cadence): it must exit 0 with ``preempted_at`` the round in
+    flight and that round's final checkpoint on disk. Without a cadence the
+    child's rounds are pipelined, so round 1 is recorded after round 2's
+    dispatch, and round 2 is the one in flight."""
     import dataclasses
 
     from distributed_learning_simulator_tpu_torch.robustness import (
@@ -1866,9 +1877,10 @@ def crash_resume(torch, gn, wg, config, work: str):
              if proc.returncode == 0 and proc.stdout.strip() else {})
     left = (sorted(os.listdir(term.checkpoint_dir))
             if os.path.isdir(term.checkpoint_dir) else [])
-    if (proc.returncode != 0 or child.get("preempted_at") != 1
-            or "preempted at round 1" not in proc.stderr
-            or left != ["round_1.ckpt"]):
+    in_flight = 1 + int(term.pipeline_rounds)
+    if (proc.returncode != 0 or child.get("preempted_at") != in_flight
+            or f"preempted at round {in_flight}" not in proc.stderr
+            or left != [f"round_{in_flight}.ckpt"]):
         fail(f"crash_resume: SIGTERM child exited {proc.returncode}, "
              f"result {child}, checkpoints {left}: {proc.stderr[-1500:]}")
     out["sigterm"] = {"preempted_at": child["preempted_at"],
@@ -2598,19 +2610,22 @@ def _sync_points(torch, batched):
 #: ``round_batch``'s ResNet paths: 20 clients, one chunk of the flagship's
 #: 40 (50 clients until the sweep phases came).
 ROUND_BATCH_CLIENTS = 20
+#: ``round_batch``'s rounds, all in one dispatch (4 until ``pipeline_ab``
+#: came).
+ROUND_BATCH_ROUNDS = 3
 
 
 def round_batch(torch, gn, wg, log_root):
     """Phase 2p: ``round_batch``. ``fed`` and ``sign_SGD`` (20 clients in
-    one chunk, cut like the main paths) for 4 rounds at
-    ``rounds_per_dispatch`` 1 and 4:
+    one chunk, cut like the main paths) for ``ROUND_BATCH_ROUNDS`` (3)
+    rounds at ``rounds_per_dispatch`` 1 and 3:
     the histories (timings aside) and final params must be bitwise equal,
-    and no synchronizing CUDA call may run inside a dispatch of 4 rounds
+    and no synchronizing CUDA call may run inside the dispatch of 3 rounds
     (the dispatch runs under ``torch.cuda.set_sync_debug_mode``; its one
     metric fetch follows it). Then the headline workload (``cnn_tpu``,
-    1000 clients, chunk 250, f32) for 4 rounds at K=1, K=4 and K=1 again
-    (the first run pays the first calls): round seconds for each, no gate
-    on speed."""
+    1000 clients, chunk 250, f32) for 3 rounds at K=3 and K=1 (the
+    headline and ``pipeline_ab`` phases paid its first calls): round
+    seconds for each, no gate on speed."""
     import dataclasses
 
     from distributed_learning_simulator_tpu_torch import simulator
@@ -2628,63 +2643,168 @@ def round_batch(torch, gn, wg, log_root):
     try:
         paths = path_configs(ROUND_BATCH_CLIENTS, 2000, 2000, "WARNING")
         for name in ("fed", "sign_SGD"):
-            cfg = dataclasses.replace(paths[name], round=4)
+            cfg = dataclasses.replace(paths[name], round=ROUND_BATCH_ROUNDS)
             one = run_path(torch, gn, wg, f"{name}_k1", cfg,
                            keep_params=True)
             dispatches.clear()
             four = run_path(torch, gn, wg, f"{name}_k4", dataclasses.replace(
-                cfg, rounds_per_dispatch=4), keep_params=True)
+                cfg, rounds_per_dispatch=ROUND_BATCH_ROUNDS),
+                keep_params=True)
             same_hist = ([_plain_record(r) for r in one["history"]]
                          == [_plain_record(r) for r in four["history"]])
             same_params = _same_tree(one["global_params"],
                                      four["global_params"])
             syncs = [s for d in dispatches for s in d.syncs]
             if not (same_hist and same_params):
-                fail(f"round_batch {name}: K=4 differs from K=1 (history "
+                fail(f"round_batch {name}: K={ROUND_BATCH_ROUNDS} differs "
+                     f"from K=1 (history "
                      f"equal {same_hist}, params equal {same_params})")
             if syncs:
                 fail(f"round_batch {name}: {len(syncs)} synchronizing "
                      f"calls inside a dispatch; the first:\n{syncs[0]}"
                      + "".join(f"\nalso:\n{s}" for s in syncs[1:4]))
             out[name] = {"k1_round_seconds": one["round_seconds"],
-                         "k4_round_seconds": four["round_seconds"]}
-            log(f"round_batch {name}: K=4 bitwise equal to K=1, no "
+                         "batched_round_seconds": four["round_seconds"]}
+            log(f"round_batch {name}: K={ROUND_BATCH_ROUNDS} bitwise equal "
+                f"to K=1, no "
                 f"synchronizing call inside the dispatch; round seconds "
-                f"K=1 {one['round_seconds']}, K=4 {four['round_seconds']}")
+                f"K=1 {one['round_seconds']}, K={ROUND_BATCH_ROUNDS} "
+                f"{four['round_seconds']}")
         head = dataclasses.replace(
             headline_config(HEADLINE_CLIENTS, None, None, 10000,
-                            log_level="WARNING"), round=4)
-        first = run_path(torch, gn, wg, "headline_k1", head,
-                         gn_per_forward=0, wgrad_per_step=0, n_train=50000)
+                            log_level="WARNING"), round=ROUND_BATCH_ROUNDS)
         dispatches.clear()
         four = run_path(torch, gn, wg, "headline_k4", dataclasses.replace(
-            head, rounds_per_dispatch=4), gn_per_forward=0,
+            head, rounds_per_dispatch=ROUND_BATCH_ROUNDS), gn_per_forward=0,
             wgrad_per_step=0, n_train=50000, keep_params=True)
-        one = run_path(torch, gn, wg, "headline_k1_again", head,
+        one = run_path(torch, gn, wg, "headline_k1", head,
                        gn_per_forward=0, wgrad_per_step=0, n_train=50000,
                        keep_params=True)
         out["headline_cnn_tpu"] = {
-            "first_k1_round_seconds": first["round_seconds"],
             "k1_round_seconds": one["round_seconds"],
-            "k4_round_seconds": four["round_seconds"],
+            "batched_round_seconds": four["round_seconds"],
             "k1_seconds": sum(one["round_seconds"]),
-            "k4_seconds": sum(four["round_seconds"]),
+            "batched_seconds": sum(four["round_seconds"]),
             "bitwise_equal": _same_tree(one["global_params"],
                                         four["global_params"]),
             "syncs_in_dispatch": len([s for d in dispatches
                                       for s in d.syncs]),
         }
-        log(f"round_batch headline_cnn_tpu: 4 rounds in "
+        log(f"round_batch headline_cnn_tpu: {ROUND_BATCH_ROUNDS} rounds in "
             f"{out['headline_cnn_tpu']['k1_seconds']:.3f} s at K=1 "
-            f"({one['round_seconds']}; the first K=1 run "
-            f"{first['round_seconds']}), "
-            f"{out['headline_cnn_tpu']['k4_seconds']:.3f} s at K=4 "
+            f"({one['round_seconds']}), "
+            f"{out['headline_cnn_tpu']['batched_seconds']:.3f} s at "
+            f"K={ROUND_BATCH_ROUNDS} "
             f"({four['round_seconds']}); bitwise equal "
             f"{out['headline_cnn_tpu']['bitwise_equal']}, synchronizing "
             f"calls in the dispatch "
             f"{out['headline_cnn_tpu']['syncs_in_dispatch']}")
     finally:
         simulator.make_batched_round_fn = make_batched
+    return out
+
+
+#: ``pipeline_ab``'s rounds: round 0 carries the first calls, so two
+#: steady rounds an arm.
+PIPELINE_ROUNDS = 3
+
+
+def pipeline_ab_configs():
+    """``pipeline_ab``'s two paths, ``basic`` telemetry on (the phase
+    clocks, no fence): the headline workload and ResNet-18 ``fed`` at
+    ``sweep_fleet``'s cut (20 clients, chunk 10, bf16)."""
+    import dataclasses
+
+    fed = path_configs(SWEEP_CLIENTS, 2000, 1000, "WARNING")["fed"]
+    return {
+        "headline_cnn_tpu": (dataclasses.replace(
+            headline_config(HEADLINE_CLIENTS, None, None, 10000,
+                            log_level="WARNING"),
+            round=PIPELINE_ROUNDS, telemetry_level="basic"),
+            {"gn_per_forward": 0, "wgrad_per_step": 0, "n_train": 50000}),
+        "fed": (dataclasses.replace(
+            fed, client_chunk_size=10, round=PIPELINE_ROUNDS,
+            telemetry_level="basic"), {}),
+    }
+
+
+def pipeline_ab(torch, gn, wg):
+    """Phase 2pa: ``pipeline_ab``. Each of :func:`pipeline_ab_configs`'
+    paths with ``pipeline_rounds`` false (A) and true (B) in the order
+    A B A B, each run through run_path's gates: every arm's records equal
+    to the first arm's field by field, timings aside (``_plain_record``),
+    and its final params bitwise (their SHA-256 digests printed). Prints
+    each arm's median round seconds over rounds 1 and later, its rounds'
+    wall (the sum) and its ``host_sync`` phase seconds (the wait for the
+    round's one metric fetch). A record's round seconds run from the
+    previous record to its own; pipelined, a round is recorded after the
+    next one's dispatch, so the last record holds its fetch alone and is
+    left out of that arm's median."""
+    import dataclasses
+    import hashlib
+
+    from distributed_learning_simulator_tpu_torch.data.registry import (
+        get_dataset,
+    )
+    from distributed_learning_simulator_tpu_torch.simulator import (
+        build_client_data,
+    )
+
+    out = {}
+    for name, (config, gates) in pipeline_ab_configs().items():
+        # One dataset and partition for the four arms (set-up, not rounds).
+        ds = get_dataset(config.dataset_name, data_dir=config.data_dir,
+                         seed=config.seed, n_train=config.n_train,
+                         n_test=config.n_test, **config.dataset_args)
+        cd = build_client_data(config, ds)
+        arms = []
+        for pipelined in (False, True, False, True):
+            run = run_path(
+                torch, gn, wg, f"pipeline_ab {name} "
+                f"{'B' if pipelined else 'A'}",
+                dataclasses.replace(config, pipeline_rounds=pipelined),
+                keep_params=True, dataset=ds, client_data=cd, **gates)
+            flat = torch.cat([v.detach().float().reshape(-1).cpu()
+                              for _, v in sorted(
+                                  run["global_params"].items())])
+            arms.append({
+                "pipeline_rounds": pipelined,
+                "records": [_plain_record(r) for r in run["history"]],
+                "params": run.pop("global_params"),
+                "digest": hashlib.sha256(flat.numpy().tobytes()).hexdigest(),
+                "round_seconds": run["round_seconds"],
+                "median_round_seconds": statistics.median(
+                    run["round_seconds"][1:-1] if pipelined
+                    else run["round_seconds"][1:]),
+                "wall_seconds": sum(run["round_seconds"]),
+                "host_sync_seconds": [
+                    r["telemetry"]["phase_seconds"]["host_sync"]
+                    for r in run["history"]],
+            })
+        first = arms[0]
+        for i, arm in enumerate(arms[1:], 1):
+            if arm["records"] != first["records"]:
+                fail(f"pipeline_ab {name}: arm {i} "
+                     f"(pipeline_rounds={arm['pipeline_rounds']}) records "
+                     "differ from arm 0's beyond their timings")
+            if not _same_tree(arm["params"], first["params"]):
+                fail(f"pipeline_ab {name}: arm {i}'s final params differ "
+                     f"from arm 0's (digests {arm['digest']} against "
+                     f"{first['digest']})")
+        for arm in arms:
+            del arm["params"], arm["records"]
+        out[name] = arms
+        log(f"pipeline_ab {name}: A B A B records equal, params bitwise "
+            f"(sha256 {first['digest'][:16]}); median round seconds "
+            f"(rounds 1+) "
+            + ", ".join(f"{'B' if a['pipeline_rounds'] else 'A'} "
+                        f"{a['median_round_seconds']:.4f}" for a in arms)
+            + "; rounds' wall "
+            + ", ".join(f"{'B' if a['pipeline_rounds'] else 'A'} "
+                        f"{a['wall_seconds']:.4f}" for a in arms)
+            + "; host_sync seconds by round "
+            + ", ".join(f"{'B' if a['pipeline_rounds'] else 'A'} "
+                        f"{a['host_sync_seconds']}" for a in arms))
     return out
 
 
@@ -3483,14 +3603,14 @@ def cli_flags(config) -> list[str]:
 
 
 def rank_worker(out_path: str, argv: list[str],
-                owner_order: bool = False) -> None:
+                owner_order: int = 0) -> None:
     """One process of ``multihost_fed``: the CLI's ``main(argv)`` with
     each round's global params digested (and round 0's saved beside
     ``out_path``), the kernels' launches split into training and server
-    eval, then this process's clock offset; writes ``out_path``.
-    ``owner_order``: a one-process streamed run is handed each cohort in
-    the rows that two ranks of the distributed store would train it in
-    (:func:`_owner_ordered`)."""
+    eval (and by card), then this process's clock offset; writes
+    ``out_path``. ``owner_order`` (a rank count): a one-process streamed
+    run is handed each cohort in the rows that so many ranks of the
+    distributed store would train it in (:func:`_owner_ordered`)."""
     import hashlib
 
     import torch
@@ -3508,6 +3628,10 @@ def rank_worker(out_path: str, argv: list[str],
         return {"gn_stats": gn.gn_stats.launches,
                 "gn_normalize": gn.gn_normalize.launches,
                 "conv3x3_wgrad": wg.conv3x3_wgrad.launches}
+
+    def counts_by_device():
+        return {w.__name__: dict(w.launches_by_device)
+                for w in (gn.gn_stats, gn.gn_normalize, wg.conv3x3_wgrad)}
 
     cls = factory._ALGORITHMS[get_config(argv).distributed_algorithm]
     original = cls.post_round
@@ -3557,7 +3681,7 @@ def rank_worker(out_path: str, argv: list[str],
     cls.post_round = probed
     streaming.DistributedCohortStreamer.gather_state = probed_gather
     if owner_order:
-        _owner_ordered(streaming, get_config(argv))
+        _owner_ordered(streaming, get_config(argv), owner_order)
     simulator.make_eval_fn = counted_eval_fn
     gn.reset_launch_counts()
     wg.reset_launch_counts()
@@ -3583,6 +3707,16 @@ def rank_worker(out_path: str, argv: list[str],
             "test_accuracy": [h["test_accuracy"]
                               for h in result["history"]],
             "cohort_hash": [h.get("cohort_hash") for h in result["history"]],
+            # The Shapley algorithms' values a round, client by client, and
+            # GTG's walk.
+            "shapley_values": [
+                [float(v) for _, v in sorted(sv.items())]
+                for _, sv in sorted(getattr(result["algorithm"],
+                                            "shapley_values", {}).items())],
+            "gtg": [{k: h.get(k) for k in ("gtg_permutations",
+                                            "gtg_subset_evals",
+                                            "gtg_converged")}
+                    for h in result["history"]],
             # The distributed shard store's round records and totals.
             "multihost": [h.get("multihost") for h in result["history"]],
             "spans": [h.get("spans") for h in result["history"]],
@@ -3591,12 +3725,16 @@ def rank_worker(out_path: str, argv: list[str],
             "round_seconds": [h["round_seconds"]
                               for h in result["history"]],
             "launches": launches,
+            "launches_by_device": counts_by_device(),
             "eval_launches": eval_launches,
             "train_launches": {k: launches[k] - eval_launches[k]
                                for k in launches},
-            "gathers": dict(mesh_mod.GATHER_STATS),
+            "gathers": mesh_mod.gather_stats(),
             "peak_memory_bytes": (torch.cuda.max_memory_allocated() if cuda
                                   else None),
+            "peak_memory_by_device": {
+                f"cuda:{i}": torch.cuda.max_memory_allocated(i)
+                for i in range(torch.cuda.device_count() if cuda else 0)},
             "clock": {"offset_s": offset, "uncertainty_s": uncertainty},
             "received_state": [
                 {"round": rnd, "ids": ids.tolist(),
@@ -3607,13 +3745,25 @@ def rank_worker(out_path: str, argv: list[str],
         }, f)
 
 
-def _owner_ordered(streaming, config) -> None:
+def rank_worker_args(argv: list[str]) -> tuple[str, list[str], int]:
+    """:func:`rank_worker`'s arguments from ``... --rank-worker OUT
+    [--owner-order=N] -- FLAGS``."""
+    at, end = argv.index("--rank-worker"), argv.index("--")
+    owner_order = 0
+    for option in argv[at + 2:end]:
+        if option.startswith("--owner-order="):
+            owner_order = int(option.split("=", 1)[1])
+    return argv[at + 1], argv[end + 1:], owner_order
+
+
+def _owner_ordered(streaming, config, n_ranks: int) -> None:
     """The one-process streamer (``CohortStreamer``) hands each round its
-    cohort in the rows of two ranks of the distributed store: owner-grouped
-    rows (data/residency.plan_owner_assembly over two equal owner slices
-    and two cohort blocks), each row's keys and failure flag taken from its
-    draw position through ``draw_pos``, its state gathered and written back
-    by client id. Only the row order moves against the draw-order run."""
+    cohort in the rows of ``n_ranks`` ranks of the distributed store:
+    owner-grouped rows (data/residency.plan_owner_assembly over equal
+    owner slices and cohort blocks), each row's keys and failure flag taken
+    from its draw position through ``draw_pos``, its state gathered and
+    written back by client id. Only the row order moves against the
+    draw-order run."""
     import numpy as np
 
     from distributed_learning_simulator_tpu_torch.data.residency import (
@@ -3621,9 +3771,9 @@ def _owner_ordered(streaming, config) -> None:
         plan_owner_assembly,
     )
 
-    owners = host_axis_bounds(config.worker_number, [1, 1])
+    owners = host_axis_bounds(config.worker_number, [1] * n_ranks)
     cohort = config.cohort_size()
-    blocks = np.array([0, cohort // 2, cohort], np.int64)
+    blocks = np.arange(n_ranks + 1, dtype=np.int64) * (cohort // n_ranks)
     plans = {}
     base = streaming.CohortStreamer
     acquire = base.acquire_plan
@@ -3667,12 +3817,14 @@ def _row_digests(leaves) -> list[str]:
 
 def launch_ranks(work: str, runs: dict, timeout: float,
                  phase: str = "multihost_fed",
-                 worker_options: tuple = ()) -> dict:
+                 worker_options: tuple = (), script: str | None = None
+                 ) -> dict:
     """Start every ``runs[name]`` (CLI flags) as a :func:`rank_worker`
-    process at once (``worker_options``, e.g. ``("--owner-order",)``,
-    passed to each worker); wait for all within ``timeout``, killing every
-    one of them when the time runs out or one fails. Returns ``{name: its
-    output}``."""
+    process at once (``worker_options``, e.g. ``("--owner-order=2",)``,
+    passed to each worker; ``script`` runs the workers, this one by
+    default); wait for all within ``timeout``,
+    killing every one of them when the time runs out or one fails.
+    Returns ``{name: its output}``."""
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=repo)
     procs = {}
@@ -3681,8 +3833,8 @@ def launch_ranks(work: str, runs: dict, timeout: float,
         log_path = os.path.join(work, f"{name}.log")
         with open(log_path, "w") as log_f:
             procs[name] = (subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--rank-worker",
-                 out, *worker_options, "--", *flags],
+                [sys.executable, script or os.path.abspath(__file__),
+                 "--rank-worker", out, *worker_options, "--", *flags],
                 cwd=repo, env=env, stdout=log_f, stderr=subprocess.STDOUT),
                 out, log_path)
     deadline = time.monotonic() + timeout
@@ -3767,6 +3919,8 @@ def multihost_fed(torch, work: str) -> dict:
             "--num_processes", "2", "--process_id", str(r),
             "--mesh_devices", "2"]
         for r in range(2)}, MULTIHOST_TIMEOUT_S)
+    # The one-process run after the ranks, so that neither shares the
+    # card or the host with the other's round seconds.
     solo = launch_ranks(work, {"solo": cli_flags(dataclasses.replace(
         config, span_dir=os.path.join(work, "spans_solo")))},
         MULTIHOST_TIMEOUT_S)["solo"]
@@ -3817,7 +3971,9 @@ def multihost_fed(torch, work: str) -> dict:
     else:
         fail("multihost_fed: a one-process mesh_devices=2 ran on one card")
     rounds = config.round
-    log(f"multihost_fed: ranks bitwise equal every round; round 0 "
+    log(f"multihost_fed: two ranks on {r0['mesh']['devices']}, backend "
+        f"{r0['mesh']['backend']} (the layout's choice); ranks bitwise "
+        f"equal every round; round 0 "
         f"{'bitwise' if bitwise else 'not bitwise'} the solo run's (max "
         f"|diff| {max_diff:.3e}); test loss ranks {r0['test_loss']} solo "
         f"{solo['test_loss']}; round seconds rank0 {r0['round_seconds']} "
@@ -3878,45 +4034,73 @@ def _state_rows(path: str, lo: int, hi: int):
     return [leaf[lo:hi] for leaf in _key_leaves(state)]
 
 
-def multihost_stream(torch, work: str, config=None) -> dict:
-    """Phase 2zb: ``multihost_stream`` (module docstring): two ranks of
-    the distributed shard store on the one card, against one streamed
-    process without a mesh. ``config`` replaces the phase's (the CPU
-    tests' tiny MLP)."""
+def rank_devices(config, n_ranks: int, torch) -> list[str]:
+    """Each rank's device of a run of ``n_ranks`` processes on this
+    machine (parallel/multihost.rank_device: ``cuda`` takes the cards in
+    turn)."""
+    from distributed_learning_simulator_tpu_torch.parallel import multihost
+
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return [str(multihost.rank_device(config.device, r, cards))
+            for r in range(n_ranks)]
+
+
+def multihost_stream(torch, work: str, config=None, n_ranks: int = 2,
+                     phase: str = "multihost_stream",
+                     script: str | None = None) -> dict:
+    """Phase 2zb: ``multihost_stream`` (module docstring): ``n_ranks``
+    ranks of the distributed shard store, on the one card here (a gloo
+    group), each on its own card in chip_multicard.py (NCCL), against one
+    streamed process without a mesh. ``config`` replaces the phase's (the
+    CPU tests' tiny MLP); ``script`` starts the ranks (launch_ranks)."""
     import dataclasses
     import gc
 
     import numpy as np
 
+    from distributed_learning_simulator_tpu_torch.parallel import multihost
+
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     gc.collect()
-    torch.cuda.empty_cache()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
     if config is None:
         config = multihost_stream_config(work)
-    device = "cuda:0" if config.device == "cuda" else config.device
+    devices = rank_devices(config, n_ranks, torch)
+    backend = multihost.choose_backend(devices)
     ckpt, solo_ckpt = os.path.join(work, "shards"), os.path.join(work, "solo")
     address = f"127.0.0.1:{free_port()}"
+    # The ranks, then the one-process run, then the witness, one after
+    # another: no run's round seconds share the card or the host with
+    # another's. The witness is the one-process streamed run handed the
+    # ranks' owner-grouped rows (draw_pos keeps each client's keys): it
+    # moves only the row order against the one-process run, so its spread
+    # from it is what the summation order alone gives; the ranks must
+    # match it bit for bit, which leaves nothing to the exchange. A rank
+    # trains its block of the cohort in chunks of at most the block's
+    # rows, and a chunk's size moves its clients' training (the
+    # convolutions' batch): both one-process runs train chunks of that
+    # size.
+    block = config.cohort_size() // n_ranks
+    single = dataclasses.replace(
+        config, client_chunk_size=min(config.client_chunk_size, block))
     ranks = launch_ranks(work, {
         f"rank{r}": cli_flags(dataclasses.replace(
             config, span_dir=os.path.join(work, "spans"),
             checkpoint_dir=ckpt, checkpoint_every=1)) + [
             "--multihost", "true", "--coordinator_address", address,
-            "--num_processes", "2", "--process_id", str(r),
-            "--mesh_devices", "2"]
-        for r in range(2)}, MULTIHOST_TIMEOUT_S, "multihost_stream")
+            "--num_processes", str(n_ranks), "--process_id", str(r),
+            "--mesh_devices", str(n_ranks)]
+        for r in range(n_ranks)}, MULTIHOST_TIMEOUT_S, phase, script=script)
     solo = launch_ranks(work, {"solo": cli_flags(dataclasses.replace(
-        config, span_dir=os.path.join(work, "spans_solo"),
+        single, span_dir=os.path.join(work, "spans_solo"),
         checkpoint_dir=solo_ckpt, checkpoint_every=1))},
-        MULTIHOST_TIMEOUT_S, "multihost_stream")["solo"]
-    # The witness: the one-process streamed run handed the ranks'
-    # owner-grouped rows (draw_pos keeps each client's keys). It moves only
-    # the row order against the one-process run, so its spread from it is
-    # what the summation order alone gives; the ranks must match it bit
-    # for bit, which leaves nothing to the exchange.
+        MULTIHOST_TIMEOUT_S, phase, script=script)["solo"]
     witness = launch_ranks(work, {"witness": cli_flags(dataclasses.replace(
-        config, span_trace="off"))}, MULTIHOST_TIMEOUT_S, "multihost_stream",
-        worker_options=("--owner-order",))["witness"]
+        single, span_trace="off"))}, MULTIHOST_TIMEOUT_S, phase,
+        worker_options=(f"--owner-order={n_ranks}",),
+        script=script)["witness"]
     os.remove(witness["round0_path"])
     p_rank = torch.load(ranks["rank0"]["round0_path"])
     p_solo = torch.load(solo["round0_path"])
@@ -3924,44 +4108,47 @@ def multihost_stream(torch, work: str, config=None) -> dict:
     scale = float(p_solo.abs().max())
     for r in (*ranks.values(), solo):  # 45 MB each
         os.remove(r["round0_path"])
-    r0, r1 = ranks["rank0"], ranks["rank1"]
+    r0 = ranks["rank0"]
     rounds = config.round
     cohort = config.cohort_size()
-    block = cohort // 2
     steps = -(-config.max_shard_size // config.batch_size) * config.epoch
     chunks = -(-block // config.client_chunk_size)
     predicted = {"gn_stats": rounds * steps * chunks * GN_PER_FORWARD,
                  "gn_normalize": rounds * steps * chunks * GN_PER_FORWARD,
                  "conv3x3_wgrad": rounds * steps * chunks * WGRAD_PER_STEP}
-    for name, r in ranks.items():
-        if (r["device"] != device or r["mesh"] is None
-                or r["mesh"]["backend"] != "gloo"):
-            fail(f"multihost_stream {name}: device {r['device']}, mesh "
-                 f"{r['mesh']}")
-        if r["train_launches"] != predicted:
-            fail(f"multihost_stream {name}: training launches "
-                 f"{r['train_launches']}, its block predicts {predicted}")
-        if r["eval_launches"] != solo["eval_launches"]:
-            fail(f"multihost_stream {name}: eval launches "
-                 f"{r['eval_launches']}, the solo run's "
+    for r, (name, run) in enumerate(ranks.items()):
+        if (run["device"] != devices[r] or run["mesh"] is None
+                or run["mesh"]["backend"] != backend
+                or run["mesh"]["devices"] != devices):
+            fail(f"{phase} {name}: device {run['device']}, mesh "
+                 f"{run['mesh']} (expected {devices}, backend {backend})")
+        if run["train_launches"] != predicted:
+            fail(f"{phase} {name}: training launches "
+                 f"{run['train_launches']}, its block predicts {predicted}")
+        if run["eval_launches"] != solo["eval_launches"]:
+            fail(f"{phase} {name}: eval launches "
+                 f"{run['eval_launches']}, the solo run's "
                  f"{solo['eval_launches']}")
-        if r["cohort_hash"] != solo["cohort_hash"]:
-            fail(f"multihost_stream {name}: cohorts {r['cohort_hash']}, the "
+        if run["cohort_hash"] != solo["cohort_hash"]:
+            fail(f"{phase} {name}: cohorts {run['cohort_hash']}, the "
                  f"solo run's {solo['cohort_hash']}")
-        summary = r["multihost_summary"]
-        if (summary is None or summary["hosts"] != 2
-                or summary["owned_clients"] != config.worker_number // 2):
-            fail(f"multihost_stream {name}: store summary {summary}")
-    if r0["digests"] != r1["digests"] or len(r0["digests"]) != rounds:
-        fail("multihost_stream: the ranks' global params differ after a "
-             "round")
+        summary = run["multihost_summary"]
+        if (summary is None or summary["hosts"] != n_ranks
+                or summary["owned_clients"]
+                != config.worker_number // n_ranks):
+            fail(f"{phase} {name}: store summary {summary}")
+        if (run["digests"] != r0["digests"]
+                or len(run["digests"]) != rounds):
+            fail(f"{phase}: {name}'s global params differ from rank0's "
+                 "after a round")
     for rnd in range(rounds):
         names = [f"round_{rnd}.manifest.json"] + [
-            f"round_{rnd}.host{h}-of-2.ckptshard" for h in range(2)]
+            f"round_{rnd}.host{h}-of-{n_ranks}.ckptshard"
+            for h in range(n_ranks)]
         missing = [n for n in names
                    if not os.path.exists(os.path.join(ckpt, n))]
         if missing:
-            fail(f"multihost_stream: round {rnd} lacks {missing}")
+            fail(f"{phase}: round {rnd} lacks {missing}")
     # Round 0 starts every client from the same model: each client's
     # training, upload and new momentum are the one-process run's bitwise
     # (its keys follow it through draw_pos), and only the aggregate's
@@ -3969,28 +4156,28 @@ def multihost_stream(torch, work: str, config=None) -> dict:
     # metrics at rtol 1e-4, and each rank's shard holds exactly the
     # one-process run's state rows of the clients it owns: the exchange
     # and the owners' writeback checked bit for bit.
-    owned = config.worker_number // 2
+    owned = config.worker_number // n_ranks
     solo_rows = _state_rows(os.path.join(solo_ckpt, "round_0.ckpt"), 0,
                             config.worker_number)
     state_equal = all(
         all(np.array_equal(a, b[h * owned:(h + 1) * owned]) for a, b in zip(
-            _state_rows(os.path.join(ckpt, f"round_0.host{h}-of-2"
-                                     ".ckptshard"), 0, owned), solo_rows))
-        for h in range(2))
+            _state_rows(os.path.join(
+                ckpt, f"round_0.host{h}-of-{n_ranks}.ckptshard"), 0, owned),
+            solo_rows))
+        for h in range(n_ranks))
     # Round 1 is the first whose clients hold state of their own: every
     # row of each rank's block, as the forward exchange hands it to the
     # round, must be the one-process run's round-0 state of that client.
     solo_digests = _row_digests(solo_rows)
     del solo_rows
-    trained = {i for r in (r0, r1) for rec in r["received_state"]
+    trained = {i for r in ranks.values() for rec in r["received_state"]
                if rec["round"] == 0 for i in rec["ids"]}
     received = {"rows": 0, "exchanged": 0, "trained_rows": 0,
                 "trained_exchanged": 0, "mismatched": []}
     for name, r in ranks.items():
         recs = [rec for rec in r["received_state"] if rec["round"] == 1]
         if len(recs) != 1:
-            fail(f"multihost_stream {name}: {len(recs)} state gathers in "
-                 f"round 1")
+            fail(f"{phase} {name}: {len(recs)} state gathers in round 1")
         rec = recs[0]
         exchanged = set(rec["exchanged_rows"])
         for row, (i, digest) in enumerate(zip(rec["ids"], rec["digests"])):
@@ -4001,7 +4188,7 @@ def multihost_stream(torch, work: str, config=None) -> dict:
             if digest != solo_digests[i]:
                 received["mismatched"].append((name, row, i))
     shard_mib = os.path.getsize(os.path.join(
-        ckpt, "round_0.host0-of-2.ckptshard")) / 2**20
+        ckpt, f"round_0.host0-of-{n_ranks}.ckptshard")) / 2**20
     shutil.rmtree(ckpt)  # ~0.9 GB a shard
     shutil.rmtree(solo_ckpt)
     # Later rounds train from params a rounding apart, which f32 ResNet
@@ -4024,7 +4211,7 @@ def multihost_stream(torch, work: str, config=None) -> dict:
     witness_bitwise = (witness["digests"] == r0["digests"]
                        and witness["test_loss"] == r0["test_loss"]
                        and witness["test_accuracy"] == r0["test_accuracy"])
-    log(f"multihost_stream: round 0 params max |rank - solo| "
+    log(f"{phase}: round 0 params max |rank - solo| "
         f"{round0_diff:.3e} (max |p| {scale:.3e}); round 0 state rows "
         f"{'bitwise' if state_equal else 'NOT bitwise'} the solo run's; "
         f"round 1 received state {received}; test loss ranks "
@@ -4036,53 +4223,60 @@ def multihost_stream(torch, work: str, config=None) -> dict:
         f"{solo['test_accuracy']} witness {witness['test_accuracy']}; bands "
         f"{bands}")
     if round0_diff > 1e-6 * scale:
-        fail(f"multihost_stream: round 0 params {round0_diff:.3e} from the "
+        fail(f"{phase}: round 0 params {round0_diff:.3e} from the "
              f"solo run's (beyond 1e-6 x {scale:.3e})")
     if not state_equal:
-        fail("multihost_stream: a rank's round 0 shard holds state rows "
+        fail(f"{phase}: a rank's round 0 shard holds state rows "
              "other than the solo run's")
     if not received["trained_exchanged"]:
-        fail(f"multihost_stream: no row exchanged for round 1 held state "
+        fail(f"{phase}: no row exchanged for round 1 held state "
              f"of its own ({received}): the check saw only initial state")
     if received["mismatched"] or received["rows"] != cohort:
-        fail(f"multihost_stream: round 1's received state rows (rank, row, "
+        fail(f"{phase}: round 1's received state rows (rank, row, "
              f"client) {received['mismatched']} are not the solo run's "
              f"round-0 state of those clients ({received['rows']} rows "
              f"checked)")
     if not witness_bitwise:
-        fail(f"multihost_stream: the ranks' params or test metrics differ "
+        fail(f"{phase}: the ranks' params or test metrics differ "
              f"from the one-process run on the same owner-grouped rows "
              f"(test loss {r0['test_loss']} against "
              f"{witness['test_loss']})")
     if witness["cohort_hash"] != solo["cohort_hash"]:
-        fail(f"multihost_stream: the witness drew cohorts "
+        fail(f"{phase}: the witness drew cohorts "
              f"{witness['cohort_hash']}, the solo run {solo['cohort_hash']}")
     for key in ("test_loss", "test_accuracy"):
         for rnd, (a, b, band) in enumerate(zip(r0[key], solo[key],
                                                bands[key])):
             if abs(a - b) > band:
-                fail(f"multihost_stream round {rnd}: {key} {a} against the "
+                fail(f"{phase} round {rnd}: {key} {a} against the "
                      f"solo run's {b} (band {band:.3e})")
-    if (r0["test_loss"], r0["test_accuracy"]) != (r1["test_loss"],
-                                                  r1["test_accuracy"]):
-        fail("multihost_stream: the ranks' test metrics differ")
+    for name, run in ranks.items():
+        if (run["test_loss"], run["test_accuracy"]) != (
+                r0["test_loss"], r0["test_accuracy"]):
+            fail(f"{phase}: {name}'s test metrics differ from rank0's")
+    runs = list(ranks.values())
     exchange = [
         {"spill_rows": r0["multihost"][i]["spill_rows"],
          "dcn_mib": r0["multihost"][i]["dcn_bytes"] / 2**20,
-         "dcn_wait_s": [r["spans"][i]["dcn_wait_s"] for r in (r0, r1)],
-         "dcn_s": [r["spans"][i]["dcn_transfer_s"] for r in (r0, r1)],
-         "skew_ms": [r["spans"][i].get("spill_skew_ms") for r in (r0, r1)]}
+         "dcn_wait_s": [r["spans"][i]["dcn_wait_s"] for r in runs],
+         "dcn_s": [r["spans"][i]["dcn_transfer_s"] for r in runs],
+         "skew_ms": [r["spans"][i].get("spill_skew_ms") for r in runs]}
         for i in range(rounds)]
-    log(f"multihost_stream: ranks bitwise equal every round; cohorts the "
-        f"solo run's; exchange by round {exchange}; round "
-        f"seconds rank0 {r0['round_seconds']} rank1 {r1['round_seconds']} "
-        f"solo {solo['round_seconds']}; peak memory rank0 "
-        f"{_gib(r0['peak_memory_bytes'])} rank1 "
-        f"{_gib(r1['peak_memory_bytes'])} solo "
-        f"{_gib(solo['peak_memory_bytes'])}; launches rank0 "
-        f"{r0['launches']} rank1 {r1['launches']} (training predicted "
-        f"{predicted}) solo {solo['launches']}; a shard {shard_mib:.1f} MiB")
+    log(f"{phase}: {n_ranks} ranks on {devices} (backend {backend}) "
+        f"bitwise equal every round; cohorts the solo run's; exchange by "
+        f"round {exchange}; round seconds "
+        + "; ".join(f"{n} {r['round_seconds']}" for n, r in ranks.items())
+        + f"; solo {solo['round_seconds']}; gathers "
+        + "; ".join(f"{n} {r['gathers']}" for n, r in ranks.items())
+        + "; peak memory "
+        + "; ".join(f"{n} {_gib(r['peak_memory_bytes'])}"
+                    for n, r in ranks.items())
+        + f"; solo {_gib(solo['peak_memory_bytes'])}; launches "
+        + "; ".join(f"{n} {r['launches']}" for n, r in ranks.items())
+        + f" (training predicted {predicted}) solo {solo['launches']}; a "
+        f"shard {shard_mib:.1f} MiB")
     return {"ranks": ranks, "solo": solo, "witness": witness,
+            "devices": devices, "backend": backend,
             "witness_bitwise": witness_bitwise,
             "exchange": exchange, "bands": bands, "spread": spread,
             "round0_max_abs_diff": round0_diff,
@@ -4447,12 +4641,10 @@ def redesign_lines(rows, wgrad_rows):
 
 def main() -> None:
     if "--rank-worker" in sys.argv:
-        # A multihost_fed process: chip_smoke.py --rank-worker OUT -- FLAGS
-        at = sys.argv.index("--rank-worker")
+        # A multihost_fed process:
+        # chip_smoke.py --rank-worker OUT [--owner-order=N] -- FLAGS
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        end = sys.argv.index("--")
-        rank_worker(sys.argv[at + 1], sys.argv[end + 1:],
-                    owner_order="--owner-order" in sys.argv[at + 2:end])
+        rank_worker(*rank_worker_args(sys.argv))
         return
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=os.path.join("build", "chip_smoke"),
@@ -4553,6 +4745,7 @@ def main() -> None:
                                log_root)
     costmodel = phase("profile_costmodel", profile_costmodel, torch, gn, wg,
                       os.path.abspath(args.out))
+    pipelining = phase("pipeline_ab", pipeline_ab, torch, gn, wg)
     batching = phase("round_batch", round_batch, torch, gn, wg, log_root)
     paths["async_fed"] = phase("async_fed", async_fed, torch, gn, wg,
                                log_root)
@@ -4660,6 +4853,7 @@ def main() -> None:
                    "gn_autodiff": autodiff, "client_stats_detect": detect,
                    "threaded_algos": oracle_algos,
                    "profile_costmodel": costmodel, "round_batch": batching,
+                   "pipeline_ab": pipelining,
                    "oom_hint": oom, "stream_population": population,
                    "residency_trace": residency_trace,
                    "churn_overhead_ratio": churn["churn_overhead_ratio"],

@@ -44,6 +44,11 @@ class Algorithm:
     #: dispatch: its aux holds no per-round parameter stack and post_round
     #: needs only the dispatch's last model.
     supports_round_batching: bool = False
+    #: The round loop may defer this algorithm's metric fetch, record and
+    #: post_round until the next round is dispatched (``pipeline_rounds``):
+    #: post_round only reads or logs. The Shapley algorithms' post_round
+    #: evaluates subsets on the round's metrics, in the round.
+    supports_round_pipelining: bool = True
     #: The round function takes the staleness buffer (async_mode='on').
     supports_async: bool = False
     #: The algorithm runs under ``client_residency='streamed'``. A sampled
@@ -93,6 +98,14 @@ class Algorithm:
         and ``payload_salts(client or None) -> per-leaf salts`` optionally
         replace the key chain's draws."""
         raise NotImplementedError
+
+    def keeps_client_state(self) -> bool:
+        """Whether clients carry state from round to round: the client
+        optimizers are not reset. True also for an optimizer without state
+        (SGD without momentum), whose per-client state is None here and an
+        empty tree in the JAX package; the round loop's pipelining
+        decision counts it as the JAX package does."""
+        return not self.config.reset_client_optimizer
 
     def init_client_state(self, optimizer, global_flat, n_clients: int):
         """Initial per-client persistent state: None when client optimizers

@@ -725,6 +725,7 @@ class MultiRoundShapley(_ShapleyBase):
     clients each round (N <= 16; the reference's canonical run is N=4)."""
 
     supports_round_batching = False  # post_round scores every round
+    supports_round_pipelining = False  # ... on the round's own metrics
 
     name = "multiround_shapley_value"
 
@@ -780,6 +781,7 @@ class GTGShapley(_ShapleyBase):
     convergence 0.05, at most max(500, 2N) permutations)."""
 
     supports_round_batching = False  # post_round scores every round
+    supports_round_pipelining = False  # ... on the round's own metrics
 
     name = "GTG_shapley_value"
     _default_eval_dtype = "bfloat16"

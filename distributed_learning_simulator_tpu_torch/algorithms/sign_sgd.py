@@ -148,6 +148,10 @@ class SignSGD(Algorithm):
                 f"got {config.failure_mode!r}"
             )
 
+    def keeps_client_state(self) -> bool:
+        """The momenta persist whenever there is momentum."""
+        return self.config.momentum != 0.0
+
     def init_client_state(self, optimizer, global_flat, n_clients: int):
         """Per-client momentum buffers ``[n_clients, P]`` and step counters
         (the counter reproduces torch's first step, which sets the buffer to

@@ -10,9 +10,11 @@ knob in full.
 
 ``validate()`` keeps the JAX package's checks, with its texts: the port
 accepts every configuration the JAX package accepts and refuses the
-others as it does. Nothing is silently ignored: a field the port does not
-read is inert for the FedAvg main path in the JAX package too (the other
-algorithms' knobs).
+others as it does. Nothing is silently ignored: every field acts as in
+the JAX package (``pipeline_rounds`` included: the round loop defers each
+round's fetch where the JAX package does, and logs the JAX text where it
+turns that off), and a field that neither package reads on a path is the
+other algorithms' knob there.
 """
 
 from __future__ import annotations
@@ -146,9 +148,9 @@ class ExperimentConfig:
     client_residency: str = "resident"
     participation_fraction: float = 1.0
     participation_sampler: str = "exact"
-    # The JAX package defers each round's metric fetch by one round; the
-    # port fetches every round synchronously. Results are identical either
-    # way, so the flag has no effect here.
+    # Defer each round's metric fetch, record and checkpoint until the next
+    # round is dispatched (off, with a logged reason, where the JAX package
+    # turns it off); results are identical either way.
     pipeline_rounds: bool = True
     rounds_per_dispatch: int = 1
     # --- telemetry -------------------------------------------------------------

@@ -88,12 +88,18 @@ def locked_once(fn):
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
+def count_launch(wrapper, device=None) -> None:
     """Add one to ``wrapper.launches`` (a kernel wrapper's launch count)
-    under a lock: the threaded oracle's workers launch from several
-    threads, and ``+=`` on an attribute is not atomic."""
+    and, given the launch's ``device``, to its count there
+    (``wrapper.launches_by_device``, by the device's name: a mesh of one
+    process launches on several cards), under a lock: the threaded
+    oracle's workers launch from several threads, and ``+=`` on an
+    attribute is not atomic."""
     with _COUNT_LOCK:
         wrapper.launches += 1
+        if device is not None:
+            by_device = wrapper.launches_by_device
+            by_device[str(device)] = by_device.get(str(device), 0) + 1
 
 
 def device_guard(t):

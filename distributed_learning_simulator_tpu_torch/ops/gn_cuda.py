@@ -255,11 +255,12 @@ def gn_stats(x: torch.Tensor, g: int, eps: float, split: int | None = None):
             split, launch_stream(x),
         )
     _raise_on_error(err, "gn_stats_kernel")
-    count_launch(gn_stats)
+    count_launch(gn_stats, x.device)
     return mean, rstd
 
 
 gn_stats.launches = 0
+gn_stats.launches_by_device = {}
 
 
 def gn_normalize(x, mean, rstd, scale, bias, out_dtype):
@@ -323,16 +324,18 @@ def _normalize(x, mean, rstd, scale, bias, out_dtype, after_stats: bool,
             launch_stream(x),
         )
     _raise_on_error(err, "gn_normalize_kernel")
-    count_launch(gn_normalize)
+    count_launch(gn_normalize, x.device)
     return y
 
 
 gn_normalize.launches = 0
+gn_normalize.launches_by_device = {}
 
 
 def reset_launch_counts() -> None:
-    gn_stats.launches = 0
-    gn_normalize.launches = 0
+    for wrapper in (gn_stats, gn_normalize):
+        wrapper.launches = 0
+        wrapper.launches_by_device = {}
 
 
 def group_norm(x, scale, bias, g: int, eps: float, out_dtype):

@@ -244,15 +244,17 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor,
             n, b, h, w, c, plan.n_chunks, launch_stream(x),
         )
     _raise_on_error(err)
-    count_launch(conv3x3_wgrad)
+    count_launch(conv3x3_wgrad, x.device)
     return out
 
 
 conv3x3_wgrad.launches = 0
+conv3x3_wgrad.launches_by_device = {}
 
 
 def reset_launch_counts() -> None:
     conv3x3_wgrad.launches = 0
+    conv3x3_wgrad.launches_by_device = {}
 
 
 @torch.library.custom_op("dls::conv3x3_wgrad", mutates_args=())

@@ -20,8 +20,10 @@ client axis is split into ``mesh.size`` equal contiguous blocks
 :func:`gather_blocks` brings every block's values to one device of every
 process, in block order, so that every process sums them in the same
 order and holds the same bits whatever the backend. Across processes it
-is one ``all_gather`` through host buffers (pinned when there is a card);
-``GATHER_STATS`` counts its calls, bytes and seconds.
+is one ``all_gather`` a dtype over the device group (parallel/
+multihost.py): under NCCL of the CUDA tensors themselves, under gloo
+through host buffers (pinned when there is a card). ``GATHER_STATS``
+counts its calls, bytes and seconds (:func:`gather_stats` reads it).
 """
 
 from __future__ import annotations
@@ -36,7 +38,10 @@ import torch.distributed as dist
 
 from distributed_learning_simulator_tpu_torch.ops.cohort import tree_map
 from distributed_learning_simulator_tpu_torch.parallel.multihost import (
+    device_backend,
+    device_group,
     distributed_initialized,
+    host_group,
     local_device,
     process_count,
     process_index,
@@ -44,8 +49,49 @@ from distributed_learning_simulator_tpu_torch.parallel.multihost import (
 
 CLIENT_AXIS = "clients"
 
-#: Cross-process gathers of this process: calls, bytes received, seconds.
-GATHER_STATS = {"calls": 0, "bytes": 0, "seconds": 0.0}
+#: Cross-process gathers of this process: calls, bytes received, seconds
+#: in all, and the first call's seconds beside the least and most of the
+#: later calls' (an NCCL gather's seconds are its CUDA events').
+GATHER_STATS = {"calls": 0, "bytes": 0, "seconds": 0.0,
+                "first_call_seconds": None, "min_call_seconds": None,
+                "max_call_seconds": None}
+# The (start, end) CUDA events of NCCL gathers not yet added to
+# GATHER_STATS, oldest first: each gather adds those that have ended, and
+# gather_stats() waits for the rest.
+_PENDING_EVENTS: list = []
+
+
+def gather_stats() -> dict:
+    """A copy of ``GATHER_STATS`` with every NCCL gather's seconds in it
+    (waits for those gathers to end)."""
+    _drain_events(wait=True)
+    return dict(GATHER_STATS)
+
+
+def _drain_events(wait: bool) -> None:
+    while _PENDING_EVENTS and (wait or _PENDING_EVENTS[0][1].query()):
+        start, end = _PENDING_EVENTS.pop(0)
+        end.synchronize()
+        _add_seconds(start.elapsed_time(end) / 1e3)
+
+
+def _add_seconds(seconds: float) -> None:
+    stats = GATHER_STATS
+    stats["seconds"] += seconds
+    if stats["first_call_seconds"] is None:
+        stats["first_call_seconds"] = seconds
+        return
+    for key, pick in (("min_call_seconds", min), ("max_call_seconds", max)):
+        seen = stats[key]
+        stats[key] = seconds if seen is None else pick(seen, seconds)
+
+
+def reset_gather_stats() -> None:
+    """Zero ``GATHER_STATS`` (and drop the events not yet read)."""
+    _PENDING_EVENTS.clear()
+    GATHER_STATS.update(calls=0, bytes=0, seconds=0.0,
+                        first_call_seconds=None, min_call_seconds=None,
+                        max_call_seconds=None)
 
 
 @dataclass(frozen=True)
@@ -89,10 +135,11 @@ def make_mesh(num_devices: int | None = None, axis_name: str = CLIENT_AXIS,
     multi-process group. A shortfall raises ValueError."""
     if distributed_initialized() and process_count() > 1:
         names = [None] * process_count()
-        dist.all_gather_object(names, str(local_device(device)))
+        dist.all_gather_object(names, str(local_device(device)),
+                               group=host_group())
         devices = [torch.device(n) for n in names]
         ranks = list(range(len(devices)))
-        backend = dist.get_backend()
+        backend = device_backend()
         where = f"one device per process, {len(devices)} processes"
     else:
         device = torch.device(device)
@@ -200,7 +247,10 @@ def gather_blocks(mesh: Mesh, parts: dict, spec: dict, device) -> dict:
     tensor}`` with the shapes and dtypes of ``spec`` (``{name: (shape,
     dtype)}``, the same for every block); returns ``{name: [mesh.size,
     *shape]}``. A single process copies; across processes each dtype's
-    leaves travel in one ``all_gather`` through host buffers."""
+    leaves travel packed in one ``all_gather`` of ``[blocks a rank,
+    width]`` rows over the device group: on the card under NCCL, through
+    host buffers under gloo. Both pack the same rows, so the bits do not
+    depend on the backend."""
     names = list(spec)
     if not mesh.multiprocess:
         return {n: torch.stack([parts[b][n].to(device)
@@ -212,31 +262,52 @@ def gather_blocks(mesh: Mesh, parts: dict, spec: dict, device) -> dict:
     for b, r in enumerate(mesh.ranks):
         slot[b] = seen[r]
         seen[r] += 1
-    pinned = torch.cuda.is_available()
+    nccl = mesh.backend == "nccl"
+    # NCCL gathers the tensors where they are (this rank's card); gloo from
+    # host memory, pinned when there is a card.
+    where = (mesh.devices[mesh.local_blocks()[0]] if nccl
+             else torch.device("cpu"))
+    pinned = not nccl and torch.cuda.is_available()
+    group = device_group()
     out = {}
     for dtype in dict.fromkeys(dt for _, dt in spec.values()):
-        group = [n for n in names if spec[n][1] == dtype]
-        sizes = [int(np.prod(spec[n][0])) for n in group]
+        group_names = [n for n in names if spec[n][1] == dtype]
+        sizes = [int(np.prod(spec[n][0])) for n in group_names]
         width = sum(sizes)
-        send = torch.zeros((per, width), dtype=dtype, pin_memory=pinned)
+        send = torch.zeros((per, width), dtype=dtype, device=where,
+                           pin_memory=pinned)
         for b in mesh.local_blocks():
             row = send[slot[b]]
             off = 0
-            for n, s in zip(group, sizes):
+            for n, s in zip(group_names, sizes):
                 row[off:off + s].copy_(parts[b][n].reshape(-1))
                 off += s
         recv = [torch.empty_like(send, pin_memory=False)
                 for _ in range(process_count())]
-        t0 = time.perf_counter()
-        dist.all_gather(recv, send)
-        GATHER_STATS["seconds"] += time.perf_counter() - t0
+        if nccl:
+            # The events bracket the gather on the compute stream: the
+            # collective's stream waits for the blocks' work recorded
+            # before ``start``, and the compute stream waits for the
+            # collective before ``end`` (and before the sum that reads
+            # ``recv``). Nothing here waits on the card.
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(torch.cuda.current_stream(where))
+            dist.all_gather(recv, send, group=group)
+            end.record(torch.cuda.current_stream(where))
+            _PENDING_EVENTS.append((start, end))
+            _drain_events(wait=False)
+        else:
+            t0 = time.perf_counter()
+            dist.all_gather(recv, send, group=group)
+            _add_seconds(time.perf_counter() - t0)
         GATHER_STATS["calls"] += 1
         GATHER_STATS["bytes"] += sum(t.numel() * t.element_size()
                                      for t in recv)
         rows = torch.stack([recv[mesh.ranks[b]][slot[b]]
                             for b in range(mesh.size)]).to(device)
         off = 0
-        for n, s in zip(group, sizes):
+        for n, s in zip(group_names, sizes):
             out[n] = rows[:, off:off + s].reshape(
                 (mesh.size,) + tuple(spec[n][0]))
             off += s

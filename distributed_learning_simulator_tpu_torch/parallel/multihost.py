@@ -5,18 +5,32 @@ multihost.py of the JAX package).
 it the mesh (parallel/mesh.py) lists every process's device in rank order
 and the round programs gather the client-axis blocks across processes.
 
-The group is **gloo** on the CPU and on the card alike: NCCL refuses two
-ranks on one GPU, and a gloo group runs both. Collectives of CUDA tensors
-are staged explicitly through pinned host buffers (parallel/mesh.py
-``gather_blocks``). Every process holds one device: the CPU, or
-``cuda:(local_rank % device_count)`` where ``local_rank`` is
-``$LOCAL_RANK`` (a launcher's) or else the process id.
+Two groups, one for each kind of collective:
+
+* **The host group** is the default group, always **gloo**: the host-side
+  collectives (the mesh's device list, :func:`allgather_int64`,
+  :func:`allgather_rows`, :func:`allgather_wall_stamps`, the checkpoint
+  barriers) go through it, on the CPU and on the card alike.
+* **The device group** carries the blocks' gathers of CUDA tensors
+  (parallel/mesh.py ``gather_blocks``). Once the default group is up, the
+  ranks publish their devices over it and :func:`choose_backend` picks
+  the backend from that layout, the same on every rank: **NCCL** when
+  every rank's device is a CUDA device that no other rank on its node
+  uses (a second group over all ranks, made beside the gloo one with this
+  rank's card current), else **gloo**, the default group itself (the CPU,
+  and two ranks on one card, which NCCL refuses); a gloo gather stages
+  CUDA tensors through pinned host buffers.
+
+Every process holds one device: the CPU, or ``cuda:(local_rank %
+device_count)`` where ``local_rank`` is ``$LOCAL_RANK`` (a launcher's) or
+else the process id.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
+import socket
 
 import numpy as np
 import torch
@@ -24,7 +38,7 @@ import torch.distributed as dist
 
 from distributed_learning_simulator_tpu_torch.utils.logging import get_logger
 
-#: The process group's backend (see the module docstring).
+#: The host group's backend (see the module docstring).
 BACKEND = "gloo"
 #: Seconds a collective waits for its peers before it raises: a rank that
 #: died or diverged turns into an error on the others, not a hang.
@@ -34,6 +48,27 @@ TIMEOUT_S = 300.0
 # came up elsewhere): torch.distributed does not expose it, so a re-call
 # naming a different one while the counts match is caught here.
 _initialized_coordinator: str | None = None
+# The device group: its backend once chosen, and the NCCL group (None
+# when the device collectives use the default gloo group).
+_device_backend: str | None = None
+_device_group = None
+# Set by a measurement that wants the gloo device gathers where the layout
+# would give NCCL (chip_multicard.py compares the two); None otherwise.
+_backend_override: str | None = None
+
+
+def choose_backend(devices, hosts=None) -> str:
+    """The device group's backend for ranks whose devices are ``devices``
+    (rank order) on the nodes ``hosts`` (None: one node): ``"nccl"`` when
+    every device is a CUDA device that no other rank on its node uses,
+    else ``"gloo"``."""
+    names = [str(torch.device(d)) for d in devices]
+    hosts = [None] * len(names) if hosts is None else list(hosts)
+    placed = list(zip(hosts, names))
+    if all(n.startswith("cuda:") for n in names) and (
+            len(set(placed)) == len(placed)):
+        return "nccl"
+    return "gloo"
 
 
 def distributed_initialized() -> bool:
@@ -57,15 +92,62 @@ def local_rank() -> int:
     return int(os.environ.get("LOCAL_RANK", process_index()))
 
 
-def local_device(name: str) -> torch.device:
-    """The one device this process contributes to a multi-process mesh:
-    ``cuda`` becomes ``cuda:(local_rank % device_count)`` (a ``cuda:N``
-    the caller named stays as it is), anything else is taken as given."""
+def rank_device(name: str, local: int, n_cards: int) -> torch.device:
+    """The device of the process with local rank ``local`` on a node with
+    ``n_cards`` cards: ``cuda`` becomes ``cuda:(local % n_cards)`` (a
+    ``cuda:N`` the caller named stays as it is), anything else is taken as
+    given."""
     device = torch.device(name)
-    if (device.type == "cuda" and device.index is None
-            and torch.cuda.is_available()):
-        return torch.device("cuda", local_rank() % torch.cuda.device_count())
+    if device.type == "cuda" and device.index is None and n_cards > 0:
+        return torch.device("cuda", local % n_cards)
     return device
+
+
+def local_device(name: str) -> torch.device:
+    """The one device this process contributes to a multi-process mesh
+    (:func:`rank_device` of this process)."""
+    return rank_device(name, local_rank(), torch.cuda.device_count()
+                       if torch.cuda.is_available() else 0)
+
+
+def host_group():
+    """The group of the host-side collectives: the default (gloo) group."""
+    return dist.group.WORLD
+
+
+def device_backend() -> str | None:
+    """The backend of the blocks' gathers: None without a group; the
+    default group's when the group came up without
+    :func:`initialize_multihost`."""
+    if not distributed_initialized():
+        return None
+    return _device_backend or dist.get_backend()
+
+
+def device_group():
+    """The group of the blocks' gathers (the NCCL group, or the default
+    group)."""
+    return _device_group if _device_backend == "nccl" else dist.group.WORLD
+
+
+def _setup_device_group(device: str) -> None:
+    """Publish every rank's node and device over the host group, choose the
+    device group's backend from them (the same choice on every rank) and,
+    for NCCL, make the group with this rank's card current. Collective."""
+    global _device_backend, _device_group
+    mine = (socket.gethostname(), str(local_device(device)))
+    layout = [None] * process_count()
+    dist.all_gather_object(layout, mine, group=host_group())
+    backend = _backend_override or choose_backend(
+        [d for _, d in layout], [h for h, _ in layout])
+    if torch.device(mine[1]).type == "cuda":
+        # This rank's card is the current device: what NCCL's
+        # communicator and any implicit allocation use.
+        torch.cuda.set_device(torch.device(mine[1]))
+    if backend == "nccl":
+        _device_group = dist.new_group(
+            backend="nccl", timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    _device_backend = backend
 
 
 def _global_device_count() -> int:
@@ -78,9 +160,11 @@ def initialize_multihost(
     coordinator_address: str | None = None,
     num_processes: int | None = None,
     process_id: int | None = None,
+    device: str = "cpu",
 ) -> int:
-    """Bring up the process group; returns the global device count (one
-    device per process).
+    """Bring up the process group and the device group for ``device``
+    (the run's ``--device``); returns the global device count (one device
+    per process).
 
     With no arguments, a launcher's environment (``MASTER_ADDR``,
     ``WORLD_SIZE``, ``RANK``) is used when it is there; in a plain
@@ -169,11 +253,12 @@ def initialize_multihost(
                 "torch.distributed.init_process_group skipped (single "
                 "process): %s", e,
             )
+    if distributed_initialized() and _device_backend is None:
+        _setup_device_group(device)
     n = _global_device_count()
     logger.info(
         "multihost: process %d/%d, %d global devices, backend %s",
-        process_index(), process_count(), n,
-        dist.get_backend() if distributed_initialized() else None,
+        process_index(), process_count(), n, device_backend(),
     )
     return n
 
@@ -186,7 +271,7 @@ def allgather_wall_stamps(stamp: float) -> np.ndarray:
         return np.asarray([stamp], dtype=np.float64)
     mine = torch.tensor([stamp], dtype=torch.float64)
     out = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
-    dist.all_gather(out, mine)
+    dist.all_gather(out, mine, group=host_group())
     return torch.cat(out).numpy()
 
 
@@ -209,7 +294,8 @@ def estimate_clock_alignment() -> tuple[float, float]:
 
     zeros = torch.zeros(1, dtype=torch.int32)
     dist.all_gather([torch.empty_like(zeros)
-                     for _ in range(dist.get_world_size())], zeros)
+                     for _ in range(dist.get_world_size())], zeros,
+                    group=host_group())
     t_release = clock.monotonic()
     stamp = clock.wall()
     stamps = allgather_wall_stamps(stamp)
@@ -253,7 +339,7 @@ def allgather_int64(values) -> np.ndarray:
     if not distributed_initialized():
         return mine.numpy()[None]
     out = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
-    dist.all_gather(out, mine)
+    dist.all_gather(out, mine, group=host_group())
     return torch.stack(out).numpy()
 
 
@@ -276,7 +362,7 @@ def allgather_rows(arrays) -> list[np.ndarray]:
     if distributed_initialized():
         recv = [torch.empty_like(send, pin_memory=False)
                 for _ in range(dist.get_world_size())]
-        dist.all_gather(recv, send)
+        dist.all_gather(recv, send, group=host_group())
     else:
         recv = [send]
     out = []

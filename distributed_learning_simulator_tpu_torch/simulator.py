@@ -516,10 +516,14 @@ def build_base_round_record(config, round_idx: int, metrics: dict,
     return record
 
 
-def fetch_to_host(tree: dict) -> dict:
-    """``tree`` (nested dicts of tensors and host values) with every tensor
-    as a numpy array, fetched in one device-to-host copy per dtype: the
-    round's one metric fetch. Host values pass through."""
+def start_fetch(tree: dict) -> tuple:
+    """Start the device-to-host copies of ``tree`` (nested dicts of tensors
+    and host values): one copy per dtype into pinned host memory, enqueued
+    behind the work that computes the values and followed by an event, so
+    that :func:`finish_fetch` waits for those values only, not for work
+    enqueued after this call (a deferred fetch in the same stream would
+    wait for the next round's training too). On the CPU the values are
+    ready now."""
     leaves = []
 
     def collect(node):
@@ -530,11 +534,31 @@ def fetch_to_host(tree: dict) -> dict:
             leaves.append(node)
 
     collect(tree)
-    host = {}
+    groups, events = [], []
     for dtype in dict.fromkeys(t.dtype for t in leaves):
         group = [t for t in leaves if t.dtype == dtype]
         flat = torch.cat([t.detach().reshape(-1) for t in group])
-        flat = flat.cpu().numpy()
+        if flat.is_cuda:
+            host = torch.empty(flat.shape, dtype=dtype, pin_memory=True)
+            host.copy_(flat, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(flat.device))
+            events.append(event)
+        else:
+            host = flat
+        groups.append((group, host))
+    return tree, groups, events
+
+
+def finish_fetch(started: tuple) -> dict:
+    """The tree of :func:`start_fetch` with every tensor as a numpy array,
+    once its copies have landed. Host values pass through."""
+    tree, groups, events = started
+    for event in events:
+        event.synchronize()
+    host = {}
+    for group, flat in groups:
+        flat = flat.numpy()
         offset = 0
         for t in group:
             host[id(t)] = flat[offset:offset + t.numel()].reshape(t.shape)
@@ -548,6 +572,13 @@ def fetch_to_host(tree: dict) -> dict:
         return node
 
     return rebuild(tree)
+
+
+def fetch_to_host(tree: dict) -> dict:
+    """``tree`` (nested dicts of tensors and host values) with every tensor
+    as a numpy array, fetched in one device-to-host copy per dtype: the
+    round's one metric fetch. Host values pass through."""
+    return finish_fetch(start_fetch(tree))
 
 
 #: The async round's per-round scalars in aux (robustness/arrivals.py; the
@@ -831,6 +862,7 @@ def run_simulation(
             coordinator_address=config.coordinator_address,
             num_processes=config.num_processes,
             process_id=config.process_id,
+            device=config.device,
         )
         if span_on:
             clock_offset, clock_unc = estimate_clock_alignment()
@@ -1241,11 +1273,51 @@ def run_simulation(
                 config.cost_model_trace,
             )
             cost_ledger = None
-    if K > 1 and config.pipeline_rounds:
-        logger.info(
-            "pipeline_rounds disabled: rounds_per_dispatch > 1 already "
-            "amortizes the fetch (one device_get per dispatch)"
-        )
+    # Pipelined rounds (the JAX package's default): round r's metric fetch,
+    # record, post_round and checkpoint run after round r+1 is dispatched,
+    # so that they overlap its device work; the records and parameters
+    # are those of the synchronous loop, only the fetch moves. Off where a
+    # deferred finalize would read what the next dispatch changes: the
+    # streamed per-client state (written back to the host store every
+    # round), the population (its events mutate the store at the round
+    # boundary), post_round's same-round metrics (Shapley), and the
+    # client or server optimizer state a checkpoint would persist (the
+    # next round updates the client state in place). ``checkpointing`` is
+    # the same on every process (each one's ``save`` takes part in the
+    # gathers), so every rank makes the same choice and the collectives
+    # of a deferred finalize meet in one order. A sampled streamed cohort
+    # keeps its state in the host store, the round loop none.
+    keeps_state = algorithm.keeps_client_state()
+    stream_stateful = stream_sampled and keeps_state
+    pipelined = (
+        config.pipeline_rounds
+        and K == 1
+        and not stream_stateful
+        and pop is None
+        and algorithm.supports_round_pipelining
+        and not (checkpointing and ((keeps_state and not stream_sampled)
+                                    or server_state is not None))
+    )
+    if config.pipeline_rounds and not pipelined:
+        # Asked for and off: say why (the JAX package's texts).
+        if K > 1:
+            reason = ("rounds_per_dispatch > 1 already amortizes the fetch "
+                      "(one device_get per dispatch)")
+        elif pop is not None:
+            reason = ("population='dynamic' registration events mutate "
+                      "host population state at every round boundary; a "
+                      "deferred finalize would checkpoint the wrong stream "
+                      "cursor")
+        elif stream_stateful:
+            reason = ("streamed residency's per-round state writeback "
+                      "already syncs with the dispatch (nothing left to "
+                      "hide)")
+        elif not algorithm.supports_round_pipelining:
+            reason = "the algorithm's post_round must see each round's metrics"
+        else:
+            reason = ("checkpointing needs per-client/server-optimizer "
+                      "state that round r+1's dispatch would donate away")
+        logger.info("pipeline_rounds disabled: %s", reason)
 
     def save_sharded(round_idx: int, metrics, params, s_state, a_state,
                      rng_key) -> str:
@@ -1563,6 +1635,16 @@ def run_simulation(
             keys.append("valuation_scores")
         return keys + [k for k in ASYNC_AUX_KEYS if k in aux]
 
+    def start_round_fetch(round_idx: int, aux, metrics_dev) -> tuple:
+        """Start the copies of a round's one metric fetch (start_fetch)."""
+        keys = fetch_keys(aux, client_stats_cfg is not None
+                          and client_stats_cfg.fetch_round(round_idx))
+        return start_fetch({
+            "metrics": metrics_dev,
+            "mean_client_loss": aux["mean_client_loss"],
+            "tel": {k: aux[k] for k in keys},
+        })
+
     def finalize(p: dict) -> None:
         """Fetch, record and checkpoint one round (K=1): inside an eager
         ``finalize`` span when spans are on, so a process killed here
@@ -1575,16 +1657,11 @@ def run_simulation(
 
     def _finalize(p: dict) -> None:
         round_idx, aux = p["round"], p["aux"]
-        keys = fetch_keys(aux, client_stats_cfg is not None
-                          and client_stats_cfg.fetch_round(round_idx))
         with phase_timer.phase(round_idx, "host_sync"), _oom_hint(
                 config, n_params, n_clients, device,
                 site="deferred metric fetch"):
-            fetched = fetch_to_host({
-                "metrics": p["metrics_dev"],
-                "mean_client_loss": aux["mean_client_loss"],
-                "tel": {k: aux[k] for k in keys},
-            })
+            # The round's copies started after its eval.
+            fetched = finish_fetch(p["fetch"])
         metrics = {k: float(v) for k, v in fetched["metrics"].items()}
         tel = fetched["tel"]
         ctx = RoundContext(
@@ -1850,8 +1927,9 @@ def run_simulation(
         return plan_next
 
     def run_round(round_idx: int, next_idx):
-        """One round (K=1); returns the next round's prefetched cohort
-        (sampled streamed static runs) or None."""
+        """Dispatch one round (K=1). Returns the next round's prefetched
+        cohort (sampled streamed static runs) or None, and the round's
+        entry for :func:`finalize`."""
         nonlocal global_flat, client_state, server_state, key, async_state
         nonlocal stream_rec_startup
         lr_scale = float(lr_factors(config, round_idx, 1)[0])
@@ -1969,23 +2047,32 @@ def run_simulation(
                 metrics_dev = server_eval(
                     layout.unflatten(new_global), *eval_batches)
                 ph.fence(metrics_dev)
+        # The fetch's copies go behind this round's work now, so that its
+        # finalize (deferred when pipelined) waits for them alone.
+        with _oom_hint(config, n_params, n_clients, device,
+                       site="deferred metric fetch"):
+            fetch = start_round_fetch(round_idx, aux, metrics_dev)
         if recompile is not None:
             recompile.attribute(round_idx)
         prev_global, global_flat = global_flat, new_global
-        finalize({
+        return next_out, {
             "round": round_idx, "round_key": round_key,
-            "aux": aux, "metrics_dev": metrics_dev,
+            "aux": aux, "fetch": fetch,
             "new_global": new_global, "prev_global": prev_global,
-            "client_state": client_state,
+            # A deferred finalize checkpoints no client state (pipelining
+            # is off then), and the next round updates it in place.
+            "client_state": None if pipelined else client_state,
             "server_state": server_state,
             "async_state": async_state, "key": key,
             "stream": stream_rec, "population": pop_rec,
             "multihost": mh_rec,
-        })
-        return next_out
+        }
 
     if recompile is not None:
         recompile.start()
+    # Pipelined: the dispatched round whose finalize waits for the next
+    # round's dispatch.
+    pending = None
     try:
         with profile_stack:
             round_idx = start_round
@@ -2001,12 +2088,22 @@ def run_simulation(
                     completed_round = last
                     round_idx = last + 1
                 else:
-                    stream_next = run_round(round_idx, stream_next)
+                    stream_next, entry = run_round(round_idx, stream_next)
+                    if pipelined:
+                        # This round is pending before the previous one
+                        # finalizes: if that raises, the unwind below
+                        # still records this one.
+                        prev_pending, pending = pending, entry
+                        if prev_pending is not None:
+                            finalize(prev_pending)
+                    else:
+                        finalize(entry)
                     completed_round = round_idx
                     round_idx += 1
                 if preempt["flag"]:
-                    # The round (or dispatch) in flight finished and was
-                    # recorded; no new one starts.
+                    # The round (or dispatch) in flight finished (and was
+                    # recorded, or is recorded by the unwind below); no
+                    # new one starts.
                     break
     except BaseException as crash:
         # Flight recorder: an unhandled exception force-flushes the last
@@ -2018,13 +2115,24 @@ def run_simulation(
                 pass
         raise
     finally:
-        if recompile is not None:
-            recompile.stop()
         if installed:
             signal.signal(signal.SIGTERM, prev_sigterm)
         if streamer is not None:
             # No upload outlives the run; the store keeps its state.
             streamer.close()
+        if pending is not None:
+            # The last deferred round. Best effort: when a finalize in the
+            # loop is what failed, a second failure here is logged and the
+            # first exception propagates.
+            try:
+                finalize(pending)
+            except Exception:
+                logger.exception("failed to record round %d during unwind",
+                                 pending["round"])
+            finally:
+                pending = None
+        if recompile is not None:
+            recompile.stop()
 
     preempted_at = None
     if preempt["flag"]:

@@ -412,15 +412,17 @@ def _run_point_lean(prog: _Program, cfg) -> dict:
     """The warm-program point loop: ``run_simulation``'s K=1 round
     sequence for a resident static run (``key, round_key = split(key)`` ->
     the round -> optional server step -> eval -> fetch -> post_round ->
-    record), each dispatch inside ``_oom_hint`` as there. The port fetches
-    every round's metrics in that round (``pipeline_rounds`` is only
-    logged), so the lean loop finalizes each round as the solo loop does
-    and its history is the solo run's bitwise. Everything outside this
-    envelope is gated out by ``lean_supported``."""
+    record), each dispatch inside ``_oom_hint`` as there, with the solo
+    loop's pipelined rounds where nothing needs same-round host state (the
+    algorithm allows it and no client or server state is carried): round
+    r is finalized after round r+1 is dispatched. Its history is the solo
+    run's bitwise. Everything outside this envelope is gated out by
+    ``lean_supported``."""
     from distributed_learning_simulator_tpu_torch.simulator import (
         _oom_hint,
-        fetch_to_host,
+        finish_fetch,
         lr_factors,
+        start_fetch,
     )
 
     if cfg.client_chunk_size == 0:
@@ -446,41 +448,37 @@ def _run_point_lean(prog: _Program, cfg) -> dict:
     history: list[dict] = []
     telemetry = {"rounds_rejected": 0, "survivor_counts": []}
     prev_metrics = None
+    # The JAX package's condition (its sweep engine's lean loop).
+    pipelined = (cfg.pipeline_rounds and algorithm.supports_round_pipelining
+                 and client_state is None and server_state is None)
     t_start = time.perf_counter()
     t_prev_done = t_start
-    for round_idx in range(cfg.round):
-        lr_scale = float(lr_factors(cfg, round_idx, 1)[0])
-        key, round_key = prng.split(key)
-        with _oom_hint(cfg, n_params, n_clients, device):
-            new_global, client_state, aux = prog.round_fn(
-                global_flat, client_state, cx, cy, cmask, sizes, round_key,
-                lr_scale=lr_scale,
-            )
-            if prog.server_update is not None:
-                new_global, server_state = prog.server_update(
-                    global_flat, new_global, server_state,
-                    aux.get("round_rejected"))
-        with _oom_hint(cfg, n_params, n_clients, device, site="eval"):
-            metrics_dev = prog.eval_fn(layout.unflatten(new_global),
-                                       *eval_batches)
+
+    def start(aux, metrics_dev):
+        """The round's one metric fetch, started (simulator.start_fetch)."""
+        return start_fetch({
+            "metrics": metrics_dev,
+            "mean_client_loss": aux["mean_client_loss"],
+            "tel": {k: aux[k] for k in _TEL_KEYS if k in aux},
+        })
+
+    def finalize(p):
+        nonlocal prev_metrics, t_prev_done
+        aux = p["aux"]
         with _oom_hint(cfg, n_params, n_clients, device,
                        site="deferred metric fetch"):
-            fetched = fetch_to_host({
-                "metrics": metrics_dev,
-                "mean_client_loss": aux["mean_client_loss"],
-                "tel": {k: aux[k] for k in _TEL_KEYS if k in aux},
-            })
+            fetched = finish_fetch(p["fetch"])
         metrics = {k: float(v) for k, v in fetched["metrics"].items()}
         ctx = RoundContext(
-            round_idx=round_idx, global_params=new_global,
-            prev_global_params=global_flat, sizes=sizes, aux=aux,
+            round_idx=p["round"], global_params=p["new_global"],
+            prev_global_params=p["prev_global"], sizes=sizes, aux=aux,
             metrics=metrics, prev_metrics=prev_metrics,
             eval_batches=eval_batches, log_dir=None, layout=layout,
         )
         extra = algorithm.post_round(ctx) or {}
         now = time.perf_counter()
         record = _emit_base_record(
-            cfg, round_idx, metrics, float(fetched["mean_client_loss"]),
+            cfg, p["round"], metrics, float(fetched["mean_client_loss"]),
             fetched["tel"], extra, now - t_prev_done,
         )
         t_prev_done = now
@@ -490,7 +488,40 @@ def _run_point_lean(prog: _Program, cfg) -> dict:
             telemetry["survivor_counts"].append(record["survivor_count"])
         history.append(record)
         prev_metrics = metrics
-        global_flat = new_global
+
+    pending = None
+    try:
+        for round_idx in range(cfg.round):
+            lr_scale = float(lr_factors(cfg, round_idx, 1)[0])
+            key, round_key = prng.split(key)
+            with _oom_hint(cfg, n_params, n_clients, device):
+                new_global, client_state, aux = prog.round_fn(
+                    global_flat, client_state, cx, cy, cmask, sizes,
+                    round_key, lr_scale=lr_scale,
+                )
+                if prog.server_update is not None:
+                    new_global, server_state = prog.server_update(
+                        global_flat, new_global, server_state,
+                        aux.get("round_rejected"))
+            with _oom_hint(cfg, n_params, n_clients, device, site="eval"):
+                metrics_dev = prog.eval_fn(layout.unflatten(new_global),
+                                           *eval_batches)
+            # The copies go behind this round's work now.
+            with _oom_hint(cfg, n_params, n_clients, device,
+                           site="deferred metric fetch"):
+                fetch = start(aux, metrics_dev)
+            entry = {"round": round_idx, "aux": aux, "fetch": fetch,
+                     "new_global": new_global, "prev_global": global_flat}
+            global_flat = new_global
+            if pipelined:
+                prev_pending, pending = pending, entry
+                if prev_pending is not None:
+                    finalize(prev_pending)
+            else:
+                finalize(entry)
+    finally:
+        if pending is not None:
+            finalize(pending)
     total = time.perf_counter() - t_start
     return {
         "history": history,

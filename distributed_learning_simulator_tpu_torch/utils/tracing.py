@@ -5,7 +5,13 @@ their traces (utils/tracing.py of the JAX package, over torch.profiler).
 CUDA activities, ``record_shapes=True`` and ``with_flops=True``, one window
 per training step (:func:`profile_step`), and writes each window's Chrome
 trace (``<profile_dir>/<stamp>_<window>.pt.trace.json.gz``) when it
-closes. ``annotate(name)`` is ``torch.profiler.record_function``.
+closes. ``annotate(name)`` is a ``torch.profiler.record_function`` range
+that a window boundary splits: the range ends before the boundary and
+starts again, under the same name, after it, so no range outlives the
+profiler session it began in (one that did wrote its end into the stopped
+session's freed state, and the process died some time later in the
+profiler or in any allocation: the segfault of ``prof.step()`` ->
+``stop_trace``).
 
 The reader turns such a trace into device-op records:
 
@@ -41,6 +47,7 @@ import gzip
 import json
 import os
 import re
+import threading
 import time
 import warnings
 
@@ -397,13 +404,74 @@ def device_op_report(trace_dir: str, k: int = 10) -> dict:
     }
 
 
-def annotate(name: str):
-    """A named region in the profiler's trace."""
-    return torch.profiler.record_function(name)
+_OPEN = threading.local()
+
+
+class annotate(contextlib.ContextDecorator):
+    """A named region in the profiler's trace (``record_function``), kept
+    on this thread's stack of open regions so that :func:`profile_step`
+    can split it at a window boundary."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def _open(self) -> None:
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+
+    def _close(self) -> None:
+        self._range.__exit__(None, None, None)
+        self._range = None
+
+    def __enter__(self):
+        self._open()
+        _open_regions().append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _open_regions().remove(self)
+        self._close()
+        return False
+
+
+def _open_regions() -> list:
+    """This thread's open :class:`annotate` regions, outermost first."""
+    if not hasattr(_OPEN, "regions"):
+        _OPEN.regions = []
+    return _OPEN.regions
+
+
+def _between_regions(action) -> None:
+    """``action()`` (a profiler start, step or stop) with this thread's
+    open regions ended before it and started again after it."""
+    regions = _open_regions()
+    for region in reversed(regions):
+        region._close()
+    try:
+        with warnings.catch_warnings():
+            # A one-step window has no warmup, and each window's events
+            # are its own: both on purpose.
+            warnings.simplefilter("ignore")
+            action()
+    finally:
+        for region in regions:
+            region._open()
 
 
 #: The open profiling session (one at a time), for :func:`profile_step`.
 _SESSION: dict = {"prof": None}
+
+
+def _synchronize_cards_in_use() -> None:
+    """Wait for the cards this process holds a context on: a rank that
+    sees every card of its node neither waits on the others' nor makes a
+    context there."""
+    if not torch.cuda.is_available():
+        return
+    for index in range(torch.cuda.device_count()):
+        if torch._C._cuda_hasPrimaryContext(index):
+            torch.cuda.synchronize(index)
 
 
 def profile_step() -> None:
@@ -414,12 +482,11 @@ def profile_step() -> None:
     prof = _SESSION["prof"]
     if prof is None:
         return
-    if torch.cuda.is_available():
-        # The window's kernels finish inside it.
-        torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # each window's events its own
-        prof.step()
+    # The window's kernels finish inside it, on every card in use.
+    _synchronize_cards_in_use()
+    # The open regions end in this window and start again in the next
+    # (module docstring).
+    _between_regions(prof.step)
 
 
 @contextlib.contextmanager
@@ -468,23 +535,18 @@ def profile_session(profile_dir: str | None):
         p.export_chrome_trace(path + ".pt.trace.json.gz")
 
     with warnings.catch_warnings():
-        # A one-step window has no warmup, and each window's events are
-        # its own: both on purpose.
         warnings.simplefilter("ignore")
         prof = torch.profiler.profile(
             activities=activities, record_shapes=True, with_flops=True,
             schedule=torch.profiler.schedule(wait=0, warmup=0, active=1),
             on_trace_ready=write)
-        prof.start()
+    _between_regions(prof.start)
     _SESSION["prof"] = prof
     try:
         yield
     finally:
         _SESSION["prof"] = None
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            prof.stop()
+        _synchronize_cards_in_use()
+        _between_regions(prof.stop)
         if concrete is not None:
             concrete(True)

@@ -56,7 +56,10 @@ def test_subprocess_crash_resume_bit_identical(tmp_path, kind):
     """sigkill with checkpoint_every=2 and the kill at round 2: resume also
     replays a round past the newest checkpoint. sigterm with
     checkpoint_every=0: the run finishes its round, writes the forced final
-    checkpoint (the only one), logs 'preempted at round N' and exits 0."""
+    checkpoint (the only one), logs 'preempted at round N' and exits 0.
+    Rounds are pipelined (the default, as in the JAX package): round 2's
+    signal lands in its finalize, after round 3's dispatch, so round 3 is
+    the round in flight that the run finishes and records."""
     straight = _straight(tmp_path)
     ckpt_dir = tmp_path / kind / "ckpt"
     cfg = _config(tmp_path, kind, checkpoint_dir=str(ckpt_dir),
@@ -69,9 +72,9 @@ def test_subprocess_crash_resume_bit_identical(tmp_path, kind):
         assert proc.returncode == 0, (proc.returncode, proc.stderr[-800:])
         assert "preempted at round" in proc.stderr
         child = json.loads(proc.stdout.strip().splitlines()[-1])
-        assert child["preempted_at"] == 2
+        assert child["preempted_at"] == 3
         ckpts = [f for f in os.listdir(ckpt_dir) if f.endswith(".ckpt")]
-        assert ckpts == ["round_2.ckpt"]
+        assert ckpts == ["round_3.ckpt"]
     crashed = chaos.read_metrics_jsonl(cfg.log_root)
     assert crashed, "the crashed run flushed no metrics records"
     verdict = chaos.stitch_and_compare(straight, crashed,

@@ -245,7 +245,8 @@ def test_round_oom_hint_equals_jax(tiny_config, same_budget, monkeypatch,
     elif site == "eval":
         monkeypatch.setattr(psim, "make_eval_fn", lambda apply_fn: _oom)
     else:
-        monkeypatch.setattr(psim, "fetch_to_host", _oom)
+        # The fetch's wait (pipelined rounds start its copies earlier).
+        monkeypatch.setattr(psim, "finish_fetch", _oom)
     n_params = {}
     flatten = psim.ParamLayout.flatten
 
@@ -298,7 +299,8 @@ def test_dropped_hint_frees_the_run_without_gc(tiny_config, monkeypatch,
     elif site == "eval":
         monkeypatch.setattr(psim, "make_eval_fn", lambda apply_fn: _oom)
     else:
-        monkeypatch.setattr(psim, "fetch_to_host", _oom)
+        # The fetch's wait (pipelined rounds start its copies earlier).
+        monkeypatch.setattr(psim, "finish_fetch", _oom)
     gc.disable()
     try:
         with pytest.raises(RuntimeError, match="device memory exceeded"):

@@ -237,7 +237,12 @@ def _metrics_files(root):
 def test_telemetry_off_keeps_v1_records(tiny_config, tmp_path):
     """'off' (the default): the v1 record of the JAX package and of the
     port before telemetry, and the same training as a 'detailed' run, whose
-    phases sum to no more than the round's seconds."""
+    phases sum to no more than the round's seconds. Pipelined (the
+    default), a round is recorded after the next one's dispatch, so its
+    record's seconds, from the record before, hold that dispatch and not
+    its own: there the phases of all rounds sum to no more than the
+    rounds' seconds, and each round's to no more than its own with
+    ``pipeline_rounds`` off."""
     jres, pres = _run_pair(tiny_config, tmp_path)
     assert pres["post_warmup_compiles"] is None
     assert jres["post_warmup_compiles"] is None
@@ -246,11 +251,19 @@ def test_telemetry_off_keeps_v1_records(tiny_config, tmp_path):
         assert set(p) == set(j) == V1_KEYS
     on = run_simulation(port_config(
         tiny_config, telemetry_level="detailed"), setup_logging=False)
-    for p, q in zip(pres["history"], on["history"]):
+    sync = run_simulation(port_config(
+        tiny_config, telemetry_level="detailed", pipeline_rounds=False),
+        setup_logging=False)
+    for p, q, r in zip(pres["history"], on["history"], sync["history"],
+                       strict=True):
         assert {k: p[k] for k in V1_KEYS - {"round_seconds"}} == {
-            k: q[k] for k in V1_KEYS - {"round_seconds"}}
-        assert sum(q["telemetry"]["phase_seconds"].values()) <= (
-            q["round_seconds"])
+            k: q[k] for k in V1_KEYS - {"round_seconds"}} == {
+            k: r[k] for k in V1_KEYS - {"round_seconds"}}
+        assert sum(r["telemetry"]["phase_seconds"].values()) <= (
+            r["round_seconds"])
+    assert sum(sum(q["telemetry"]["phase_seconds"].values())
+               for q in on["history"]) <= sum(
+        q["round_seconds"] for q in on["history"])
 
 
 def test_shared_state_survives_many_threads():
