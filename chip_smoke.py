@@ -130,7 +130,7 @@ together), then runs these phases and exits non-zero if any of them fails:
    its seconds); ``client_stats_detect`` (20 clients, f32, median, 2
    rounds under ``corrupt_scale`` and ``corrupt_nan`` at 0.2: the flagged
    ids are the injected ids every round, with reasons ``update_norm`` and
-   ``non_finite``); ``threaded_fed`` (the oracle on ResNet-18, f32, 8
+   ``non_finite``); ``threaded_fed`` (the oracle on ResNet-18, f32, 4
    client threads, 2 rounds, telemetry and client stats on: the GroupNorm
    and wgrad kernels launched, schema-v3 records, and a second run bitwise
    equal; the queue's bytes, pickling, training and rendezvous seconds);
@@ -156,7 +156,7 @@ together), then runs these phases and exits non-zero if any of them fails:
    convolution category, a finite positive predicted round on
    ``h100-sxm-1`` in the v6 record; the ledger, the predicted-to-measured
    ratio and the fitted efficiencies printed); ``pipeline_ab`` (the
-   headline and ResNet-18 ``fed`` at 20 clients, chunk 10, bf16, 3
+   headline and ResNet-18 ``fed`` at 10 clients, chunk 10, bf16, 3
    rounds, ``telemetry_level='basic'``, each with ``pipeline_rounds``
    false and true in the order A B A B: every arm's records equal to the
    first's field by field apart from the timings, its final params
@@ -273,8 +273,24 @@ together), then runs these phases and exits non-zero if any of them fails:
    the spill rows and exchanged bytes each round, each rank's
    ``dcn_wait`` and ``dcn`` seconds and barrier skew, each rank's round
    seconds beside the one-process run's and each rank's peak memory.
-3. A profiler pass per algorithm (5 clients, 2 rounds) and one of the
-   headline (10 clients, 2 rounds): device busy time, idle share, and the
+   While ``multihost_stream``'s witness runs (nothing reads its round
+   seconds), SIGTERM under multi-process runs (``multihost_preempt``, the
+   JAX package's preemption block; the mechanism is on the host, so the
+   tiny MLP on ``cuda:0``): two gloo ranks of the CLI, streamed over the
+   distributed shard store (a hashed half cohort, momentum state, a
+   checkpoint every 2 rounds) and resident (``fed``, pipelined, a cadence
+   of 5), all runs at once, with robustness/chaos.py's SIGTERM hook
+   after round 0: streamed on both ranks and on rank 0 alone, resident on
+   rank 0 alone (the CPU tests hold every case). Every signalled rank
+   must exit 0 within 150 s and log the JAX package's text once:
+   streamed, the sharded text with nothing written off the cadence (no
+   ``round_0.manifest.json``, no shard); resident, process 0's forced
+   ``round_N.ckpt`` (the directory's only file) and process 1's "no
+   checkpoint_dir configured" text. Once a run's signalled ranks are out,
+   its other rank (waiting in a collective) is killed.
+3. A profiler pass per algorithm (5 clients, 1 round; 2 before the
+   ``multihost_preempt`` phase) and one of the headline (10 clients, 1
+   round): device busy time, idle share, and the
    host operators with the most self time. Then the batched layers alone
    (``vmap_layers``): a training step at chunks of 1, 8 and 40, and the
    Shapley eval forward of M = 1, 4, 10, 16 subset models vmapped against
@@ -295,7 +311,9 @@ Every phase runs with functorch's per-example fallback disabled
 
 Imports nothing of JAX or of the JAX package. Points ``$DLS_DATA_DIR``
 into DIR, so every path trains on the deterministic dataset surrogates and
-nothing outside the checkout is read. Writes its full numbers to
+nothing outside the checkout is read; each surrogate is built once a run
+and handed to every run that asks for it (``shared_datasets``). Writes
+its full numbers to
 ``DIR/chip_smoke.json`` (default ``build/chip_smoke``, which .gitignore
 lists).
 """
@@ -305,6 +323,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -1091,6 +1110,54 @@ def chunk_steps(config, n_train: int) -> int:
     chunk = config.client_chunk_size or cohort
     return (config.round * config.epoch * -(-slots // config.batch_size)
             * -(-cohort // chunk))
+
+
+@contextlib.contextmanager
+def shared_datasets():
+    """Inside the block, a ``get_dataset`` call of the port (run_simulation's,
+    the threaded oracle's, the sweep engine's, this script's) with arguments
+    it has had before returns the arrays of the first build, in a new
+    ``Dataset``: the 50000-sample cifar10 surrogate takes seconds of numpy
+    a build, and many runs ask for the same one. The arrays are made
+    read-only, so a run that wrote to them would raise instead of handing
+    the next run other data. Yields the builds by their arguments."""
+    import threading
+
+    from distributed_learning_simulator_tpu_torch import (
+        simulator,
+        simulator_heterogeneous,
+    )
+    from distributed_learning_simulator_tpu_torch.data import registry
+    from distributed_learning_simulator_tpu_torch.execution import threaded
+    from distributed_learning_simulator_tpu_torch.sweep import engine
+
+    build = registry.get_dataset
+    built = {}
+    lock = threading.Lock()
+
+    def get_dataset(name, data_dir=None, seed=0, n_train=None, n_test=None,
+                    to_grayscale=False, **synthetic_kwargs):
+        key = (name, data_dir, seed, n_train, n_test, to_grayscale,
+               repr(sorted(synthetic_kwargs.items())))
+        with lock:
+            if key not in built:
+                ds = build(name, data_dir=data_dir, seed=seed,
+                           n_train=n_train, n_test=n_test,
+                           to_grayscale=to_grayscale, **synthetic_kwargs)
+                for f in ("x_train", "y_train", "x_test", "y_test"):
+                    getattr(ds, f).flags.writeable = False
+                built[key] = ds
+            return dataclasses.replace(built[key])
+
+    modules = (registry, simulator, simulator_heterogeneous, threaded,
+               engine)
+    for m in modules:
+        m.get_dataset = get_dataset
+    try:
+        yield built
+    finally:
+        for m in modules:
+            m.get_dataset = build
 
 
 def run_path(torch, gn, wg, name, config, post_round_probe=None,
@@ -2223,10 +2290,16 @@ def run_threaded(torch, gn, wg, name, config):
             "history": history}
 
 
+#: ``threaded_fed``'s clients, a thread each. The oracle's rounds are
+#: host-bound: every client adds seconds to a run that must end within
+#: its time limit.
+THREADED_FED_CLIENTS = 4
+
+
 def threaded_fed(torch, gn, wg, log_root):
     """Phase 2k: the threaded oracle on ResNet-18 at full width, f32,
-    8 clients (a thread each), 2 rounds, ``telemetry_level='basic'``,
-    ``client_stats='on'``. Fails unless both GroupNorm kernels and the
+    ``THREADED_FED_CLIENTS`` clients (a thread each), 2 rounds,
+    ``telemetry_level='basic'``, ``client_stats='on'``. Fails unless both GroupNorm kernels and the
     wgrad kernel launched during the run, every record validates at
     schema_version 3, and a second identical run gives bitwise-equal
     final params and the same history. Prints round seconds, the upload's
@@ -2234,7 +2307,8 @@ def threaded_fed(torch, gn, wg, log_root):
     and rendezvous-wait seconds, and peak memory."""
     import dataclasses
 
-    config = threaded_config("fed", 8, "resnet18", telemetry_level="basic",
+    config = threaded_config("fed", THREADED_FED_CLIENTS, "resnet18",
+                             telemetry_level="basic",
                              client_stats="on", log_root=log_root)
     runs = [run_threaded(torch, gn, wg, "threaded_fed", config)]
     if not all(runs[0]["launches"].values()):
@@ -2270,7 +2344,8 @@ def threaded_fed(torch, gn, wg, log_root):
         "wait_s_median": _median(q["wait_s"]),
         "queue": q, "bitwise_equal_runs": True,
     })
-    log(f"threaded_fed: 8 clients on threads, round seconds "
+    log(f"threaded_fed: {THREADED_FED_CLIENTS} clients on threads, round "
+        f"seconds "
         f"{res['round_seconds']} (again: {res['second_round_seconds']}), "
         f"launches {res['launches']}, upload {res['upload_bytes']} bytes "
         f"pickled in {res['pickle_s_median']:.4f} s and enqueued in "
@@ -2707,15 +2782,20 @@ def round_batch(torch, gn, wg, log_root):
 #: ``pipeline_ab``'s rounds: round 0 carries the first calls, so two
 #: steady rounds an arm.
 PIPELINE_ROUNDS = 3
+#: ``pipeline_ab``'s ResNet-18 clients: one chunk of 10 a round. The
+#: rounds are host-bound: every chunk-step adds seconds to each of the
+#: four arms, in a run that must end within its time limit.
+PIPELINE_FED_CLIENTS = 10
 
 
 def pipeline_ab_configs():
     """``pipeline_ab``'s two paths, ``basic`` telemetry on (the phase
-    clocks, no fence): the headline workload and ResNet-18 ``fed`` at
-    ``sweep_fleet``'s cut (20 clients, chunk 10, bf16)."""
+    clocks, no fence): the headline workload and ResNet-18 ``fed`` on
+    ``sweep_fleet``'s data (2000 samples, Dirichlet(0.1), shard cap 100)
+    at ``PIPELINE_FED_CLIENTS`` clients, chunk 10, bf16."""
     import dataclasses
 
-    fed = path_configs(SWEEP_CLIENTS, 2000, 1000, "WARNING")["fed"]
+    fed = path_configs(PIPELINE_FED_CLIENTS, 2000, 1000, "WARNING")["fed"]
     return {
         "headline_cnn_tpu": (dataclasses.replace(
             headline_config(HEADLINE_CLIENTS, None, None, 10000,
@@ -2981,13 +3061,26 @@ def stream_flagship(torch, gn, wg, work):
     records (a full cohort's one upload on its first record only). Prints
     round seconds, the median round after round 0 of each residency, the
     overlap ratio, H2D MiB and both peaks. Then :func:`trace_residency`
-    for ``fed`` (one profiled round a residency). Returns ``({name:
-    {label: run}}, {"fed": trace})``."""
+    for ``fed`` (one profiled round a residency). A configuration's runs
+    share one dataset and partition (set-up, not rounds). Returns
+    ``({name: {label: run}}, {"fed": trace})``."""
     import dataclasses
+
+    from distributed_learning_simulator_tpu_torch.data.registry import (
+        get_dataset,
+    )
+    from distributed_learning_simulator_tpu_torch.simulator import (
+        build_client_data,
+    )
 
     schema = _schema()
     out = {}
+    data = {}
     for name, config in stream_flagship_configs().items():
+        ds = get_dataset(config.dataset_name, data_dir=config.data_dir,
+                         seed=config.seed, n_train=config.n_train,
+                         n_test=config.n_test, **config.dataset_args)
+        data[name] = (ds, build_client_data(config, ds))
         # Resident, then streamed (A B: the second pair of A B B A went to
         # pay for the multihost_fed phase).
         order = ("resident", "streamed")
@@ -2997,7 +3090,8 @@ def stream_flagship(torch, gn, wg, work):
             runs[label] = run_path(
                 torch, gn, wg, f"stream_{name}_{label}",
                 dataclasses.replace(config, client_residency=residency),
-                keep_params=True)
+                keep_params=True, dataset=data[name][0],
+                client_data=data[name][1])
         res, st = runs["resident"], runs["streamed"]
         for label, run in runs.items():
             if _without_stream(res["history"]) != _without_stream(
@@ -3040,11 +3134,12 @@ def stream_flagship(torch, gn, wg, work):
     # four traces of both paths took most of this phase.
     config = stream_flagship_configs()["fed"]
     traces = {"fed": trace_residency(torch, gn, wg, config, os.path.join(
-        work, "residency_trace", "fed"))}
+        work, "residency_trace", "fed"), *data["fed"])}
     return out, traces
 
 
-def trace_residency(torch, gn, wg, config, trace_root):
+def trace_residency(torch, gn, wg, config, trace_root, dataset=None,
+                    client_data=None):
     """One profiled round (round 1 of 2, ``profile_dir`` with
     ``profile_from_round=1``) of ``config`` resident and then streamed,
     each through run_path's gates: the round's device busy milliseconds
@@ -3052,7 +3147,8 @@ def trace_residency(torch, gn, wg, config, trace_root):
     its wall seconds, so that a gap between the two residencies shows as
     device work or as host time. The profiler synchronizes at each
     training step (utils/tracing.profile_step), so these wall seconds are
-    the profiled round's, not the plain round's."""
+    the profiled round's, not the plain round's. ``dataset`` and
+    ``client_data`` are run_simulation's injection points."""
     import dataclasses
 
     from distributed_learning_simulator_tpu_torch.utils import tracing
@@ -3065,7 +3161,8 @@ def trace_residency(torch, gn, wg, config, trace_root):
             torch, gn, wg, f"trace_{config.distributed_algorithm}_"
             f"{residency}", dataclasses.replace(
                 config, client_residency=residency, round=2,
-                profile_dir=trace_dir, profile_from_round=1))
+                profile_dir=trace_dir, profile_from_round=1),
+            dataset=dataset, client_data=client_data)
         dev = tracing.parse_device_trace(trace_dir)
         out[residency] = {"round_seconds": run["round_seconds"],
                           "device_ms": dev["device_ms"],
@@ -3636,13 +3733,30 @@ def rank_worker(out_path: str, argv: list[str],
     cls = factory._ALGORITHMS[get_config(argv).distributed_algorithm]
     original = cls.post_round
     digests = []
+    # The launches of post_round (the Shapley algorithms' subset
+    # evaluations, which may call the eval function), by kernel and card.
+    post_round_launches = {}
+    in_post_round = False
 
     def probed(self, ctx):
+        nonlocal in_post_round
         flat = ctx.global_params.detach().float().cpu()
         digests.append(hashlib.sha256(flat.numpy().tobytes()).hexdigest())
         if ctx.round_idx == 0:
             torch.save(flat, out_path + ".round0.pt")
-        return original(self, ctx)
+        before = counts_by_device()
+        in_post_round = True
+        try:
+            out = original(self, ctx)
+        finally:
+            in_post_round = False
+        for name, by_device in counts_by_device().items():
+            mine = post_round_launches.setdefault(name, {})
+            for dev, n in by_device.items():
+                if n != before[name].get(dev, 0):
+                    mine[dev] = (mine.get(dev, 0) + n
+                                 - before[name].get(dev, 0))
+        return out
 
     eval_launches = dict.fromkeys(counts(), 0)
     make_eval = simulator.make_eval_fn
@@ -3653,8 +3767,9 @@ def rank_worker(out_path: str, argv: list[str],
         def counted(*a, **k):
             before = counts()
             out = evaluate(*a, **k)
-            for name, n in counts().items():
-                eval_launches[name] += n - before[name]
+            if not in_post_round:  # the Shapley evaluators' own
+                for name, n in counts().items():
+                    eval_launches[name] += n - before[name]
             return out
 
         return counted
@@ -3727,6 +3842,7 @@ def rank_worker(out_path: str, argv: list[str],
             "launches": launches,
             "launches_by_device": counts_by_device(),
             "eval_launches": eval_launches,
+            "post_round_launches_by_device": post_round_launches,
             "train_launches": {k: launches[k] - eval_launches[k]
                                for k in launches},
             "gathers": mesh_mod.gather_stats(),
@@ -3815,14 +3931,27 @@ def _row_digests(leaves) -> list[str]:
     return out
 
 
+#: Every process the launchers below started, so that a failure in one
+#: of several arms run at once (chip_multicard.py) can stop the others'.
+CHILDREN: list = []
+
+
+def kill_children() -> None:
+    for p in CHILDREN:
+        if p.poll() is None:
+            p.kill()
+
+
 def launch_ranks(work: str, runs: dict, timeout: float,
                  phase: str = "multihost_fed",
-                 worker_options: tuple = (), script: str | None = None
+                 worker_options: tuple = (), script: str | None = None,
+                 envs: dict | None = None, worker: str = "--rank-worker"
                  ) -> dict:
     """Start every ``runs[name]`` (CLI flags) as a :func:`rank_worker`
     process at once (``worker_options``, e.g. ``("--owner-order=2",)``,
     passed to each worker; ``script`` runs the workers, this one by
-    default); wait for all within ``timeout``,
+    default, as its ``worker`` mode; ``envs[name]`` joins that process's
+    environment); wait for all within ``timeout``,
     killing every one of them when the time runs out or one fails.
     Returns ``{name: its output}``."""
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -3834,9 +3963,11 @@ def launch_ranks(work: str, runs: dict, timeout: float,
         with open(log_path, "w") as log_f:
             procs[name] = (subprocess.Popen(
                 [sys.executable, script or os.path.abspath(__file__),
-                 "--rank-worker", out, *worker_options, "--", *flags],
-                cwd=repo, env=env, stdout=log_f, stderr=subprocess.STDOUT),
+                 worker, out, *worker_options, "--", *flags],
+                cwd=repo, env=dict(env, **(envs or {}).get(name, {})),
+                stdout=log_f, stderr=subprocess.STDOUT),
                 out, log_path)
+        CHILDREN.append(procs[name][0])
     deadline = time.monotonic() + timeout
     failed = None
     while failed is None and any(p.poll() is None
@@ -4047,12 +4178,19 @@ def rank_devices(config, n_ranks: int, torch) -> list[str]:
 
 def multihost_stream(torch, work: str, config=None, n_ranks: int = 2,
                      phase: str = "multihost_stream",
-                     script: str | None = None) -> dict:
+                     script: str | None = None,
+                     solo_cards: tuple | None = None,
+                     beside=None) -> dict:
     """Phase 2zb: ``multihost_stream`` (module docstring): ``n_ranks``
     ranks of the distributed shard store, on the one card here (a gloo
     group), each on its own card in chip_multicard.py (NCCL), against one
     streamed process without a mesh. ``config`` replaces the phase's (the
-    CPU tests' tiny MLP); ``script`` starts the ranks (launch_ranks)."""
+    CPU tests' tiny MLP); ``script`` starts the ranks (launch_ranks);
+    ``solo_cards`` (two card indices) runs the one-process run and the
+    witness at once, each alone on its card, instead of one after the
+    other. ``beside`` (a function of no arguments; not with
+    ``solo_cards``) runs on a thread while the witness runs, whose round
+    seconds nothing reads; its value is returned as ``beside``."""
     import dataclasses
     import gc
 
@@ -4060,6 +4198,9 @@ def multihost_stream(torch, work: str, config=None, n_ranks: int = 2,
 
     from distributed_learning_simulator_tpu_torch.parallel import multihost
 
+    if beside is not None and solo_cards is not None:
+        raise ValueError("beside runs with the witness alone, not beside "
+                         "solo_cards' one-process run")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     gc.collect()
@@ -4072,8 +4213,9 @@ def multihost_stream(torch, work: str, config=None, n_ranks: int = 2,
     ckpt, solo_ckpt = os.path.join(work, "shards"), os.path.join(work, "solo")
     address = f"127.0.0.1:{free_port()}"
     # The ranks, then the one-process run, then the witness, one after
-    # another: no run's round seconds share the card or the host with
-    # another's. The witness is the one-process streamed run handed the
+    # another: neither the ranks' round seconds nor the one-process run's
+    # share the card or the host with another run (``beside`` runs with
+    # the witness, whose seconds nothing reads). The witness is the one-process streamed run handed the
     # ranks' owner-grouped rows (draw_pos keeps each client's keys): it
     # moves only the row order against the one-process run, so its spread
     # from it is what the summation order alone gives; the ranks must
@@ -4093,14 +4235,32 @@ def multihost_stream(torch, work: str, config=None, n_ranks: int = 2,
             "--num_processes", str(n_ranks), "--process_id", str(r),
             "--mesh_devices", str(n_ranks)]
         for r in range(n_ranks)}, MULTIHOST_TIMEOUT_S, phase, script=script)
-    solo = launch_ranks(work, {"solo": cli_flags(dataclasses.replace(
-        single, span_dir=os.path.join(work, "spans_solo"),
-        checkpoint_dir=solo_ckpt, checkpoint_every=1))},
-        MULTIHOST_TIMEOUT_S, phase, script=script)["solo"]
-    witness = launch_ranks(work, {"witness": cli_flags(dataclasses.replace(
-        single, span_trace="off"))}, MULTIHOST_TIMEOUT_S, phase,
-        worker_options=(f"--owner-order={n_ranks}",),
-        script=script)["witness"]
+
+    def one_process(name, run_config, options=(), card=None):
+        return launch_ranks(
+            work, {name: cli_flags(run_config)}, MULTIHOST_TIMEOUT_S, phase,
+            worker_options=options, script=script,
+            envs=None if card is None else {
+                name: {"CUDA_VISIBLE_DEVICES": str(card)}})[name]
+
+    runs = (("solo", dataclasses.replace(
+                single, span_dir=os.path.join(work, "spans_solo"),
+                checkpoint_dir=solo_ckpt, checkpoint_every=1)),
+            ("witness", dataclasses.replace(single, span_trace="off"),
+             (f"--owner-order={n_ranks}",)))
+    beside_out = None
+    if solo_cards is None:
+        solo = one_process(*runs[0])
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            side = None if beside is None else pool.submit(beside)
+            witness = one_process(*runs[1])
+            if side is not None:
+                beside_out = side.result()
+    else:
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            solo, witness = [f.result() for f in [
+                pool.submit(one_process, *run, card=card)
+                for run, card in zip(runs, solo_cards)]]
     os.remove(witness["round0_path"])
     p_rank = torch.load(ranks["rank0"]["round0_path"])
     p_solo = torch.load(solo["round0_path"])
@@ -4282,12 +4442,205 @@ def multihost_stream(torch, work: str, config=None, n_ranks: int = 2,
             "round0_max_abs_diff": round0_diff,
             "round0_state_bitwise": state_equal,
             "round1_received_state": received,
-            "predicted_train_launches": predicted, "shard_mib": shard_mib}
+            "predicted_train_launches": predicted, "shard_mib": shard_mib,
+            "beside": beside_out}
+
+
+#: A signalled rank's whole run, start-up included (the process group's
+#: own timeout is 300 s: a rank that waited in a collective would pass
+#: this limit first).
+PREEMPT_EXIT_S = 150
+#: The SIGTERM hook of robustness/chaos.py, fired after round 0's finalize.
+SIGTERM_AFTER_ROUND_0 = {"DLS_CRASH_AT_ROUND": "0",
+                         "DLS_CRASH_KIND": "sigterm"}
+#: ``multihost_preempt``'s cases: (configuration, ranks signalled). A
+#: collective on the signal path hangs a lone signalled rank; both
+#: signalled, the streamed store must still write nothing off the cadence.
+PREEMPT_CASES = (("streamed", "all"), ("streamed", "rank0"),
+                 ("resident", "rank0"))
+#: The JAX package's preemption texts (its simulator.py): the distributed
+#: shard store's, process 0's forced write, and another process's.
+PREEMPT_SHARDED = (
+    "preempted at round {} (SIGTERM): sharded checkpoints persist on the "
+    "checkpoint_every cadence only (last committed manifest is the resume "
+    "point); exiting cleanly")
+PREEMPT_WRITTEN = (
+    "preempted at round {} (SIGTERM): final checkpoint {} written; exiting "
+    "cleanly — resume with config.resume=True")
+PREEMPT_NO_DIR = (
+    "preempted at round {} (SIGTERM): no checkpoint_dir configured, "
+    "exiting cleanly without persisting")
+
+
+def preempt_configs(work: str, device: str = "cuda") -> dict:
+    """``multihost_preempt``'s two configurations, the tiny MLP of the CPU
+    tests (the mechanism is on the host): streamed over the distributed
+    shard store (a hashed half cohort, momentum state, a checkpoint every
+    2 of 2 rounds, so round 0 is off the cadence) and resident ``fed``
+    (3 rounds, pipelined, a cadence of 5: every write is off it)."""
+    from distributed_learning_simulator_tpu_torch.config import (
+        ExperimentConfig,
+    )
+
+    base = ExperimentConfig(
+        dataset_name="synthetic", model_name="mlp",
+        distributed_algorithm="fed", worker_number=8, round=2, epoch=1,
+        learning_rate=0.1, n_train=256, n_test=128, log_level="INFO",
+        device=device, log_root=os.path.join(work, "log"))
+    return {
+        "streamed": dataclasses.replace(
+            base, momentum=0.9, reset_client_optimizer=False,
+            client_residency="streamed", participation_fraction=0.5,
+            participation_sampler="hashed", seed=6, checkpoint_every=2),
+        "resident": dataclasses.replace(base, round=3, checkpoint_every=5),
+    }
+
+
+def _preempt_lines(path: str) -> list[str]:
+    with open(path) as f:
+        return [ln[ln.index("preempted at round"):].rstrip()
+                for ln in f if "preempted at round" in ln]
+
+
+def multihost_preempt(torch, work: str, configs: dict | None = None,
+                      n_ranks: int = 2, phase: str = "multihost_preempt",
+                      backend: str = "gloo") -> dict:
+    """Phase 2zc: SIGTERM under multi-process runs (module docstring).
+    Each case of ``PREEMPT_CASES`` whose configuration ``configs``
+    holds (default :func:`preempt_configs`) runs as ``n_ranks`` ranks
+    through the CLI, all at once: the SIGTERM hook on every rank
+    (``all``) or on rank 0 alone (``rank0``). A signalled rank must exit 0
+    within ``PREEMPT_EXIT_S`` and log the JAX package's text, once: under
+    the distributed shard store the sharded one, with nothing written off
+    the cadence; resident, process 0's forced ``round_N.ckpt`` (the only
+    file) and the others' "no checkpoint_dir" text. Once a run's signalled
+    ranks have exited, its other ranks (waiting in a collective the
+    signalled rank left) are killed. Every rank must log ``backend``
+    as its device group's."""
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    if configs is None:
+        configs = preempt_configs(work)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    runs = {}
+    t0 = time.monotonic()
+    for name, who in PREEMPT_CASES:
+        if name in configs:
+            config = configs[name]
+            run = f"{name}_{who}"
+            ckpt = os.path.join(work, run, "ckpt")
+            os.makedirs(ckpt)
+            flags = cli_flags(dataclasses.replace(
+                config, checkpoint_dir=ckpt,
+                log_root=os.path.join(work, run, "log"),
+                span_dir=(os.path.join(work, run, "spans")
+                          if config.span_trace == "on" else None)))
+            address = f"127.0.0.1:{free_port()}"
+            signalled = list(range(n_ranks)) if who == "all" else [0]
+            procs = []
+            for r in range(n_ranks):
+                env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1",
+                           **(SIGTERM_AFTER_ROUND_0 if r in signalled
+                              else {}))
+                log_path = os.path.join(work, run, f"rank{r}.log")
+                with open(log_path, "w") as log_f:
+                    procs.append((subprocess.Popen(
+                        [sys.executable, "-m",
+                         "distributed_learning_simulator_tpu_torch.simulator",
+                         *flags, "--multihost", "true",
+                         "--coordinator_address", address,
+                         "--num_processes", str(n_ranks), "--process_id",
+                         str(r), "--mesh_devices", str(n_ranks)],
+                        cwd=repo, env=env, stdout=log_f,
+                        stderr=subprocess.STDOUT), log_path))
+                CHILDREN.append(procs[-1][0])
+            runs[run] = {"config": name, "ckpt": ckpt, "procs": procs,
+                         "signalled": signalled, "exit_s": {}}
+    # Wait for the signalled ranks; kill a run's others once they are out.
+    deadline = t0 + PREEMPT_EXIT_S
+    pending = set(runs)
+    while pending:
+        for run in sorted(pending):
+            info = runs[run]
+            for r in info["signalled"]:
+                p = info["procs"][r][0]
+                if r not in info["exit_s"] and p.poll() is not None:
+                    info["exit_s"][r] = time.monotonic() - t0
+            if len(info["exit_s"]) == len(info["signalled"]):
+                for r, (p, _) in enumerate(info["procs"]):
+                    if r not in info["signalled"] and p.poll() is None:
+                        p.kill()
+                    p.wait()
+                pending.discard(run)
+        if pending and time.monotonic() > deadline:
+            for info in runs.values():
+                for p, _ in info["procs"]:
+                    if p.poll() is None:
+                        p.kill()
+                    p.wait()
+            tails = "\n".join(
+                f"--- {run} rank{r}:\n" + open(path).read()[-2000:]
+                for run in sorted(pending)
+                for r, (_, path) in enumerate(runs[run]["procs"]))
+            fail(f"{phase}: signalled ranks of {sorted(pending)} still ran "
+                 f"after {PREEMPT_EXIT_S}s; every process stopped\n{tails}")
+        time.sleep(0.1)
+    out = {}
+    for run, info in runs.items():
+        config = configs[info["config"]]
+        streamed = config.client_residency == "streamed"
+        ranks = []
+        for r, (p, path) in enumerate(info["procs"]):
+            ranks.append({"rc": p.returncode, "lines": _preempt_lines(path),
+                          "exit_s": info["exit_s"].get(r)})
+        files = sorted(os.listdir(info["ckpt"]))
+        for r in info["signalled"]:
+            rank = ranks[r]
+            tail = open(info["procs"][r][1]).read()[-3000:]
+            if rank["rc"] != 0:
+                fail(f"{phase} {run}: signalled rank {r} exited "
+                     f"{rank['rc']}\n{tail}")
+            if len(rank["lines"]) != 1:
+                fail(f"{phase} {run}: rank {r} logged {rank['lines']}, not "
+                     f"one preemption line\n{tail}")
+            if f"backend {backend}" not in open(info["procs"][r][1]).read():
+                fail(f"{phase} {run}: rank {r}'s device group is not "
+                     f"{backend}\n{tail}")
+        done = int(ranks[0]["lines"][0].split()[3])
+        for r in info["signalled"]:
+            if streamed:
+                want = PREEMPT_SHARDED.format(done)
+            elif r == 0:
+                want = PREEMPT_WRITTEN.format(done, os.path.join(
+                    info["ckpt"], f"round_{done}.ckpt"))
+            else:
+                want = PREEMPT_NO_DIR.format(done)
+            if ranks[r]["lines"] != [want]:
+                fail(f"{phase} {run}: rank {r} logged {ranks[r]['lines']}, "
+                     f"the JAX package's text is {want!r}")
+        # Off the cadence: nothing sharded; resident, process 0's file.
+        want_files = [] if streamed else [f"round_{done}.ckpt"]
+        if (done + 1) % config.checkpoint_every == 0 or files != want_files:
+            fail(f"{phase} {run}: preempted at round {done}, checkpoint "
+                 f"directory {files} (expected {want_files}, off the "
+                 f"cadence of {config.checkpoint_every})")
+        out[run] = {"preempted_at": done, "files": files, "ranks": ranks,
+                    "peers": [ranks[r]["rc"] for r in range(n_ranks)
+                              if r not in info["signalled"]]}
+    log(f"{phase}: " + "; ".join(
+        f"{run} preempted at round {o['preempted_at']}, signalled ranks "
+        f"out after "
+        f"{[round(r['exit_s'], 1) for r in o['ranks'] if r['exit_s']]} s "
+        f"(limit {PREEMPT_EXIT_S}), files {o['files']}, peers "
+        f"{o['peers']}" for run, o in out.items())
+        + f"; texts {[o['ranks'][0]['lines'][0] for o in out.values()]}")
+    return out
 
 
 def profile_rounds(torch, name, config):
-    """Phase 3, where a round's time goes (informational, not a check): one
-    algorithm at 10 clients, 2 rounds, under torch.profiler (whose trace
+    """Phase 3, where a round's time goes (informational, not a check): a
+    configuration's whole run (main(): the ResNet paths at 5 clients, the
+    headline at 10, one round each) under torch.profiler (whose trace
     processing, not the rounds, takes most of this phase's time). Reports the
     device's busy time (sum of kernel times; one stream, so kernels do not
     overlap) against the round loop's wall time, the kernels that take
@@ -4691,9 +5044,11 @@ def main() -> None:
                     for n in ("gn", "wgrad")))
 
     phase_seconds = {"build": time.perf_counter() - t0}
-    # Every phase: an op with no batching rule raises (module docstring).
-    strict_vmap = contextlib.ExitStack()
-    strict_vmap.enter_context(no_vmap_fallback())
+    # Every phase: an op with no batching rule raises (module docstring),
+    # and the runs share their datasets' builds (shared_datasets).
+    phases_scope = contextlib.ExitStack()
+    phases_scope.enter_context(no_vmap_fallback())
+    phases_scope.enter_context(shared_datasets())
 
     def phase(name, fn, *fn_args):
         """``fn(*fn_args)``, its wall seconds logged and kept."""
@@ -4771,18 +5126,35 @@ def main() -> None:
     for name, run in dict(multihost["ranks"],
                           solo=multihost["solo"]).items():
         paths[f"multihost_fed_{name}"] = run
-    mh_stream = phase("multihost_stream", multihost_stream, torch,
-                      os.path.join(os.path.abspath(args.out),
-                                   "multihost_stream"))
+
+    def preempt():
+        """``multihost_preempt`` beside ``multihost_stream``'s witness: its
+        one timed quantity is a signalled rank's exit within its limit."""
+        start = time.perf_counter()
+        out = multihost_preempt(torch, os.path.join(
+            os.path.abspath(args.out), "multihost_preempt"))
+        phase_seconds["multihost_preempt"] = time.perf_counter() - start
+        log(f"phase multihost_preempt: "
+            f"{phase_seconds['multihost_preempt']:.1f}s (beside "
+            "multihost_stream's witness)")
+        return out
+
+    mh_stream = phase("multihost_stream", lambda: multihost_stream(
+        torch, os.path.join(os.path.abspath(args.out), "multihost_stream"),
+        beside=preempt))
+    preempted = mh_stream.pop("beside")
     for name, run in dict(mh_stream["ranks"], solo=mh_stream["solo"],
                           witness=mh_stream["witness"]).items():
         paths[f"multihost_stream_{name}"] = run
     # The ResNet paths at 5 clients (10 before the headline path: the
     # profiler's trace processing took most of the run), the headline at
-    # 10 (50 samples each, as at 1000) with a 1000-sample eval.
+    # 10 (50 samples each, as at 1000) with a 1000-sample eval; one round
+    # each, which pays for the multihost_preempt phase.
     profile_configs = dict(path_configs(5, 500, 1000, "WARNING"))
     profile_configs["headline_cnn_tpu"] = headline_config(
         10, 500, 1000, 1000, log_level="WARNING")
+    profile_configs = {name: dataclasses.replace(config, round=1)
+                       for name, config in profile_configs.items()}
     profiles = phase("profiles", lambda: [
         profile_rounds(torch, name, config)
         for name, config in profile_configs.items()])
@@ -4837,7 +5209,7 @@ def main() -> None:
         "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
         "bound_by": w["bound_by"], "library_ms": w["library_ms"],
     })
-    strict_vmap.close()
+    phases_scope.close()
     redesigned = redesign_lines(rows, wgrad_rows)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
@@ -4863,6 +5235,7 @@ def main() -> None:
                    "multihost_stream": {
                        k: v for k, v in mh_stream.items()
                        if k not in ("ranks", "solo", "witness")},
+                   "multihost_preempt": preempted,
                    "phase_seconds": phase_seconds},
                   f, indent=1)
     if "jax" in sys.modules:

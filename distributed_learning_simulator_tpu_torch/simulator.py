@@ -633,6 +633,25 @@ def _algo_checkpoint_state(algorithm, metrics, server_state,
     return algo_state
 
 
+def _local_client_state(client_state, device):
+    """The whole per-client state for a checkpoint that process 0 writes
+    alone (a preempted run's): blocks of a one-process mesh are copied
+    together; blocks that other processes hold cannot be fetched without
+    a collective, and the JAX package's ``device_get`` of such an array
+    raises too."""
+    if not isinstance(client_state, Blocks):
+        return client_state
+    if client_state.mesh.multiprocess:
+        raise RuntimeError(
+            "cannot write the preempted run's final checkpoint: the "
+            "per-client state spans processes of the client-axis mesh "
+            f"(ranks {sorted(set(client_state.mesh.ranks))}), and process 0 "
+            "cannot fetch the other processes' blocks without a collective "
+            "that a peer which never got the SIGTERM would not join; "
+            "checkpoints on the checkpoint_every cadence hold it")
+    return client_state.full(device)
+
+
 def _structure(tree):
     """A tree's structure without its values (None, a leaf, or the dict of
     its keys' structures), for the resume checks."""
@@ -1115,8 +1134,10 @@ def run_simulation(
             async_state = _resume_async(async_ctl, async_state, algo_state)
             resumed_valuation = algo_state.get("valuation")
             resumed_population = _resume_population(pop, algo_state)
+    # Every process, not only process 0 as in the JAX package: a resident
+    # multi-process run's checkpoint gathers the client-state blocks, a
+    # collective that every process joins on the cadence.
     checkpointing = bool(config.checkpoint_dir and config.checkpoint_every)
-    ckpt_name = "round_{}.manifest.json" if mh else "round_{}.ckpt"
 
     # --- placement ------------------------------------------------------------
     store = streamer = None
@@ -1380,18 +1401,10 @@ def run_simulation(
                                    config.checkpoint_keep_last)
         return manifest_checkpoint_path(config.checkpoint_dir, round_idx)
 
-    def save(round_idx: int, metrics, params, c_state, s_state, a_state,
-             rng_key) -> str:
-        if mh:
-            return save_sharded(round_idx, metrics, params, s_state, a_state,
-                                rng_key)
-        path = os.path.join(config.checkpoint_dir, f"round_{round_idx}.ckpt")
-        if isinstance(c_state, Blocks):
-            # The whole state for the one file (a gather every process
-            # makes).
-            c_state = c_state.full(device)
-        if not is_primary:
-            return path
+    def write_checkpoint(path: str, round_idx: int, metrics, params,
+                         c_state, s_state, a_state, rng_key) -> None:
+        """The one-file checkpoint, written by process 0 alone: no
+        collective (the caller holds the whole client state)."""
 
         def write():
             save_checkpoint(
@@ -1418,6 +1431,22 @@ def run_simulation(
                 write()
                 sp["bytes"] = os.path.getsize(path)
         gc_checkpoints(config.checkpoint_dir, config.checkpoint_keep_last)
+
+    def save(round_idx: int, metrics, params, c_state, s_state, a_state,
+             rng_key) -> str:
+        """A checkpoint on the ``checkpoint_every`` cadence, which every
+        process reaches in the same round."""
+        if mh:
+            return save_sharded(round_idx, metrics, params, s_state, a_state,
+                                rng_key)
+        path = os.path.join(config.checkpoint_dir, f"round_{round_idx}.ckpt")
+        if isinstance(c_state, Blocks):
+            # The whole state for the one file (a gather every process
+            # makes).
+            c_state = c_state.full(device)
+        if is_primary:
+            write_checkpoint(path, round_idx, metrics, params, c_state,
+                             s_state, a_state, rng_key)
         return path
 
     # SIGTERM (a preemption notice): the handler only sets a flag; the loop
@@ -2136,17 +2165,34 @@ def run_simulation(
 
     preempted_at = None
     if preempt["flag"]:
-        # Persist the finished round even off the checkpoint_every cadence,
-        # so that the resumed run loses nothing.
+        # The JAX package's graceful preemption: the round in flight
+        # finished and was recorded above. Nothing below joins a
+        # collective: SIGTERM reaches each process on its own, and a peer
+        # that never got it would not join.
         preempted_at = completed_round
         if span_recorder is not None:
             span_recorder.flush_inflight("sigterm")
-        if config.checkpoint_dir and completed_round >= start_round:
+        if mh and config.checkpoint_dir:
+            # The sharded commit needs every process (the gathers before
+            # process 0's manifest): the checkpoint_every cadence, which
+            # every process reaches, is the durability contract.
+            logger.warning(
+                "preempted at round %d (SIGTERM): sharded checkpoints "
+                "persist on the checkpoint_every cadence only (last "
+                "committed manifest is the resume point); exiting "
+                "cleanly", completed_round,
+            )
+        elif (config.checkpoint_dir and is_primary
+              and completed_round >= start_round):
+            # Process 0 persists the finished round even off the cadence,
+            # so that the resumed run loses nothing.
             forced_path = os.path.join(config.checkpoint_dir,
-                                       ckpt_name.format(completed_round))
+                                       f"round_{completed_round}.ckpt")
             if not os.path.exists(forced_path):
-                save(completed_round, prev_metrics, global_flat,
-                     client_state, server_state, async_state, key)
+                write_checkpoint(
+                    forced_path, completed_round, prev_metrics, global_flat,
+                    _local_client_state(client_state, device),
+                    server_state, async_state, key)
             logger.warning(
                 "preempted at round %d (SIGTERM): final checkpoint %s "
                 "written; exiting cleanly — resume with config.resume=True",
@@ -2177,6 +2223,11 @@ def run_simulation(
         # Sampled streamed: the population's state in the host store.
         "client_state": (
             store.state if stream_sampled
+            # None on a preempted rank whose state spans processes: the
+            # other blocks live on its peers, which may not join a gather.
+            else None if (preempted_at is not None
+                          and isinstance(client_state, Blocks)
+                          and client_state.mesh.multiprocess)
             else client_state.full(device) if isinstance(client_state,
                                                          Blocks)
             else client_state),

@@ -542,6 +542,11 @@ def _run_point_lean(prog: _Program, cfg) -> dict:
     }
 
 
+def _on(value, device):
+    """``value`` on ``device`` if it is a tensor."""
+    return value.to(device) if isinstance(value, torch.Tensor) else value
+
+
 def _run_fleet(spec: SweepSpec, points, dataset, client_data,
                logger) -> list[dict]:
     """The seed/lr fleet: E experiments trained together, every chunk
@@ -640,9 +645,12 @@ def _run_fleet(spec: SweepSpec, points, dataset, client_data,
                            for k in metric_parts[0]}
         with _oom_hint(cfg, prog.n_params, prog.n_clients, prog.device,
                        site="deferred metric fetch"):
+            # Every tensor on the program's device: under a mesh each
+            # group's aux stays on its own, and one fetch copies one
+            # device's values.
             fetched = fetch_to_host({
                 "metrics": metrics_dev,
-                "aux": {str(e): {k: aux[k] for k in
+                "aux": {str(e): {k: _on(aux[k], prog.device) for k in
                                  ("mean_client_loss",) + _TEL_KEYS
                                  if k in aux}
                         for e, aux in enumerate(auxes)},

@@ -209,3 +209,123 @@ def test_device_group_from_the_published_layout(monkeypatch, layout,
     assert [kw["backend"] for kw in made] == ["nccl"] * groups
     assert world.calls == [("all_gather_object", world.host)]
     assert (multihost.device_group() == "nccl-group") == (want == "nccl")
+
+
+# --- chip_multicard.py's arms, set up on the CPU ---------------------------
+
+def _scripts():
+    import chip_multicard
+    import chip_smoke
+
+    return chip_smoke, chip_multicard
+
+
+def test_layout_flags_for_fed_as_before(tmp_path):
+    """``layout_config`` with the algorithm argument gives (b) the flags it
+    had before it took one."""
+    import dataclasses
+    import os
+
+    smoke, multicard = _scripts()
+    work = str(tmp_path)
+    before = dataclasses.replace(
+        smoke.path_configs(40, 4000, 1000, "INFO")["fed"],
+        client_chunk_size=10, round=3, bucket_client_work=False,
+        log_root=os.path.join(work, "log"))
+    want = smoke.cli_flags(before)
+    assert smoke.cli_flags(multicard.layout_config(smoke, work)) == want
+    assert smoke.cli_flags(multicard.layout_config(smoke, work, "fed")) == (
+        want)
+
+
+def _arm_flags(work: str) -> dict:
+    """Every process's CLI flags in arms (e)-(h)."""
+    import dataclasses
+
+    smoke, multicard = _scripts()
+    n = multicard.N_CARDS
+    out = {}
+
+    def rank(flags):
+        return flags + ["--multihost", "true", "--coordinator_address",
+                        "127.0.0.1:1", "--num_processes", str(n),
+                        "--process_id", "1", "--mesh_devices", str(n)]
+
+    for algo in multicard.MESH_ALGORITHMS:
+        flags = smoke.cli_flags(multicard.layout_config(smoke, work, algo))
+        out[f"e {algo} rank"] = rank(flags)
+        out[f"e {algo} mesh"] = flags + ["--mesh_devices", str(n)]
+        out[f"e {algo} one card"] = flags
+    stream = smoke.multihost_stream_config(work)
+    out["f stream mesh"] = smoke.cli_flags(dataclasses.replace(
+        stream, client_chunk_size=stream.cohort_size() // n,
+        span_trace="off", mesh_devices=n))
+    sweep = smoke.cli_flags(multicard.sweep_config(smoke))
+    out["g sweep mesh"] = sweep + ["--mesh_devices", str(n)]
+    out["g sweep one card"] = sweep
+    out["g sweep seed alone"] = sweep + ["--sweep_seeds", "3"]
+    out["h preempt rank"] = rank(smoke.cli_flags(dataclasses.replace(
+        stream, checkpoint_every=2, checkpoint_dir=work)))
+    return out
+
+
+_ARMS = ["e sign_SGD rank", "e sign_SGD mesh", "e sign_SGD one card",
+         "e fed_quant rank", "e fed_quant mesh", "e fed_quant one card",
+         "e multiround_shapley_value rank", "e multiround_shapley_value mesh",
+         "e multiround_shapley_value one card", "f stream mesh",
+         "g sweep mesh", "g sweep one card", "g sweep seed alone",
+         "h preempt rank"]
+
+
+@pytest.mark.parametrize("arm", _ARMS)
+def test_arm_flags_validate_as_in_jax(arm, tmp_path):
+    """Each process's flags parse and validate in the port's config and
+    in the JAX package's, to the same fields."""
+    import dataclasses
+
+    from distributed_learning_simulator_tpu.config import (
+        get_config as jax_get_config,
+    )
+    from distributed_learning_simulator_tpu_torch.config import get_config
+
+    flags = _arm_flags(str(tmp_path))
+    assert sorted(flags) == sorted(_ARMS)
+    argv = flags[arm]
+    port = get_config(argv)
+    # The port's own field, at its default (the card): not among the flags.
+    assert "--device" not in argv and port.device == "cuda"
+    ref = jax_get_config(argv)
+    for f in dataclasses.fields(ref):
+        if f.name != "cost_model_topology":
+            assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    if arm.startswith("e multiround"):
+        assert port.worker_number == 8 and port.client_chunk_size == 2
+    if arm.startswith("g"):
+        assert port.sweep_seeds == ("3" if arm.endswith("alone")
+                                    else "0,1,2,3")
+    if arm.startswith("h"):
+        assert port.checkpoint_every == 2 and port.round == 2
+        assert port.client_residency == "streamed"
+
+
+def test_multihost_preempt_phase_on_the_cpu(tmp_path):
+    """chip_smoke.py's ``multihost_preempt`` phase, whole, on two CPU ranks
+    of the tiny MLP."""
+    smoke, _ = _scripts()
+    work = str(tmp_path / "work")
+    out = smoke.multihost_preempt(torch, work,
+                                  smoke.preempt_configs(work, device="cpu"))
+    assert sorted(out) == ["resident_rank0", "streamed_all",
+                           "streamed_rank0"]
+    for run, o in out.items():
+        streamed = run.startswith("streamed")
+        # Streamed: not pipelined (state writeback), round 0; resident:
+        # pipelined, so round 1 was in flight when round 0's finalize
+        # raised the signal.
+        assert o["preempted_at"] == (0 if streamed else 1)
+        assert o["files"] == ([] if streamed else ["round_1.ckpt"])
+        signalled = o["ranks"] if run.endswith("_all") else o["ranks"][:1]
+        assert all(r["rc"] == 0 and r["exit_s"] < smoke.PREEMPT_EXIT_S
+                   for r in signalled)
+        assert len(o["peers"]) == (0 if run.endswith("_all") else 1)
+        assert all(rc != 0 for rc in o["peers"])

@@ -319,21 +319,27 @@ def test_straggler_named_in_every_spill_wait(tmp_path):
     assert any(s is not None and s > 100.0 for s in skews), skews
 
 
+def _chip_smoke_stream_config(chip_smoke, monkeypatch, work):
+    """chip_smoke.py's ``multihost_stream`` at the tiny MLP on the CPU (no
+    kernel: 0 launches predicted and counted)."""
+    monkeypatch.setattr(chip_smoke, "GN_PER_FORWARD", 0)
+    monkeypatch.setattr(chip_smoke, "WGRAD_PER_STEP", 0)
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    # STATEFUL's seed spills into round 1 a client trained in round 0.
+    return ExperimentConfig(**dict(
+        TINY, **STATEFUL, client_residency="streamed", batch_size=16,
+        max_shard_size=32, client_chunk_size=2, round=2,
+        bucket_client_work=False, span_trace="on",
+        log_root=os.path.join(work, "log")), device="cpu")
+
+
 def test_chip_smoke_multihost_stream_on_the_cpu(tmp_path, monkeypatch):
     """chip_smoke.py's ``multihost_stream`` phase, whole, on two CPU ranks
     of the tiny MLP (no kernel: 0 launches predicted and counted)."""
     import chip_smoke
 
-    monkeypatch.setattr(chip_smoke, "GN_PER_FORWARD", 0)
-    monkeypatch.setattr(chip_smoke, "WGRAD_PER_STEP", 0)
-    monkeypatch.setenv("OMP_NUM_THREADS", "2")
     work = str(tmp_path / "work")
-    # STATEFUL's seed spills into round 1 a client trained in round 0.
-    config = ExperimentConfig(**dict(
-        TINY, **STATEFUL, client_residency="streamed", batch_size=16,
-        max_shard_size=32, client_chunk_size=2, round=2,
-        bucket_client_work=False, span_trace="on",
-        log_root=os.path.join(work, "log")), device="cpu")
+    config = _chip_smoke_stream_config(chip_smoke, monkeypatch, work)
     import torch
 
     out = chip_smoke.multihost_stream(torch, work, config)
@@ -352,3 +358,47 @@ def test_chip_smoke_multihost_stream_on_the_cpu(tmp_path, monkeypatch):
     assert [e["spill_rows"] for e in out["exchange"]] == [
         m["spill_rows"] for m in r1["multihost"]]
     assert all(e["dcn_wait_s"][0] >= 0 for e in out["exchange"])
+
+
+def test_chip_smoke_multihost_preempt_beside_the_witness_on_the_cpu(
+        tmp_path, monkeypatch):
+    """chip_smoke.py's ``main`` runs ``multihost_preempt`` beside
+    ``multihost_stream``'s witness: both phases, whole, on CPU ranks of the
+    tiny MLP, the preemption phase on a thread of its own and its value
+    returned as ``beside``; ``beside`` with ``solo_cards`` is refused
+    before any process starts."""
+    import threading
+
+    import torch
+
+    import chip_smoke
+
+    work = str(tmp_path / "work")
+    config = _chip_smoke_stream_config(chip_smoke, monkeypatch, work)
+    preempt_work = str(tmp_path / "preempt")
+    threads = []
+
+    def preempt():
+        threads.append(threading.current_thread())
+        return chip_smoke.multihost_preempt(
+            torch, preempt_work,
+            chip_smoke.preempt_configs(preempt_work, device="cpu"))
+
+    with pytest.raises(ValueError, match="solo_cards"):
+        chip_smoke.multihost_stream(torch, work, config, solo_cards=(0, 1),
+                                    beside=preempt)
+    assert not threads and not os.path.exists(work)
+    out = chip_smoke.multihost_stream(torch, work, config, beside=preempt)
+    assert threads and threads[0] is not threading.main_thread()
+    assert out["witness_bitwise"] and out["round0_state_bitwise"]
+    assert out["round1_received_state"]["mismatched"] == []
+    preempted = out["beside"]
+    assert sorted(preempted) == ["resident_rank0", "streamed_all",
+                                 "streamed_rank0"]
+    for run, o in preempted.items():
+        streamed = run.startswith("streamed")
+        assert o["preempted_at"] == (0 if streamed else 1)
+        assert o["files"] == ([] if streamed else ["round_1.ckpt"])
+        signalled = o["ranks"] if run.endswith("_all") else o["ranks"][:1]
+        assert all(r["rc"] == 0 and r["exit_s"] < chip_smoke.PREEMPT_EXIT_S
+                   for r in signalled)
