@@ -23,13 +23,17 @@ together), then runs these phases and exits non-zero if any of them fails:
      ragged K slab and the zero-fill path): |kernel - plain| <= 1e-4 *
      max|plain| in f32, and within one bf16 ulp (of the element's term
      magnitude, see ``wgrad_ulps``) after the cast;
-   * the SASS of the bf16 wgrad kernel (cuobjdump) must hold tensor-core
-     instructions (HMMA or HGMMA);
+   * the SASS of the bf16 wgrad kernel (cuobjdump) must hold wgmma
+     (HGMMA) in every layout it is built for;
    * the batched shapes the main path gives the kernels at the flagship's
      chunk of 40 clients (``check_batched``): the wgrad kernel at
      (40, 25, 32, 32, 64) bf16 must be bitwise equal to 40 one-client calls
-     given the batched call's grid plan, and within the tolerance above of
-     its plain version; the normalize kernel at 40 x 25 samples of each
+     and within the tolerance above of its plain version; at every N of
+     ``WGRAD_CLIENT_COUNTS`` (1 to 80), bf16 in each of its layouts and
+     f32, each client's dW must be bitwise its one-client call's (timed by
+     N and layout beside cuDNN's grouped weight gradient, and the f32 kernel
+     at the sweep fleet's chunk of 20 beside cuDNN's f32 one with TF32
+     off); the normalize kernel at 40 x 25 samples of each
      stage shape with a per-model ``[40, C]`` bf16 affine must be bitwise
      equal to 40 calls with ``[C]`` affines and to its plain version; the
      stats kernel at those 1000 samples within rtol 1e-5 of its plain
@@ -205,9 +209,11 @@ together), then runs these phases and exits non-zero if any of them fails:
    and one eval forward per round; each point against its solo run on the
    shared data: (a) ``cohort_hash`` exact and test losses at rtol 1e-4,
    two solo runs of a point bitwise equal, bitwise equality to the fleet
-   printed, (b) the ``vmapped`` strategy with one
-   program, the lr-0.02 points at rtol 2e-3, the lr-0.01 points
-   different; round seconds per experiment beside the solo runs' and the
+   printed, and round 0's trained rows (the first chunk, before the
+   aggregate) bitwise the solo run's, or the first differing leaf named
+   in the failure (``FirstTraining``, ``round0_leaves_gate``), (b) the
+   ``vmapped`` strategy with one program, the lr-0.02 points at rtol
+   2e-3, the lr-0.01 points different; round seconds per experiment beside the solo runs' and the
    peaks printed); ``sweep_scheduled`` (bench.py's ``_sweep_leg``: the MLP,
    32 clients, 6 rounds; an 8-seed fleet against 8 serial solo runs,
    ``sweep_amortization_ratio`` and ``bit_identical`` printed with no
@@ -362,6 +368,8 @@ SCHEMA = os.path.join("tests", "data", "metrics_record.schema.json")
 # only; its times are compared with the new kernel's f32 scale/bias times.
 EARLIER_MS = {
     "conv3x3_wgrad bf16 (25, 32, 32, 64), f32 CUDA-core kernel": 0.0860,
+    "conv3x3_wgrad bf16 (25, 32, 32, 64), mma.sync kernel": 0.0136,
+    "conv3x3_wgrad bf16 (40, 25, 32, 32, 64), mma.sync kernel": 0.2740,
     "gn_stats per training forward (B=25), one CTA per sample": 0.1181,
     "gn_stats (1000, 1024, 64), one CTA per sample": 0.05638,
     "gn_normalize per training forward (B=25), f32 scale/bias, flat "
@@ -643,6 +651,31 @@ def wgrad_ulps(torch, wg, x, g, k, p):
             ).max().item()
 
 
+def grouped_wgrad(torch, x, g):
+    """cuDNN's weight-only convolution_backward of the grouped convolution
+    the vmapped model runs on ``x, g [n, B, H, W, C]`` (the clients as n
+    groups of C channels, channels-last): a yardstick, never the port's
+    path. Returns the call."""
+    n, b, h, w, c = x.shape
+    xg = x.permute(1, 2, 3, 0, 4).reshape(b, h, w, n * c).permute(0, 3, 1, 2)
+    gg = g.permute(1, 2, 3, 0, 4).reshape(b, h, w, n * c).permute(0, 3, 1, 2)
+    weight = torch.zeros(n * c, c, 3, 3, dtype=x.dtype, device=x.device).to(
+        memory_format=torch.channels_last)
+    return lambda: torch.ops.aten.convolution_backward(
+        gg, xg, weight, None, [1, 1], [1, 1], [1, 1], False, [0, 0], n,
+        [False, True, False])[1]
+
+
+def wgrad_bound(row, ops_per_s):
+    """``row`` with its bound: the larger of its bytes over the card's
+    memory rate and its operations over ``ops_per_s``, and which."""
+    t_bytes = row["bytes"] / HBM_BYTES_PER_S
+    t_ops = row["ops"] / ops_per_s
+    row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return row
+
+
 def check_wgrad(torch, wg):
     """Phase 1b: the wgrad kernel vs its plain version in bf16 and f32 at
     the main path's shape, and in bf16 at a ragged shape; returns one row
@@ -669,32 +702,19 @@ def check_wgrad(torch, wg):
         if not ulp <= 1.0:
             fail(f"wgrad {name} {shape}: {ulp:.2f} bf16 ulps after the cast")
         # cuDNN's weight gradient of the same convolution, alone: the
-        # yardstick (channels-last NCHW views of the same tensors).
-        weight = torch.zeros(c, c, 3, 3, dtype=dtype, device="cuda").to(
-            memory_format=torch.channels_last)
-        x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-
-        def cudnn():
-            return torch.ops.aten.convolution_backward(
-                g_nchw, x_nchw, weight, None, [1, 1], [1, 1], [1, 1], False,
-                [0, 0], 1, [False, True, False])[1]
-
+        # yardstick (one group).
         elem = x.element_size()
-        row = {
+        row = wgrad_bound({
             "shape": list(shape), "dtype": name,
             "ms": time_ms(torch, lambda: wg.conv3x3_wgrad(x, g)),
             "eager_ms": eager_ms(torch, lambda: wg.conv3x3_wgrad(x, g)),
             "plain_ms": time_ms(torch, lambda: wg.conv3x3_wgrad_plain(x, g)),
-            "library_ms": time_ms(torch, cudnn),
+            "library_ms": time_ms(torch, grouped_wgrad(torch, x[None],
+                                                       g[None])),
             "bytes": 2 * b * h * w * c * elem + 9 * c * c * 4,
             "ops": 2 * 9 * c * c * b * h * w,
             "max_abs_err": err, "bf16_ulps": ulp,
-        }
-        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else TF32_OPS_PER_S
-        t_bytes = row["bytes"] / HBM_BYTES_PER_S
-        t_ops = row["ops"] / peak
-        row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        }, BF16_OPS_PER_S if dtype == torch.bfloat16 else TF32_OPS_PER_S)
         log(f"wgrad {name} {shape}: {row['ms']:.4f} ms (eager "
             f"{row['eager_ms']:.4f}, bound {row['bound_ms']:.4f} by "
             f"{row['bound_by']}, plain {row['plain_ms']:.4f}, cuDNN wgrad "
@@ -705,9 +725,11 @@ def check_wgrad(torch, wg):
 
 
 def check_wgrad_sass(_build):
-    """Phase 1c: the bf16 wgrad kernel must run on the tensor cores. Counts
-    HMMA/HGMMA instructions per partial kernel in the built library's SASS
-    (cuobjdump) and fails if the bf16 one has none."""
+    """Phase 1c: the bf16 wgrad kernel must run on Hopper's warpgroup
+    tensor-core products. Counts HGMMA (wgmma) and HMMA (mma.sync)
+    instructions in each partial kernel's SASS (cuobjdump; the bf16
+    kernel once per layout it is built for) and fails unless every bf16
+    instantiation has HGMMA."""
     proc = subprocess.run(
         [_build.cuda_tool("cuobjdump"), "-sass", _build.LIB_PATHS["wgrad"]],
         capture_output=True, text=True,
@@ -717,19 +739,124 @@ def check_wgrad_sass(_build):
     counts = {}
     for section in proc.stdout.split("Function : ")[1:]:
         name = section.split(None, 1)[0]
-        for kernel in ("wgrad_tc_partial_kernel", "wgrad_f32_partial_kernel"):
+        for kernel in ("wgrad_tc_kernel", "wgrad_f32_partial_kernel"):
             if kernel in name:
-                counts[kernel] = len(re.findall(r"\bHG?MMA\b", section))
-    if not counts.get("wgrad_tc_partial_kernel"):
-        fail(f"no tensor-core instruction (HMMA/HGMMA) in the bf16 wgrad "
-             f"kernel's SASS: {counts}")
+                # wgrad_tc_kernel<kStages, kWalk>: ILi<stages>ELb<walk>E
+                args = re.search(r"ILi(\d+)ELb([01])E", name)
+                layout = args and ("walk" if args[2] == "1" else "few")
+                key = kernel + (f"<{args[1]}, {layout}>" if args else "")
+                counts[key] = {
+                    op: len(re.findall(rf"\b{op}\b", section))
+                    for op in ("HGMMA", "HMMA")}
+    tc = {k: v for k, v in counts.items() if k.startswith("wgrad_tc_kernel")}
+    if not tc or not all(v["HGMMA"] for v in tc.values()):
+        fail(f"no wgmma (HGMMA) in a bf16 wgrad kernel's SASS: {counts}")
     log(f"SASS tensor-core instructions per kernel: {counts}")
     return counts
 
 
+#: Client counts of phase 1d's wgrad invariance check: one client, the
+#: few-client layout's range, the f32 sweep fleet's 20 models a seed, the
+#: flagship's chunk of 40 and the 4-seed f32 fleet's 80.
+WGRAD_CLIENT_COUNTS = (1, 4, 10, 20, 40, 80)
+WGRAD_F32_CHUNK = 20  # sweep_fleet f32's models a program for one seed
+
+
+def check_wgrad_invariance(torch, wg, gen):
+    """Phase 1d: the wgrad kernel at every N of ``WGRAD_CLIENT_COUNTS``, bf16
+    in each of its layouts and f32: each client's dW must be bitwise its
+    one-client call's (so its row at every other N), and the one-client
+    calls within the tolerance of the plain version. Times each bf16
+    layout at each N beside cuDNN's grouped weight gradient, and the f32
+    kernel at the sweep fleet's chunk of ``WGRAD_F32_CHUNK`` beside cuDNN's
+    f32 grouped weight gradient with TF32 off; returns the rows."""
+    layouts = {"few": wg.FEW, "walk": wg.WALK}
+    n_max = max(WGRAD_CLIENT_COUNTS)
+    out = {"layout_ms": {}, "cudnn_ms": {}}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        x = torch.randn((n_max,) + WGRAD_SHAPE, device="cuda",
+                        generator=gen).to(dtype)
+        g = torch.randn((n_max,) + WGRAD_SHAPE, device="cuda",
+                        generator=gen).to(dtype)
+        ones = torch.stack([wg.conv3x3_wgrad(x[i], g[i])
+                            for i in range(n_max)])
+        for n in WGRAD_CLIENT_COUNTS:
+            xn, gn_ = x[:n].contiguous(), g[:n].contiguous()
+            runs = {"plan": wg.conv3x3_wgrad(xn, gn_)}
+            if dtype == torch.bfloat16:
+                runs.update({k: wg._launch(xn, gn_, layout=v)
+                             for k, v in layouts.items()})
+            for layout, k in runs.items():
+                if not torch.equal(k, ones[:n]):
+                    bad = [i for i in range(n) if not torch.equal(k[i],
+                                                                  ones[i])]
+                    fail(f"wgrad {name} at N = {n} ({layout} layout): "
+                         f"clients {bad[:8]} differ from their one-client "
+                         "calls")
+        p = wg.conv3x3_wgrad_plain(x, g)
+        err = (ones - p).abs().max().item()
+        scale = p.abs().max().item()
+        ulp = wgrad_ulps(torch, wg, x, g, ones, p)
+        if not (math.isfinite(err) and err <= 1e-4 * scale and ulp <= 1.0):
+            fail(f"wgrad {name} one-client calls of {n_max} clients: max abs "
+                 f"err {err:.3e} (1e-4 * max {1e-4 * scale:.3e}), {ulp:.2f} "
+                 "bf16 ulps")
+        out[f"{name}_max_abs_err"] = err
+        if dtype == torch.bfloat16:
+            for n in WGRAD_CLIENT_COUNTS:
+                xn, gn_ = x[:n].contiguous(), g[:n].contiguous()
+                out["layout_ms"][n] = {
+                    k: time_ms(torch, lambda v=v: wg._launch(xn, gn_,
+                                                             layout=v),
+                               iters=5)
+                    for k, v in layouts.items()}
+                out["cudnn_ms"][n] = time_ms(torch,
+                                             grouped_wgrad(torch, xn, gn_),
+                                             iters=5)
+        else:
+            n = WGRAD_F32_CHUNK
+            xn, gn_ = x[:n].contiguous(), g[:n].contiguous()
+            b, h, w, c = WGRAD_SHAPE
+            cudnn = torch.backends.cudnn
+            with cudnn.flags(enabled=cudnn.enabled, benchmark=False,
+                             deterministic=cudnn.deterministic,
+                             allow_tf32=False):
+                library_ms = time_ms(torch, grouped_wgrad(torch, xn, gn_),
+                                     iters=3)
+            out["f32_chunk"] = wgrad_bound({
+                "shape": [n, b, h, w, c], "dtype": "f32",
+                "ms": time_ms(torch, lambda: wg.conv3x3_wgrad(xn, gn_),
+                              iters=3),
+                "plain_ms": time_ms(
+                    torch, lambda: wg.conv3x3_wgrad_plain(xn, gn_), iters=3),
+                "library_ms": library_ms,
+                "bytes": 2 * n * b * h * w * c * 4 + n * 9 * c * c * 4,
+                "ops": 2 * 9 * c * c * n * b * h * w,
+            }, F32_OPS_PER_S)
+        del x, g, ones, p
+    f = out["f32_chunk"]
+    log(f"wgrad: every client's dW bitwise its one-client call's at N = "
+        f"{WGRAD_CLIENT_COUNTS}, bf16 in every layout and f32; max abs err "
+        f"of the one-client calls against plain bf16 "
+        f"{out['bf16_max_abs_err']:.2e}, f32 {out['f32_max_abs_err']:.2e}")
+    log("wgrad bf16 ms by N and layout (planned: "
+        + ", ".join(f"{n} {wg.chunking(*WGRAD_SHAPE, n).layout}"
+                    for n in WGRAD_CLIENT_COUNTS) + "): "
+        + "; ".join(f"N={n} " + ", ".join(f"{k} {v:.4f}"
+                                           for k, v in row.items())
+                    + f", cuDNN grouped {out['cudnn_ms'][n]:.4f}"
+                    for n, row in out["layout_ms"].items()))
+    log(f"wgrad f32 {tuple(f['shape'])}: {f['ms']:.4f} ms (bound "
+        f"{f['bound_ms']:.4f} by {f['bound_by']} at the 67 TFLOP/s f32 "
+        f"rate, plain {f['plain_ms']:.4f}, cuDNN f32 grouped wgrad with "
+        f"TF32 off {f['library_ms']:.4f})")
+    return out
+
+
 def check_batched(torch, gn, wg):
     """Phase 1d: the kernels at the batched shapes of the main path, the
-    flagship's chunk of 40 clients (module docstring); returns the rows."""
+    flagship's chunk of 40 clients (module docstring), and the wgrad
+    kernel's invariance to the client count; returns the rows."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     n = FLAGSHIP_CHUNK
     b, h, w, c = WGRAD_SHAPE
@@ -740,10 +867,10 @@ def check_batched(torch, gn, wg):
     k = wg.conv3x3_wgrad(x, g)
     plan = wg.chunking(b, h, w, c, n)
     torch.cuda.synchronize()
-    if not all(torch.equal(k[i], wg.conv3x3_wgrad(x[i], g[i], plan=plan))
+    if not all(torch.equal(k[i], wg.conv3x3_wgrad(x[i], g[i]))
                for i in range(n)):
         fail(f"batched wgrad {tuple(x.shape)} is not bitwise equal to {n} "
-             "one-client calls with its plan")
+             "one-client calls")
     p = wg.conv3x3_wgrad_plain(x, g)
     err = (k - p).abs().max().item()
     scale = p.abs().max().item()
@@ -751,48 +878,37 @@ def check_batched(torch, gn, wg):
     if not (math.isfinite(err) and err <= 1e-4 * scale and ulp <= 1.0):
         fail(f"batched wgrad {tuple(x.shape)}: max abs err {err:.3e} "
              f"(1e-4 * max {1e-4 * scale:.3e}), {ulp:.2f} bf16 ulps")
-    # cuDNN's weight gradient of the grouped convolution the vmapped model
-    # runs (the chunk's clients as n groups of c channels, channels-last).
-    xg = x.permute(1, 2, 3, 0, 4).reshape(b, h, w, n * c).permute(0, 3, 1, 2)
-    gg = g.permute(1, 2, 3, 0, 4).reshape(b, h, w, n * c).permute(0, 3, 1, 2)
-    weight = torch.zeros(n * c, c, 3, 3, dtype=torch.bfloat16,
-                         device="cuda").to(memory_format=torch.channels_last)
-
-    def cudnn():
-        return torch.ops.aten.convolution_backward(
-            gg, xg, weight, None, [1, 1], [1, 1], [1, 1], False, [0, 0], n,
-            [False, True, False])[1]
-
+    cudnn = grouped_wgrad(torch, x, g)
     # [n*co, ci, dy, dx] -> [n, dy, dx, ci, co]
     lib = cudnn().float().reshape(n, c, c, 3, 3).permute(0, 3, 4, 2, 1)
-    wrow = {
-        "shape": [n, b, h, w, c], "dtype": "bf16", "n_chunks": plan.n_chunks,
-        "ctas": plan.tc_grid[0] * plan.tc_grid[1] * plan.tc_grid[2],
+    grid = plan.tc_grid(plan.layout)
+    wrow = wgrad_bound({
+        "shape": [n, b, h, w, c], "dtype": "bf16", "n_runs": plan.n_runs,
+        "layout": plan.layout, "ctas": grid[0] * grid[1] * grid[2],
         "ms": time_ms(torch, lambda: wg.conv3x3_wgrad(x, g)),
         "eager_ms": eager_ms(torch, lambda: wg.conv3x3_wgrad(x, g)),
         "plain_ms": time_ms(torch, lambda: wg.conv3x3_wgrad_plain(x, g),
                             iters=3),
         "library_ms": time_ms(torch, cudnn, iters=5),
         "library_max_abs_diff": (lib - p).abs().max().item(),
-        # The one-client path: n calls, each with its own 44-chunk plan.
+        # The one-client path: n calls of one client each.
         "one_client_calls_ms": time_ms(
             torch, lambda: [wg.conv3x3_wgrad(x[i], g[i]) for i in range(n)],
             iters=3),
         "bytes": 2 * n * b * h * w * c * 2 + n * 9 * c * c * 4,
         "ops": 2 * 9 * c * c * n * b * h * w,
         "max_abs_err": err, "bf16_ulps": ulp,
-    }
-    t_bytes = wrow["bytes"] / HBM_BYTES_PER_S
-    t_ops = wrow["ops"] / BF16_OPS_PER_S
-    wrow["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-    wrow["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"batched wgrad {tuple(x.shape)} bf16 ({plan.n_chunks} chunk a "
-        f"client, {wrow['ctas']} CTAs): {wrow['ms']:.4f} ms (eager "
-        f"{wrow['eager_ms']:.4f}, bound {wrow['bound_ms']:.4f} by "
-        f"{wrow['bound_by']}, plain {wrow['plain_ms']:.4f}, cuDNN grouped "
-        f"wgrad {wrow['library_ms']:.4f}, {n} one-client calls "
+    }, BF16_OPS_PER_S)
+    log(f"batched wgrad {tuple(x.shape)} bf16 (layout {plan.layout}, "
+        f"{plan.n_runs} runs a client, {wrow['ctas']} CTAs): "
+        f"{wrow['ms']:.4f} ms (eager {wrow['eager_ms']:.4f}, bound "
+        f"{wrow['bound_ms']:.4f} by {wrow['bound_by']}, "
+        f"{wrow['bound_ms'] / wrow['ms']:.3f} of it; plain "
+        f"{wrow['plain_ms']:.4f}, cuDNN grouped wgrad "
+        f"{wrow['library_ms']:.4f}, {n} one-client calls "
         f"{wrow['one_client_calls_ms']:.4f}); bitwise equal to the "
         f"one-client calls; max abs err {err:.2e}, {ulp:.2f} bf16 ulp")
+    invariance = check_wgrad_invariance(torch, wg, gen)
 
     m, rows_per = n, TRAIN_BATCH
     norm_rows = []
@@ -875,7 +991,7 @@ def check_batched(torch, gn, wg):
             f"{library_ms:.4f} ms; normalize bitwise equal to the per-model "
             "calls and the plain version")
         norm_rows.append(row)
-    return {"wgrad": wrow, "gn": norm_rows,
+    return {"wgrad": wrow, "wgrad_invariance": invariance, "gn": norm_rows,
             "channel_side": check_channel_side(torch, gn, gen)}
 
 
@@ -2608,7 +2724,7 @@ def profile_costmodel(torch, gn, wg, work):
     by_kernel = {
         k: sum(1 for o in ops if k in o["name"] and o["ops"])
         for k in ("gn_stats_kernel", "gn_normalize_kernel",
-                  "wgrad_tc_partial_kernel")
+                  "wgrad_tc_kernel")
     }
     if min(by_kernel.values()) == 0:
         fail(f"profile_costmodel: kernels tied to an operator {by_kernel}")
@@ -3396,6 +3512,103 @@ def run_sweep_path(torch, gn, wg, name, config, dataset, client_data):
             "wall_seconds": wall}
 
 
+class FirstTraining:
+    """Inside ``with``: the first ``train_chunk`` call of the run keeps its
+    trained parameters ``[rows, P]`` (round 0's first chunk; in a fleet
+    every experiment's first members, experiment-major) in ``trained``,
+    with the layout that names their leaves, and a fleet's first round its
+    new global parameters ``[E, P]`` in ``globals``."""
+
+    def __init__(self):
+        self.trained = self.layout = self.globals = None
+
+    def __enter__(self):
+        from distributed_learning_simulator_tpu_torch.algorithms.fedavg import (
+            FedAvg,
+        )
+
+        self._made = FedAvg._chunk_train_fn, FedAvg.make_fleet_round_fn
+        make_train, make_fleet = self._made
+        me = self
+
+        def train_fn(algo, apply_fn, optimizer, layout, *args, **kwargs):
+            train_chunk = make_train(algo, apply_fn, optimizer, layout,
+                                     *args, **kwargs)
+
+            def kept(*a, **k):
+                if me.trained is not None:
+                    return train_chunk(*a, **k)
+                out = train_chunk(*a, **k)
+                me.layout, me.trained = layout, out[0].detach().clone()
+                return out
+
+            return kept
+
+        def fleet_fn(algo, *args, **kwargs):
+            fleet_round = make_fleet(algo, *args, **kwargs)
+
+            def kept(*a, **k):
+                out = fleet_round(*a, **k)
+                if me.globals is None:
+                    me.globals = out[0].detach().clone()
+                return out
+
+            return kept
+
+        FedAvg._chunk_train_fn, FedAvg.make_fleet_round_fn = train_fn, fleet_fn
+        return self
+
+    def __exit__(self, *exc):
+        from distributed_learning_simulator_tpu_torch.algorithms.fedavg import (
+            FedAvg,
+        )
+
+        FedAvg._chunk_train_fn, FedAvg.make_fleet_round_fn = self._made
+
+
+def leaf_differences(torch, layout, a, b) -> dict:
+    """The leaves (in the layout's order) where the parameter rows ``a``
+    and ``b`` (``[rows, P]`` of one shape) are not bitwise equal: the
+    first, its max abs difference, and how many of all."""
+    if a.shape != b.shape:
+        fail(f"leaf_differences: rows {tuple(a.shape)} against "
+             f"{tuple(b.shape)}")
+    first, worst, differing, off = None, 0.0, 0, 0
+    for name, numel in zip(layout.names, layout.numels):
+        sa, sb = a[:, off:off + numel], b[:, off:off + numel]
+        off += numel
+        if torch.equal(sa, sb):
+            continue
+        differing += 1
+        gap = (sa.double() - sb.double()).abs().max().item()
+        worst = max(worst, gap)
+        if first is None:
+            first = {"leaf": name, "max_abs_diff": gap}
+    return {"first": first, "differing_leaves": differing,
+            "leaves": len(layout.names), "max_abs_diff": worst}
+
+
+def round0_leaves_gate(leaves: dict) -> None:
+    """``sweep_fleet`` f32's gate on round 0's trained rows: ``leaves``
+    maps each point to :func:`leaf_differences` of the fleet's rows against
+    its solo run's, and every point must be bitwise (a client's training
+    must not depend on how many models share its program). Prints the
+    reading; a point that differs fails with its first differing leaf."""
+    log("sweep_fleet f32 after round 0's training (first chunk), the "
+        "fleet's rows against each solo run's: " + "; ".join(
+            f"point {i}: " + (
+                "bitwise equal" if d["first"] is None else
+                f"first differing leaf {d['first']['leaf']} (max abs diff "
+                f"{d['first']['max_abs_diff']:.3e}), "
+                f"{d['differing_leaves']} of {d['leaves']} leaves differ, "
+                f"largest {d['max_abs_diff']:.3e}")
+            for i, d in leaves.items()))
+    bad = {i: d["first"] for i, d in leaves.items() if d["first"]}
+    if bad:
+        fail(f"sweep_fleet f32: round 0's trained rows differ from the solo "
+             f"runs' (point: first differing leaf) {bad}")
+
+
 def sweep_fleet(torch, gn, wg):
     """Phase 2x: ``sweep_fleet``. Each fleet of
     :func:`sweep_fleet_configs` through ``run_sweep`` on the base config's
@@ -3408,7 +3621,9 @@ def sweep_fleet(torch, gn, wg):
     two solo runs of each point bitwise equal (the run takes only cuDNN's
     deterministic algorithms: without them, two f32 runs of one seed
     drifted up to 1e-3 apart in test loss after two rounds on an H100);
-    whether the fleet's histories are bitwise its solo runs' is printed.
+    round 0's first trained chunk bitwise its solo runs'
+    (``round0_leaves_gate``); whether the fleet's histories are bitwise
+    its solo runs' is printed.
     ``bf16``: the
     ``vmapped`` strategy with one program; the lr-0.02 points' first-round
     test losses within rtol 2e-3 of their solo runs (the dither hashes the
@@ -3434,23 +3649,28 @@ def sweep_fleet(torch, gn, wg):
                          seed=config.seed, n_train=config.n_train,
                          n_test=config.n_test, **config.dataset_args)
         cd = build_client_data(config, ds)
-        fleet = run_sweep_path(torch, gn, wg, f"sweep_fleet {name}",
-                               config, ds, cd)
+        with FirstTraining() as fleet_first:
+            fleet = run_sweep_path(torch, gn, wg, f"sweep_fleet {name}",
+                                   config, ds, cd)
         res = fleet["result"]
         if res["strategy"] != "vmapped" or res["programs_compiled"] != 1:
             fail(f"sweep_fleet {name}: strategy {res['strategy']}, "
                  f"{res['programs_compiled']} programs (expected vmapped, "
                  "1)")
         points = SweepSpec.from_config(config).points
-        solos, spreads = {}, {}
+        solos, spreads, solo_first = {}, {}, {}
         for point in points:
             lr = point.config.learning_rate
             if name == "bf16" and lr != SWEEP_LRS[0]:
                 continue
-            runs = [run_path(
-                torch, gn, wg, f"sweep_fleet {name} solo seed "
-                f"{point.config.seed} lr {lr}", point.config, dataset=ds,
-                client_data=cd) for _ in range(2 if name == "f32" else 1)]
+            runs = []
+            for _ in range(2 if name == "f32" else 1):
+                with FirstTraining() as first:
+                    runs.append(run_path(
+                        torch, gn, wg, f"sweep_fleet {name} solo seed "
+                        f"{point.config.seed} lr {lr}", point.config,
+                        dataset=ds, client_data=cd))
+                solo_first.setdefault(point.index, first)
             solos[point.index] = runs[0]
             spreads[point.index] = [
                 max(abs(a["test_loss"] - b["test_loss"])
@@ -3510,6 +3730,18 @@ def sweep_fleet(torch, gn, wg):
                          f"the lr-{SWEEP_LRS[0]} solo run {rounds} (lr "
                          f"{SWEEP_LRS[0]}, lr {SWEEP_LRS[1]}): the lr factor "
                          "did not move the run further than the batching")
+        # Round 0's first chunk after training, before the aggregate: each
+        # experiment's rows of the fleet's program against its solo run's.
+        leaves = {}
+        if name == "f32":
+            for i, p in enumerate(res["points"]):
+                solo_rows = solo_first[p["index"]].trained
+                m = solo_rows.shape[0]
+                leaves[p["index"]] = leaf_differences(
+                    torch, fleet_first.layout,
+                    fleet_first.trained[i * m:(i + 1) * m], solo_rows)
+            round0_leaves_gate(leaves)
+        del fleet_first, solo_first
         fleet_secs = [[r["round_seconds"] for r in p["history"]]
                       for p in res["points"]]
         solo_secs = {i: s["round_seconds"] for i, s in solos.items()}
@@ -3525,6 +3757,7 @@ def sweep_fleet(torch, gn, wg):
             "bitwise_equal_to_solo": bitwise,
             "solo_test_loss_spread": spreads,
             "lr_gaps_to_solo": gaps,
+            "round0_trained_leaves": leaves,
             "test_losses": [[r["test_loss"] for r in p["history"]]
                             for p in res["points"]],
         }
@@ -4864,8 +5097,7 @@ def layout_arm(torch, arm: str):
             padding = [padding] * 4 if isinstance(padding, int) else padding
             return body(x, w, stride, list(padding), 1)
 
-        names = {"conv_nhwc": conv_nhwc, "conv_nhwc_op": body,
-                 "conv_nhwc_dx_op": conv.conv_nhwc_dx_op._init_fn}
+        names = {"conv_nhwc": conv_nhwc, "conv_nhwc_op": body}
     elif arm != "port":
         raise ValueError(arm)
     saved = {name: getattr(resnet, name) for name in names}
@@ -4933,11 +5165,13 @@ def layout_ab(torch, gn, wg, log_root: str):
     return {"runs": runs, "summary": summary}
 
 
-def redesign_lines(rows, wgrad_rows):
+def redesign_lines(rows, wgrad_rows, batched_wgrad):
     """Prints the kernels redesigned for Hopper beside their yardsticks,
     bounds and earlier times (EARLIER_MS: PERF.md constants, not this
-    run), all at one client's shapes (B=25); returns the same numbers."""
+    run), at one client's shapes (B=25) and the wgrad kernel also at the
+    flagship's chunk; returns the same numbers."""
     w = wgrad_rows["bf16"]
+    w40 = batched_wgrad
     eval_row = next(r for r in rows if r["shape"][0] == EVAL_BATCH)
     train_rows = [r for r in rows if r["per_forward"]]
     stats, norm = (
@@ -4951,6 +5185,9 @@ def redesign_lines(rows, wgrad_rows):
     out = {
         "conv3x3_wgrad_bf16": {"ms": w["ms"], "cudnn_ms": w["library_ms"],
                                "bound_ms": w["bound_ms"]},
+        "conv3x3_wgrad_bf16_chunk": {"ms": w40["ms"],
+                                     "cudnn_ms": w40["library_ms"],
+                                     "bound_ms": w40["bound_ms"]},
         "gn_stats_per_training_forward": {
             "ms": stats["ms"], "bound_ms": stats["bound_ms"],
             "f_group_norm_ms": stats["library_ms"]},
@@ -4970,21 +5207,25 @@ def redesign_lines(rows, wgrad_rows):
               for k, v in EARLIER_MS.items()]
     log(f"redesigned conv3x3_wgrad bf16 {WGRAD_SHAPE}: {w['ms']:.4f} ms "
         f"against cuDNN wgrad {w['library_ms']:.4f} ms (bound "
-        f"{w['bound_ms']:.4f}); {before[0]}")
+        f"{w['bound_ms']:.4f}); {before[0]}; {before[1]}")
+    log(f"redesigned conv3x3_wgrad bf16 {tuple(w40['shape'])}: "
+        f"{w40['ms']:.4f} ms against cuDNN grouped wgrad "
+        f"{w40['library_ms']:.4f} ms (bound {w40['bound_ms']:.4f}, "
+        f"{w40['bound_ms'] / w40['ms']:.3f} of it); {before[2]}")
     log(f"redesigned gn_stats per training forward: {stats['ms']:.4f} ms "
         f"(bound {stats['bound_ms']:.4f}; F.group_norm, stats and normalize "
-        f"together, {stats['library_ms']:.4f}); {before[1]}")
+        f"together, {stats['library_ms']:.4f}); {before[3]}")
     log(f"redesigned gn_stats {tuple(eval_row['shape'])}: "
         f"{eval_row['stats']['ms']:.4f} ms (bound "
-        f"{eval_row['stats']['bound_ms']:.4f}); {before[2]}")
+        f"{eval_row['stats']['bound_ms']:.4f}); {before[4]}")
     n = out["gn_normalize_per_training_forward"]
     log(f"redesigned gn_normalize per training forward, f32 scale/bias as "
         f"before: {n['f32_params_ms']:.4f} ms (bf16 scale/bias, as bf16 "
         f"training calls it: {n['ms']:.4f}; bound {n['bound_ms']:.4f}); "
-        f"{before[3]}")
+        f"{before[5]}")
     log(f"redesigned gn_normalize {tuple(eval_row['shape'])}, f32 scale/bias "
         f"as before: {eval_row['normalize']['ms']:.4f} ms (bound "
-        f"{eval_row['normalize']['bound_ms']:.4f}); {before[4]}")
+        f"{eval_row['normalize']['bound_ms']:.4f}); {before[6]}")
     log(f"group_norm pair per training forward in one graph: {pair:.4f} ms "
         f"against {alone:.4f} ms for its two kernels alone (programmatic "
         f"dependent launch saves {alone - pair:.4f}); F.group_norm "
@@ -5210,7 +5451,7 @@ def main() -> None:
         "bound_by": w["bound_by"], "library_ms": w["library_ms"],
     })
     phases_scope.close()
-    redesigned = redesign_lines(rows, wgrad_rows)
+    redesigned = redesign_lines(rows, wgrad_rows, batched["wgrad"])
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,

@@ -102,9 +102,23 @@ def pgn_backward(x, scale, bias, mean_g, rstd_g, dy, g: int):
     m1 = dyg.mean(dim=(1, 2, 4), keepdim=True)
     m2 = (dyg * xhat).mean(dim=(1, 2, 4), keepdim=True)
     dx = ((dyg - m1 - xhat * m2) * rstd).to(x.dtype).reshape(b, h, w, c)
-    dscale = (dy32 * xhat).sum(dim=(0, 1, 2)).reshape(c).to(scale.dtype)
-    dbias = dy32.sum(dim=(0, 1, 2)).reshape(c).to(bias.dtype)
+    dscale = _sum_bhw(dy32 * xhat, x.dtype).reshape(c).to(scale.dtype)
+    dbias = _sum_bhw(dy32, x.dtype).reshape(c).to(bias.dtype)
     return dx, dscale, dbias
+
+
+def _sum_bhw(t, dtype):
+    """``t [b, h, w, ...]`` summed over (b, h, w). For an f32 model, three
+    short sums (w, then h, then b), so that a model's sums have the same
+    bits however many models vmap folds beside it (an f32 sweep fleet is
+    held bitwise to its solo runs): PyTorch's CUDA reduction reads a short
+    sum in one thread per output, while one sum over b*h*w splits across
+    blocks by the output count, which grows with the models. Other dtypes
+    take the one sum: the bf16 fleet is not bitwise its solo runs for
+    other reasons."""
+    if dtype != torch.float32:
+        return t.sum(dim=(0, 1, 2))
+    return t.sum(dim=2).sum(dim=1).sum(dim=0)
 
 
 class _PlainGroupNormFn(torch.autograd.Function):
@@ -235,11 +249,11 @@ def same_conv(x, weight, stride: int):
 
 class _Conv3x3Fn(torch.autograd.Function):
     """3x3 stride-1 SAME convolution of NHWC ``x`` with an OIHW ``weight``,
-    both in the compute dtype. Forward and input gradient are cuDNN's
-    (ops/conv.py's ops, vmapped as grouped convolutions); the weight
-    gradient is :func:`conv3x3_wgrad` (the kernel on a CUDA tensor, its
-    plain version on a CPU one), f32, cast to the weight's dtype as JAX
-    gives a bf16 convolution a bf16 weight cotangent."""
+    both in the compute dtype. Forward and input gradient are ops/conv.py's
+    ops (vmapped as grouped convolutions); the weight gradient is
+    :func:`conv3x3_wgrad` (the kernel on a CUDA tensor, its plain version
+    on a CPU one), f32, cast to the weight's dtype as JAX gives a bf16
+    convolution a bf16 weight cotangent."""
 
     generate_vmap_rule = True
 

@@ -75,15 +75,42 @@ def _(x, w, stride, padding, groups):
     return x.new_empty((x.shape[0], h, wd, w.shape[0]))
 
 
+def _flipped_forward_dx(dy: torch.Tensor, w: torch.Tensor, p: int,
+                        groups: int) -> torch.Tensor:
+    """The input gradient of a stride-1 convolution with symmetric padding
+    ``p`` as a forward convolution: ``dy`` with each group's kernel flipped
+    in space and transposed in channels, padded by ``k - 1 - p``."""
+    o, cg, kh, kw = w.shape
+    wt = w.reshape(groups, o // groups, cg, kh, kw).transpose(1, 2).flip(
+        3, 4).reshape(groups * cg, o // groups, kh, kw)
+    return torch.ops.aten.convolution(
+        _nchw(dy), wt, None, [1, 1], [kh - 1 - p, kw - 1 - p], [1, 1],
+        False, [0, 0], groups).permute(0, 2, 3, 1)
+
+
 @torch.library.custom_op("dls::conv_nhwc_dx", mutates_args=())
 def conv_nhwc_dx_op(dy: torch.Tensor, w: torch.Tensor, in_h: int,
                     in_w: int, stride: int, padding: list[int],
                     groups: int) -> torch.Tensor:
     """The input gradient ``[B, in_h, in_w, C]`` of :func:`conv_nhwc_op`
-    (the input's values do not enter it, only its shape)."""
+    (the input's values do not enter it, only its shape).
+
+    In f32 at stride 1 with symmetric padding it is the forward
+    convolution of :func:`_flipped_forward_dx`: cuDNN's f32 grouped input
+    gradient changes its rounding with the group count, so with the models
+    vmap folds into the groups (a ResNet-18 stage-1 convolution at 19
+    against 76 models on an H100), while its forward at the same shape
+    keeps its bits, and an f32 sweep fleet is held bitwise to its solo runs
+    (chip_smoke.py ``sweep_fleet``). Other dtypes keep cuDNN's input
+    gradient: the bf16 fleet is not bitwise its solo runs for other
+    reasons."""
     top, bottom, left, right = padding
     symmetric = top == bottom == left == right
     p = top if symmetric else 0
+    kh, kw = w.shape[2:]
+    if (dy.dtype == torch.float32 and stride == 1 and symmetric
+            and p < min(kh, kw)):
+        return _flipped_forward_dx(dy, w, p, groups)
     ph, pw = (in_h, in_w) if symmetric else (in_h + top + bottom,
                                              in_w + left + right)
     inp = dy.new_empty((dy.shape[0], ph, pw, w.shape[1] * groups)).permute(

@@ -17,12 +17,13 @@ prototype worked on a W-folded layout (a TPU lane device); the port keeps
 the plain NHWC layout, so the kernel is written from the formula above, not
 block by block (csrc/wgrad.cu says how).
 
-:func:`conv3x3_wgrad` launches a partial kernel and ``wgrad_reduce_kernel``
-(csrc/wgrad.cu) on CUDA tensors, bf16 or f32, ``C % 8 == 0``, any N, B, H,
-W: bf16 inputs take ``wgrad_tc_partial_kernel`` (tensor cores), f32 inputs
-``wgrad_f32_partial_kernel`` (CUDA cores, no TF32). :func:`chunking` plans
-both grids; a one-client call may be handed the plan of a batched call, and
-then gives bitwise that client's row of the batched result.
+:func:`conv3x3_wgrad` launches ``wgrad_tc_kernel`` (bf16, tensor cores) or
+``wgrad_f32_partial_kernel`` (f32, CUDA cores, no TF32), and
+``wgrad_reduce_kernel`` where partials meet (csrc/wgrad.cu), on CUDA
+tensors, ``C % 8 == 0``, any N, B, H, W. :func:`chunking` plans the work:
+each client's K is cut into runs by (B, H, W, C) alone and the runs'
+partials are added left to right, so a client's dW has the same bits
+whatever N is and whichever layout computes it; N only picks the layout.
 :func:`conv3x3_wgrad_plain` is the same function in plain PyTorch (nine
 shifted contractions in f32). ``torch.ops.dls.conv3x3_wgrad`` is the custom
 op ``torch.func.vmap`` sees: its vmap rule folds the vmapped dim into the
@@ -54,11 +55,20 @@ from distributed_learning_simulator_tpu_torch.ops._vmap import models_first
 
 _TILE = 64  # csrc/wgrad.cu kTile: ci and co extent of a block's tile
 _SEG = 32  # csrc/wgrad.cu kSeg: positions of one image row per staged piece
-# K-chunks per tap row dy for one client: 3 x 44 = 132 tensor-core CTAs,
-# one per SM of an H100, each with the same number of row pairs (within
-# one). N clients share them: 44 // N chunks each, at least one.
-_CHUNKS = 132 // 3
-_MIN_CHUNK_PAIRS = 2  # smaller problems take fewer, fuller chunks
+# Runs a client's K is cut into: 44 x 3 dy = 132 tensor-core CTAs for one
+# client, one per SM of an H100, each with the same number of row pairs
+# (within one). The count depends on the client's shape alone, never on
+# how many clients share the launch.
+_RUNS = 132 // 3
+_MIN_RUN_PAIRS = 2  # smaller problems take fewer, fuller runs
+# The bf16 kernel's layouts (csrc/wgrad.cu `dls_wgrad_bf16`), which give
+# the same bits: one CTA per (client, run, dy, tile) and a reduce (FEW); or
+# one CTA per (client, dy, tile) walking the client's runs, alone on its SM
+# (WALK). Walking pays from _WALK_CTAS CTAs on (chip_smoke.py phase 1d,
+# H100 80GB HBM3 at 700 W, (N, 25, 32, 32, 64): FEW 0.1233 ms at N = 10
+# and 0.2331 at 20, WALK 0.1416 and 0.1424).
+FEW, WALK = 0, 1
+_WALK_CTAS = 36
 
 
 def conv3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -86,7 +96,7 @@ def _lib() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for suffix in _KERNEL_DTYPES.values():
         fn = getattr(lib, f"dls_wgrad_{suffix}")
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
         fn.restype = ci
     return lib
 
@@ -134,106 +144,106 @@ def _raise_on_error(err: int) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class WgradPlan:
-    """The grids of both partial kernels for one (N, B, H, W, C).
+    """The work of both kernels for one (N, B, H, W, C).
 
-    Each client's K (its B*H*W positions) is cut into ``n_chunks`` runs of
+    Each client's K (its B*H*W positions) is cut into ``n_runs`` runs of
     whole row pairs (rows 2p, 2p + 1 of one sample; with H odd a sample's
-    last pair has one row), balanced to within one pair: chunk ``i`` covers
-    the image rows ``chunk_rows(i)`` of the client's B*H rows (a run may
-    span samples, a pair never does, and no run spans clients). A stage of
-    the tensor-core kernel is ``_SEG`` positions of one pair
-    (``pieces_per_row`` per row, the last one ragged when ``_SEG`` does not
-    divide W). Both kernels write one ``[C, C]`` f32 partial per (client,
-    chunk, tap), straight into dW when ``n_chunks`` is 1. A plan made for N
-    clients may be given to a one-client call (``n`` is then ignored): the
-    client's CTAs do the same work in the same order either way."""
+    last pair has one row), balanced to within one pair: run ``i`` covers
+    the image rows ``run_rows(i)`` of the client's B*H rows (a run may span
+    samples, a pair never does, and no run spans clients). ``n_runs``
+    depends on (B, H, W, C) alone. A stage of the tensor-core kernel is
+    ``_SEG`` positions of one pair (``pieces_per_row`` per row, the last one
+    ragged when ``_SEG`` does not divide W). Each run's partial is summed
+    from zero, and a client's dW is ``((p_0 + p_1) + p_2) + ...``. The bf16
+    kernel lays that work out by ``layout``, with the same bits: one CTA
+    per (client, run, dy, tile) and a reduce (``FEW``), or one CTA per
+    (client, dy, tile) that adds each finished run to a running total
+    (``WALK``); the f32 kernel always takes ``FEW``."""
 
     n: int
     b: int
     h: int
     w: int
     c: int
-    n_chunks: int
+    n_runs: int
     pieces_per_row: int
     c_tiles: int
+    layout: int
 
     @property
     def pairs(self) -> int:
         """Row pairs per sample."""
         return -(-self.h // 2)
 
-    @property
-    def tc_grid(self) -> tuple[int, int, int]:
-        """bf16 kernel: (client x chunk, dy, tile); a CTA computes taps
-        (dy, 0..2)."""
-        return self.n * self.n_chunks, 3, self.c_tiles**2
+    def tc_grid(self, layout: int) -> tuple[int, int, int]:
+        """bf16 kernel in ``layout``: (client [x run], dy, tile); a CTA
+        computes taps (dy, 0..2)."""
+        runs = self.n_runs if layout == FEW else 1
+        return self.n * runs, 3, self.c_tiles**2
 
     @property
     def f32_grid(self) -> tuple[int, int, int]:
-        """f32 kernel: (client x chunk, tap, tile)."""
-        return self.n * self.n_chunks, 9, self.c_tiles**2
+        """f32 kernel: (client x run, tap, tile)."""
+        return self.n * self.n_runs, 9, self.c_tiles**2
 
-    @property
-    def partial_floats(self) -> int:
-        """Partial floats the partial kernel writes: into a scratch buffer,
-        or with one chunk a client straight into dW."""
-        return self.n * self.n_chunks * 9 * self.c * self.c
+    def partial_floats(self, layout: int) -> int:
+        """Scratch floats of ``layout``: the per-run partials, or none when
+        the CTAs write dW themselves (one run a client, or walking)."""
+        if layout != FEW or self.n_runs == 1:
+            return 0
+        return self.n * self.n_runs * 9 * self.c * self.c
 
-    def chunk_units(self, chunk: int) -> tuple[int, int]:
-        """``[u0, u1)``: the row pairs of chunk ``chunk`` (csrc/wgrad.cu
-        ``chunk_units``)."""
+    def run_units(self, run: int) -> tuple[int, int]:
+        """``[u0, u1)``: the row pairs of run ``run`` (csrc/wgrad.cu
+        ``run_start``)."""
         total = self.b * self.pairs
-        return (chunk * total // self.n_chunks,
-                (chunk + 1) * total // self.n_chunks)
+        return (run * total // self.n_runs,
+                (run + 1) * total // self.n_runs)
 
-    def chunk_rows(self, chunk: int) -> tuple[int, int]:
-        """``[r0, r1)``: the rows (``sample * H + h``) of chunk ``chunk``."""
+    def run_rows(self, run: int) -> tuple[int, int]:
+        """``[r0, r1)``: the rows (``sample * H + h``) of run ``run``."""
 
         def first_row(unit: int) -> int:
             sample, pair = divmod(unit, self.pairs)
             return sample * self.h + 2 * pair
 
-        u0, u1 = self.chunk_units(chunk)
+        u0, u1 = self.run_units(run)
         return first_row(u0), first_row(u1)
 
 
 def chunking(b: int, h: int, w: int, c: int, n: int = 1) -> WgradPlan:
-    """The grid plan of ``conv3x3_wgrad`` for ``x, g [N, B, H, W, C]``
-    (``n = 1``: one client's ``[B, H, W, C]``). The clients share the
-    card's 132 SMs: ``_CHUNKS // n`` chunks each, so from 44 clients on one
-    chunk a client and no partials at all."""
+    """The plan of ``conv3x3_wgrad`` for ``x, g [N, B, H, W, C]`` (``n =
+    1``: one client's ``[B, H, W, C]``). Every client's runs are those of
+    one client (``_RUNS``, fewer when the client has under ``2 * _RUNS``
+    row pairs); ``n`` only picks the bf16 layout."""
     c_tiles = -(-c // _TILE)
     if c_tiles**2 > 65535:
         raise ValueError(f"the wgrad kernel's grid takes C <= 16320, got {c}")
     units = b * -(-h // 2)
-    n_chunks = min(max(1, _CHUNKS // n), -(-units // _MIN_CHUNK_PAIRS))
-    return WgradPlan(n=n, b=b, h=h, w=w, c=c, n_chunks=n_chunks,
-                     pieces_per_row=-(-w // _SEG), c_tiles=c_tiles)
+    n_runs = min(_RUNS, -(-units // _MIN_RUN_PAIRS))
+    layout = FEW if n * 3 * c_tiles**2 < _WALK_CTAS else WALK
+    return WgradPlan(n=n, b=b, h=h, w=w, c=c, n_runs=n_runs,
+                     pieces_per_row=-(-w // _SEG), c_tiles=c_tiles,
+                     layout=layout)
 
 
-def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor,
-                  plan: WgradPlan | None = None) -> torch.Tensor:
-    """``dW [3, 3, C, C]`` f32 (HWIO) of a 3x3 stride-1 SAME convolution
-    with NHWC input ``x`` and output gradient ``g`` (``[N, 3, 3, C, C]``
-    for N clients' ``[N, B, H, W, C]``). ``plan`` overrides the planned
-    grid's chunking (its B, H, W, C must be the input's): a one-client call
-    given a batched call's plan computes that client's row bitwise as the
-    batched call does."""
-    if x.device.type == "cpu":
-        return conv3x3_wgrad_plain(x, g)
+def _launch(x: torch.Tensor, g: torch.Tensor, layout: int | None = None
+            ) -> torch.Tensor:
+    """One launch on CUDA ``x, g``; ``layout`` forces the bf16 layout
+    (None: the plan's; every layout gives the same bits)."""
     suffix = _check_cuda_inputs(x, g)
     lead, (b, h, w, c) = tuple(x.shape[:-4]), tuple(x.shape[-4:])
     n = x.shape[0] if lead else 1
-    if plan is None:
-        plan = chunking(b, h, w, c, n)
-    elif (plan.b, plan.h, plan.w, plan.c) != (b, h, w, c):
-        raise ValueError(f"a wgrad plan for {(plan.b, plan.h, plan.w, plan.c)}"
-                         f" given x of shape {tuple(x.shape)}")
+    plan = chunking(b, h, w, c, n)
+    if suffix == "f32":
+        layout = FEW
+    elif layout is None:
+        layout = plan.layout
     out = torch.empty(lead + (3, 3, c, c), dtype=torch.float32,
                       device=x.device)
     partial = out
-    if plan.n_chunks > 1:
-        partial = torch.empty(n * plan.n_chunks * 9 * c * c,
+    if plan.partial_floats(layout):
+        partial = torch.empty(plan.partial_floats(layout),
                               dtype=torch.float32, device=x.device)
     fn = getattr(_lib(), f"dls_wgrad_{suffix}")
     # The library encodes its TMA tensor maps and launches on the current
@@ -241,11 +251,21 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor,
     with device_guard(x):
         err = fn(
             x.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            n, b, h, w, c, plan.n_chunks, launch_stream(x),
+            n, b, h, w, c, plan.n_runs, layout, launch_stream(x),
         )
     _raise_on_error(err)
     count_launch(conv3x3_wgrad, x.device)
     return out
+
+
+def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``dW [3, 3, C, C]`` f32 (HWIO) of a 3x3 stride-1 SAME convolution
+    with NHWC input ``x`` and output gradient ``g`` (``[N, 3, 3, C, C]``
+    for N clients' ``[N, B, H, W, C]``): each client's row bitwise its
+    one-client call's."""
+    if x.device.type == "cpu":
+        return conv3x3_wgrad_plain(x, g)
+    return _launch(x, g)
 
 
 conv3x3_wgrad.launches = 0

@@ -60,30 +60,39 @@ def test_wgrad_plain_client_axis_matches_pallas():
         assert np.abs(got[i].numpy() - want[i]).max() <= 2e-5 * scale
 
 
-@pytest.mark.parametrize("n,chunks", [(1, 44), (2, 22), (4, 11), (40, 1),
-                                      (250, 1)])
-def test_wgrad_plan_shares_the_card_between_clients(n, chunks):
-    """A client's K is cut into ``44 // N`` chunks (at least one): the
-    grid stays near 132 CTAs and no chunk spans clients; from 44 clients on
-    there are no partials beyond dW itself."""
+@pytest.mark.parametrize("n,layout", [(1, wgrad_cuda.FEW),
+                                      (4, wgrad_cuda.FEW),
+                                      (12, wgrad_cuda.WALK),
+                                      (40, wgrad_cuda.WALK),
+                                      (250, wgrad_cuda.WALK)])
+def test_wgrad_plan_shares_the_card_between_clients(n, layout):
+    """Every client keeps the one-client call's 44 runs; the clients share
+    the card by the layout: one CTA per (client, run, dy) and a reduce for
+    few clients, one CTA per (client, dy) walking its runs (no partials)
+    from 12 clients on, in waves past 44. No run spans clients."""
     plan = wgrad_cuda.chunking(25, 32, 32, 64, n)
-    assert plan.n_chunks == chunks
-    assert plan.tc_grid == (n * chunks, 3, 1)
-    assert plan.f32_grid == (n * chunks, 9, 1)
-    assert plan.partial_floats == n * chunks * 9 * 64 * 64
+    assert plan.n_runs == 44 and plan.layout == layout
+    walk = layout != wgrad_cuda.FEW
+    assert plan.tc_grid(layout) == (n * (1 if walk else 44), 3, 1)
+    assert plan.f32_grid == (n * 44, 9, 1)
+    assert plan.partial_floats(layout) == (0 if walk else
+                                           n * 44 * 9 * 64 * 64)
     covered = np.zeros(25 * 32, dtype=int)
-    for i in range(plan.n_chunks):
-        r0, r1 = plan.chunk_rows(i)
+    for i in range(plan.n_runs):
+        r0, r1 = plan.run_rows(i)
         covered[r0:r1] += 1
     assert (covered == 1).all()
 
 
 def test_wgrad_plan_must_fit_the_input():
-    x = torch.zeros(2, 4, 4, 8, device="meta")
+    """A plan is the input's: its runs come from (B, H, W, C), whatever N;
+    a tensor on neither the CPU nor a card is refused."""
+    x = torch.zeros(3, 2, 4, 4, 8, device="meta")
     plan = wgrad_cuda.chunking(2, 4, 4, 8, 3)
-    assert plan.n == 3 and plan.n_chunks == 2  # 4 row pairs, 2 per chunk
+    assert plan.n == 3 and plan.n_runs == 2  # 4 row pairs, 2 per run
+    assert plan.run_units(1) == wgrad_cuda.chunking(2, 4, 4, 8).run_units(1)
     with pytest.raises(ValueError, match="CUDA"):
-        wgrad_cuda.conv3x3_wgrad(x, x, plan=plan)
+        wgrad_cuda.conv3x3_wgrad(x, x)
 
 
 def _count(monkeypatch, module, name):
@@ -299,6 +308,51 @@ def test_conv_nhwc_vmap_is_one_grouped_convolution(monkeypatch, batched,
         for got, want in ((y[i], yi), (gx[i], gxi), (gw[i], gwi)):
             torch.testing.assert_close(
                 got, want, rtol=1e-5, atol=1e-6 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("k,padding,groups", [(3, 1, 1), (3, 1, 4),
+                                               (1, 0, 3), (3, 0, 2)])
+def test_conv_dx_f32_at_stride_1_is_the_flipped_forward(monkeypatch, k,
+                                                        padding, groups):
+    """ops/conv.py's input gradient in f32 at stride 1 (symmetric padding)
+    is a forward convolution of dy with each group's kernel flipped and
+    transposed, never cuDNN's input gradient, at f32 rtol 1e-5 of
+    ``convolution_backward``'s; bf16, and stride 2, keep
+    ``convolution_backward``."""
+    from distributed_learning_simulator_tpu_torch.ops import conv
+
+    gen = torch.Generator().manual_seed(5)
+    b, h, w, cin, cout = 2, 7, 6, 4 * groups, 3 * groups
+    ho, wo = h + 2 * padding - k + 1, w + 2 * padding - k + 1
+    dy = torch.randn(b, ho, wo, cout, generator=gen)
+    wt = torch.randn(cout, cin // groups, k, k, generator=gen)
+    backward = torch.ops.aten.convolution_backward
+    calls = []
+
+    def counted(*args):
+        calls.append(args[0].dtype)
+        return backward(*args)
+
+    def want_of(dy, wt, stride, pad, in_h, in_w):
+        inp = dy.new_empty((b, cin, in_h, in_w))
+        return backward(dy.permute(0, 3, 1, 2), inp, wt, None, [stride] * 2,
+                        [pad] * 2, [1, 1], False, [0, 0], groups,
+                        [True, False, False])[0].permute(0, 2, 3, 1)
+
+    monkeypatch.setattr(torch.ops.aten, "convolution_backward", counted)
+    got = conv.conv_nhwc_dx_op(dy, wt, h, w, 1, [padding] * 4, groups)
+    assert calls == []
+    want = want_of(dy, wt, 1, padding, h, w)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+    got16 = conv.conv_nhwc_dx_op(dy.bfloat16(), wt.bfloat16(), h, w, 1,
+                                 [padding] * 4, groups)
+    assert calls == [torch.bfloat16]
+    assert torch.equal(got16, want_of(dy.bfloat16(), wt.bfloat16(), 1,
+                                      padding, h, w))
+    dy2 = dy[:, :(ho + 1) // 2, :(wo + 1) // 2].contiguous()
+    conv.conv_nhwc_dx_op(dy2, wt, h, w, 2, [padding] * 4, groups)
+    assert calls == [torch.bfloat16, torch.float32]
 
 
 @pytest.mark.parametrize("affine", ["per_model", "shared"])

@@ -220,6 +220,21 @@ def _scripts():
     return chip_smoke, chip_multicard
 
 
+def test_arms_option_refuses_unknown_letters():
+    """``--arms`` names arms (a)-(h) by letter; anything else is refused
+    before the script looks for cards."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "chip_multicard.py", "--arms", "az"], cwd=repo,
+        capture_output=True, text=True, timeout=60)
+    assert proc.returncode != 0
+    assert "--arms takes letters of a-h" in proc.stderr
+
+
 def test_layout_flags_for_fed_as_before(tmp_path):
     """``layout_config`` with the algorithm argument gives (b) the flags it
     had before it took one."""

@@ -99,26 +99,47 @@ def test_rejects_what_the_kernel_does_not_take(cuda):
         wgrad_cuda.conv3x3_wgrad(x.transpose(1, 2), g.transpose(1, 2))
 
 
+CLIENT_COUNTS = (1, 4, 10, 20, 40, 80)
+LAYOUTS = (wgrad_cuda.FEW, wgrad_cuda.WALK)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("n,shape", [
-    (40, (25, 32, 32, 64)),  # the flagship's chunk: one chunk a client
-    (4, (25, 32, 32, 64)),   # 11 chunks a client, reduced per client
-    (3, (4, 28, 28, 64)),    # ragged rows, zero fill
-])
-def test_client_axis_is_bitwise_one_client_calls(cuda, n, shape, dtype):
-    """``[N, B, H, W, C]``: each client's dW bitwise equal to a one-client
-    call given the batched plan, and within the tolerance of the plain
+def test_client_axis_is_bitwise_one_client_calls(cuda, dtype):
+    """``[N, B, H, W, C]`` at N in ``CLIENT_COUNTS``: each client's dW
+    bitwise equal to its one-client call (so to its row at every other N),
+    in every bf16 layout, and within the tolerance of the plain
     version."""
-    x, g = _inputs((n,) + shape, dtype, cuda, seed=2)
-    k = wgrad_cuda.conv3x3_wgrad(x, g)
-    assert k.shape == (n, 3, 3, shape[3], shape[3])
-    plan = wgrad_cuda.chunking(*shape, n)
-    for i in range(n):
-        assert torch.equal(k[i], wgrad_cuda.conv3x3_wgrad(x[i], g[i],
-                                                          plan=plan))
+    shape = (25, 32, 32, 64)
+    x, g = _inputs((max(CLIENT_COUNTS),) + shape, dtype, cuda, seed=2)
+    ones = [wgrad_cuda.conv3x3_wgrad(x[i], g[i]) for i in range(len(x))]
+    layouts = LAYOUTS if dtype == torch.bfloat16 else (None,)
+    for n in CLIENT_COUNTS:
+        xn, gn = x[:n].contiguous(), g[:n].contiguous()
+        for layout in layouts:
+            k = wgrad_cuda._launch(xn, gn, layout=layout)
+            assert k.shape == (n, 3, 3, shape[3], shape[3])
+            for i in range(n):
+                assert torch.equal(k[i], ones[i]), (n, layout, i)
+        assert torch.equal(wgrad_cuda.conv3x3_wgrad(xn, gn), k)
+    p = wgrad_cuda.conv3x3_wgrad_plain(x, g)
+    k = torch.stack(ones)
+    assert (k - p).abs().max().item() <= 1e-4 * p.abs().max().item()
+    assert _bf16_ulps(k, p, x, g) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,shape", [(3, (4, 28, 28, 64)),
+                                     (5, (2, 7, 5, 136))])
+def test_ragged_client_axis_is_bitwise_one_client_calls(cuda, n, shape,
+                                                        dtype):
+    """Ragged rows and columns (zero fill) and C over one 64-wide tile:
+    every bf16 layout, and the f32 kernel, bitwise the one-client calls,
+    within plain's tolerance."""
+    x, g = _inputs((n,) + shape, dtype, cuda, seed=3)
+    for layout in LAYOUTS if dtype == torch.bfloat16 else (None,):
+        k = wgrad_cuda._launch(x, g, layout=layout)
+        for i in range(n):
+            assert torch.equal(k[i], wgrad_cuda.conv3x3_wgrad(x[i], g[i]))
     p = wgrad_cuda.conv3x3_wgrad_plain(x, g)
     assert (k - p).abs().max().item() <= 1e-4 * p.abs().max().item()
     assert _bf16_ulps(k, p, x, g) <= 1.0
-    with pytest.raises(ValueError, match="plan"):
-        wgrad_cuda.conv3x3_wgrad(x[0][:, :8].contiguous(),
-                                 g[0][:, :8].contiguous(), plan=plan)
