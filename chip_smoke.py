@@ -24,7 +24,9 @@ together), then runs these phases and exits non-zero if any of them fails:
      max|plain| in f32, and within one bf16 ulp (of the element's term
      magnitude, see ``wgrad_ulps``) after the cast;
    * the SASS of the bf16 wgrad kernel (cuobjdump) must hold wgmma
-     (HGMMA) in every layout it is built for;
+     (HGMMA) in every layout it is built for, and that of the f32 kernel
+     no tensor-core product (HGMMA or HMMA: no TF32); the f32 kernel's
+     registers and spill bytes are read from the build log;
    * the batched shapes the main path gives the kernels at the flagship's
      chunk of 40 clients (``check_batched``): the wgrad kernel at
      (40, 25, 32, 32, 64) bf16 must be bitwise equal to 40 one-client calls
@@ -32,8 +34,8 @@ together), then runs these phases and exits non-zero if any of them fails:
      ``WGRAD_CLIENT_COUNTS`` (1 to 80), bf16 in each of its layouts and
      f32, each client's dW must be bitwise its one-client call's (timed by
      N and layout beside cuDNN's grouped weight gradient, and the f32 kernel
-     at the sweep fleet's chunk of 20 beside cuDNN's f32 one with TF32
-     off); the normalize kernel at 40 x 25 samples of each
+     by N beside cuDNN's f32 one with TF32 off, its row at the sweep
+     fleet's chunk of 20); the normalize kernel at 40 x 25 samples of each
      stage shape with a per-model ``[40, C]`` bf16 affine must be bitwise
      equal to 40 calls with ``[C]`` affines and to its plain version; the
      stats kernel at those 1000 samples within rtol 1e-5 of its plain
@@ -308,8 +310,12 @@ together), then runs these phases and exits non-zero if any of them fails:
    into its batch, and with functorch's own convolution rule in place of
    ops/conv.py's, each once in the order A B C after a run of ``fed``
    that is not kept. Each phase's wall seconds are logged and kept.
-4. Prints the kernels' JSON line, the card's name and power limit, and as
-   its last line ``{"ok": true, "device": {...}}``.
+4. Prints the kernels' JSON line (the wgrad wrapper's bf16 and f32
+   kernels as rows of their own, their launches split by the paths'
+   ``wgrad_by_dtype``; fails if a path's split does not add up to its
+   wgrad launches or a kernel of the paths never launched), the
+   card's name and power limit, and as its last line ``{"ok": true,
+   "device": {...}}``.
 
 Every phase runs with functorch's per-example fallback disabled
 (``engine.no_vmap_fallback``): an op without a batching rule under
@@ -343,7 +349,6 @@ import time
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
-TF32_OPS_PER_S = 495e12       # H100 SXM dense TF32 tensor cores (f32 inputs)
 EPS = 1e-6
 GROUPS = 32
 # (HW, C) of ResNet-18's four stages on 32x32 inputs, and how many of the
@@ -376,6 +381,8 @@ EARLIER_MS = {
     "grid-stride kernel": 0.07444,
     "gn_normalize (1000, 1024, 64), f32 scale/bias, flat grid-stride "
     "kernel": 0.1083,
+    "conv3x3_wgrad f32 (20, 25, 32, 32, 64), CTA-per-tap kernel": 1.4410,
+    "conv3x3_wgrad f32 (25, 32, 32, 64), CTA-per-tap kernel": 0.0829,
 }
 
 
@@ -666,6 +673,24 @@ def grouped_wgrad(torch, x, g):
         [False, True, False])[1]
 
 
+def f32_cudnn(torch, on: bool = True):
+    """cuDNN with TF32 off while ``on`` (else as it is): its f32 weight
+    gradient is then the f32 function the kernel computes."""
+    cudnn = torch.backends.cudnn
+    if not on:
+        return contextlib.nullcontext()
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=False,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+def wgrad_ops(n, b, h, w, c):
+    """Multiply-adds x 2 of ``n`` clients' 3x3 SAME weight gradients at
+    (b, h, w, c): tap (dy, dx) meets (h - |dy - 1|) (w - |dx - 1|) valid
+    positions, (3h - 2)(3w - 2) over the nine taps (the padding's zeros
+    are no work of the function)."""
+    return 2 * c * c * n * b * (3 * h - 2) * (3 * w - 2)
+
+
 def wgrad_bound(row, ops_per_s):
     """``row`` with its bound: the larger of its bytes over the card's
     memory rate and its operations over ``ops_per_s``, and which."""
@@ -702,34 +727,56 @@ def check_wgrad(torch, wg):
         if not ulp <= 1.0:
             fail(f"wgrad {name} {shape}: {ulp:.2f} bf16 ulps after the cast")
         # cuDNN's weight gradient of the same convolution, alone: the
-        # yardstick (one group).
+        # yardstick (one group); in f32 with TF32 off, the function the
+        # kernel computes on the CUDA cores, and bound at their rate.
         elem = x.element_size()
+        f32 = dtype == torch.float32
+        with f32_cudnn(torch, f32):
+            library_ms = time_ms(torch, grouped_wgrad(torch, x[None],
+                                                      g[None]))
         row = wgrad_bound({
             "shape": list(shape), "dtype": name,
             "ms": time_ms(torch, lambda: wg.conv3x3_wgrad(x, g)),
             "eager_ms": eager_ms(torch, lambda: wg.conv3x3_wgrad(x, g)),
             "plain_ms": time_ms(torch, lambda: wg.conv3x3_wgrad_plain(x, g)),
-            "library_ms": time_ms(torch, grouped_wgrad(torch, x[None],
-                                                       g[None])),
+            "library_ms": library_ms,
             "bytes": 2 * b * h * w * c * elem + 9 * c * c * 4,
-            "ops": 2 * 9 * c * c * b * h * w,
+            "ops": wgrad_ops(1, b, h, w, c),
             "max_abs_err": err, "bf16_ulps": ulp,
-        }, BF16_OPS_PER_S if dtype == torch.bfloat16 else TF32_OPS_PER_S)
+        }, F32_OPS_PER_S if f32 else BF16_OPS_PER_S)
         log(f"wgrad {name} {shape}: {row['ms']:.4f} ms (eager "
             f"{row['eager_ms']:.4f}, bound {row['bound_ms']:.4f} by "
             f"{row['bound_by']}, plain {row['plain_ms']:.4f}, cuDNN wgrad "
-            f"{row['library_ms']:.4f}); max abs err {err:.2e} "
+            f"{row['library_ms']:.4f}{' with TF32 off' if f32 else ''}); "
+            f"max abs err {err:.2e} "
             f"({err / scale:.2e} of max), {ulp:.2f} bf16 ulp")
         rows[name] = row
     return rows
 
 
+def ptxas_usage(build_log: str, kernel: str) -> dict | None:
+    """Registers and spill bytes of ``kernel`` from nvcc's ``-Xptxas -v``
+    lines (None when this run did not build it: a cached library)."""
+    props = re.search(
+        rf"Function properties for \S*{kernel}\S*\n\s*(\d+) bytes stack "
+        r"frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+        build_log)
+    regs = re.search(rf"Compiling entry function '\S*{kernel}\S*'.*\n"
+                     r"(?:.*\n)*?.*Used (\d+) registers", build_log)
+    if props is None or regs is None:
+        return None
+    return {"stack_bytes": int(props[1]), "spill_store_bytes": int(props[2]),
+            "spill_load_bytes": int(props[3]), "registers": int(regs[1])}
+
+
 def check_wgrad_sass(_build):
     """Phase 1c: the bf16 wgrad kernel must run on Hopper's warpgroup
-    tensor-core products. Counts HGMMA (wgmma) and HMMA (mma.sync)
-    instructions in each partial kernel's SASS (cuobjdump; the bf16
-    kernel once per layout it is built for) and fails unless every bf16
-    instantiation has HGMMA."""
+    tensor-core products, and the f32 kernel on the CUDA cores. Counts
+    HGMMA (wgmma) and HMMA (mma.sync) instructions in each partial
+    kernel's SASS (cuobjdump; the bf16 kernel once per layout it is built
+    for) and fails unless every bf16 instantiation has HGMMA and the f32
+    kernel has neither (no TF32 product); fails if the build log shows
+    the f32 kernel spilling, and logs its registers and spill bytes."""
     proc = subprocess.run(
         [_build.cuda_tool("cuobjdump"), "-sass", _build.LIB_PATHS["wgrad"]],
         capture_output=True, text=True,
@@ -739,7 +786,7 @@ def check_wgrad_sass(_build):
     counts = {}
     for section in proc.stdout.split("Function : ")[1:]:
         name = section.split(None, 1)[0]
-        for kernel in ("wgrad_tc_kernel", "wgrad_f32_partial_kernel"):
+        for kernel in ("wgrad_tc_kernel", "wgrad_f32_kernel"):
             if kernel in name:
                 # wgrad_tc_kernel<kStages, kWalk>: ILi<stages>ELb<walk>E
                 args = re.search(r"ILi(\d+)ELb([01])E", name)
@@ -751,8 +798,18 @@ def check_wgrad_sass(_build):
     tc = {k: v for k, v in counts.items() if k.startswith("wgrad_tc_kernel")}
     if not tc or not all(v["HGMMA"] for v in tc.values()):
         fail(f"no wgmma (HGMMA) in a bf16 wgrad kernel's SASS: {counts}")
-    log(f"SASS tensor-core instructions per kernel: {counts}")
-    return counts
+    f32 = counts.get("wgrad_f32_kernel")
+    if f32 is None or f32["HGMMA"] or f32["HMMA"]:
+        fail(f"the f32 wgrad kernel is missing from the SASS or holds "
+             f"tensor-core products: {counts}")
+    usage = ptxas_usage(_build.BUILD_LOGS.get("wgrad", ""),
+                        "wgrad_f32_kernel")
+    if usage and (usage["spill_store_bytes"] or usage["spill_load_bytes"]):
+        fail(f"the f32 wgrad kernel spills registers: {usage}")
+    log(f"SASS tensor-core instructions per kernel: {counts}; "
+        f"wgrad_f32_kernel ptxas: "
+        f"{usage or 'not built in this run (cached library)'}")
+    return {"counts": counts, "f32_ptxas": usage}
 
 
 #: Client counts of phase 1d's wgrad invariance check: one client, the
@@ -772,7 +829,7 @@ def check_wgrad_invariance(torch, wg, gen):
     f32 grouped weight gradient with TF32 off; returns the rows."""
     layouts = {"few": wg.FEW, "walk": wg.WALK}
     n_max = max(WGRAD_CLIENT_COUNTS)
-    out = {"layout_ms": {}, "cudnn_ms": {}}
+    out = {"layout_ms": {}, "cudnn_ms": {}, "f32_ms": {}}
     for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         x = torch.randn((n_max,) + WGRAD_SHAPE, device="cuda",
                         generator=gen).to(dtype)
@@ -814,24 +871,27 @@ def check_wgrad_invariance(torch, wg, gen):
                                              grouped_wgrad(torch, xn, gn_),
                                              iters=5)
         else:
+            for n in WGRAD_CLIENT_COUNTS:
+                xn, gn_ = x[:n].contiguous(), g[:n].contiguous()
+                with f32_cudnn(torch):
+                    cudnn_ms = time_ms(torch, grouped_wgrad(torch, xn, gn_),
+                                       iters=3)
+                out["f32_ms"][n] = {
+                    "kernel": time_ms(
+                        torch, lambda: wg.conv3x3_wgrad(xn, gn_), iters=3),
+                    "cudnn_tf32_off": cudnn_ms}
             n = WGRAD_F32_CHUNK
             xn, gn_ = x[:n].contiguous(), g[:n].contiguous()
             b, h, w, c = WGRAD_SHAPE
-            cudnn = torch.backends.cudnn
-            with cudnn.flags(enabled=cudnn.enabled, benchmark=False,
-                             deterministic=cudnn.deterministic,
-                             allow_tf32=False):
-                library_ms = time_ms(torch, grouped_wgrad(torch, xn, gn_),
-                                     iters=3)
             out["f32_chunk"] = wgrad_bound({
                 "shape": [n, b, h, w, c], "dtype": "f32",
-                "ms": time_ms(torch, lambda: wg.conv3x3_wgrad(xn, gn_),
-                              iters=3),
+                "ms": out["f32_ms"][n]["kernel"],
                 "plain_ms": time_ms(
                     torch, lambda: wg.conv3x3_wgrad_plain(xn, gn_), iters=3),
-                "library_ms": library_ms,
+                "library_ms": out["f32_ms"][n]["cudnn_tf32_off"],
+                "max_abs_err": err,
                 "bytes": 2 * n * b * h * w * c * 4 + n * 9 * c * c * 4,
-                "ops": 2 * 9 * c * c * n * b * h * w,
+                "ops": wgrad_ops(n, b, h, w, c),
             }, F32_OPS_PER_S)
         del x, g, ones, p
     f = out["f32_chunk"]
@@ -850,6 +910,10 @@ def check_wgrad_invariance(torch, wg, gen):
         f"{f['bound_ms']:.4f} by {f['bound_by']} at the 67 TFLOP/s f32 "
         f"rate, plain {f['plain_ms']:.4f}, cuDNN f32 grouped wgrad with "
         f"TF32 off {f['library_ms']:.4f})")
+    log("wgrad f32 ms by N, kernel / cuDNN f32 grouped wgrad with TF32 "
+        "off: " + "; ".join(f"N={n} {r['kernel']:.4f} / "
+                            f"{r['cudnn_tf32_off']:.4f}"
+                            for n, r in out["f32_ms"].items()))
     return out
 
 
@@ -896,7 +960,7 @@ def check_batched(torch, gn, wg):
             torch, lambda: [wg.conv3x3_wgrad(x[i], g[i]) for i in range(n)],
             iters=3),
         "bytes": 2 * n * b * h * w * c * 2 + n * 9 * c * c * 4,
-        "ops": 2 * 9 * c * c * n * b * h * w,
+        "ops": wgrad_ops(n, b, h, w, c),
         "max_abs_err": err, "bf16_ulps": ulp,
     }, BF16_OPS_PER_S)
     log(f"batched wgrad {tuple(x.shape)} bf16 (layout {plan.layout}, "
@@ -1357,6 +1421,7 @@ def run_path(torch, gn, wg, name, config, post_round_probe=None,
     launches = {"gn_stats": gn.gn_stats.launches,
                 "gn_normalize": gn.gn_normalize.launches,
                 "conv3x3_wgrad": wg.conv3x3_wgrad.launches}
+    wgrad_by_dtype = dict(wg.conv3x3_wgrad.launches_by_dtype)
     history = result["history"]
     if len(history) != config.round:
         fail(f"{name}: ran {len(history)} of {config.round} rounds")
@@ -1393,6 +1458,7 @@ def run_path(torch, gn, wg, name, config, post_round_probe=None,
         f"{peak_bytes / 2**30:.2f} GiB")
     out = {
         "forwards": forwards, "launches": launches, "round_seconds": seconds,
+        "wgrad_by_dtype": wgrad_by_dtype,
         "client_rounds_per_sec": result["client_rounds_per_sec"],
         "history": history, "result_keys": sorted(result),
         "chunk_steps_bound": bound, "peak_memory_bytes": peak_bytes,
@@ -2401,6 +2467,7 @@ def run_threaded(torch, gn, wg, name, config):
         fail(f"{name}: {len(history)} records of {config.round}, "
              f"accuracies {[r['test_accuracy'] for r in history]}")
     return {"result": result, "launches": launches, "queue": queue,
+            "wgrad_by_dtype": dict(wg.conv3x3_wgrad.launches_by_dtype),
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
             "round_seconds": [r["round_seconds"] for r in history],
             "history": history}
@@ -2448,8 +2515,9 @@ def threaded_fed(torch, gn, wg, log_root):
         fail("threaded_fed: two identical runs differ (params bitwise "
              f"equal: {same_params})")
     q = runs[0]["queue"]
-    res = {k: runs[0][k] for k in ("launches", "peak_memory_bytes",
-                                   "round_seconds", "history")}
+    res = {k: runs[0][k] for k in ("launches", "wgrad_by_dtype",
+                                   "peak_memory_bytes", "round_seconds",
+                                   "history")}
     res.update({
         "second_round_seconds": runs[1]["round_seconds"],
         "xla_compiles": runs[0]["result"]["xla_compiles"],
@@ -3508,6 +3576,7 @@ def run_sweep_path(torch, gn, wg, name, config, dataset, client_data):
         if not all(math.isfinite(r["test_loss"]) for r in p["history"]):
             fail(f"{name} point {p['index']}: non-finite test loss")
     return {"result": out, "forwards": forwards, "launches": launches,
+            "wgrad_by_dtype": dict(wg.conv3x3_wgrad.launches_by_dtype),
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
             "wall_seconds": wall}
 
@@ -3747,6 +3816,7 @@ def sweep_fleet(torch, gn, wg):
         solo_secs = {i: s["round_seconds"] for i, s in solos.items()}
         out[name] = {
             "forwards": fleet["forwards"], "launches": fleet["launches"],
+            "wgrad_by_dtype": fleet["wgrad_by_dtype"],
             "solo_train_forwards": sorted(solo_fwd),
             "round_seconds_per_experiment": fleet_secs,
             "solo_round_seconds": solo_secs,
@@ -4073,6 +4143,7 @@ def rank_worker(out_path: str, argv: list[str],
             "round_seconds": [h["round_seconds"]
                               for h in result["history"]],
             "launches": launches,
+            "wgrad_by_dtype": dict(wg.conv3x3_wgrad.launches_by_dtype),
             "launches_by_device": counts_by_device(),
             "eval_launches": eval_launches,
             "post_round_launches_by_device": post_round_launches,
@@ -5165,13 +5236,15 @@ def layout_ab(torch, gn, wg, log_root: str):
     return {"runs": runs, "summary": summary}
 
 
-def redesign_lines(rows, wgrad_rows, batched_wgrad):
+def redesign_lines(rows, wgrad_rows, batched_wgrad, f32_chunk):
     """Prints the kernels redesigned for Hopper beside their yardsticks,
     bounds and earlier times (EARLIER_MS: PERF.md constants, not this
     run), at one client's shapes (B=25) and the wgrad kernel also at the
-    flagship's chunk; returns the same numbers."""
+    flagship's chunk (bf16) and the f32 fleet's (f32); returns the same
+    numbers."""
     w = wgrad_rows["bf16"]
     w40 = batched_wgrad
+    w32 = wgrad_rows["f32"]
     eval_row = next(r for r in rows if r["shape"][0] == EVAL_BATCH)
     train_rows = [r for r in rows if r["per_forward"]]
     stats, norm = (
@@ -5188,6 +5261,13 @@ def redesign_lines(rows, wgrad_rows, batched_wgrad):
         "conv3x3_wgrad_bf16_chunk": {"ms": w40["ms"],
                                      "cudnn_ms": w40["library_ms"],
                                      "bound_ms": w40["bound_ms"]},
+        "conv3x3_wgrad_f32": {"ms": w32["ms"],
+                              "cudnn_tf32_off_ms": w32["library_ms"],
+                              "bound_ms": w32["bound_ms"]},
+        "conv3x3_wgrad_f32_chunk": {"ms": f32_chunk["ms"],
+                                    "cudnn_tf32_off_ms":
+                                        f32_chunk["library_ms"],
+                                    "bound_ms": f32_chunk["bound_ms"]},
         "gn_stats_per_training_forward": {
             "ms": stats["ms"], "bound_ms": stats["bound_ms"],
             "f_group_norm_ms": stats["library_ms"]},
@@ -5212,6 +5292,12 @@ def redesign_lines(rows, wgrad_rows, batched_wgrad):
         f"{w40['ms']:.4f} ms against cuDNN grouped wgrad "
         f"{w40['library_ms']:.4f} ms (bound {w40['bound_ms']:.4f}, "
         f"{w40['bound_ms'] / w40['ms']:.3f} of it); {before[2]}")
+    for row, earlier in ((f32_chunk, before[7]), (w32, before[8])):
+        log(f"redesigned conv3x3_wgrad f32 {tuple(row['shape'])}: "
+            f"{row['ms']:.4f} ms against cuDNN f32 wgrad with TF32 off "
+            f"{row['library_ms']:.4f} ms (bound {row['bound_ms']:.4f} by "
+            f"{row['bound_by']}, {row['bound_ms'] / row['ms']:.3f} of it); "
+            f"{earlier}")
     log(f"redesigned gn_stats per training forward: {stats['ms']:.4f} ms "
         f"(bound {stats['bound_ms']:.4f}; F.group_norm, stats and normalize "
         f"together, {stats['library_ms']:.4f}); {before[3]}")
@@ -5407,6 +5493,18 @@ def main() -> None:
         k: sum(p["launches"][k] for p in paths.values())
         for k in ("gn_stats", "gn_normalize", "conv3x3_wgrad")
     }
+    # The wgrad wrapper's launches of its f32 kernel, a row of its own:
+    # every path splits its wgrad launches by dtype, and the split adds up.
+    unsplit = [name for name, p in paths.items()
+               if sum(p.get("wgrad_by_dtype", {}).values())
+               != p["launches"]["conv3x3_wgrad"]]
+    if unsplit:
+        fail(f"paths whose wgrad launches by dtype do not add up to their "
+             f"launches: {unsplit}")
+    f32_launches = sum(p.get("wgrad_by_dtype", {}).get("f32", 0)
+                       for p in paths.values())
+    log(f"wgrad launches on the paths: {launches['conv3x3_wgrad']}, "
+        f"{f32_launches} of them f32")
 
     # The kernels at the shapes the main path gives them: a chunk of 40
     # clients. GroupNorm per batched training forward (each stage shape
@@ -5440,18 +5538,28 @@ def main() -> None:
                 r["per_forward"] * r[key]["library_ms"]
                 for r in batched["gn"]),
         })
-    w = batched["wgrad"]
-    kernels.append({
-        "name": "conv3x3_wgrad", "route": "cuda",
-        "source": "distributed_learning_simulator_tpu_torch/csrc/wgrad.cu",
-        "replaces": "scripts/exp_pallas_wgrad.py:63",
-        "launches": launches["conv3x3_wgrad"],
-        "max_abs_err": w["max_abs_err"], "ms": w["ms"],
-        "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
-        "bound_by": w["bound_by"], "library_ms": w["library_ms"],
-    })
+    # bf16 at the flagship's chunk of 40, f32 at the f32 fleet's 20.
+    f32_chunk = batched["wgrad_invariance"]["f32_chunk"]
+    for name, w, n_launches in (
+        ("conv3x3_wgrad", batched["wgrad"],
+         launches["conv3x3_wgrad"] - f32_launches),
+        ("conv3x3_wgrad_f32", f32_chunk, f32_launches),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "distributed_learning_simulator_tpu_torch/csrc/wgrad.cu",
+            "replaces": "scripts/exp_pallas_wgrad.py:63",
+            "launches": n_launches,
+            "max_abs_err": w["max_abs_err"], "ms": w["ms"],
+            "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
+            "bound_by": w["bound_by"], "library_ms": w["library_ms"],
+        })
+    never = [k["name"] for k in kernels if k["launches"] <= 0]
+    if never:
+        fail(f"kernels of the main path launched no time: {never}")
     phases_scope.close()
-    redesigned = redesign_lines(rows, wgrad_rows, batched["wgrad"])
+    redesigned = redesign_lines(rows, wgrad_rows, batched["wgrad"],
+                                f32_chunk)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,

@@ -9,6 +9,13 @@ ignored directory, and ``.``). Each arm is a process of its own that
 imports the port from its tree and builds that tree's kernels there; the
 arms run in the order OLD NEW NEW OLD, one at a time. An arm measures:
 
+* the wgrad kernel alone in f32 (``conv3x3_wgrad`` on seeded
+  ``[N, 25, 32, 32, 64]`` inputs, the same in every arm) at each N of
+  ``KERNEL_CASES``: the median device ms of a CUDA-graph replay
+  (chip_smoke.py's ``time_ms``), cuDNN's
+  f32 grouped weight gradient (TF32 off) beside it, and the sha256 of its
+  output's bytes; the run fails unless every arm's outputs are bitwise
+  equal;
 * one training step of ``make_chunk_train_fn`` (ResNet-18 at full width,
   batch 25, SGD with momentum 0.9, the replayed init of seed 0) for each
   of ``STEP_CASES`` (dtype, models a program): the median synchronized
@@ -19,13 +26,15 @@ arms run in the order OLD NEW NEW OLD, one at a time. An arm measures:
   clients in one chunk of 20, the f32 sweep fleet's program of one
   seed), ``ROUNDS`` rounds: the median round seconds after round 0.
 
-Writes ``DIR/step_ab.json`` and prints each arm's numbers, the card's name
-and power limit, and one JSON line of the whole. Fails without a GPU.
+``--kernel-only`` measures the kernel alone. Writes ``DIR/step_ab.json``
+and prints each arm's numbers, the card's name and power limit, and one
+JSON line of the whole. Fails without a GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -33,11 +42,38 @@ import subprocess
 import sys
 import time
 
+# Beside this script; imported before an arm puts its tree first on the
+# path, so every arm times with this tree's helpers.
+import chip_smoke
+
+KERNEL_CASES = (1, 20, 40)
 STEP_CASES = (("bfloat16", 40), ("float32", 20), ("float32", 40))
 STEP_REPEATS = 7
 ROUND_CASES = (("bfloat16", 40), ("float32", 20))
 ROUNDS = 4
 TRAIN_BATCH = 25
+
+
+def kernel_case(torch, n: int) -> dict:
+    """The f32 wgrad kernel at ``n`` clients: device ms, cuDNN's f32
+    grouped weight gradient with TF32 off, and the output's digest (timed
+    as chip_smoke.py times them)."""
+    from distributed_learning_simulator_tpu_torch.ops import wgrad_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((n,) + chip_smoke.WGRAD_SHAPE, device="cuda",
+                    generator=gen)
+    g = torch.randn((n,) + chip_smoke.WGRAD_SHAPE, device="cuda",
+                    generator=gen)
+    out = wgrad_cuda.conv3x3_wgrad(x, g)
+    torch.cuda.synchronize()
+    digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+    with chip_smoke.f32_cudnn(torch):
+        cudnn_ms = chip_smoke.time_ms(
+            torch, chip_smoke.grouped_wgrad(torch, x, g), iters=5)
+    return {"n": n, "ms": chip_smoke.time_ms(
+                torch, lambda: wgrad_cuda.conv3x3_wgrad(x, g), iters=5),
+            "cudnn_ms": cudnn_ms, "sha256": digest}
 
 
 def step_case(torch, dtype_name: str, m: int) -> dict:
@@ -126,7 +162,8 @@ def round_case(dtype_name: str, clients: int) -> dict:
             "test_loss": [r["test_loss"] for r in result["history"]]}
 
 
-def worker(tree: str, out_path: str, data_dir: str) -> None:
+def worker(tree: str, out_path: str, data_dir: str,
+           kernel_only: bool = False) -> None:
     """One arm: the port of ``tree``, its kernels built there."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
@@ -142,20 +179,25 @@ def worker(tree: str, out_path: str, data_dir: str) -> None:
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     out = {"tree": tree,
-           "steps": [step_case(torch, d, m) for d, m in STEP_CASES],
-           "rounds": [round_case(d, n) for d, n in ROUND_CASES]}
+           "kernel": [kernel_case(torch, n) for n in KERNEL_CASES],
+           "steps": [] if kernel_only else [step_case(torch, d, m)
+                                            for d, m in STEP_CASES],
+           "rounds": [] if kernel_only else [round_case(d, n)
+                                             for d, n in ROUND_CASES]}
     with open(out_path, "w") as f:
         json.dump(out, f)
 
 
 def main() -> None:
     if sys.argv[1:2] == ["--worker"]:
-        worker(*sys.argv[2:5])
+        worker(*sys.argv[2:5], kernel_only=sys.argv[5:6] == ["--kernel-only"])
         return
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trees", nargs=2, required=True,
                         metavar=("OLD", "NEW"))
     parser.add_argument("--out", default=os.path.join("build", "step_ab"))
+    parser.add_argument("--kernel-only", action="store_true",
+                        help="measure the f32 wgrad kernel alone")
     args = parser.parse_args()
     import torch
 
@@ -175,13 +217,17 @@ def main() -> None:
         path = os.path.join(out, f"arm{i}_{label}.json")
         t0 = time.perf_counter()
         subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--worker", tree, path, os.path.join(out, "data")],
+                        "--worker", tree, path, os.path.join(out, "data")]
+                       + (["--kernel-only"] if args.kernel_only else []),
                        check=True, timeout=900)
         with open(path) as f:
             arm = json.load(f)
         arm.update(label=label, seconds=time.perf_counter() - t0)
         arms.append(arm)
-        print(f"arm {i} {label} ({arm['seconds']:.1f} s): steps "
+        print(f"arm {i} {label} ({arm['seconds']:.1f} s): f32 wgrad "
+              + "; ".join(f"N={k['n']} {k['ms']:.4f} ms (cuDNN f32 "
+                          f"{k['cudnn_ms']:.4f})" for k in arm["kernel"])
+              + "; steps "
               + "; ".join(f"{s['dtype']} x{s['models']} wall "
                           f"{s['wall_ms']:.2f} ms device "
                           f"{s['device_ms']:.2f} ms"
@@ -190,16 +236,24 @@ def main() -> None:
               + "; ".join(f"{r['dtype']} x{r['clients']} "
                           f"{r['median_round_seconds']:.4f}"
                           for r in arm["rounds"]), flush=True)
-    summary = {"card": card[0] if card else None, "arms": arms}
+    digests = {(k["n"], k["sha256"]) for a in arms for k in a["kernel"]}
+    bitwise = len(digests) == len(KERNEL_CASES)
+    print(f"f32 wgrad outputs bitwise equal in every arm at N = "
+          f"{KERNEL_CASES}: {bitwise}")
+    summary = {"card": card[0] if card else None, "arms": arms,
+               "kernel_bitwise": bitwise}
     with open(os.path.join(out, "step_ab.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(card[0] if card else "nvidia-smi gave nothing")
-    print(json.dumps({"arms": [
+    print(json.dumps({"kernel_bitwise": bitwise, "arms": [
         {"label": a["label"],
+         "wgrad_f32_ms": [k["ms"] for k in a["kernel"]],
          "step_wall_ms": [s["wall_ms"] for s in a["steps"]],
          "step_device_ms": [s["device_ms"] for s in a["steps"]],
          "median_round_seconds": [r["median_round_seconds"]
                                   for r in a["rounds"]]} for a in arms]}))
+    if not bitwise:
+        sys.exit("chip_step_ab.py: the f32 wgrad outputs differ between arms")
 
 
 if __name__ == "__main__":

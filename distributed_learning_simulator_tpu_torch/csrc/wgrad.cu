@@ -19,12 +19,12 @@
 // keeps, and each of the 9 taps is one dW_tap = X_tap^T G contraction
 // (M = ci, N = co, K = B*H*W positions).
 //
-// What bounds it on an H100 (bytes: x and g read once, dW written once, at
-// 3.35 TB/s; operations at the 989 TFLOP/s dense bf16 tensor-core peak):
-// one client (25, 32, 32, 64) moves 6.70 MB (2.00 us) and does 1.89 GFLOP
-// (1.91 us); the flagship's chunk of 40 clients moves 268 MB (0.0800 ms)
-// and does 75.5 GFLOP (0.0763 ms). Bytes and operations bound it about
-// equally at both.
+// What bounds it on an H100 in bf16 (bytes: x and g read once, dW
+// written once, at 3.35 TB/s; operations at the 989 TFLOP/s dense bf16
+// tensor-core peak): one client (25, 32, 32, 64) moves 6.70 MB (2.00 us)
+// and does 1.89 GFLOP (1.91 us); the flagship's chunk of 40 clients moves
+// 268 MB (0.0800 ms) and does 75.5 GFLOP (0.0763 ms). Bytes and operations
+// bound it about equally at both.
 //
 // The order, the same for a client whatever N is and whichever layout
 // computes it. A client's K (its B * ceil(H/2) row pairs: rows 2p, 2p + 1
@@ -93,14 +93,46 @@
 //   on one chain, and smaller units (co halves, single taps) give an SM at
 //   most 1/120 of the work all the same.
 //
-// f32 inputs: `wgrad_f32_partial_kernel`, f32 FMAs on the CUDA cores. The
-// tensor cores would take f32 only as TF32 (about three decimal digits),
-// which breaks the 1e-4 f32 parity gate and the f32 ResNet-18 card-vs-CPU
-// check. A block owns one (client, run, tap, 64x64 tile), stages 32
-// positions at a time of the shifted x and of g in shared memory as f32,
-// and each of its 256 threads accumulates a 4x4 piece of the tile in
-// registers; the partials meet in `wgrad_reduce_kernel` as above.
-//
+// f32 inputs: `wgrad_f32_kernel`, f32 FMAs on the CUDA cores. The tensor
+// cores would take f32 only as TF32 (about three decimal digits), which
+// breaks the 1e-4 f32 parity gate and the f32 ResNet-18 card-vs-CPU check.
+// Its bound is operations at the 67 TFLOP/s f32 rate, counting each tap's
+// valid positions only: 0.0270 ms for one client, 0.5402 ms for the f32
+// fleet's chunk of 20. Always the FEW layout:
+// a CTA owns one (client, run, dy, 64x64 tile), 132 CTAs a client at C =
+// 64, two CTAs an SM, and `wgrad_reduce_kernel` adds the partials as above
+// (a walking CTA per (client, dy) would fill 60 SMs at N = 20).
+// * Order: each output of a run is one fmaf chain over the run's positions
+//   in ascending order (row by row, each row's columns in order), from
+//   zero, the same chain and the same bits as the CTA-per-tap kernel it
+//   replaces; the products of the zero fill add +0.
+// * Staging: a stage is kSeg positions of one row: the g box (64 co x 32
+//   columns of row hr) and the x box (64 ci x the 34 columns w0-1 .. w0+32
+//   of row hr + dy - 1), loaded once for the three dx taps. f32 4-D tensor
+//   maps, unswizzled ([position][64 channels] rows of 256 bytes), fill with
+//   zeros what lies outside: the SAME padding, row -1 and row H, the ragged
+//   row end and channels past C. The producer thread computes a piece's
+//   (sample, row, column) once; no consumer computes an address or a mask.
+// * Ring: four stages with full and empty mbarriers (one release per
+//   consumer warp), no CTA-wide barrier in the loop.
+// * Products: each of the 256 consumer threads holds a 4 ci x 4 co piece of
+//   the three taps (48 accumulators). Position p's g piece is one float4,
+//   and tap dx's x piece is x box row p + dx, so one new x float4 a
+//   position serves three positions' taps: 48 FMAs for two 16-byte shared
+//   loads.
+//   A piece's 32 positions are one unrolled block (85 registers, no
+//   spills; unrolling by 8 took 4% longer at N = 20).
+// * The CTA-per-tap kernel this replaces staged x and g per tap (nine
+//   passes through L2, ~2.4 GB at N = 20), computed an int64 division and
+//   modulo per staged vector, and loaded and computed in lockstep between
+//   two __syncthreads. chip_step_ab.py on an H100 80GB HBM3 at 700 W, ms,
+//   this kernel / that one / cuDNN's f32 grouped weight gradient with
+//   TF32 off: 0.0492 / 0.0849 / 0.0882 at N = 1, 0.7975 / 1.4362 / 1.0055
+//   at N = 20 (0.71 of the bound), 1.5480 / 2.8176 / 1.8725 at N = 40,
+//   each client's dW bitwise the same. Placing a run's three dy CTAs side
+//   by side in the launch order (so that L2 serves their shared rows) did
+//   not move the time: the products, not the loads, set it.
+
 // Plain C interface for ctypes: every function returns cudaGetLastError()
 // right after its launches, and the Python wrapper raises if it is not 0.
 
@@ -420,98 +452,152 @@ wgrad_tc_kernel(const __grid_constant__ CUtensorMap xmap,
 // ---------------------------------------------------------------------------
 // f32: CUDA cores.
 
-constexpr int kThreads = 256;  // 16 x 16 threads, a 4x4 piece each
-constexpr int kRows = 32;      // K rows staged in shared memory per step
+constexpr int kF32Consumers = 256;  // 16 x 16 threads: 4 ci x 4 co each
+constexpr int kF32Threads = kF32Consumers + 32;  // + the producer warp
+constexpr int kF32Warps = kF32Consumers / 32;
+constexpr int kF32Stages = 4;
+// A stage, in floats: the g box (kSeg positions of one row, 64 channels
+// each) and then the x box (its kXSeg columns w0-1 .. w0+kSeg of the row dy
+// - 1 away), each a dense [position][64] block.
+constexpr int kF32GFloats = kSeg * kTile;
+constexpr int kF32StageFloats = (kSeg + kXSeg) * kTile;
+constexpr uint32_t kF32StageBytes = kF32StageFloats * 4;  // 16,896
+constexpr int kF32SmemBytes = kF32Stages * kF32StageBytes + 128;  // + align
 
-// blockIdx.x is client * n_runs + run, as in the few-client bf16 layout.
-__global__ void __launch_bounds__(kThreads)
-wgrad_f32_partial_kernel(const float* __restrict__ x,
-                         const float* __restrict__ g,
-                         float* __restrict__ partial, int b, int h, int w,
-                         int c, int n_runs) {
-  constexpr int VEC = 4;
-  constexpr int VPR = kTile / VEC;  // 16-byte vectors per staged row
-  __shared__ __align__(16) float xs[kRows][kTile];
-  __shared__ __align__(16) float gs[kRows][kTile];
+// acc[dx][i][j] += x[dx][i] * g[j] for one position: the thread's 4 ci x 4
+// co piece of tap (dy, dx), one fmaf each.
+__device__ __forceinline__ void fma_piece(float (&acc)[4][4], const float4 x,
+                                          const float4 g) {
+  const float xv[4] = {x.x, x.y, x.z, x.w};
+  const float gv[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], gv[j], acc[i][j]);
+}
+
+// xmap and gmap view x and g as 4-D (C, W, H, N*B) f32 tensors with 64 x
+// 34 x 1 and 64 x 32 x 1 (channel x column x row) boxes, unswizzled.
+// blockIdx.x is client * n_runs + run, blockIdx.y is dy; `partial` holds a
+// [n_runs][9][C][C] block per client (or is dW when n_runs == 1).
+__global__ void __launch_bounds__(kF32Threads, 2)
+wgrad_f32_kernel(const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap gmap,
+                 float* __restrict__ partial, int b, int h, int w, int c,
+                 int n_runs) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kF32Stages];
+  __shared__ __align__(8) uint64_t empty[kF32Stages];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t sbase = (raw + 127) & ~127u;
+  const float* stages =
+      reinterpret_cast<const float*>(smem_raw + (sbase - raw));
+  const uint32_t full0 = (uint32_t)__cvta_generic_to_shared(full);
+  const uint32_t empty0 = (uint32_t)__cvta_generic_to_shared(empty);
 
   const int client = blockIdx.x / n_runs;
   const int run = blockIdx.x % n_runs;
-  const int64_t client_elems = (int64_t)b * h * w * c;
-  x += client * client_elems;
-  g += client * client_elems;
-  const int tap = blockIdx.y;  // dy * 3 + dx
-  const int dy = tap / 3;
-  const int dx = tap % 3;
+  const int dy = blockIdx.y;
   const int n_tiles = (c + kTile - 1) / kTile;
   const int ci0 = (blockIdx.z / n_tiles) * kTile;
   const int co0 = (blockIdx.z % n_tiles) * kTile;
   const int pairs = (h + 1) / 2;
   const int u0 = run_start(run, n_runs, b * pairs);
   const int u1 = run_start(run + 1, n_runs, b * pairs);
-  // Unit u starts at image row (u / pairs) * H + 2 * (u % pairs).
-  const int64_t k0 = ((int64_t)(u0 / pairs) * h + 2 * (u0 % pairs)) * w;
-  const int64_t k1 = ((int64_t)(u1 / pairs) * h + 2 * (u1 % pairs)) * w;
+  // The run's image rows (sample * H + row) are [r0, r1): unit u starts at
+  // row (u / pairs) * H + 2 * (u % pairs), and with H odd a sample's last
+  // unit has one row.
+  const int r0 = (u0 / pairs) * h + 2 * (u0 % pairs);
+  const int r1 = (u1 / pairs) * h + 2 * (u1 % pairs);
+  const int pieces_per_row = (w + kSeg - 1) / kSeg;
+  // Step s stages piece s % pieces_per_row of row r0 + s / pieces_per_row:
+  // the run's positions in ascending order.
+  const int n_steps = (r1 - r0) * pieces_per_row;
 
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kF32Stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kF32Warps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kF32Consumers) {
+    // The producer, as in wgrad_tc_kernel: slot s's k-th fill waits for
+    // the consumers' (k-1)-th release. The (sample, row, column) of a
+    // piece is computed here once; the tensor maps' zero fill is the SAME
+    // padding, row -1 and row H, the ragged row end and channels past C.
+    if (threadIdx.x != kF32Consumers) return;
+    for (int step = 0; step < n_steps; ++step) {
+      const int slot = step % kF32Stages;
+      mbar_wait(empty0 + 8 * slot, ((step / kF32Stages) + 1) & 1);
+      const uint32_t bar = full0 + 8 * slot;
+      const uint32_t dst = sbase + slot * kF32StageBytes;
+      const int row = r0 + step / pieces_per_row;
+      const int w0 = (step % pieces_per_row) * kSeg;
+      const int sample = row / h;
+      const int hr = row - sample * h;
+      const int row4 = client * b + sample;  // the maps' fourth coordinate
+      mbar_expect_tx(bar, kF32StageBytes);
+      tma_load_4d(dst, &gmap, bar, co0, w0, hr, row4);
+      tma_load_4d(dst + kF32GFloats * 4, &xmap, bar, ci0, w0 - 1,
+                  hr + dy - 1, row4);
+    }
+    return;
+  }
+
+  // The consumers: thread (ty, tx) owns ci0 + 4 ty + i, co0 + 4 tx + j of
+  // the three taps (dy, dx). Position p's g is g box row p, and tap dx's x
+  // is x box row p + dx: each x row is read once and serves three
+  // positions' taps.
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // co = co0 + 4 * tx + j
-  const int ty = tid / 16;  // ci = ci0 + 4 * ty + i
-  float acc[4][4];
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  float acc[3][4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int t = 0; t < 3; ++t)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[t][i][j] = 0.f;
 
-  for (int64_t kb = k0; kb < k1; kb += kRows) {
-    for (int v = tid; v < kRows * VPR; v += kThreads) {
-      const int r = v / VPR;
-      const int cv = (v % VPR) * VEC;
-      const int64_t k = kb + r;
-      float4 xv = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 gv = xv;
-      if (k < k1) {
-        // C is a multiple of 8 (checked by the wrapper), so a vector that
-        // starts inside C ends inside it.
-        if (co0 + cv < c)
-          gv = __ldg(reinterpret_cast<const float4*>(g + k * c + co0 + cv));
-        const int wi = (int)(k % w);
-        const int hi = (int)((k / w) % h);
-        const int hs = hi + dy - 1;
-        const int ws = wi + dx - 1;
-        if (ci0 + cv < c && hs >= 0 && hs < h && ws >= 0 && ws < w) {
-          // Same sample, shifted row: k + (dy - 1) * W + (dx - 1).
-          const int64_t ks = k + (dy - 1) * w + (dx - 1);
-          xv = __ldg(reinterpret_cast<const float4*>(x + ks * c + ci0 + cv));
-        }
-      }
-      *reinterpret_cast<float4*>(&xs[r][cv]) = xv;
-      *reinterpret_cast<float4*>(&gs[r][cv]) = gv;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int r = 0; r < kRows; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[r][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&gs[r][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+  for (int step = 0; step < n_steps; ++step) {
+    const int slot = step % kF32Stages;
+    mbar_wait(full0 + 8 * slot, (step / kF32Stages) & 1);
+    const float* gs = stages + slot * kF32StageFloats + 4 * tx;
+    const float* xs = stages + slot * kF32StageFloats + kF32GFloats + 4 * ty;
+    float4 x0 = *reinterpret_cast<const float4*>(xs);
+    float4 x1 = *reinterpret_cast<const float4*>(xs + kTile);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    for (int p = 0; p < kSeg; ++p) {
+      const float4 x2 =
+          *reinterpret_cast<const float4*>(xs + (p + 2) * kTile);
+      const float4 gv = *reinterpret_cast<const float4*>(gs + p * kTile);
+      fma_piece(acc[0], x0, gv);
+      fma_piece(acc[1], x1, gv);
+      fma_piece(acc[2], x2, gv);
+      x0 = x1;
+      x1 = x2;
     }
-    __syncthreads();
+    // Every lane's reads of the slot are done: one release per warp.
+    __syncwarp();
+    if ((tid & 31) == 0) mbar_arrive(empty0 + 8 * slot);
   }
 
-  float* out = partial + ((int64_t)blockIdx.x * 9 + tap) * c * c;
+  float* out = partial + ((int64_t)blockIdx.x * 9 + dy * 3) * c * c;
+  const int co = co0 + 4 * tx;
+  if (co >= c) return;  // C % 8 == 0: the four co are in or out together
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int ci = ci0 + ty * 4 + i;
-    if (ci >= c) continue;
+  for (int t = 0; t < 3; ++t)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int co = co0 + tx * 4 + j;
-      if (co < c) out[(int64_t)ci * c + co] = acc[i][j];
+    for (int i = 0; i < 4; ++i) {
+      const int ci = ci0 + 4 * ty + i;
+      if (ci < c)
+        *reinterpret_cast<float4*>(out + ((int64_t)t * c + ci) * c + co) =
+            make_float4(acc[t][i][0], acc[t][i][1], acc[t][i][2],
+                        acc[t][i][3]);
     }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -552,12 +638,12 @@ int launch_reduce(const void* partial, void* out, int n, int n_runs, int c,
   return (int)cudaGetLastError();
 }
 
-// The 4-D (C, W, H, B) tensor map of a [B, H, W, C] bf16 tensor (B = N*B
-// rows of N clients) with boxes of 64 channels x `box_w` columns x `box_h`
-// rows of one sample, 128-byte swizzled; out-of-bounds elements read as
-// zero.
+// The 4-D (C, W, H, B) tensor map of a [B, H, W, C] tensor (B = N*B rows
+// of N clients) with boxes of 64 channels x `box_w` columns x `box_h` rows
+// of one sample: bf16 128-byte swizzled (the wgmma operands), or f32
+// unswizzled (dense 256-byte rows); out-of-bounds elements read as zero.
 cudaError_t encode_rows_map(CUtensorMap* map, const void* base, int b, int h,
-                            int w, int c, int box_w, int box_h) {
+                            int w, int c, int box_w, int box_h, bool f32) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -573,18 +659,22 @@ cudaError_t encode_rows_map(CUtensorMap* map, const void* base, int b, int h,
     if (found != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
     encode = (PFN_cuTensorMapEncodeTiled_v12000)fn;
   }
+  const cuuint64_t elem = f32 ? 4 : 2;
   const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h,
                               (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)c * 2, (cuuint64_t)w * c * 2,
-                                 (cuuint64_t)h * w * c * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)c * elem,
+                                 (cuuint64_t)w * c * elem,
+                                 (cuuint64_t)h * w * c * elem};
   const cuuint32_t box[4] = {(cuuint32_t)kTile, (cuuint32_t)box_w,
                              (cuuint32_t)box_h, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map,
+      f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(base), dims, strides, box, elem_strides,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      f32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -618,9 +708,10 @@ int dls_wgrad_bf16(const void* x, const void* g, void* partial, void* out,
                    void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   CUtensorMap xmap, gmap;
-  cudaError_t err = encode_rows_map(&xmap, x, n * b, h, w, c, kXSeg, 1);
+  cudaError_t err = encode_rows_map(&xmap, x, n * b, h, w, c, kXSeg, 1,
+                                    false);
   if (err != cudaSuccess) return (int)err;
-  err = encode_rows_map(&gmap, g, n * b, h, w, c, kSeg, 2);
+  err = encode_rows_map(&gmap, g, n * b, h, w, c, kSeg, 2, false);
   if (err != cudaSuccess) return (int)err;
   if (layout == 1)
     return (int)launch_tc<kWalkStages, true>(xmap, gmap, (float*)out, n, b,
@@ -637,11 +728,21 @@ int dls_wgrad_f32(const void* x, const void* g, void* partial, void* out,
                   void* stream) {
   if (layout != 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  CUtensorMap xmap, gmap;
+  cudaError_t err = encode_rows_map(&xmap, x, n * b, h, w, c, kXSeg, 1, true);
+  if (err != cudaSuccess) return (int)err;
+  err = encode_rows_map(&gmap, g, n * b, h, w, c, kSeg, 1, true);
+  if (err != cudaSuccess) return (int)err;
+  // Per call: the attribute is the current device's.
+  err = cudaFuncSetAttribute(wgrad_f32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kF32SmemBytes);
+  if (err != cudaSuccess) return (int)err;
   const int n_tiles = (c + kTile - 1) / kTile;
-  const dim3 grid(n * n_runs, 9, n_tiles * n_tiles);
-  wgrad_f32_partial_kernel<<<grid, kThreads, 0, s>>>(
-      (const float*)x, (const float*)g, (float*)partial, b, h, w, c, n_runs);
-  const cudaError_t err = cudaGetLastError();
+  const dim3 grid(n * n_runs, 3, n_tiles * n_tiles);
+  wgrad_f32_kernel<<<grid, kF32Threads, kF32SmemBytes, s>>>(
+      xmap, gmap, (float*)partial, b, h, w, c, n_runs);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_reduce(partial, out, n, n_runs, c, s);
 }

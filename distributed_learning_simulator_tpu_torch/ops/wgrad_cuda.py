@@ -18,9 +18,11 @@ the plain NHWC layout, so the kernel is written from the formula above, not
 block by block (csrc/wgrad.cu says how).
 
 :func:`conv3x3_wgrad` launches ``wgrad_tc_kernel`` (bf16, tensor cores) or
-``wgrad_f32_partial_kernel`` (f32, CUDA cores, no TF32), and
-``wgrad_reduce_kernel`` where partials meet (csrc/wgrad.cu), on CUDA
-tensors, ``C % 8 == 0``, any N, B, H, W. :func:`chunking` plans the work:
+``wgrad_f32_kernel`` (f32 FMAs on the CUDA cores, no TF32: one CTA per
+(client, run, dy, tile) stages each piece of a row once for the three dx
+taps through TMA, on an mbarrier ring), and ``wgrad_reduce_kernel`` where
+partials meet (csrc/wgrad.cu), on CUDA tensors, ``C % 8 == 0``, any N, B,
+H, W. :func:`chunking` plans the work:
 each client's K is cut into runs by (B, H, W, C) alone and the runs'
 partials are added left to right, so a client's dW has the same bits
 whatever N is and whichever layout computes it; N only picks the layout.
@@ -33,7 +35,8 @@ convolution for the whole chunk.
 Dispatch rule: a tensor on the CPU takes the plain version (that is how the
 tests run); a CUDA tensor launches the kernel or raises. There is no
 fallback from the kernel to the plain version. ``conv3x3_wgrad.launches``
-counts the wrapper's launches.
+counts the wrapper's launches, ``launches_by_dtype`` them by input dtype
+(``"bf16"``, ``"f32"``).
 """
 
 from __future__ import annotations
@@ -153,12 +156,15 @@ class WgradPlan:
     samples, a pair never does, and no run spans clients). ``n_runs``
     depends on (B, H, W, C) alone. A stage of the tensor-core kernel is
     ``_SEG`` positions of one pair (``pieces_per_row`` per row, the last one
-    ragged when ``_SEG`` does not divide W). Each run's partial is summed
-    from zero, and a client's dW is ``((p_0 + p_1) + p_2) + ...``. The bf16
+    ragged when ``_SEG`` does not divide W); a stage of the f32 kernel is
+    ``_SEG`` positions of one row, the run's rows in order. Each run's
+    partial is summed from zero, and a client's dW is ``((p_0 + p_1) +
+    p_2) + ...``. The bf16
     kernel lays that work out by ``layout``, with the same bits: one CTA
     per (client, run, dy, tile) and a reduce (``FEW``), or one CTA per
     (client, dy, tile) that adds each finished run to a running total
-    (``WALK``); the f32 kernel always takes ``FEW``."""
+    (``WALK``); the f32 kernel always takes ``FEW``, a CTA per (client,
+    run, dy, tile) as well."""
 
     n: int
     b: int
@@ -183,8 +189,9 @@ class WgradPlan:
 
     @property
     def f32_grid(self) -> tuple[int, int, int]:
-        """f32 kernel: (client x run, tap, tile)."""
-        return self.n * self.n_runs, 9, self.c_tiles**2
+        """f32 kernel: (client x run, dy, tile); a CTA computes taps (dy,
+        0..2)."""
+        return self.n * self.n_runs, 3, self.c_tiles**2
 
     def partial_floats(self, layout: int) -> int:
         """Scratch floats of ``layout``: the per-run partials, or none when
@@ -254,7 +261,7 @@ def _launch(x: torch.Tensor, g: torch.Tensor, layout: int | None = None
             n, b, h, w, c, plan.n_runs, layout, launch_stream(x),
         )
     _raise_on_error(err)
-    count_launch(conv3x3_wgrad, x.device)
+    count_launch(conv3x3_wgrad, x.device, suffix)
     return out
 
 
@@ -270,11 +277,13 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 conv3x3_wgrad.launches = 0
 conv3x3_wgrad.launches_by_device = {}
+conv3x3_wgrad.launches_by_dtype = {}
 
 
 def reset_launch_counts() -> None:
     conv3x3_wgrad.launches = 0
     conv3x3_wgrad.launches_by_device = {}
+    conv3x3_wgrad.launches_by_dtype = {}
 
 
 @torch.library.custom_op("dls::conv3x3_wgrad", mutates_args=())

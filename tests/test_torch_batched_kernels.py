@@ -74,7 +74,7 @@ def test_wgrad_plan_shares_the_card_between_clients(n, layout):
     assert plan.n_runs == 44 and plan.layout == layout
     walk = layout != wgrad_cuda.FEW
     assert plan.tc_grid(layout) == (n * (1 if walk else 44), 3, 1)
-    assert plan.f32_grid == (n * 44, 9, 1)
+    assert plan.f32_grid == (n * 44, 3, 1)
     assert plan.partial_floats(layout) == (0 if walk else
                                            n * 44 * 9 * 64 * 64)
     covered = np.zeros(25 * 32, dtype=int)

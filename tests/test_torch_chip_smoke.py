@@ -279,3 +279,85 @@ def test_sweep_phase_configs():
                                  "WARNING")
     for cfg in rb.values():
         assert cfg.cohort_size() == 20 <= cfg.client_chunk_size
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN5_anon15wgrad_tc_kernelILi4ELb0EEEv14CUtensorMap_stS1_Pfiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN5_anon15wgrad_tc_kernelILi4ELb0EEEv14CUtensorMap_stS1_Pfiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 217 registers, used 1 barriers, 64 bytes smem
+ptxas info    : Compiling entry function '_ZN5_anon16wgrad_f32_kernelE14CUtensorMap_stS0_Pfiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN5_anon16wgrad_f32_kernelE14CUtensorMap_stS0_Pfiiiii
+    8 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 94 registers, used 1 barriers, 64 bytes smem
+"""
+
+
+def test_ptxas_usage_reads_one_kernels_registers_and_spills():
+    """Phase 1c's reading of nvcc's ``-Xptxas -v`` lines: the named
+    kernel's own registers and spill bytes, never a neighbour's, and None
+    for a kernel this build did not compile (a cached library)."""
+    assert chip_smoke.ptxas_usage(PTXAS_LOG, "wgrad_f32_kernel") == {
+        "stack_bytes": 8, "spill_store_bytes": 16, "spill_load_bytes": 12,
+        "registers": 94}
+    assert chip_smoke.ptxas_usage(PTXAS_LOG, "wgrad_tc_kernel") == {
+        "stack_bytes": 0, "spill_store_bytes": 0, "spill_load_bytes": 0,
+        "registers": 217}
+    assert chip_smoke.ptxas_usage("", "wgrad_f32_kernel") is None
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 8), (2, 2, 3, 8),
+                                   (3, 7, 5, 16), (25, 32, 32, 64)])
+def test_wgrad_ops_counts_each_taps_valid_positions(shape):
+    """The wgrad bound's operations: two for each (tap, position) whose
+    input lies inside the image, per channel pair; the SAME padding's
+    zeros are no work of the function."""
+    b, h, w, c = shape
+    valid = sum(min(h, h - (dy - 1)) - max(0, -(dy - 1))
+                for dy in range(3)) * sum(
+                    min(w, w - (dx - 1)) - max(0, -(dx - 1))
+                    for dx in range(3))
+    assert chip_smoke.wgrad_ops(2, b, h, w, c) == 2 * 2 * b * valid * c * c
+    assert chip_smoke.wgrad_ops(1, b, h, w, c) <= 2 * 9 * b * h * w * c * c
+
+
+def _sass(f32_ops: str) -> str:
+    return (
+        "Function : _ZN5_anon15wgrad_tc_kernelILi4ELb0EEEv14CUtensorMap_st\n"
+        "  HGMMA.64x192x16.F32.BF16 R24, gdesc[UR4], RZ ;\n"
+        "Function : _ZN5_anon15wgrad_tc_kernelILi8ELb1EEEv14CUtensorMap_st\n"
+        "  HGMMA.64x192x16.F32.BF16 R24, gdesc[UR4], RZ ;\n"
+        "Function : _ZN5_anon16wgrad_f32_kernelE14CUtensorMap_stS0_Pfiiiii\n"
+        f"  FFMA R0, R1, R2, R0 ;\n{f32_ops}")
+
+
+@pytest.mark.parametrize("f32_ops, log, verdict", [
+    ("", PTXAS_LOG.replace("8 bytes stack frame, 16 bytes spill stores, "
+                           "12 bytes spill loads",
+                           "0 bytes stack frame, 0 bytes spill stores, "
+                           "0 bytes spill loads"), "pass"),
+    ("", "(reused build/libwgrad.so)", "pass"),
+    ("", PTXAS_LOG, "spills"),
+    ("  HMMA.1684.F32.TF32 R0, R4, R8, R0 ;\n", "", "tensor-core"),
+    ("  HGMMA.64x64x8.F32.TF32 R0, gdesc[UR4], RZ ;\n", "", "tensor-core"),
+])
+def test_wgrad_sass_phase_refuses_tf32_and_spills(monkeypatch, capsys,
+                                                   f32_ops, log, verdict):
+    """Phase 1c fails if the f32 kernel's SASS holds a tensor-core product
+    (a TF32 HMMA or HGMMA) or the build log shows it spilling, and passes
+    a clean kernel, built in this run or reused."""
+    fake = type("Build", (), {
+        "cuda_tool": staticmethod(lambda name: name),
+        "LIB_PATHS": {"wgrad": "libwgrad.so"},
+        "BUILD_LOGS": {"wgrad": log}})
+    monkeypatch.setattr(chip_smoke.subprocess, "run", lambda *a, **k: (
+        subprocess.CompletedProcess(a[0], 0, _sass(f32_ops), "")))
+    if verdict == "pass":
+        out = chip_smoke.check_wgrad_sass(fake)
+        assert out["counts"]["wgrad_f32_kernel"] == {"HGMMA": 0, "HMMA": 0}
+        return
+    with pytest.raises(SystemExit):
+        chip_smoke.check_wgrad_sass(fake)
+    err = capsys.readouterr().err
+    assert ("spills" in err) if verdict == "spills" else (
+        "tensor-core" in err)

@@ -401,7 +401,8 @@ def test_kernel_wrappers_launch_inside_the_device_guard(monkeypatch):
         monkeypatch.setattr(mod, "device_guard", rec.guard)
         monkeypatch.setattr(mod, "launch_stream", lambda t: 0)
         monkeypatch.setattr(mod, "_lib", lambda: rec)
-        monkeypatch.setattr(mod, "count_launch", lambda w, device: None)
+        monkeypatch.setattr(mod, "count_launch",
+                            lambda w, device, dtype=None: None)
     monkeypatch.setattr(gn_cuda, "_check_cuda_input", lambda x, g: "f32")
     monkeypatch.setattr(gn_cuda, "_sm_count", lambda index: 132)
     monkeypatch.setattr(wgrad_cuda, "_check_cuda_inputs", lambda x, g: "f32")

@@ -292,6 +292,8 @@ def test_shared_state_survives_many_threads():
         pass
 
     kernel.launches = 0
+    kernel.launches_by_device = {}
+    kernel.launches_by_dtype = {}
     fn = tracked("shared", lambda x: x + 1)
     n_threads, n_counts = 32, 200
     barrier = threading.Barrier(n_threads)
@@ -301,8 +303,8 @@ def test_shared_state_survives_many_threads():
         barrier.wait()
         loaded.append(load())
         fn(torch.ones(3))
-        for _ in range(n_counts):
-            count_launch(kernel)
+        for i in range(n_counts):
+            count_launch(kernel, "cuda:0", ("bf16", "f32")[i % 2])
 
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -320,3 +322,6 @@ def test_shared_state_survives_many_threads():
     assert len(calls) == 1 and len({id(x) for x in loaded}) == 1
     assert [name for name, _ in mon.drain()] == ["shared"]
     assert kernel.launches == n_threads * n_counts
+    assert kernel.launches_by_device == {"cuda:0": n_threads * n_counts}
+    assert kernel.launches_by_dtype == {"bf16": n_threads * n_counts // 2,
+                                        "f32": n_threads * n_counts // 2}

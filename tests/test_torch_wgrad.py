@@ -148,8 +148,8 @@ def test_chunking_covers_every_row(shape):
     for p in range(plan.pieces_per_row):
         cols[p * wgrad_cuda._SEG:(p + 1) * wgrad_cuda._SEG] += 1
     assert (cols == 1).all()
-    # tc grids: y = dy and each CTA computes dx = 0, 1, 2; x = run (few
-    # clients) or the client alone (walk); f32 grid: y = tap.
+    # tc and f32 grids: y = dy and each CTA computes dx = 0, 1, 2; x = run
+    # (few clients, and f32 always) or the client alone (walk).
     for layout in LAYOUTS:
         grid = plan.tc_grid(layout)
         assert sorted((dy, dx) for dy in range(grid[1]) for dx in range(3)
@@ -159,7 +159,7 @@ def test_chunking_covers_every_row(shape):
         assert plan.partial_floats(layout) == (
             plan.n_runs * 9 * c * c
             if layout == wgrad_cuda.FEW and plan.n_runs > 1 else 0)
-    assert plan.f32_grid == (plan.n_runs, 9, plan.c_tiles**2)
+    assert plan.f32_grid == (plan.n_runs, 3, plan.c_tiles**2)
     assert (plan.c_tiles - 1) * 64 < c <= plan.c_tiles * 64
 
 
@@ -313,3 +313,83 @@ def test_tc_staging_arithmetic_matches_plain(shape):
     want = conv3x3_wgrad_plain(torch.from_numpy(x), torch.from_numpy(g))
     np.testing.assert_allclose(got, want.double().numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+def _f32_run_partial_ascending(x, g, plan, run):
+    """Run ``run``'s partial of one client as the CTA-per-tap f32 kernel
+    summed it: for each tap, ``acc += x_shift[k] * g[k]`` over the run's
+    positions k in ascending order, in float32 from zero (numpy rounds
+    the product and the sum apart, where the kernel fuses them: the same
+    sequence of terms gives the same bits either way)."""
+    r0, r1 = plan.run_rows(run)
+    _, h, w, c = x.shape
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    acc = np.zeros((3, 3, c, c), np.float32)
+    for k in range(r0, r1):
+        s, r = divmod(k, h)
+        for col in range(w):
+            for dy in range(3):
+                for dx in range(3):
+                    acc[dy, dx] += np.outer(xp[s, r + dy, col + dx],
+                                            g[s, r, col])
+    return acc
+
+
+def _emulate_f32_kernel(x, g, plan):
+    """numpy mirror of wgrad_f32_kernel's staging (csrc/wgrad.cu): per
+    (run, dy), step s stages piece s % pieces_per_row of row r0 + s //
+    pieces_per_row: a g box of 32 positions of that row and an x box of
+    the 34 columns w0 - 1 .. w0 + 32 of row hr + dy - 1, zero outside the
+    image (the tensor maps' fill); tap dx at position p reads x box row
+    p + dx. Each run's partial is summed from zero in float32, position by
+    position, every box position included; returns the per-run partials
+    and dW, the runs added left to right."""
+    seg, xseg = wgrad_cuda._SEG, wgrad_cuda._SEG + 2
+    _, h, w, c = x.shape
+
+    def box(t, sample, row, w0, width):
+        out = np.zeros((width, c), np.float32)
+        if 0 <= row < h:
+            for p in range(width):
+                if 0 <= w0 + p < w:
+                    out[p] = t[sample, row, w0 + p]
+        return out
+
+    partials = np.zeros((plan.n_runs, 3, 3, c, c), np.float32)
+    for run in range(plan.n_runs):
+        r0, r1 = plan.run_rows(run)
+        for dy in range(3):
+            acc = partials[run, dy]
+            for step in range((r1 - r0) * plan.pieces_per_row):
+                row, piece = divmod(step, plan.pieces_per_row)
+                sample, hr = divmod(r0 + row, h)
+                w0 = piece * seg
+                gs = box(g, sample, hr, w0, seg)
+                xs = box(x, sample, hr + dy - 1, w0 - 1, xseg)
+                for p in range(seg):
+                    for dx in range(3):
+                        acc[dx] += np.outer(xs[p + dx], gs[p])
+    total = partials[0]
+    for run in range(1, plan.n_runs):
+        total = total + partials[run]
+    return partials, total
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 7, 8), (1, 3, 40, 8),
+                                   (2, 18, 4, 16), (3, 7, 9, 8)])
+def test_f32_staging_arithmetic_matches_plain(shape):
+    """The f32 kernel's staging (the dx-shared x box, the zero fill of the
+    SAME padding and the ragged row end, the run bounds) sums each run's
+    positions in the order of the kernel it replaced, term for term: its
+    float32 partials are bitwise those of the ascending per-tap sums, and
+    dW is within float32 rounding of the plain version."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal(shape).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
+    plan = wgrad_cuda.chunking(*shape)
+    partials, got = _emulate_f32_kernel(x, g, plan)
+    for run in range(plan.n_runs):
+        assert np.array_equal(partials[run],
+                              _f32_run_partial_ascending(x, g, plan, run))
+    want = conv3x3_wgrad_plain(torch.from_numpy(x), torch.from_numpy(g))
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-5)

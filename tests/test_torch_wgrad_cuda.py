@@ -143,3 +143,18 @@ def test_ragged_client_axis_is_bitwise_one_client_calls(cuda, n, shape,
     p = wgrad_cuda.conv3x3_wgrad_plain(x, g)
     assert (k - p).abs().max().item() <= 1e-4 * p.abs().max().item()
     assert _bf16_ulps(k, p, x, g) <= 1.0
+
+
+@pytest.mark.parametrize("n", [1, 20, 80])
+@pytest.mark.parametrize("shape", [(2, 7, 5, 136), (25, 32, 32, 64)])
+def test_f32_kernel_is_bitwise_its_one_client_calls(cuda, shape, n):
+    """The f32 kernel (one CTA per client, run, dy and tile) at N = 1, 20
+    and 80: each client's dW bitwise its one-client call's, within the
+    tolerance of the plain version."""
+    x, g = _inputs((n,) + shape, torch.float32, cuda, seed=4)
+    k = wgrad_cuda.conv3x3_wgrad(x, g)
+    for i in range(n):
+        assert torch.equal(k[i], wgrad_cuda.conv3x3_wgrad(x[i], g[i])), i
+    p = wgrad_cuda.conv3x3_wgrad_plain(x, g)
+    assert (k - p).abs().max().item() <= 1e-4 * p.abs().max().item()
+    assert _bf16_ulps(k, p, x, g) <= 1.0
