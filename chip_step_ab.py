@@ -1,13 +1,14 @@
-"""A/B of ResNet-18's training step and round between two checkouts of the
+"""A/B of ResNet-18's training step and round between checkouts of the
 port, on one NVIDIA GPU.
 
-    python3 chip_step_ab.py --trees OLD NEW [--out DIR]
+    python3 chip_step_ab.py --trees OLD NEW [NEW ...] [--out DIR]
 
-OLD and NEW are directories that each hold a checkout of the repository
-(for example the parent commit unpacked with ``git archive`` into an
-ignored directory, and ``.``). Each arm is a process of its own that
-imports the port from its tree and builds that tree's kernels there; the
-arms run in the order OLD NEW NEW OLD, one at a time. An arm measures:
+OLD and each NEW are directories that each hold a checkout of the
+repository (for example the parent commit unpacked with ``git archive``
+into an ignored directory, and ``.``). Each arm is a process of its own
+that imports the port from its tree and builds that tree's kernels there;
+the arms run in the order of the trees and then back (OLD NEW NEW OLD for
+two trees), one at a time. An arm measures:
 
 * the wgrad kernel alone in f32 (``conv3x3_wgrad`` on seeded
   ``[N, 25, 32, 32, 64]`` inputs, the same in every arm) at each N of
@@ -19,14 +20,17 @@ arms run in the order OLD NEW NEW OLD, one at a time. An arm measures:
 * one training step of ``make_chunk_train_fn`` (ResNet-18 at full width,
   batch 25, SGD with momentum 0.9, the replayed init of seed 0) for each
   of ``STEP_CASES`` (dtype, models a program): the median synchronized
-  wall ms of ``STEP_REPEATS`` steps after two warm-up steps, and the
-  device ms of one step (the sum of its kernels' times, torch.profiler);
+  wall ms of ``STEP_REPEATS`` steps after two warm-up steps, their peak
+  device memory, and the median device ms of ``STEP_PROFILES`` steps
+  (each the sum of its kernels' times in a torch.profiler window of its
+  own);
 * the ``fed`` path through ``run_simulation`` for each of
   ``ROUND_CASES`` (bf16 at 40 clients in one chunk of 40; f32 at 20
   clients in one chunk of 20, the f32 sweep fleet's program of one
   seed), ``ROUNDS`` rounds: the median round seconds after round 0.
 
-``--kernel-only`` measures the kernel alone. Writes ``DIR/step_ab.json``
+``--kernel-only`` measures the kernel alone, ``--no-rounds`` the kernel
+and the steps. Writes ``DIR/step_ab.json``
 and prints each arm's numbers, the card's name and power limit, and one
 JSON line of the whole. Fails without a GPU.
 """
@@ -47,8 +51,10 @@ import time
 import chip_smoke
 
 KERNEL_CASES = (1, 20, 40)
-STEP_CASES = (("bfloat16", 40), ("float32", 20), ("float32", 40))
+STEP_CASES = (("bfloat16", 1), ("bfloat16", 10), ("bfloat16", 40),
+              ("float32", 20), ("float32", 40))
 STEP_REPEATS = 7
+STEP_PROFILES = 5
 ROUND_CASES = (("bfloat16", 40), ("float32", 20))
 ROUNDS = 4
 TRAIN_BATCH = 25
@@ -115,25 +121,32 @@ def step_case(torch, dtype_name: str, m: int) -> dict:
     for _ in range(2):
         step()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     walls = []
     for _ in range(STEP_REPEATS):
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
     wgrad_cuda.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-    device_ms = sum(
-        e.self_device_time_total / 1e3 for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and not getattr(e, "is_user_annotation", False))
+    device_ms = []
+    for _ in range(STEP_PROFILES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        device_ms.append(sum(
+            e.self_device_time_total / 1e3 for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)))
     return {"dtype": dtype_name, "models": m,
             "wall_ms": statistics.median(walls), "wall_ms_all": walls,
-            "device_ms": device_ms,
-            "wgrad_launches": wgrad_cuda.conv3x3_wgrad.launches}
+            "peak_memory_bytes": peak,
+            "device_ms": statistics.median(device_ms),
+            "device_ms_all": device_ms,
+            "wgrad_launches": wgrad_cuda.conv3x3_wgrad.launches
+            // STEP_PROFILES}
 
 
 def round_case(dtype_name: str, clients: int) -> dict:
@@ -163,7 +176,7 @@ def round_case(dtype_name: str, clients: int) -> dict:
 
 
 def worker(tree: str, out_path: str, data_dir: str,
-           kernel_only: bool = False) -> None:
+           kernel_only: bool = False, rounds: bool = True) -> None:
     """One arm: the port of ``tree``, its kernels built there."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
@@ -182,23 +195,28 @@ def worker(tree: str, out_path: str, data_dir: str,
            "kernel": [kernel_case(torch, n) for n in KERNEL_CASES],
            "steps": [] if kernel_only else [step_case(torch, d, m)
                                             for d, m in STEP_CASES],
-           "rounds": [] if kernel_only else [round_case(d, n)
-                                             for d, n in ROUND_CASES]}
+           "rounds": [round_case(d, n) for d, n in ROUND_CASES]
+           if rounds and not kernel_only else []}
     with open(out_path, "w") as f:
         json.dump(out, f)
 
 
 def main() -> None:
     if sys.argv[1:2] == ["--worker"]:
-        worker(*sys.argv[2:5], kernel_only=sys.argv[5:6] == ["--kernel-only"])
+        worker(*sys.argv[2:5], kernel_only="--kernel-only" in sys.argv[5:],
+               rounds="--no-rounds" not in sys.argv[5:])
         return
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--trees", nargs=2, required=True,
-                        metavar=("OLD", "NEW"))
+    parser.add_argument("--trees", nargs="+", required=True,
+                        metavar="TREE", help="OLD NEW [NEW ...]")
     parser.add_argument("--out", default=os.path.join("build", "step_ab"))
     parser.add_argument("--kernel-only", action="store_true",
                         help="measure the f32 wgrad kernel alone")
+    parser.add_argument("--no-rounds", action="store_true",
+                        help="measure the kernel and the steps, no rounds")
     args = parser.parse_args()
+    if len(args.trees) < 2:
+        parser.error("--trees needs OLD and at least one NEW")
     import torch
 
     if not torch.cuda.is_available():
@@ -210,15 +228,17 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
     ).stdout.strip().splitlines()
+    labels = ["old", "new"] + [f"new{k}" for k in
+                               range(2, len(args.trees))]
+    order = list(zip(labels, args.trees))
     arms = []
-    for i, (label, tree) in enumerate(
-            [("old", args.trees[0]), ("new", args.trees[1]),
-             ("new", args.trees[1]), ("old", args.trees[0])]):
+    for i, (label, tree) in enumerate(order + order[::-1]):
         path = os.path.join(out, f"arm{i}_{label}.json")
         t0 = time.perf_counter()
         subprocess.run([sys.executable, os.path.abspath(__file__),
                         "--worker", tree, path, os.path.join(out, "data")]
-                       + (["--kernel-only"] if args.kernel_only else []),
+                       + (["--kernel-only"] if args.kernel_only else [])
+                       + (["--no-rounds"] if args.no_rounds else []),
                        check=True, timeout=900)
         with open(path) as f:
             arm = json.load(f)
@@ -230,7 +250,9 @@ def main() -> None:
               + "; steps "
               + "; ".join(f"{s['dtype']} x{s['models']} wall "
                           f"{s['wall_ms']:.2f} ms device "
-                          f"{s['device_ms']:.2f} ms"
+                          f"{s['device_ms']:.2f} ms (of "
+                          f"{[round(d, 2) for d in s['device_ms_all']]}) "
+                          f"peak {s['peak_memory_bytes'] / 2**30:.2f} GiB"
                           for s in arm["steps"])
               + "; median round seconds "
               + "; ".join(f"{r['dtype']} x{r['clients']} "
@@ -246,10 +268,11 @@ def main() -> None:
         json.dump(summary, f, indent=1)
     print(card[0] if card else "nvidia-smi gave nothing")
     print(json.dumps({"kernel_bitwise": bitwise, "arms": [
-        {"label": a["label"],
+        {"label": a["label"], "tree": a["tree"],
          "wgrad_f32_ms": [k["ms"] for k in a["kernel"]],
          "step_wall_ms": [s["wall_ms"] for s in a["steps"]],
          "step_device_ms": [s["device_ms"] for s in a["steps"]],
+         "step_peak_bytes": [s["peak_memory_bytes"] for s in a["steps"]],
          "median_round_seconds": [r["median_round_seconds"]
                                   for r in a["rounds"]]} for a in arms]}))
     if not bitwise:

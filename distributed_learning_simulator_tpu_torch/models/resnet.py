@@ -39,8 +39,13 @@ all, at M*B samples with the models' ``[M, C]`` scale/bias, and its
 backward launches the weight-gradient kernel 4 times, with M clients on its
 client axis; the convolutions become grouped channels-last ones
 (ops/conv.py), their outputs left with the models on the channel side,
-where the GroupNorm reads them without a copy while ``M*C`` fits its
-kernels' row (2048 bf16 channels) and folds them into its batch beyond.
+where an eval forward's GroupNorm reads them without a copy while ``M*C``
+fits its kernels' row (2048 bf16 channels) and folds them into its batch
+beyond. A training forward's GroupNorm always folds them, with a fixed
+stats split (ops/gn_cuda.py ``training_split``), and its backward sums in
+short runs (``_sum_bhw``): a client's training has the same bits however
+many models share its program, as a sweep fleet's points must be their
+solo runs.
 With gradients off (an eval forward) the layers call the custom ops
 directly: under vmap an autograd function costs host time for each call
 even when nothing is differentiated.
@@ -102,22 +107,18 @@ def pgn_backward(x, scale, bias, mean_g, rstd_g, dy, g: int):
     m1 = dyg.mean(dim=(1, 2, 4), keepdim=True)
     m2 = (dyg * xhat).mean(dim=(1, 2, 4), keepdim=True)
     dx = ((dyg - m1 - xhat * m2) * rstd).to(x.dtype).reshape(b, h, w, c)
-    dscale = _sum_bhw(dy32 * xhat, x.dtype).reshape(c).to(scale.dtype)
-    dbias = _sum_bhw(dy32, x.dtype).reshape(c).to(bias.dtype)
+    dscale = _sum_bhw(dy32 * xhat).reshape(c).to(scale.dtype)
+    dbias = _sum_bhw(dy32).reshape(c).to(bias.dtype)
     return dx, dscale, dbias
 
 
-def _sum_bhw(t, dtype):
-    """``t [b, h, w, ...]`` summed over (b, h, w). For an f32 model, three
-    short sums (w, then h, then b), so that a model's sums have the same
-    bits however many models vmap folds beside it (an f32 sweep fleet is
-    held bitwise to its solo runs): PyTorch's CUDA reduction reads a short
-    sum in one thread per output, while one sum over b*h*w splits across
-    blocks by the output count, which grows with the models. Other dtypes
-    take the one sum: the bf16 fleet is not bitwise its solo runs for
-    other reasons."""
-    if dtype != torch.float32:
-        return t.sum(dim=(0, 1, 2))
+def _sum_bhw(t):
+    """``t [b, h, w, ...]`` summed over (b, h, w) in three short sums (w,
+    then h, then b), so that a model's sums have the same bits however many
+    models vmap folds beside it (a sweep fleet is held bitwise to its solo
+    runs): PyTorch's CUDA reduction reads a short sum in one thread per
+    output, while one sum over b*h*w splits across blocks by the output
+    count, which grows with the models."""
     return t.sum(dim=2).sum(dim=1).sum(dim=0)
 
 
@@ -133,7 +134,8 @@ class _PlainGroupNormFn(torch.autograd.Function):
     @staticmethod
     def forward(x, scale, bias, g, eps, out_dtype):
         with torch.no_grad():
-            return group_norm_op(x, scale, bias, g, eps, out_dtype)
+            return group_norm_op(x, scale, bias, g, eps, out_dtype,
+                                 training=True)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -181,7 +183,8 @@ class _AutodiffGroupNormFn(torch.autograd.Function):
     @staticmethod
     def forward(x, scale, bias, g, eps, out_dtype):
         with torch.no_grad():
-            return group_norm_op(x, scale, bias, g, eps, out_dtype)[0]
+            return group_norm_op(x, scale, bias, g, eps, out_dtype,
+                                 training=True)[0]
 
     @staticmethod
     def setup_context(ctx, inputs, output):

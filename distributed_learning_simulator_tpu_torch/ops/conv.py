@@ -101,9 +101,10 @@ def conv_nhwc_dx_op(dy: torch.Tensor, w: torch.Tensor, in_h: int,
     vmap folds into the groups (a ResNet-18 stage-1 convolution at 19
     against 76 models on an H100), while its forward at the same shape
     keeps its bits, and an f32 sweep fleet is held bitwise to its solo runs
-    (chip_smoke.py ``sweep_fleet``). Other dtypes keep cuDNN's input
-    gradient: the bf16 fleet is not bitwise its solo runs for other
-    reasons."""
+    (chip_smoke.py ``sweep_fleet``). In bf16, cuDNN's grouped input
+    gradient keeps its bits from the solo chunk's group count to the
+    fleet's (10 against 40 models, every ResNet-18 convolution on an H100:
+    tests/test_torch_fleet_replay_cuda.py), and bf16 keeps it."""
     top, bottom, left, right = padding
     symmetric = top == bottom == left == right
     p = top if symmetric else 0

@@ -100,6 +100,16 @@ def stats_split(b: int, hw: int, c: int, elem_size: int) -> int:
     return best[1]
 
 
+def training_split(hw: int, c: int, elem_size: int) -> int:
+    """The stats kernel's CTAs per sample in a training forward
+    (``group_norm_op(..., training=True)``): a function of one sample's
+    shape alone, so that a client's statistics have the same bits however
+    many models share its launch (a sweep fleet's points train as their
+    solo runs). :func:`stats_split` plans from the launch's sample count
+    as well, which grows with the models."""
+    return 1
+
+
 class NormalizePlan(NamedTuple):
     """The normalize kernel's grid: CTA ``i`` normalizes HW rows
     ``[s * rows_per_slice, (s + 1) * rows_per_slice)`` of sample ``i //
@@ -236,8 +246,10 @@ def _raise_on_error(err: int, what: str) -> None:
 
 def gn_stats(x: torch.Tensor, g: int, eps: float, split: int | None = None):
     """Per-(sample, group) ``(mean, rstd)`` of ``x [B, HW, C]``, f32.
-    ``split`` overrides the planned cluster size (tests and chip_smoke.py's
-    sweep)."""
+    ``split`` overrides the planned cluster size (:func:`training_split`,
+    tests and chip_smoke.py's sweep): a sample's statistics then have the
+    same bits however many samples share the launch, since a CTA's rows
+    and the cluster's sum order depend on the split, C and G alone."""
     if x.device.type == "cpu":
         return gn_stats_plain(x, g, eps)
     suffix = _check_cuda_input(x, g)
@@ -338,20 +350,23 @@ def reset_launch_counts() -> None:
         wrapper.launches_by_device = {}
 
 
-def group_norm(x, scale, bias, g: int, eps: float, out_dtype):
+def group_norm(x, scale, bias, g: int, eps: float, out_dtype,
+               training: bool = False):
     """GroupNorm forward on ``x [B, H, W, C]``; returns ``(y [B, H, W, C],
     mean_g [B, G] f32, rstd_g [B, G] f32)`` — ``pallas_group_norm`` at
     ``folds=1``. ``scale``/``bias`` are per-channel ``[C]``, or ``[M, C]``
-    for M models stacked on the batch axis."""
+    for M models stacked on the batch axis. ``training`` takes the stats
+    kernel's :func:`training_split` instead of its planned one."""
     b, h, w, c = x.shape
     if x.device.type != "cpu" and not x.is_contiguous():
         # A reshape would copy silently; the model keeps its activations
         # channels-last so this view is free.
         raise ValueError("group_norm on CUDA needs a contiguous NHWC x")
     xr = x.reshape(b, h * w, c)
+    split = training_split(h * w, c, x.element_size()) if training else None
     # Back to back on one stream, nothing launched between: the normalize
     # kernel's programmatic dependent launch overlaps the stats kernel.
-    mean_g, rstd_g = gn_stats(xr, g, eps)
+    mean_g, rstd_g = gn_stats(xr, g, eps, split)
     y = _normalize(xr, mean_g, rstd_g, scale, bias, out_dtype,
                    after_stats=True)
     return y.reshape(b, h, w, c), mean_g, rstd_g
@@ -439,20 +454,30 @@ torch.library.register_vmap("dls::gn_normalize", _gn_normalize_vmap)
 
 @torch.library.custom_op("dls::group_norm", mutates_args=())
 def group_norm_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                  g: int, eps: float, out_dtype: torch.dtype
+                  g: int, eps: float, out_dtype: torch.dtype,
+                  training: bool = False
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`group_norm`. A training forward (``training``) gives each
+    model's statistics the same bits however many models vmap puts into
+    the launch: the stats kernel takes :func:`training_split`, and under
+    vmap the models are always folded into the batch (read on the channel
+    side, a group's sum runs in an order set by ``M*C``: in csrc/gn.cu the
+    threads of a row and the group reduction follow the row's width). An
+    eval forward plans the stats kernel's split and reads the channel side
+    where it can."""
     return group_norm(x.contiguous(), scale.contiguous(), bias.contiguous(),
-                      g, eps, out_dtype)
+                      g, eps, out_dtype, training)
 
 
 @group_norm_op.register_fake
-def _(x, scale, bias, g, eps, out_dtype):
+def _(x, scale, bias, g, eps, out_dtype, training=False):
     mean = x.new_empty((x.shape[0], g), dtype=torch.float32)
     return (x.new_empty(x.shape, dtype=out_dtype), mean,
             torch.empty_like(mean))
 
 
-def _group_norm_folded(info, in_dims, x, scale, bias, g, eps, out_dtype):
+def _group_norm_folded(info, in_dims, x, scale, bias, g, eps, out_dtype,
+                       training=False):
     """The models folded into the batch: ``[M*B, HW, C]`` with the
     ``[M, C]`` affine (or the shared ``[C]`` one)."""
     size = info.batch_size
@@ -460,7 +485,7 @@ def _group_norm_folded(info, in_dims, x, scale, bias, g, eps, out_dtype):
     b = _samples(x, xd)
     scale, bias = _model_rows(scale, bias, (sd, bd), size)
     y, mean, rstd = group_norm_op(_fold(x, xd, size), scale, bias, g, eps,
-                                  out_dtype)
+                                  out_dtype, training)
     return ((y.reshape((size, b) + tuple(y.shape[1:])),
              mean.reshape(size, -1, g), rstd.reshape(size, -1, g)),
             (0, 0, 0))
@@ -476,15 +501,17 @@ def channel_side(x: torch.Tensor, xd, size: int) -> bool:
             and size * x.shape[-1] <= _THREADS * (16 // x.element_size()))
 
 
-def _group_norm_vmap(info, in_dims, x, scale, bias, g, eps, out_dtype):
+def _group_norm_vmap(info, in_dims, x, scale, bias, g, eps, out_dtype,
+                     training=False):
     # x is folded (or, below, viewed) once, then the stats -> normalize
     # pair runs back to back inside group_norm (the programmatic dependent
-    # launch needs nothing launched between them).
+    # launch needs nothing launched between them). A training forward
+    # always folds (group_norm_op).
     size = info.batch_size
     xd, sd, bd = in_dims[:3]
-    if not channel_side(x, xd, size):
+    if training or not channel_side(x, xd, size):
         return _group_norm_folded(info, in_dims, x, scale, bias, g, eps,
-                                  out_dtype)
+                                  out_dtype, training)
     # x is [B, H, W, M*C] in memory, and its GroupNorm with M*G groups and
     # the M affines side by side is each model's GroupNorm (a group never
     # spans two models). No copy, and the output keeps the layout for the

@@ -220,6 +220,46 @@ def test_group_norm_op_vmap_folds_models(monkeypatch, affine):
             assert torch.equal(got_t, want_t)
 
 
+@pytest.mark.parametrize("m,c", [(3, 64), (10, 128)])
+def test_training_group_norm_folds_models_at_any_width(monkeypatch, m, c):
+    """The training forward's GroupNorm (``training=True``) on x as a grouped
+    convolution leaves it, ``[B, H, W, M, C]`` vmapped at dim 3, in bf16:
+    the models are folded into the batch (one stats call at ``[M*B, HW,
+    C]``) even where ``M*C`` fits a kernel row and the eval reads them in
+    place, so that a model's statistics do not depend on M; each model
+    against ``jax.vmap(pallas_group_norm)`` in interpret mode at this
+    file's GroupNorm tolerances."""
+    b, hw = 2, 4
+    x, scale, bias, jdt = _model_affine_inputs(m, b, hw, c, "bfloat16",
+                                               seed=m + c)
+    x5 = torch.from_numpy(x).reshape(m, b, hw, hw, c).permute(1, 2, 3, 0, 4)
+    stats = _count(monkeypatch, gn_cuda, "gn_stats_plain")
+    y, mean, rstd = torch.func.vmap(
+        lambda xx, s, bb: gn_cuda.group_norm_op(xx, s, bb, G, EPS,
+                                                torch.bfloat16,
+                                                training=True),
+        in_dims=(3, 0, 0))(x5.contiguous().bfloat16(),
+                           torch.from_numpy(scale), torch.from_numpy(bias))
+    assert stats == [(m * b, hw * hw, c)]
+    with pltpu.force_tpu_interpret_mode():
+        y_p, m_p, r_p = jax.vmap(
+            lambda xx, s, bb: pallas_group_norm(xx, s, bb, G, EPS, jdt,
+                                                folds=1)
+        )(jnp.asarray(x).astype(jdt).reshape(m, b, hw, hw, c),
+          jnp.asarray(scale), jnp.asarray(bias))
+    np.testing.assert_allclose(mean.numpy(),
+                               np.asarray(m_p).reshape(m, b, G), rtol=1e-5)
+    np.testing.assert_allclose(rstd.numpy(),
+                               np.asarray(r_p).reshape(m, b, G), rtol=1e-5)
+    y_ref = np.asarray(y_p.astype(jnp.float32))
+    x_m = x.reshape(m, b, hw, hw, c)
+    for k in range(m):
+        mag = _term_magnitude(x_m[k], y_ref[k], mean[k].numpy(),
+                              rstd[k].numpy(), scale[k], bias[k])
+        err = np.abs(y[k].float().numpy() - y_ref[k])
+        assert np.all(err <= _bf16_ulp(mag)), np.max(err / _bf16_ulp(mag))
+
+
 def test_resnet18_chunk_forward_makes_20_stats_calls_not_80(monkeypatch):
     """At chunk 4, one vmapped ResNet-18 forward (20 GroupNorms) calls the
     plain stats 20 times, each on 4x a model's input, not 80; its training

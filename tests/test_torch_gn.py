@@ -134,6 +134,65 @@ def test_group_norm_backward_matches_jax_vjp(shape):
         )
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+def test_training_backward_bf16_matches_jax_pgn_bwd(shape):
+    """The closed-form backward as a bf16 client's training runs it (bf16
+    x and dy, vmapped over 3 models, its (b, h, w) sums in short runs,
+    ``_sum_bhw``) against ``jax.vmap`` of the JAX package's ``_pgn_bwd``
+    on the same inputs and statistics: dscale/dbias at the backward
+    tolerance, bf16 dx within one bf16 ulp of its terms' magnitude."""
+    from distributed_learning_simulator_tpu.models.resnet import _pgn_bwd
+    from distributed_learning_simulator_tpu_torch.models.resnet import (
+        pgn_backward,
+    )
+
+    m, (b, h, w, c) = 3, shape
+    rng = np.random.default_rng(11 + sum(shape))
+    xj = jnp.asarray((rng.normal(size=(m,) + shape) * 2 + 1.5).astype(
+        np.float32)).astype(jnp.bfloat16)
+    dyj = jnp.asarray((1e-2 * rng.normal(size=(m,) + shape)).astype(
+        np.float32)).astype(jnp.bfloat16)
+    scale = rng.normal(size=(m, c)).astype(np.float32)
+    bias = rng.normal(size=(m, c)).astype(np.float32)
+    _, mean, rstd = jax.vmap(
+        lambda x, s, bb: _gn_forward(x, s, bb, G, EPS, jnp.bfloat16))(
+            xj, jnp.asarray(scale), jnp.asarray(bias))
+    dx_j, ds_j, db_j = jax.vmap(
+        lambda x, s, bb, mu, r, dy: _pgn_bwd(G, EPS, jnp.bfloat16,
+                                             (x, s, bb, mu, r), dy))(
+        xj, jnp.asarray(scale), jnp.asarray(bias), mean, rstd, dyj)
+
+    def torch_of(a):
+        return torch.from_numpy(np.array(jnp.asarray(a).astype(
+            jnp.float32)))
+
+    dx, ds, db = torch.func.vmap(
+        lambda x, s, bb, mu, r, dy: pgn_backward(x, s, bb, mu, r, dy, G))(
+        torch_of(xj).bfloat16(), torch.from_numpy(scale),
+        torch.from_numpy(bias), torch_of(mean).reshape(m, b, G),
+        torch_of(rstd).reshape(m, b, G), torch_of(dyj).bfloat16())
+    assert dx.dtype == torch.bfloat16
+    for got, want in ((ds, ds_j), (db, db_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-6)
+    # dx = (dy*scale - m1 - xhat*m2) * rstd: its rounding scales with the
+    # largest of those terms (the y tolerance's reasoning, above).
+    x32, dy32 = (np.asarray(t.astype(jnp.float32)).reshape(
+        m, b, h, w, G, c // G) for t in (xj, dyj))
+    mean5, rstd5 = (np.asarray(t).reshape(m, b, 1, 1, G, 1)
+                    for t in (mean, rstd))
+    dyg = dy32 * scale.reshape(m, 1, 1, 1, G, c // G)
+    xhat = (x32 - mean5) * rstd5
+    mag = ((np.abs(dyg) + np.abs(dyg).mean(axis=(2, 3, 5), keepdims=True)
+            + np.abs(xhat) * np.abs(dyg * xhat).mean(axis=(2, 3, 5),
+                                                     keepdims=True))
+           * rstd5).reshape((m,) + shape)
+    want = np.asarray(dx_j.astype(jnp.float32))
+    tol = _bf16_ulp(np.maximum(mag, np.abs(want)))
+    err = np.abs(dx.float().numpy() - want)
+    assert np.all(err <= tol), np.max(err / tol)
+
+
 def test_cpu_tensors_take_the_plain_path_only():
     x, scale, bias = _inputs((2, 4, 4, 64), seed=3)
     gn_cuda.reset_launch_counts()

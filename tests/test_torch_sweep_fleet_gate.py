@@ -1,8 +1,9 @@
-"""chip_smoke.py's gate on ``sweep_fleet`` f32's round 0 (``FirstTraining``,
+"""chip_smoke.py's gate on ``sweep_fleet``'s round 0 (``FirstTraining``,
 ``leaf_differences``, ``round0_leaves_gate``) on the CPU, on a small MLP
 fleet: the fleet keeps its first training chunk's rows (experiment-major)
 and its first aggregate, the comparison names the first leaf that
-differs, and the gate fails unless every point is bitwise."""
+differs, and the gate fails unless every point is bitwise, in f32 and in
+bf16 local training (a fleet's rows against its points' solo runs)."""
 
 import dataclasses
 
@@ -26,8 +27,9 @@ MLP = dict(
 )
 
 
-def _first_training(tmp_path, seeds: str):
-    base = ExperimentConfig(log_root=str(tmp_path), **MLP)
+def _first_training(tmp_path, seeds: str, dtype: str = "float32"):
+    base = ExperimentConfig(log_root=str(tmp_path),
+                            local_compute_dtype=dtype, **MLP)
     ds = get_dataset("synthetic", n_train=128, n_test=64, seed=base.seed,
                      difficulty=0.5)
     cd = build_client_data(base, ds)
@@ -73,8 +75,32 @@ def test_round0_leaves_gate_fails_unless_every_point_is_bitwise(tmp_path,
                                              rows.clone()),
               1: chip_smoke.leaf_differences(torch, layout, rows, other)}
     if not moved:
-        chip_smoke.round0_leaves_gate(leaves)
+        chip_smoke.round0_leaves_gate("f32", leaves)
         return
     with pytest.raises(SystemExit):
-        chip_smoke.round0_leaves_gate(leaves)
+        chip_smoke.round0_leaves_gate("f32", leaves)
     assert leaves[1]["first"]["leaf"] == layout.names[0]
+
+
+@pytest.mark.parametrize("moved", [False, True])
+def test_bf16_fleet_rows_are_its_solo_runs(tmp_path, moved):
+    """A bf16 fleet of two seeds against each seed's fleet of one (the solo
+    chunk): the gate passes bitwise, and fails naming the leaf once one
+    row of a point is moved by one ulp."""
+    fleet = _first_training(tmp_path, "0,1", "bfloat16")
+    layout, m = fleet.layout, MLP["client_chunk_size"]
+    assert fleet.trained.shape == (2 * m, sum(layout.numels))
+    leaves = {}
+    for i, seed in enumerate("01"):
+        solo = _first_training(tmp_path, seed, "bfloat16").trained
+        rows = fleet.trained[i * m:(i + 1) * m].clone()
+        if moved and i == 1:
+            rows[2, -1] = torch.nextafter(rows[2, -1], rows[2, -1] + 1)
+        leaves[i] = chip_smoke.leaf_differences(torch, layout, rows, solo)
+    if not moved:
+        chip_smoke.round0_leaves_gate("bf16", leaves)
+        return
+    assert leaves[0]["first"] is None
+    with pytest.raises(SystemExit):
+        chip_smoke.round0_leaves_gate("bf16", leaves)
+    assert leaves[1]["first"]["leaf"] == layout.names[-1]
