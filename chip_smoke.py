@@ -10,7 +10,9 @@ together), then runs these phases and exits non-zero if any of them fails:
    the main path gives them:
    * the GroupNorm stats and normalize kernels at B=25 for each of
      ResNet-18's four stage shapes and at an eval-sized batch. mean/rstd
-     must agree at rtol 1e-5 and y within one bf16 ulp (of the largest term
+     must be bitwise their order twin (``gn_stats_plain``: the kernel
+     orders a group's sums by the group's shape alone) and y within one
+     bf16 ulp (of the largest term
      that sums to y; see ``ulps``); the normalize kernel alone, on the plain
      statistics, must be bit-equal to its plain version with f32 and with
      bf16 scale/bias, also when it runs straight after the PyTorch kernels
@@ -38,8 +40,8 @@ together), then runs these phases and exits non-zero if any of them fails:
      fleet's chunk of 20); the normalize kernel at 40 x 25 samples of each
      stage shape with a per-model ``[40, C]`` bf16 affine must be bitwise
      equal to 40 calls with ``[C]`` affines and to its plain version; the
-     stats kernel at those 1000 samples within rtol 1e-5 of its plain
-     version. Timed beside their bounds, their plain versions, cuDNN's
+     stats kernel at those 1000 samples bitwise its plain version. Timed
+     beside their bounds, their plain versions, cuDNN's
      weight-only convolution_backward of the grouped convolution (wgrad),
      the 40 one-client calls (wgrad, the one-client path) and one
      F.group_norm of the 40 models side by side on the channel axis (GN);
@@ -47,7 +49,8 @@ together), then runs these phases and exits non-zero if any of them fails:
      (``check_channel_side``), as ``group_norm``'s vmap rule reads the
      grouped convolutions' output while M*C fits a kernel row: M = 10, 16,
      32 at every stage where that holds, B = 25 and 1000, bf16 and f32,
-     against the plain versions and M per-model calls.
+     against the plain versions and M per-model calls: the statistics
+     bitwise at the planned split and at splits 1, 2, 4 and 8.
    Times each kernel (CUDA-graph replay, median) beside its bound, its
    plain version and one PyTorch call computing the same function as a
    yardstick (F.group_norm; cuDNN's weight-only convolution_backward), the
@@ -208,21 +211,23 @@ together), then runs these phases and exits non-zero if any of them fails:
    every experiment one program of 40 models, so each GroupNorm kernel
    launches 20 times per forward and the wgrad kernel 4 times per step as
    on the solo path, and the fleet makes one solo run's training forwards
-   and one eval forward per round; each point against its solo run on the
-   shared data: ``cohort_hash`` exact and every round's test loss at rtol
-   1e-4 (the eval's grouping moves it: ``SWEEP_FLEET_RTOL``), round 0's
-   trained rows (the first chunk, before the aggregate) bitwise the solo
-   run's, or
-   the first differing leaf named in the failure (``FirstTraining``,
-   ``round0_leaves_gate``), and whether each history is bitwise its solo
-   run's printed; (a) two solo runs of a point bitwise equal, (b) the
+   and one eval forward per experiment and round (each experiment's model
+   evaluated as its solo run evaluates it); each point against its solo
+   run on the shared data: every round's ``test_accuracy``,
+   ``test_loss``, ``mean_client_loss`` and ``cohort_hash`` equal to the
+   solo run's, and round 0's trained rows (the first chunk, before the
+   aggregate) bitwise the solo run's, or the first differing leaf named in
+   the failure (``FirstTraining``, ``round0_leaves_gate``); (a) two solo
+   runs of a point bitwise equal, (b) the
    ``vmapped`` strategy with one program, the lr-0.02 points against
    their solo runs, the lr-0.01 points further from them; round seconds
    per experiment beside the solo runs' and the peaks printed);
    ``sweep_scheduled`` (bench.py's ``_sweep_leg``: the MLP,
    32 clients, 6 rounds; an 8-seed fleet against 8 serial solo runs,
-   ``sweep_amortization_ratio`` and ``bit_identical`` printed with no
-   gate on speed; the 2-hash 8-point scheduled sweep at
+   ``sweep_amortization_ratio`` and ``bit_identical`` printed with the
+   fields and rounds that differ, no gate on either (cuBLAS's batched
+   products in the MLP's training pick their kernel by the batch count:
+   ROADMAP queue 3); the 2-hash 8-point scheduled sweep at
    ``compile_reuse_fraction`` 0.875, every history bitwise its solo run's;
    a 4-point sweep crashed after 2 points and resumed from its
    ``sweep_dir``, stitched bitwise, with valid v8 records).
@@ -386,6 +391,10 @@ EARLIER_MS = {
     "kernel": 0.1083,
     "conv3x3_wgrad f32 (20, 25, 32, 32, 64), CTA-per-tap kernel": 1.4410,
     "conv3x3_wgrad f32 (25, 32, 32, 64), CTA-per-tap kernel": 0.0829,
+    "gn_stats per training forward (B=25), rank-order cluster sums at "
+    "split 1": 0.0862,
+    "gn_stats per training forward (40 x 25 samples), rank-order cluster "
+    "sums": 0.4750,
 }
 
 
@@ -524,11 +533,10 @@ def check_kernels(torch, gn):
         if not all(same.values()):
             fail(f"gn_normalize at {(b, hw, c)} is not bit-equal to its plain "
                  f"version on the same statistics: {same}")
-        for name, k, p in (("mean", mean_k, mean_p), ("rstd", rstd_k, rstd_p)):
-            rel = ((k - p).abs() / p.abs().clamp(min=1e-30)).max().item()
-            if not math.isfinite(rel) or rel > 1e-5:
-                fail(f"gn_stats {name} at {(b, hw, c)}: max rel err {rel:.3e}"
-                     " > 1e-5")
+        if not (torch.equal(mean_k, mean_p) and torch.equal(rstd_k, rstd_p)):
+            fail(f"gn_stats at {(b, hw, c)} is not bitwise its order twin "
+                 f"(mean {torch.equal(mean_k, mean_p)}, rstd "
+                 f"{torch.equal(rstd_k, rstd_p)})")
         y_ulps = ulps(torch, x, y_k, y_p, mean_p, rstd_p, scale, bias)
         alone_ulps = ulps(torch, x, y_k_alone, y_p, mean_p, rstd_p, scale,
                           bias)
@@ -573,9 +581,6 @@ def check_kernels(torch, gn):
             # The smallest kernel a replay can hold: a fill of [B, G] f32.
             "launch_floor_ms": time_ms(torch, torch.empty_like(mean_k).zero_),
             "split": gn.stats_split(b, hw, c, x.element_size()),
-            # What a training forward launches (group_norm_op(...,
-            # training=True)), timed in split_ms.
-            "training_split": gn.training_split(hw, c, x.element_size()),
             "split_ms": split_ms,
             "normalize_ctas": gn.normalize_plan(
                 b, hw, c, x.element_size(),
@@ -1004,14 +1009,12 @@ def check_batched(torch, gn, wg):
                  f" bitwise per-model {per_model}, plain "
                  f"{torch.equal(y_k, y_p)}")
         mean_k, rstd_k = gn.gn_stats(x, GROUPS, EPS)
-        stats_err = 0.0
-        for name, kk, pp in (("mean", mean_k, mean_p),
-                             ("rstd", rstd_k, rstd_p)):
-            rel = ((kk - pp).abs() / pp.abs().clamp(min=1e-30)).max().item()
-            if not rel <= 1e-5:
-                fail(f"gn_stats {name} at {(rows, hw, c)}: max rel err "
-                     f"{rel:.3e} > 1e-5")
-            stats_err = max(stats_err, (kk - pp).abs().max().item())
+        if not (torch.equal(mean_k, mean_p) and torch.equal(rstd_k, rstd_p)):
+            fail(f"gn_stats at {(rows, hw, c)} is not bitwise its order twin "
+                 f"(mean {torch.equal(mean_k, mean_p)}, rstd "
+                 f"{torch.equal(rstd_k, rstd_p)})")
+        stats_err = max((kk - pp).abs().max().item()
+                        for kk, pp in ((mean_k, mean_p), (rstd_k, rstd_p)))
         side = int(math.isqrt(hw))
         x4 = x.view(rows, side, side, c)
         # The yardstick: each model's GroupNorm in one F.group_norm call,
@@ -1069,6 +1072,8 @@ def check_batched(torch, gn, wg):
 #: Shapley batches of 10 and 16 subset models, a chunk of up to 32 clients
 #: (the remainder of a cohort, a bucketed group, a client_eval chunk).
 CHANNEL_SIDE_MODELS = (10, 16, 32)
+#: The stats kernel's cluster sizes that check_channel_side forces.
+FORCED_SPLITS = (1, 2, 4, 8)
 
 
 def check_channel_side(torch, gn, gen):
@@ -1077,11 +1082,13 @@ def check_channel_side(torch, gn, gen):
     ``channel_side``): x ``[B, HW, M*C]`` with M*G groups and the M
     affines flattened to ``[M*C]``, for M in ``CHANNEL_SIDE_MODELS`` at
     every stage where M*C fits a kernel row, at B=25 and B=1000, in bf16
-    and f32 (C or G not a power of two takes the stats kernel's general
-    branch). Stats within rtol 1e-5 of the plain version, and of M
-    per-model calls; normalize bitwise equal to its plain version and, on
-    the same statistics, to M per-model calls with ``[C]`` affines;
-    ``group_norm`` bitwise equal to the two kernels called alone."""
+    and f32 (M*C = 640 and 1280 are no power of two). The statistics
+    bitwise their order twin (``gn_stats_plain``; each group's sums
+    against ``gn_sums_plain``) and the M per-model calls, at the planned
+    split and at every split of ``FORCED_SPLITS``; normalize bitwise equal
+    to its plain version and, on the same statistics, to M per-model calls
+    with ``[C]`` affines; ``group_norm`` bitwise equal to the two kernels
+    alone."""
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         width = gn._THREADS * (16 // torch.tensor([], dtype=dtype)
@@ -1100,41 +1107,45 @@ def check_channel_side(torch, gn, gen):
                 bias = torch.randn(m, c, device="cuda",
                                    generator=gen).to(dtype)
                 sf, bf = scale.reshape(-1), bias.reshape(-1)
-                mean_k, rstd_k = gn.gn_stats(x, g, EPS)
                 mean_p, rstd_p = gn.gn_stats_plain(x, g, EPS)
+                sums_p = torch.stack(gn.gn_sums_plain(x, g), -1)
+                models = [gn.gn_stats(x[:, :, k * c:(k + 1) * c].contiguous(),
+                                      GROUPS, EPS) for k in range(m)]
+                off = []
+                for split in (None,) + FORCED_SPLITS:
+                    mean_k, rstd_k, sums_k = gn.gn_stats(
+                        x, g, EPS, split=split, sums=True)
+                    same = {
+                        "sums vs twin": torch.equal(sums_k, sums_p),
+                        "mean vs twin": torch.equal(mean_k, mean_p),
+                        "rstd vs twin": torch.equal(rstd_k, rstd_p),
+                        "per-model calls": all(
+                            torch.equal(mean_k[:, k * GROUPS:
+                                               (k + 1) * GROUPS], mk)
+                            and torch.equal(rstd_k[:, k * GROUPS:
+                                                   (k + 1) * GROUPS], rk)
+                            for k, (mk, rk) in enumerate(models))}
+                    off += [f"split {split or 'planned'}: {k}"
+                            for k, v in same.items() if not v]
+                if off:
+                    fail(f"gn_stats at {shape} {dtype}, {g} groups, not "
+                         f"bitwise: {off}")
+                mean_k, rstd_k = gn.gn_stats(x, g, EPS)
                 y_k = gn.gn_normalize(x, mean_k, rstd_k, sf, bf, dtype)
                 y_p = gn.gn_normalize_plain(x, mean_k, rstd_k, sf, bf, dtype)
                 y_pair, mean_pair, rstd_pair = gn.group_norm(
                     x.view(b, side, side, m * c), sf, bf, g, EPS, dtype)
-                stats_err = 0.0
-                for name, kk, pp in (("mean", mean_k, mean_p),
-                                     ("rstd", rstd_k, rstd_p)):
-                    rel = ((kk - pp).abs() / pp.abs().clamp(min=1e-30)
-                           ).max().item()
-                    if not rel <= 1e-5:
-                        fail(f"gn_stats {name} at {shape} {dtype}, {g} "
-                             f"groups: max rel err {rel:.3e} > 1e-5")
-                    stats_err = max(stats_err, (kk - pp).abs().max().item())
-                model_rel = 0.0
                 for k in range(m):
                     cols, grp = slice(k * c, (k + 1) * c), slice(
                         k * GROUPS, (k + 1) * GROUPS)
-                    xk = x[:, :, cols].contiguous()
-                    mk, rk = gn.gn_stats(xk, GROUPS, EPS)
-                    for kk, wide in ((mk, mean_k), (rk, rstd_k)):
-                        model_rel = max(model_rel, (
-                            (kk - wide[:, grp]).abs()
-                            / kk.abs().clamp(min=1e-30)).max().item())
                     yk = gn.gn_normalize(
-                        xk, mean_k[:, grp].contiguous(),
+                        x[:, :, cols].contiguous(),
+                        mean_k[:, grp].contiguous(),
                         rstd_k[:, grp].contiguous(), scale[k], bias[k],
                         dtype)
                     if not torch.equal(yk, y_k[:, :, cols]):
                         fail(f"gn_normalize at {shape} {dtype}: model {k} "
                              "differs from its own call with a [C] affine")
-                if not model_rel <= 1e-5:
-                    fail(f"gn_stats at {shape} {dtype}: per-model calls off "
-                         f"by rtol {model_rel:.3e} > 1e-5")
                 pair_equal = (torch.equal(y_pair.view(shape), y_k)
                               and torch.equal(mean_pair, mean_k)
                               and torch.equal(rstd_pair, rstd_k))
@@ -1144,15 +1155,16 @@ def check_channel_side(torch, gn, gen):
                          f"group_norm vs its kernels {pair_equal}")
                 rows.append({"shape": list(shape), "models": m,
                              "dtype": str(dtype).split(".")[-1],
-                             "stats_max_abs_err": stats_err,
-                             "per_model_stats_rel": model_rel})
-                del x, y_k, y_p, y_pair
+                             "splits": [gn.stats_split(
+                                 b, hw, m * c, x.element_size())]
+                             + list(FORCED_SPLITS)})
+                del x, y_k, y_p, y_pair, models
                 torch.cuda.empty_cache()
     log(f"GroupNorm with the models on the channel side: {len(rows)} shapes "
         "(M in " + ", ".join(map(str, CHANNEL_SIDE_MODELS)) + ", B = 25 and "
-        "1000, bf16 and f32): stats within rtol 1e-5 of plain and of the "
-        "per-model calls (worst "
-        f"{max(r['per_model_stats_rel'] for r in rows):.2e}); normalize and "
+        "1000, bf16 and f32): the statistics bitwise their order twin (sums, "
+        "mean, rstd) and the per-model calls at the planned split and at "
+        "splits " + ", ".join(map(str, FORCED_SPLITS)) + "; normalize and "
         "group_norm bitwise equal to plain, to the per-model calls and to "
         "the two kernels alone")
     return rows
@@ -3509,12 +3521,7 @@ SWEEP_CLIENTS = 20  # sweep_fleet's flagship partition, 2 rounds
 SWEEP_LRS = (0.02, 0.01)
 #: bench.py's ``_sweep_leg`` shape: MLP, 32 clients, 6 rounds, 8 seeds.
 SWEEP_MLP_CLIENTS, SWEEP_MLP_ROUNDS, SWEEP_MLP_POINTS = 32, 6, 8
-#: A fleet point's test loss against its solo run's, every round: the
-#: training is bitwise, and the eval of the E models in one forward sums a
-#: GroupNorm group in another order than one model's (about 1e-7 in f32, up
-#: to 2e-5 in bf16 on an H100).
-SWEEP_FLEET_RTOL = 1e-4
-#: The fields a fleet point's history holds to its solo run's.
+#: The fields a fleet point's history holds to its solo run's, bitwise.
 SWEEP_KEYS = ("test_accuracy", "test_loss", "mean_client_loss",
               "cohort_hash")
 
@@ -3696,15 +3703,14 @@ def sweep_fleet(torch, gn, wg):
     data (``run_sweep_path``'s gates), then each needed point alone through
     run_path on the same data. Both: the fleet's training forwards equal
     one solo run's (every experiment's chunk j is one forward), one eval
-    forward per round (the E models in one vmapped forward of the one eval
-    batch); each point with a solo run (every f32 point, the lr-0.02 bf16
-    points) has round 0's first trained chunk bitwise its solo run's
-    (``round0_leaves_gate``: a client's training must not depend on how
-    many models share its program), its ``cohort_hash`` equal to its solo
-    run's and every round's test loss within ``SWEEP_FLEET_RTOL`` (1e-4;
-    the eval's grouping is the one difference the JAX package's contract
-    allows), and whether its history is bitwise its
-    solo run's is printed. ``f32``: two solo runs of each point bitwise
+    forward per experiment and round (each experiment's model evaluated as
+    its solo run evaluates it, on the one eval batch); each point with a
+    solo run (every f32 point, the lr-0.02 bf16 points) has round 0's
+    first trained chunk bitwise its solo run's (``round0_leaves_gate``: a
+    client's training must not depend on how many models share its
+    program) and every round's ``SWEEP_KEYS`` equal to its solo run's (the
+    JAX package's contract: a point's history is its solo run's), the
+    relative test-loss gaps printed either way. ``f32``: two solo runs of each point bitwise
     equal (the run takes only cuDNN's deterministic algorithms: without
     them, two f32 runs of one seed drifted up to 1e-3 apart in test loss
     after two rounds on an H100). ``bf16``: the ``vmapped`` strategy with
@@ -3761,7 +3767,8 @@ def sweep_fleet(torch, gn, wg):
                      f"{spreads[point.index]}): a seeded run must "
                      "reproduce bitwise")
         solo_fwd = {s["forwards"]["train"] for s in solos.values()}
-        n_eval = config.round * -(-config.n_test // config.eval_batch_size)
+        n_eval = len(points) * config.round * -(-config.n_test
+                                                // config.eval_batch_size)
         if solo_fwd != {fleet["forwards"]["train"]} or (
                 fleet["forwards"]["eval"] != n_eval):
             fail(f"sweep_fleet {name}: forwards {fleet['forwards']}, solo "
@@ -3792,20 +3799,17 @@ def sweep_fleet(torch, gn, wg):
             loss_gaps[p["index"]] = [
                 abs(a["test_loss"] - b["test_loss"]) / abs(a["test_loss"])
                 for a, b in zip(hs, hf)]
-            off += [f"point {p['index']} round {a['round']}: cohort "
-                    f"{b.get('cohort_hash')} / {a.get('cohort_hash')}, test "
-                    f"loss {b['test_loss']} against {a['test_loss']}"
-                    for a, b in zip(hs, hf)
-                    if a.get("cohort_hash") != b.get("cohort_hash") or not (
-                        abs(a["test_loss"] - b["test_loss"])
-                        <= SWEEP_FLEET_RTOL * abs(a["test_loss"]))]
+            off += [f"point {p['index']} round {a['round']}: " + ", ".join(
+                f"{k} {b.get(k)} against {a.get(k)}" for k in SWEEP_KEYS
+                if a.get(k) != b.get(k)) for a, b in zip(hs, hf)
+                if any(a.get(k) != b.get(k) for k in SWEEP_KEYS)]
         log(f"sweep_fleet {name}: each point's history bitwise its solo "
             f"run's {bitwise} (fields that differ {differ}); relative "
             f"test-loss gaps by round {loss_gaps}")
         round0_leaves_gate(name, leaves)
         if off:
-            fail(f"sweep_fleet {name} against the solo runs (rtol "
-                 f"{SWEEP_FLEET_RTOL}): {off}")
+            fail(f"sweep_fleet {name}: history fields that differ from the "
+                 f"solo runs' (fleet against solo): {off}")
         gaps = {}
         if name == "bf16":
             losses = {(p["seed"], p["learning_rate"]):
@@ -3882,8 +3886,11 @@ def sweep_scheduled(torch, work):
     """Phase 2y: ``sweep_scheduled``, bench.py's ``_sweep_leg`` on the
     card (:func:`sweep_mlp_config`). An 8-seed fleet against the 8 solo
     runs one after another on the shared data: ``sweep_amortization_ratio``
-    (serial wall over the fleet's) and ``bit_identical`` printed, no gate
-    on speed. The 2-hash 8-point scheduled sweep (seeds {0, 1} x 6-9
+    (serial wall over the fleet's) and ``bit_identical`` printed with the
+    (seed, round, field) entries that differ; no gate on speed, nor on
+    ``bit_identical``: the MLP's training takes cuBLAS's batched products,
+    whose kernel follows the batch count (32 models solo, 256 in the
+    fleet; ROADMAP queue 3). The 2-hash 8-point scheduled sweep (seeds {0, 1} x 6-9
     rounds): ``compile_reuse_fraction`` 0.875 and every point's history
     bitwise its solo run's. A 4-point scheduled sweep into a ``sweep_dir``
     under ``work`` crashed after 2 points (``DLS_SWEEP_CRASH_AFTER``) and
@@ -3927,8 +3934,12 @@ def sweep_scheduled(torch, work):
                       dataset=ds, client_data=cd)
     torch.cuda.synchronize()
     fleet_wall = time.perf_counter() - t0
-    bit_identical = all(same(h, p["history"])
-                        for h, p in zip(solos, fleet["points"]))
+    differ = [(s, a["round"], k) for s, h, p in zip(seeds, solos,
+                                                     fleet["points"])
+              for a, b in zip(h, p["history"]) for k in SWEEP_KEYS
+              if a.get(k) != b.get(k)]
+    bit_identical = not differ and all(
+        len(h) == len(p["history"]) for h, p in zip(solos, fleet["points"]))
     ratio = serial / fleet_wall
     sched_points = [{"seed": s, "round": r} for s in (0, 1)
                     for r in range(SWEEP_MLP_ROUNDS, SWEEP_MLP_ROUNDS + 4)]
@@ -3979,13 +3990,14 @@ def sweep_scheduled(torch, work):
     _check_records("sweep_scheduled resume", records, _schema(), 8)
     log(f"sweep_scheduled: {SWEEP_MLP_POINTS}-seed fleet {fleet_wall:.3f} "
         f"s against {serial:.3f} s serial (sweep_amortization_ratio "
-        f"{ratio:.4f}), bit_identical {bit_identical}; 2-hash scheduled "
+        f"{ratio:.4f}), bit_identical {bit_identical} ((seed, round, "
+        f"field) that differ: {differ}); 2-hash scheduled "
         f"sweep compile_reuse_fraction {sched['compile_reuse_fraction']}, "
         f"bitwise to solo; resume stitched bitwise, {len(records)} v8 "
         "records")
     return {"serial_wall_s": serial, "fleet_wall_s": fleet_wall,
             "sweep_amortization_ratio": ratio,
-            "bit_identical": bit_identical,
+            "bit_identical": bit_identical, "fields_differing": differ,
             "compile_reuse_fraction": sched["compile_reuse_fraction"],
             "programs_compiled": sched["programs_compiled"],
             "experiments_per_hour": fleet["experiments_per_hour"],
@@ -5167,8 +5179,7 @@ def layout_arm(torch, arm: str):
     committed; ``gn_folded``, where ``dls::group_norm``'s vmap rule always
     folds the models into the batch (ops/gn_cuda.py ``_group_norm_folded``)
     and never reads them on the channel side (a training forward folds in
-    every arm, with its fixed stats split: the two differ in the eval
-    forwards); ``functorch_conv``, where
+    every arm: the two differ in the eval forwards); ``functorch_conv``, where
     ResNet's convolutions run the ``dls::conv_nhwc*`` ops' one-model bodies
     as plain PyTorch code, which functorch vmaps with its own convolution
     rules instead of ops/conv.py's grouped channels-last ones."""
@@ -5255,12 +5266,14 @@ def layout_ab(torch, gn, wg, log_root: str):
     return {"runs": runs, "summary": summary}
 
 
-def redesign_lines(rows, wgrad_rows, batched_wgrad, f32_chunk):
+def redesign_lines(rows, wgrad_rows, batched_wgrad, f32_chunk,
+                   stats_chunk_ms):
     """Prints the kernels redesigned for Hopper beside their yardsticks,
     bounds and earlier times (EARLIER_MS: PERF.md constants, not this
-    run), at one client's shapes (B=25) and the wgrad kernel also at the
-    flagship's chunk (bf16) and the f32 fleet's (f32); returns the same
-    numbers."""
+    run), at one client's shapes (B=25), the wgrad kernel also at the
+    flagship's chunk (bf16) and the f32 fleet's (f32), and the stats
+    kernel at the flagship's chunk (``stats_chunk_ms``, the kernels
+    line's); returns the same numbers."""
     w = wgrad_rows["bf16"]
     w40 = batched_wgrad
     w32 = wgrad_rows["f32"]
@@ -5272,9 +5285,8 @@ def redesign_lines(rows, wgrad_rows, batched_wgrad, f32_chunk):
         for key in ("stats", "normalize_bf16"))
     stats["library_ms"] = sum(r["per_forward"] * r["library_ms"]
                               for r in train_rows)
-    stats["training_split_ms"] = sum(
-        r["per_forward"] * r["split_ms"][r["training_split"]]
-        for r in train_rows)
+    stats["split1_ms"] = sum(r["per_forward"] * r["split_ms"][1]
+                             for r in train_rows)
     pair, alone = (sum(r["per_forward"] * r[k] for r in train_rows)
                    for k in ("pair_ms", "kernels_alone_ms"))
     out = {
@@ -5292,7 +5304,7 @@ def redesign_lines(rows, wgrad_rows, batched_wgrad, f32_chunk):
                                     "bound_ms": f32_chunk["bound_ms"]},
         "gn_stats_per_training_forward": {
             "ms": stats["ms"], "bound_ms": stats["bound_ms"],
-            "training_split_ms": stats["training_split_ms"],
+            "split1_ms": stats["split1_ms"],
             "f_group_norm_ms": stats["library_ms"]},
         "gn_stats_eval": {"ms": eval_row["stats"]["ms"],
                           "bound_ms": eval_row["stats"]["bound_ms"]},
@@ -5322,10 +5334,12 @@ def redesign_lines(rows, wgrad_rows, batched_wgrad, f32_chunk):
             f"{row['bound_by']}, {row['bound_ms'] / row['ms']:.3f} of it); "
             f"{earlier}")
     log(f"redesigned gn_stats per training forward: {stats['ms']:.4f} ms "
-        f"at the planned split, {stats['training_split_ms']:.4f} at the "
-        f"training split that a training forward launches (bound "
+        f"at the planned split, which a training forward launches, "
+        f"{stats['split1_ms']:.4f} at split 1 (bound "
         f"{stats['bound_ms']:.4f}; F.group_norm, stats and normalize "
-        f"together, {stats['library_ms']:.4f}); {before[3]}")
+        f"together, {stats['library_ms']:.4f}); {before[3]}; {before[9]}")
+    log(f"redesigned gn_stats per training forward at the chunk of "
+        f"{FLAGSHIP_CHUNK}: {stats_chunk_ms:.4f} ms; {before[10]}")
     log(f"redesigned gn_stats {tuple(eval_row['shape'])}: "
         f"{eval_row['stats']['ms']:.4f} ms (bound "
         f"{eval_row['stats']['bound_ms']:.4f}); {before[4]}")
@@ -5584,7 +5598,7 @@ def main() -> None:
         fail(f"kernels of the main path launched no time: {never}")
     phases_scope.close()
     redesigned = redesign_lines(rows, wgrad_rows, batched["wgrad"],
-                                f32_chunk)
+                                f32_chunk, kernels[0]["ms"])
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,

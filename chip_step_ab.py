@@ -24,13 +24,24 @@ two trees), one at a time. An arm measures:
   device memory, and the median device ms of ``STEP_PROFILES`` steps
   (each the sum of its kernels' times in a torch.profiler window of its
   own);
+* the GroupNorm stats kernel (``gn_stats``, each tree's own) on seeded
+  inputs, the same in every arm (``gn_cases``): ResNet-18's 20 statistics
+  of a training forward at one client (25 samples) and at the chunk of 40
+  folded into its batch (1000 samples), bf16 and f32, and the eval's
+  1000 samples of M models side by side on the channel axis at each
+  stage where M*C fits a kernel row, M in ``GN_EVAL_MODELS``: at the
+  planned split, at the split the tree's training forward takes, and at
+  every split;
+* one vmapped eval forward of ``EVAL_MODELS`` bf16 ResNet-18 models on
+  1000 samples (the Shapley subset evals' form): median wall ms and
+  subset evals a second;
 * the ``fed`` path through ``run_simulation`` for each of
   ``ROUND_CASES`` (bf16 at 40 clients in one chunk of 40; f32 at 20
   clients in one chunk of 20, the f32 sweep fleet's program of one
   seed), ``ROUNDS`` rounds: the median round seconds after round 0.
 
-``--kernel-only`` measures the kernel alone, ``--no-rounds`` the kernel
-and the steps. Writes ``DIR/step_ab.json``
+``--kernel-only`` measures the kernels alone, ``--no-rounds`` the kernels,
+the steps and the eval. Writes ``DIR/step_ab.json``
 and prints each arm's numbers, the card's name and power limit, and one
 JSON line of the whole. Fails without a GPU.
 """
@@ -56,6 +67,12 @@ STEP_CASES = (("bfloat16", 1), ("bfloat16", 10), ("bfloat16", 40),
 STEP_REPEATS = 7
 STEP_PROFILES = 5
 ROUND_CASES = (("bfloat16", 40), ("float32", 20))
+#: ResNet-18's GroupNorm shapes: (HW, C, GroupNorms a forward at it).
+GN_STAGES = ((1024, 64, 5), (256, 128, 5), (64, 256, 5), (16, 512, 5))
+GN_EVAL_MODELS = (2, 4, 16, 32)
+GN_GROUPS, GN_EPS, EVAL_BATCH = 32, 1e-6, 1000
+#: Models of one vmapped eval forward: the Shapley subset evals' chunk.
+EVAL_MODELS = (16,)
 ROUNDS = 4
 TRAIN_BATCH = 25
 
@@ -149,6 +166,96 @@ def step_case(torch, dtype_name: str, m: int) -> dict:
             // STEP_PROFILES}
 
 
+def gn_cases(torch) -> dict:
+    """The stats kernel's device ms (chip_smoke.py's ``time_ms``) at each
+    shape of ``GN_STAGES`` (one client's samples and the chunk of 40's) and
+    at the eval's channel-side shapes: at the planned split, at the split
+    the tree's training forward takes, and at every split; with the sums
+    per training forward."""
+    from distributed_learning_simulator_tpu_torch.ops import gn_cuda
+
+    # A tree whose training forward took a split of its own names it.
+    training_split = getattr(gn_cuda, "training_split", None)
+
+    def case(b, hw, c, g, dtype, **row):
+        gen = torch.Generator(device="cuda").manual_seed(b + hw + c)
+        x = (torch.randn(b, hw, c, device="cuda", generator=gen) * 2
+             + 1.5).to(dtype)
+
+        def ms(split=None):
+            return chip_smoke.time_ms(
+                torch, lambda: gn_cuda.gn_stats(x, g, GN_EPS, split=split))
+
+        elem = x.element_size()
+        row.update(dtype=str(dtype).split(".")[-1], samples=b, hw=hw, c=c,
+                   split=gn_cuda.stats_split(b, hw, c, elem), ms=ms(),
+                   by_split={s: ms(s) for s in (1, 2, 4, 8) if s <= hw})
+        row["training_ms"] = (ms(training_split(hw, c, elem))
+                              if training_split else row["ms"])
+        return row
+
+    out = {"training": [], "stages": [], "eval": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        elem = torch.tensor([], dtype=dtype).element_size()
+        for b in (TRAIN_BATCH, 40 * TRAIN_BATCH):
+            rows = [case(b, hw, c, GN_GROUPS, dtype, per_forward=n)
+                    for hw, c, n in GN_STAGES]
+            out["stages"] += rows
+            out["training"].append({
+                "dtype": rows[0]["dtype"], "samples": b,
+                "planned_ms": sum(r["per_forward"] * r["ms"] for r in rows),
+                "training_ms": sum(r["per_forward"] * r["training_ms"]
+                                   for r in rows)})
+        for m in GN_EVAL_MODELS:
+            for hw, c, _ in GN_STAGES:
+                if m * c * elem <= 256 * 16:
+                    out["eval"].append(case(EVAL_BATCH, hw, m * c,
+                                            m * GN_GROUPS, dtype, models=m))
+    return out
+
+
+def eval_case(torch, m: int) -> dict:
+    """One vmapped eval forward of ``m`` bf16 ResNet-18 models on one
+    1000-sample batch (``make_models_eval_fn``: the Shapley subset evals'
+    form): the median synchronized wall ms of ``STEP_REPEATS`` after two
+    warm-up calls, as subset evals a second."""
+    from distributed_learning_simulator_tpu_torch.models.bridge import (
+        jax_leaf_order,
+    )
+    from distributed_learning_simulator_tpu_torch.models.registry import (
+        ParamLayout,
+        get_model,
+        init_params,
+    )
+    from distributed_learning_simulator_tpu_torch.parallel import engine
+
+    model = get_model("resnet18", dtype=torch.bfloat16).cuda()
+    params = init_params(model, (32, 32), seed=0)
+    layout = ParamLayout.from_params(params, jax_leaf_order(model, (32, 32)))
+    flat = layout.flatten(params).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    models = flat + 1e-3 * torch.randn((m,) + tuple(flat.shape),
+                                       device="cuda", generator=gen)
+    xb = torch.rand(1, EVAL_BATCH, 32, 32, 3, device="cuda", generator=gen)
+    yb = torch.randint(0, 10, (1, EVAL_BATCH), device="cuda", generator=gen)
+    mb = torch.ones(1, EVAL_BATCH, device="cuda")
+    evaluate = engine.make_models_eval_fn(engine.make_eval_fn(
+        lambda views, x: torch.func.functional_call(model, views, (x,))),
+        layout)
+    for _ in range(2):
+        evaluate(models, xb, yb, mb)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(STEP_REPEATS):
+        t0 = time.perf_counter()
+        evaluate(models, xb, yb, mb)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    wall = statistics.median(walls)
+    return {"models": m, "wall_ms": wall, "wall_ms_all": walls,
+            "evals_per_s": 1e3 * m / wall}
+
+
 def round_case(dtype_name: str, clients: int) -> dict:
     """``ROUNDS`` rounds of ResNet-18 ``fed`` at ``clients`` clients in
     one chunk, on the flagship's partition."""
@@ -193,6 +300,9 @@ def worker(tree: str, out_path: str, data_dir: str,
     torch.backends.cudnn.benchmark = False
     out = {"tree": tree,
            "kernel": [kernel_case(torch, n) for n in KERNEL_CASES],
+           "gn_stats": gn_cases(torch),
+           "evals": [] if kernel_only else [eval_case(torch, m)
+                                            for m in EVAL_MODELS],
            "steps": [] if kernel_only else [step_case(torch, d, m)
                                             for d, m in STEP_CASES],
            "rounds": [round_case(d, n) for d, n in ROUND_CASES]
@@ -254,6 +364,27 @@ def main() -> None:
                           f"{[round(d, 2) for d in s['device_ms_all']]}) "
                           f"peak {s['peak_memory_bytes'] / 2**30:.2f} GiB"
                           for s in arm["steps"])
+              + "; gn_stats per training forward "
+              + "; ".join(f"{g['dtype']} x{g['samples'] // TRAIN_BATCH} "
+                          f"{g['training_ms']:.4f} ms (planned "
+                          f"{g['planned_ms']:.4f})"
+                          for g in arm["gn_stats"]["training"])
+              + "; gn_stats by stage (dtype, B, HW: planned S, ms, ms by S) "
+              + ", ".join(f"{g['dtype']} {g['samples']} {g['hw']}: "
+                          f"{g['split']} {g['ms']:.4f} "
+                          + "/".join(f"{v:.4f}" for v in
+                                     g["by_split"].values())
+                          for g in arm["gn_stats"]["stages"])
+              + "; gn_stats eval (dtype, M, HW: planned S, ms, ms by S) "
+              + ", ".join(f"{g['dtype']} {g['models']} {g['hw']}: "
+                          f"{g['split']} {g['ms']:.4f} "
+                          + "/".join(f"{v:.4f}" for v in
+                                     g["by_split"].values())
+                          for g in arm["gn_stats"]["eval"])
+              + "; vmapped eval "
+              + "; ".join(f"{e['models']} models {e['wall_ms']:.2f} ms, "
+                          f"{e['evals_per_s']:.1f} evals/s"
+                          for e in arm["evals"])
               + "; median round seconds "
               + "; ".join(f"{r['dtype']} x{r['clients']} "
                           f"{r['median_round_seconds']:.4f}"
@@ -270,6 +401,10 @@ def main() -> None:
     print(json.dumps({"kernel_bitwise": bitwise, "arms": [
         {"label": a["label"], "tree": a["tree"],
          "wgrad_f32_ms": [k["ms"] for k in a["kernel"]],
+         "gn_stats_training_ms": [g["training_ms"]
+                                  for g in a["gn_stats"]["training"]],
+         "gn_stats_eval_ms": [g["ms"] for g in a["gn_stats"]["eval"]],
+         "evals_per_s": [e["evals_per_s"] for e in a["evals"]],
          "step_wall_ms": [s["wall_ms"] for s in a["steps"]],
          "step_device_ms": [s["device_ms"] for s in a["steps"]],
          "step_peak_bytes": [s["peak_memory_bytes"] for s in a["steps"]],

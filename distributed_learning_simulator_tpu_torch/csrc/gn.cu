@@ -23,30 +23,44 @@
 //
 // * Stats: one kernel whose grid is B x S CTAs, launched as thread-block
 //   clusters of S CTAs per sample (cudaLaunchKernelEx with a cluster
-//   dimension; S in {1, 2, 4, 8}). CTA rank r of a cluster reads the r-th
-//   contiguous slice of the sample's HW rows. Its threads are laid out
-//   [rows][C / VEC]; each owns one 16-byte channel vector and walks its
-//   slice with a stride of `rows`, kInFlight predicated loads issued
-//   together per batch (one memory round trip). ops/gn_cuda.py
-//   `stats_split` picks S: a split divides the batches by S, but a cluster
-//   launch and its barriers cost about 1.5 round trips on an H100, so at
-//   the training batch of 25 only stage 1 (HW 1024, 4 batches on one CTA)
-//   splits (S = 4), and S = 1 once B fills the card (B >= 264).
-//   Per-thread f32 sums meet in shared memory. Where C and G are powers of
-//   two (ResNet's widths, G = 32) the lanes of a group each add VEC of its
-//   slots in order and a fixed xor shuffle tree adds the lanes; otherwise
-//   channels are totalled over the rows in row order and pooled in channel
-//   order. At S = 1 the tree's lane 0 writes mean/rstd directly. At S > 1
-//   each CTA leaves its group sums in shared memory, and after
-//   cluster.sync() rank 0 reads the S sums of every group through
-//   distributed shared memory, all S reads in flight at once (read one after
-//   another, S x C remote reads cost microseconds), adds them in rank order
-//   and writes mean/rstd; a second cluster.sync() keeps every CTA's shared
-//   memory alive until rank 0 has read it. The loop replaces the TPU grid's
-//   sequential HW axis, which carried the sums across grid steps; CUDA
-//   blocks run in no order, so nothing is carried across blocks except
-//   through the cluster's shared memory. No global scratch, no second
-//   launch, no float atomics: a rerun is bitwise equal.
+//   dimension; S in {1, 2, 4, 8}; ops/gn_cuda.py `stats_split` picks S).
+//   The order of a group's sums belongs to the group: the bits of its
+//   sum x and sum x^2 are a function of (HW, C/G, dtype) alone, not of C
+//   (how many models sit side by side on the channel axis), B or S, so a
+//   model's statistics are the same whatever launch it shares:
+//     - L = stats_lanes(HW) row lanes (the least power of two >= HW, at
+//       most 32); lane k sums the rows = k mod L of each channel in row
+//       order, from 0, with explicit _rn ops (the square rounded, then
+//       added; one fused op for bf16, whose square is exact);
+//     - the L lane sums of a channel meet in the balanced pairwise tree
+//       (lanes 2i and 2i+1, then pairs of pairs, ...);
+//     - the cpg channel totals of a group meet in the same balanced tree
+//       (a channel past the group adds nothing); then mean = s1 / n, var =
+//       s2 / n - mean^2, rstd as above, op for op as the plain version
+//       (ops/gn_cuda.py `gn_stats_plain`) does.
+//   Every cut of the work follows the tree: CTA rank r of a cluster owns
+//   lanes [r L/S, (r+1) L/S), a subtree; its threads are laid out
+//   [tlanes][C / VEC] (16-byte channel vectors, so coalesced rows), and
+//   thread (t, v) owns q = L / S / tlanes consecutive lanes of vector v, a
+//   subtree: it sums P = min(q, 4) of them side by side (kInFlight
+//   predicated loads issued together), adds their subtree, and keeps the
+//   q / P subtree roots on a log2(q / P)-deep counter
+//   (push_subtree); where all its loads make one batch it issues them
+//   together and sums a channel at a time. q is a template argument, so
+//   every add is resolved at compile time. The threads' roots go to shared
+//   memory, where one thread a channel adds its rows in the same tree (a
+//   counter in registers), and at S > 1 rank 0 reads the S ranks' channel
+//   roots through distributed shared memory (all reads in flight, after
+//   cluster.sync()) and adds them in the same tree; a second
+//   cluster.sync() keeps every CTA's shared memory alive until rank 0 has
+//   read it. Rank 0 pools each group's channels (by shuffles among the
+//   threads that hold them for a power-of-two group of at most 32, else a
+//   tree level at a time in shared memory) and writes mean/rstd. Each
+//   element is read once, in 16-byte vectors; no global scratch, no
+//   second launch, no float atomics: a rerun is bitwise equal. The loop
+//   replaces the TPU grid's sequential HW axis, which carried the sums
+//   across grid steps; CUDA blocks run in no order, so nothing is carried
+//   across blocks except through the cluster's shared memory.
 // * Normalize: a grid of B x slices CTAs; CTA (b, s) normalizes the s-th
 //   contiguous slice of sample b's HW rows (ops/gn_cuda.py
 //   `normalize_plan` sizes the slices: at most one CTA per SM, and never
@@ -107,6 +121,7 @@ constexpr int kThreads = 256;
 constexpr int kMaxVec = 8;    // 16 bytes of bf16
 constexpr int kMaxSplit = 8;  // CTAs per cluster (portable limit)
 constexpr int kInFlight = 8;  // independent 16-byte loads per thread
+constexpr int kLanes = 32;    // the stats order's most lanes
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -132,37 +147,102 @@ __device__ __forceinline__ void wait_for_primary_grid() {
   asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
+// s1 += f and s2 += f^2, rounded as the plain version rounds: the square
+// of a bf16 value is exact in f32, so one fused op rounds as its
+// square-then-add does; an f32 square rounds on its own.
+template <typename T>
+__device__ __forceinline__ void add_one(float f, float& s1, float& s2) {
+  s1 = __fadd_rn(s1, f);
+  if constexpr (sizeof(T) == 2) {
+    s2 = __fmaf_rn(f, f, s2);
+  } else {
+    s2 = __fadd_rn(s2, __fmul_rn(f, f));
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ void accumulate(const uint4& raw, float* s1,
                                            float* s2) {
   constexpr int VEC = 16 / sizeof(T);
   const T* in = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    const float f = to_f32(in[j]);
-    s1[j] += f;
-    s2[j] += f * f;
-  }
+  for (int j = 0; j < VEC; ++j) add_one<T>(to_f32(in[j]), s1[j], s2[j]);
 }
 
 // mean and rstd = rsqrt(max(E[x^2] - mean^2, 0) + eps) of one group from its
-// sums over `cnt` elements.
+// sums over `cnt` elements, op for op as the plain version computes them.
 __device__ __forceinline__ void write_stats(float s1, float s2, float cnt,
                                             float eps, float* mean,
                                             float* rstd) {
-  const float m = s1 / cnt;
+  const float m = __fdiv_rn(s1, cnt);
   *mean = m;
-  *rstd = rsqrtf(fmaxf(s2 / cnt - m * m, 0.f) + eps);
+  const float var = __fsub_rn(__fdiv_rn(s2, cnt), __fmul_rn(m, m));
+  *rstd = rsqrtf(__fadd_rn(fmaxf(var, 0.f), eps));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// Subtree j (of a thread's kQ / P subtrees of P lanes, in order) has its
+// sums in (a1, a2): the balanced tree over them, kept as a binary counter.
+// Level lv of (t1, t2) holds the root of the last finished run of 2^lv
+// subtrees while its right sibling is being summed; a subtree whose index
+// has bit lv set is such a right sibling, and is added to it (left +
+// right) before carrying on up. After the last one (a1, a2) hold the root
+// of all of them. j is a compile-time constant where it is called, so
+// only the adds it needs are emitted.
+template <int VEC, int kDepth>
+__device__ __forceinline__ void push_subtree(int j, float* a1, float* a2,
+                                             float (*t1)[VEC],
+                                             float (*t2)[VEC]) {
+  bool carry = true;
+#pragma unroll
+  for (int lv = 0; lv < kDepth; ++lv) {
+    if (carry) {
+      if ((j >> lv) & 1) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          a1[k] = __fadd_rn(t1[lv][k], a1[k]);
+          a2[k] = __fadd_rn(t2[lv][k], a2[k]);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          t1[lv][k] = a1[k];
+          t2[lv][k] = a2[k];
+        }
+        carry = false;
+      }
+    }
+  }
+}
+
+// log2 of a power of two, at compile time.
+__host__ __device__ constexpr int log2_of(int n) {
+  return n > 1 ? 1 + log2_of(n / 2) : 0;
+}
+
+// The stats kernel (file comment: "the order of a group's sums"). One CTA
+// per (sample, cluster rank); each thread owns kQ consecutive lanes of one
+// channel vector (kQ a power of two, set at launch). kS > 0: a lane holds
+// at most kS rows and a thread's kQ x kS loads are one batch, issued
+// together and summed a channel at a time, each lane's rows in row order
+// and then the lanes' tree (few registers: no lane keeps a vector of sums).
+// CTAs an SM asked of the compiler: 4 with kS (64 registers), 3 with one
+// or two lanes a thread (85), else 1. On an H100 (chip_step_ab.py) ResNet's
+// 16x16 stage ran 4% faster at 80 registers than at 90, and its 8x8 stage
+// 20% slower at 72 registers than at 64.
+template <typename T, int kQ, int kS>
+__global__ void __launch_bounds__(kThreads, kS > 0 ? 4 : kQ <= 2 ? 3 : 1)
 gn_stats_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
-                float* __restrict__ rstd_out, int hw, int c, int g,
-                float eps) {
+                float* __restrict__ rstd_out, float* __restrict__ sums_out,
+                int hw, int c, int g, int lanes, int tlanes, float eps) {
   constexpr int VEC = 16 / sizeof(T);
-  // [rows][c] partial sums, then per-channel totals in row 0, then group
-  // sums in each group's first channel slot.
+  // Lanes summed side by side (their loads in flight together), then
+  // their subtree, then the next P; the kQ / P subtrees on a counter.
+  constexpr int P = kQ < 4 ? kQ : 4;
+  constexpr int kGroups = kQ / P;
+  constexpr int kDepth = log2_of(kGroups) + 1;
+  constexpr int kSlots = kInFlight / P;  // slots of the P lanes a batch
+  // [tlanes][c] subtree roots of the threads, reduced in place to row 0:
+  // this CTA's channel totals.
   __shared__ float sh1[kThreads * kMaxVec];
   __shared__ float sh2[kThreads * kMaxVec];
 
@@ -171,100 +251,129 @@ gn_stats_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
   const int split = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   const int b = blockIdx.x / split;
-  const int per = (hw + split - 1) / split;
-  const int row0 = min(hw, rank * per);
-  const int row1 = min(hw, row0 + per);
-
-  const int nvec = c / VEC;            // 16-byte vectors per HW row
-  const int rows = kThreads / nvec;    // HW rows in flight per block
+  const int per_cta = lanes / split;   // this CTA's lanes: one subtree
+  const int slots = (hw + lanes - 1) / lanes;  // rows a lane (at most)
+  const int nvec = c / VEC;
   const int tid = threadIdx.x;
+  const int tl = tid / nvec;
+  const int v = tid % nvec;
   const T* xb = x + (int64_t)b * hw * c;
 
-  float s1[VEC], s2[VEC];
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    s1[j] = 0.f;
-    s2[j] = 0.f;
-  }
-  const int r = tid / nvec;
-  const int v = tid % nvec;
-  if (r < rows) {
+  if (tl < tlanes) {
     const uint4* base = reinterpret_cast<const uint4*>(xb) + v;
-    // kInFlight predicated loads issued together, then summed in row order.
-    for (int row = row0 + r; row < row1; row += kInFlight * rows) {
-      uint4 raw[kInFlight];
+    float a1[P][VEC], a2[P][VEC], t1[kDepth][VEC], t2[kDepth][VEC];
+    if constexpr (kS > 0) {
+      const int lane = rank * per_cta + tl * kQ;
+      uint4 raw[kQ][kS];
 #pragma unroll
-      for (int u = 0; u < kInFlight; ++u) {
-        const int rr = row + u * rows;
-        raw[u] = rr < row1 ? __ldg(base + (int64_t)rr * nvec)
-                           : make_uint4(0, 0, 0, 0);
+      for (int j = 0; j < kQ; ++j) {
+#pragma unroll
+        for (int u = 0; u < kS; ++u) {
+          const int row = lane + j + u * lanes;
+          raw[j][u] = u < slots && row < hw
+                          ? __ldg(base + (int64_t)row * nvec)
+                          : make_uint4(0, 0, 0, 0);
+        }
       }
 #pragma unroll
-      for (int u = 0; u < kInFlight; ++u)
-        if (row + u * rows < row1) accumulate<T>(raw[u], s1, s2);
+      for (int k = 0; k < VEC; ++k) {
+        float v1[kQ], v2[kQ];
+#pragma unroll
+        for (int j = 0; j < kQ; ++j) {
+          v1[j] = 0.f;
+          v2[j] = 0.f;
+#pragma unroll
+          for (int u = 0; u < kS; ++u) {
+            if (u < slots && lane + j + u * lanes < hw)
+              add_one<T>(to_f32(reinterpret_cast<const T*>(&raw[j][u])[k]),
+                         v1[j], v2[j]);
+          }
+        }
+#pragma unroll
+        for (int w = 1; w < kQ; w *= 2) {
+#pragma unroll
+          for (int j = 0; j + w < kQ; j += 2 * w) {
+            v1[j] = __fadd_rn(v1[j], v1[j + w]);
+            v2[j] = __fadd_rn(v2[j], v2[j + w]);
+          }
+        }
+        a1[0][k] = v1[0];
+        a2[0][k] = v2[0];
+      }
     }
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      sh1[r * c + v * VEC + j] = s1[j];
-      sh2[r * c + v * VEC + j] = s2[j];
+    for (int grp = 0; grp < (kS > 0 ? 0 : kGroups); ++grp) {
+      const int lane = rank * per_cta + tl * kQ + grp * P;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          a1[p][k] = 0.f;
+          a2[p][k] = 0.f;
+        }
+      }
+      // kSlots slots of the P lanes: kInFlight predicated loads issued
+      // together, then added, each lane's rows in row order.
+      for (int s0 = 0; s0 < slots; s0 += kSlots) {
+        uint4 raw[kSlots][P];
+#pragma unroll
+        for (int u = 0; u < kSlots; ++u) {
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            const int row = lane + p + (s0 + u) * lanes;
+            raw[u][p] = s0 + u < slots && row < hw
+                            ? __ldg(base + (int64_t)row * nvec)
+                            : make_uint4(0, 0, 0, 0);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kSlots; ++u) {
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            if (s0 + u < slots && lane + p + (s0 + u) * lanes < hw)
+              accumulate<T>(raw[u][p], a1[p], a2[p]);
+          }
+        }
+      }
+      // The P lanes' subtree (lanes 2i and 2i+1, then the pairs).
+#pragma unroll
+      for (int w = 1; w < P; w *= 2) {
+#pragma unroll
+        for (int p = 0; p + w < P; p += 2 * w) {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) {
+            a1[p][k] = __fadd_rn(a1[p][k], a1[p + w][k]);
+            a2[p][k] = __fadd_rn(a2[p][k], a2[p + w][k]);
+          }
+        }
+      }
+      if (kGroups > 1) push_subtree<VEC, kDepth>(grp, a1[0], a2[0], t1, t2);
+    }
+#pragma unroll
+    for (int k = 0; k < VEC; k += 4) {
+      *reinterpret_cast<float4*>(sh1 + tl * c + v * VEC + k) =
+          make_float4(a1[0][k], a1[0][k + 1], a1[0][k + 2], a1[0][k + 3]);
+      *reinterpret_cast<float4*>(sh2 + tl * c + v * VEC + k) =
+          make_float4(a2[0][k], a2[0][k + 1], a2[0][k + 2], a2[0][k + 3]);
     }
   }
   __syncthreads();
-  // This CTA's group sums, into each group's first channel slot of row 0.
-  const int cpg = c / g;
-  if (kThreads % nvec == 0 && kThreads % g == 0 && g >= 8) {
-    // C and G are powers of two: the lanes of a group are consecutive,
-    // kThreads / G <= 32 of them, and each sums VEC of its group's
-    // rows * cpg slots (entry e = rr * cpg + i, in order), then a fixed xor
-    // tree adds the lanes. Every lane ends with the same sum.
-    const int lanes = kThreads / g;
-    const int gi = tid / lanes;
-    const int sub = tid % lanes;
-    const int shift = __ffs(cpg) - 1;  // log2(cpg)
-    float g1 = 0.f, g2 = 0.f;
+  // A channel's thread rows meet in the same tree in one thread's
+  // registers (a counter, row by row); the root goes to row 0: the thread
+  // is the only one that reads or writes its column.
+  for (int ch = tid; ch < c; ch += kThreads) {
+    float c1[log2_of(kLanes) + 1][1], c2[log2_of(kLanes) + 1][1];
+    float root1 = 0.f, root2 = 0.f;
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      const int e = sub + k * lanes;
-      const int at = (e >> shift) * c + gi * cpg + (e & (cpg - 1));
-      g1 += sh1[at];
-      g2 += sh2[at];
+    for (int j = 0; j < kLanes; ++j) {
+      if (j >= tlanes) break;
+      float x1 = sh1[j * c + ch], x2 = sh2[j * c + ch];
+      push_subtree<1, log2_of(kLanes) + 1>(j, &x1, &x2, c1, c2);
+      root1 = x1;  // the root once row tlanes - 1 is in
+      root2 = x2;
     }
-    for (int off = lanes / 2; off > 0; off /= 2) {
-      g1 += __shfl_xor_sync(0xffffffffu, g1, off);
-      g2 += __shfl_xor_sync(0xffffffffu, g2, off);
-    }
-    if (split == 1) {  // the sample's sums are complete: no second pass
-      if (sub == 0) write_stats(g1, g2, (float)hw * (float)cpg, eps,
-                                mean_out + b * g + gi, rstd_out + b * g + gi);
-      return;
-    }
-    __syncthreads();  // every slot has been read
-    if (sub == 0) {
-      sh1[gi * cpg] = g1;
-      sh2[gi * cpg] = g2;
-    }
-  } else {
-    // Any C and G: per-channel totals over the rows in row order (each
-    // column belongs to one thread), then channels pooled in order.
-    for (int ch = tid; ch < c; ch += kThreads) {
-      float a1 = 0.f, a2 = 0.f;
-      for (int rr = 0; rr < rows; ++rr) {
-        a1 += sh1[rr * c + ch];
-        a2 += sh2[rr * c + ch];
-      }
-      sh1[ch] = a1;
-      sh2[ch] = a2;
-    }
-    __syncthreads();
-    for (int gi = tid; gi < g; gi += kThreads) {
-      float g1 = 0.f, g2 = 0.f;
-      for (int i = 0; i < cpg; ++i) {
-        g1 += sh1[gi * cpg + i];
-        g2 += sh2[gi * cpg + i];
-      }
-      sh1[gi * cpg] = g1;
-      sh2[gi * cpg] = g2;
-    }
+    sh1[ch] = root1;
+    sh2[ch] = root2;
   }
   // A one-CTA cluster needs no cluster barrier (and pays none).
   if (split > 1) {
@@ -273,25 +382,88 @@ gn_stats_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
     __syncthreads();
   }
   if (rank == 0) {
-    // The cluster's group sums, read from each rank's shared memory (its
-    // own included) with all kMaxSplit reads in flight, added in rank order
-    // (ranks past the cluster add +0).
+    // The group's channel totals meet in the balanced tree too: channel i
+    // of a group takes channel i + w for every i a multiple of 2w (a
+    // channel past the group adds nothing). A power-of-two group of at
+    // most 32 channels by shuffles among the threads that hold them (a
+    // warp-uniform loop: the channels past C hold zeros); any other a
+    // level at a time in shared memory.
+    const int cpg = c / g;
     const float cnt = (float)hw * (float)cpg;
-    for (int gi = tid; gi < g; gi += kThreads) {
-      float v1[kMaxSplit], v2[kMaxSplit];
+    const bool by_shuffle = (cpg & (cpg - 1)) == 0 && cpg <= 32;
+    for (int ch0 = 0; ch0 < c; ch0 += kThreads) {
+      const int ch = ch0 + tid;
+      float tot1 = 0.f, tot2 = 0.f;
+      if (ch < c) {
+        if (split > 1) {
+          // The cluster's subtree roots of the channel, read from each
+          // rank's shared memory (its own included) with all reads in
+          // flight, meet in the same tree; ranks past the cluster are
+          // never read.
+          float r1[kMaxSplit], r2[kMaxSplit];
 #pragma unroll
-      for (int q = 0; q < kMaxSplit; ++q) {
-        v1[q] = q < split ? cluster.map_shared_rank(sh1, q)[gi * cpg] : 0.f;
-        v2[q] = q < split ? cluster.map_shared_rank(sh2, q)[gi * cpg] : 0.f;
-      }
-      float g1 = 0.f, g2 = 0.f;
+          for (int r = 0; r < kMaxSplit; ++r) {
+            r1[r] = r < split ? cluster.map_shared_rank(sh1, r)[ch] : 0.f;
+            r2[r] = r < split ? cluster.map_shared_rank(sh2, r)[ch] : 0.f;
+          }
 #pragma unroll
-      for (int q = 0; q < kMaxSplit; ++q) {
-        g1 += v1[q];
-        g2 += v2[q];
+          for (int w = 1; w < kMaxSplit; w *= 2) {
+#pragma unroll
+            for (int r = 0; r + w < kMaxSplit; r += 2 * w) {
+              if (r + w < split) {
+                r1[r] = __fadd_rn(r1[r], r1[r + w]);
+                r2[r] = __fadd_rn(r2[r], r2[r + w]);
+              }
+            }
+          }
+          tot1 = r1[0];
+          tot2 = r2[0];
+        } else {
+          tot1 = sh1[ch];
+          tot2 = sh2[ch];
+        }
       }
-      write_stats(g1, g2, cnt, eps, mean_out + b * g + gi,
-                  rstd_out + b * g + gi);
+      if (by_shuffle) {
+        for (int off = 1; off < cpg; off *= 2) {
+          tot1 = __fadd_rn(tot1, __shfl_xor_sync(0xffffffffu, tot1, off));
+          tot2 = __fadd_rn(tot2, __shfl_xor_sync(0xffffffffu, tot2, off));
+        }
+        if (ch < c && ch % cpg == 0) {
+          const int gi = ch / cpg;
+          write_stats(tot1, tot2, cnt, eps, mean_out + b * g + gi,
+                      rstd_out + b * g + gi);
+          if (sums_out != nullptr) {
+            sums_out[2 * (b * g + gi)] = tot1;
+            sums_out[2 * (b * g + gi) + 1] = tot2;
+          }
+        }
+      } else if (ch < c) {
+        // Only this thread reads or writes rank 0's column ch.
+        sh1[ch] = tot1;
+        sh2[ch] = tot2;
+      }
+    }
+    if (!by_shuffle) {
+      __syncthreads();
+      for (int w = 1; w < cpg; w *= 2) {
+        for (int ch = tid; ch < c; ch += kThreads) {
+          const int i = ch % cpg;
+          if (i % (2 * w) == 0 && i + w < cpg) {
+            sh1[ch] = __fadd_rn(sh1[ch], sh1[ch + w]);
+            sh2[ch] = __fadd_rn(sh2[ch], sh2[ch + w]);
+          }
+        }
+        __syncthreads();
+      }
+      for (int gi = tid; gi < g; gi += kThreads) {
+        const float g1 = sh1[gi * cpg], g2 = sh2[gi * cpg];
+        write_stats(g1, g2, cnt, eps, mean_out + b * g + gi,
+                    rstd_out + b * g + gi);
+        if (sums_out != nullptr) {
+          sums_out[2 * (b * g + gi)] = g1;
+          sums_out[2 * (b * g + gi) + 1] = g2;
+        }
+      }
     }
   }
   // The other ranks' shared memory stays until rank 0 has read it.
@@ -389,14 +561,53 @@ gn_normalize_kernel(const T* __restrict__ x, const float* mean,
   }
 }
 
+// The order's lanes (file comment): the least power of two >= HW, at most
+// kLanes. A function of HW alone.
+int stats_lanes(int hw) {
+  int lanes = 1;
+  while (lanes < hw && lanes < kLanes) lanes *= 2;
+  return lanes;
+}
+
+// B x split CTAs, in clusters of `split` per sample (a plain launch at 1).
+// Each CTA takes lanes / split whole lanes; its threads are laid out
+// [tlanes][C / VEC], tlanes the most (a power of two) that fit kThreads,
+// so a thread owns q = lanes / split / tlanes whole lanes. sums: null, or
+// [B, G, 2] f32 for each group's (sum x, sum x^2) (the card tests).
 template <typename T>
-int launch_stats(const void* x, void* mean, void* rstd, int b, int hw, int c,
-                 int g, float eps, int split, void* stream) {
-  if (split == 1) {  // one CTA per sample: a plain launch
-    gn_stats_kernel<T><<<b, kThreads, 0, (cudaStream_t)stream>>>(
-        (const T*)x, (float*)mean, (float*)rstd, hw, c, g, eps);
-    return (int)cudaGetLastError();
-  }
+int launch_stats(const void* x, void* mean, void* rstd, void* sums, int b,
+                 int hw, int c, int g, float eps, int split, void* stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int lanes = stats_lanes(hw);
+  const int nvec = c / VEC;
+  if (split < 1 || split > kMaxSplit || lanes % split || c % VEC ||
+      nvec < 1 || nvec > kThreads || g < 1 || c % g)
+    return (int)cudaErrorInvalidValue;
+  const int per_cta = lanes / split;
+  int tlanes = 1;
+  while (tlanes * 2 <= per_cta && tlanes * 2 * nvec <= kThreads) tlanes *= 2;
+  const int q = per_cta / tlanes;
+  // A thread's loads in one batch: the kS path, kS the least power of two
+  // >= the rows a lane holds.
+  const int slots = (hw + lanes - 1) / lanes;
+  const int ks = q > 1 && q * slots <= kInFlight ? (slots == 1   ? 1
+                                                    : slots == 2 ? 2
+                                                                 : 4)
+                                                 : 0;
+  void (*kernel)(const T*, float*, float*, float*, int, int, int, int, int,
+                 float) =
+      q == 1                ? gn_stats_kernel<T, 1, 0>
+      : q == 2 && ks == 1   ? gn_stats_kernel<T, 2, 1>
+      : q == 2 && ks == 2   ? gn_stats_kernel<T, 2, 2>
+      : q == 2 && ks == 4   ? gn_stats_kernel<T, 2, 4>
+      : q == 2              ? gn_stats_kernel<T, 2, 0>
+      : q == 4 && ks == 1   ? gn_stats_kernel<T, 4, 1>
+      : q == 4 && ks == 2   ? gn_stats_kernel<T, 4, 2>
+      : q == 4              ? gn_stats_kernel<T, 4, 0>
+      : q == 8 && ks == 1   ? gn_stats_kernel<T, 8, 1>
+      : q == 8              ? gn_stats_kernel<T, 8, 0>
+      : q == 16             ? gn_stats_kernel<T, 16, 0>
+                            : gn_stats_kernel<T, 32, 0>;
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
   cluster.val.clusterDim.x = split;
@@ -408,10 +619,10 @@ int launch_stats(const void* x, void* mean, void* rstd, int b, int hw, int c,
   cfg.dynamicSmemBytes = 0;
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = &cluster;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = split > 1 ? 1 : 0;  // one CTA per sample: a plain launch
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, gn_stats_kernel<T>, (const T*)x, (float*)mean, (float*)rstd, hw,
-      c, g, eps);
+      &cfg, kernel, (const T*)x, (float*)mean, (float*)rstd, (float*)sums,
+      hw, c, g, lanes, tlanes, eps);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -451,15 +662,18 @@ int launch_normalize(const void* x, const void* mean, const void* rstd,
 
 extern "C" {
 
-int dls_gn_stats_bf16(const void* x, void* mean, void* rstd, int b, int hw,
-                      int c, int g, float eps, int split, void* stream) {
-  return launch_stats<__nv_bfloat16>(x, mean, rstd, b, hw, c, g, eps, split,
-                                     stream);
+int dls_gn_stats_bf16(const void* x, void* mean, void* rstd, void* sums,
+                      int b, int hw, int c, int g, float eps, int split,
+                      void* stream) {
+  return launch_stats<__nv_bfloat16>(x, mean, rstd, sums, b, hw, c, g, eps,
+                                     split, stream);
 }
 
-int dls_gn_stats_f32(const void* x, void* mean, void* rstd, int b, int hw,
-                     int c, int g, float eps, int split, void* stream) {
-  return launch_stats<float>(x, mean, rstd, b, hw, c, g, eps, split, stream);
+int dls_gn_stats_f32(const void* x, void* mean, void* rstd, void* sums,
+                     int b, int hw, int c, int g, float eps, int split,
+                     void* stream) {
+  return launch_stats<float>(x, mean, rstd, sums, b, hw, c, g, eps, split,
+                             stream);
 }
 
 // dls_gn_normalize_<x dtype>_<scale/bias dtype>

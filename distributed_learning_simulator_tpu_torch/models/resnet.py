@@ -41,11 +41,12 @@ client axis; the convolutions become grouped channels-last ones
 (ops/conv.py), their outputs left with the models on the channel side,
 where an eval forward's GroupNorm reads them without a copy while ``M*C``
 fits its kernels' row (2048 bf16 channels) and folds them into its batch
-beyond. A training forward's GroupNorm always folds them, with a fixed
-stats split (ops/gn_cuda.py ``training_split``), and its backward sums in
-short runs (``_sum_bhw``): a client's training has the same bits however
-many models share its program, as a sweep fleet's points must be their
-solo runs.
+beyond. A training forward's GroupNorm always folds them (one layout
+at any model count; ops/gn_cuda.py ``group_norm_op``), its statistics'
+sums take an order set by a group's shape alone (csrc/gn.cu), and its
+backward sums in short runs (``_sum_bhw``): a client's training has the
+same bits however many models share its program, as a sweep fleet's
+points must be their solo runs.
 With gradients off (an eval forward) the layers call the custom ops
 directly: under vmap an autograd function costs host time for each call
 even when nothing is differentiated.

@@ -7,7 +7,10 @@ Counterpart of ``distributed_learning_simulator_tpu/ops/gn_pallas.py``:
   (``_per_group``, ``var = max(E[x^2] - E[x]^2, 0)``, ``rsqrt``): it emits
   per-(sample, group) ``mean`` and ``rstd`` in f32 directly, from one
   launch of ``B x S`` CTAs in clusters of ``S`` per sample
-  (:func:`stats_split` plans ``S``).
+  (:func:`stats_split` plans ``S``). A group's sums take an order set by
+  its shape alone, so no ``S``, ``B`` or row width moves a bit, and
+  :func:`gn_stats_plain` computes that order as plain tensor ops: the
+  kernel's twin, bitwise.
 * :func:`gn_normalize` launches ``gn_normalize_kernel``, which replaces
   ``gn_pallas.py:_norm_kernel``: ``y = (x - mean) * (rstd * scale) + bias``
   in f32, cast once, from ``B x slices`` CTAs (:func:`normalize_plan`
@@ -68,6 +71,7 @@ from distributed_learning_simulator_tpu_torch.ops._vmap import models_first
 _THREADS = 256  # csrc/gn.cu kThreads
 _MAX_SPLIT = 8  # the largest portable thread-block cluster
 _IN_FLIGHT = 8  # csrc/gn.cu kInFlight: loads a thread issues together
+_LANES = 32     # csrc/gn.cu kLanes: the stats order's most row lanes
 # Two CTAs per SM of the H100 SXM (132 SMs) that stats_split was measured
 # on: below that many CTAs a split can fill the card.
 _TARGET_CTAS = 2 * 132
@@ -75,39 +79,64 @@ _TARGET_CTAS = 2 * 132
 # trips: on an H100 the cluster launch and its two barriers cost about as
 # much as 1.5 batches of in-flight loads (chip_smoke.py's split sweep).
 _CLUSTER_COST = 1.5
+# A sample of this many bytes or more is read by at least 4 CTAs (on 4
+# SMs while B is small): one CTA alone on an SM reads too few bytes a load
+# round trip (chip_step_ab.py's split times at 25 samples on an H100:
+# ResNet-18's 32x32 and 16x16 stages ran fastest at S = 4, its smaller
+# ones at 1).
+_SPREAD_BYTES = 64 * 1024
+
+
+def stats_lanes(hw: int) -> int:
+    """The row lanes of the stats kernel's order (csrc/gn.cu): the least
+    power of two >= ``hw``, at most 32. Lane k sums the rows = k mod L of
+    a channel in row order, and the L lane sums meet in a balanced tree: a
+    group's sums have the same bits whatever its launch's C, B or split."""
+    lanes = 1
+    while lanes < hw and lanes < _LANES:
+        lanes *= 2
+    return lanes
+
+
+def stats_threads(hw: int, c: int, elem_size: int, split: int):
+    """``(tlanes, q)`` of the stats kernel for ``x [B, HW, C]`` at cluster
+    size ``split``: a CTA's threads are ``[tlanes][C / VEC]``, tlanes the
+    most (a power of two) that fit 256 threads and the CTA's lanes, and
+    each owns ``q`` consecutive lanes (csrc/gn.cu ``launch_stats``)."""
+    per_cta = stats_lanes(hw) // split
+    nvec = c // (16 // elem_size)
+    tlanes = 1
+    while tlanes * 2 <= per_cta and tlanes * 2 * nvec <= _THREADS:
+        tlanes *= 2
+    return tlanes, per_cta // tlanes
 
 
 def stats_split(b: int, hw: int, c: int, elem_size: int) -> int:
-    """CTAs per sample (the cluster size S, a power of two up to 8) of the
-    stats kernel for ``x [B, HW, C]``. One CTA walks its HW rows in batches
-    of ``_IN_FLIGHT`` loads per thread, each batch one memory round trip;
-    S CTAs cut the batches by S but pay ``_CLUSTER_COST``. S is the smallest
-    split with the fewest batches plus that cost, 1 once B alone gives
-    ``_TARGET_CTAS`` CTAs, and at most HW (a CTA with an empty slice adds
-    zeros)."""
+    """CTAs per sample (the cluster size S, a power of two up to 8 and at
+    most the order's lanes) of the stats kernel for ``x [B, HW, C]``. A
+    thread walks its ``q`` lanes' rows in batches of ``_IN_FLIGHT`` loads,
+    each batch one memory round trip; S CTAs cut a thread's lanes by S
+    where the threads of one CTA cannot hold them all (wide rows), but pay
+    ``_CLUSTER_COST``. S is the smallest split with the fewest batches plus
+    that cost, at least 4 for a sample of ``_SPREAD_BYTES`` or more, and 1
+    once B alone gives ``_TARGET_CTAS`` CTAs. The split moves no bit of
+    the statistics (csrc/gn.cu)."""
     if b >= _TARGET_CTAS:
         return 1
-    rows = _THREADS // (c // (16 // elem_size))  # HW rows in flight a CTA
+    lanes = stats_lanes(hw)
+    slots = -(-hw // lanes)
     best = None
     for split in (1, 2, 4, 8):
-        if split > hw:
+        if split > lanes:
             break
-        rows_per_cta = -(-hw // split)
-        batches = -(-rows_per_cta // (rows * _IN_FLIGHT))
-        cost = batches + (_CLUSTER_COST if split > 1 else 0.0)
+        q = stats_threads(hw, c, elem_size, split)[1]
+        cost = -(-q * slots // _IN_FLIGHT) + (
+            _CLUSTER_COST if split > 1 else 0.0)
         if best is None or cost < best[0]:
             best = (cost, split)
+    if hw * c * elem_size >= _SPREAD_BYTES:
+        return min(lanes, max(best[1], 4))
     return best[1]
-
-
-def training_split(hw: int, c: int, elem_size: int) -> int:
-    """The stats kernel's CTAs per sample in a training forward
-    (``group_norm_op(..., training=True)``): a function of one sample's
-    shape alone, so that a client's statistics have the same bits however
-    many models share its launch (a sweep fleet's points train as their
-    solo runs). :func:`stats_split` plans from the launch's sample count
-    as well, which grows with the models."""
-    return 1
 
 
 class NormalizePlan(NamedTuple):
@@ -150,16 +179,63 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def gn_stats_plain(x: torch.Tensor, g: int, eps: float):
-    """Plain version of the stats kernel: ``x [B, HW, C] -> (mean, rstd)``,
-    both ``[B, G]`` f32 (one-pass E[x^2] - E[x]^2 statistics)."""
+def _tree(t: torch.Tensor) -> torch.Tensor:
+    """``t [B, n, C]`` (n a power of two) summed over dim 1 in the balanced
+    pairwise tree: entries 2i and 2i+1, then pairs of pairs, ..."""
+    while t.shape[1] > 1:
+        t = t[:, 0::2] + t[:, 1::2]
+    return t[:, 0]
+
+
+def gn_sums_plain(x: torch.Tensor, g: int, split: int = 1):
+    """Each group's ``(sum x, sum x^2)`` of ``x [B, HW, C]``, ``[B, G]``
+    f32 each, in the stats kernel's order, as plain tensor ops: lane k of
+    ``L = stats_lanes(HW)`` sums the rows = k mod L of each channel in row
+    order from 0 (the squares rounded, then added); cluster rank r's lanes
+    ``[r L/S, (r+1) L/S)`` meet in the balanced tree, and the S roots in
+    the same tree (so ``split`` moves no bit: the kernel's split, stated on
+    the CPU); each group's channel totals meet in the same tree (zeros pad
+    it to a power of two). Every step is elementwise per channel or group,
+    so a group's sums have the same bits whatever C (models side by side),
+    B or S."""
     b, hw, c = x.shape
-    cpg = c // g
-    x32 = x.float().reshape(b, hw, g, cpg)
-    cnt = hw * cpg
-    mean = x32.sum(dim=(1, 3)) / cnt
-    mean2 = (x32 * x32).sum(dim=(1, 3)) / cnt
-    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    lanes = stats_lanes(hw)
+    if split not in (1, 2, 4, 8) or split > lanes:
+        raise ValueError(f"split must be 1, 2, 4 or 8 and at most {lanes}, "
+                         f"got {split}")
+    slots = -(-hw // lanes)
+    x32 = x.float()
+    if slots * lanes > hw:  # rows past HW add nothing: zeros
+        x32 = torch.cat([x32, x32.new_zeros(b, slots * lanes - hw, c)], 1)
+    x32 = x32.reshape(b, slots, lanes, c)
+    sq = x32 * x32
+    s1 = x32.new_zeros(b, lanes, c)
+    s2 = torch.zeros_like(s1)
+    for i in range(slots):
+        s1 = s1 + x32[:, i]
+        s2 = s2 + sq[:, i]
+    per, cpg = lanes // split, c // g
+    width = 1 << max(0, cpg - 1).bit_length()  # cpg, padded to a power of 2
+    out = []
+    for s in (s1, s2):
+        roots = torch.stack([_tree(s[:, r * per:(r + 1) * per])
+                             for r in range(split)], dim=1)
+        chans = _tree(roots).reshape(b * g, cpg)
+        if width > cpg:
+            chans = torch.cat([chans, chans.new_zeros(b * g, width - cpg)], 1)
+        out.append(_tree(chans[:, :, None]).reshape(b, g))
+    return out[0], out[1]
+
+
+def gn_stats_plain(x: torch.Tensor, g: int, eps: float, split: int = 1):
+    """Plain version of the stats kernel: ``x [B, HW, C] -> (mean, rstd)``,
+    both ``[B, G]`` f32 (one-pass E[x^2] - E[x]^2 statistics) from
+    :func:`gn_sums_plain`'s sums, op for op as the kernel computes them
+    (true divisions by the element count, never a reciprocal)."""
+    s1, s2 = gn_sums_plain(x, g, split)
+    cnt = torch.full_like(s1, float(x.shape[1] * (x.shape[2] // g)))
+    mean = s1 / cnt
+    var = torch.clamp(s2 / cnt - mean * mean, min=0.0)
     return mean, torch.rsqrt(var + eps)
 
 
@@ -198,7 +274,7 @@ def _lib() -> ctypes.CDLL:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for suffix in _KERNEL_DTYPES.values():
         stats = getattr(lib, f"dls_gn_stats_{suffix}")
-        stats.argtypes = [vp, vp, vp, ci, ci, ci, ci, cf, ci, vp]
+        stats.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cf, ci, vp]
         stats.restype = ci
         for params in _KERNEL_DTYPES.values():
             norm = getattr(lib, f"dls_gn_normalize_{suffix}_{params}")
@@ -244,30 +320,42 @@ def _raise_on_error(err: int, what: str) -> None:
         )
 
 
-def gn_stats(x: torch.Tensor, g: int, eps: float, split: int | None = None):
-    """Per-(sample, group) ``(mean, rstd)`` of ``x [B, HW, C]``, f32.
-    ``split`` overrides the planned cluster size (:func:`training_split`,
-    tests and chip_smoke.py's sweep): a sample's statistics then have the
-    same bits however many samples share the launch, since a CTA's rows
-    and the cluster's sum order depend on the split, C and G alone."""
+def gn_stats(x: torch.Tensor, g: int, eps: float, split: int | None = None,
+             sums: bool = False):
+    """Per-(sample, group) ``(mean, rstd)`` of ``x [B, HW, C]``, f32, and
+    with ``sums`` also each group's ``(sum x, sum x^2)`` ``[B, G, 2]`` (the
+    card tests hold them to :func:`gn_sums_plain`). ``split`` overrides the
+    planned cluster size (tests and chip_smoke.py's sweep); no split, B or
+    C moves a group's bits (csrc/gn.cu)."""
     if x.device.type == "cpu":
-        return gn_stats_plain(x, g, eps)
+        mean, rstd = (gn_stats_plain(x, g, eps) if split is None
+                      else gn_stats_plain(x, g, eps, split))
+        if sums:
+            return mean, rstd, torch.stack(gn_sums_plain(x, g, split or 1),
+                                           dim=-1)
+        return mean, rstd
     suffix = _check_cuda_input(x, g)
     b, hw, c = x.shape
     if split is None:
         split = stats_split(b, hw, c, x.element_size())
-    elif split not in (1, 2, 4, 8):
-        raise ValueError(f"split must be 1, 2, 4 or 8, got {split}")
+    elif split not in (1, 2, 4, 8) or split > stats_lanes(hw):
+        raise ValueError(f"split must be 1, 2, 4 or 8 and at most "
+                         f"{stats_lanes(hw)}, got {split}")
     mean = torch.empty((b, g), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
+    group_sums = (torch.empty((b, g, 2), dtype=torch.float32,
+                              device=x.device) if sums else None)
     fn = getattr(_lib(), f"dls_gn_stats_{suffix}")
     with device_guard(x):
         err = fn(
-            x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), b, hw, c, g, eps,
-            split, launch_stream(x),
+            x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            None if group_sums is None else group_sums.data_ptr(), b, hw, c,
+            g, eps, split, launch_stream(x),
         )
     _raise_on_error(err, "gn_stats_kernel")
     count_launch(gn_stats, x.device)
+    if sums:
+        return mean, rstd, group_sums
     return mean, rstd
 
 
@@ -350,23 +438,20 @@ def reset_launch_counts() -> None:
         wrapper.launches_by_device = {}
 
 
-def group_norm(x, scale, bias, g: int, eps: float, out_dtype,
-               training: bool = False):
+def group_norm(x, scale, bias, g: int, eps: float, out_dtype):
     """GroupNorm forward on ``x [B, H, W, C]``; returns ``(y [B, H, W, C],
     mean_g [B, G] f32, rstd_g [B, G] f32)`` — ``pallas_group_norm`` at
     ``folds=1``. ``scale``/``bias`` are per-channel ``[C]``, or ``[M, C]``
-    for M models stacked on the batch axis. ``training`` takes the stats
-    kernel's :func:`training_split` instead of its planned one."""
+    for M models stacked on the batch axis."""
     b, h, w, c = x.shape
     if x.device.type != "cpu" and not x.is_contiguous():
         # A reshape would copy silently; the model keeps its activations
         # channels-last so this view is free.
         raise ValueError("group_norm on CUDA needs a contiguous NHWC x")
     xr = x.reshape(b, h * w, c)
-    split = training_split(h * w, c, x.element_size()) if training else None
     # Back to back on one stream, nothing launched between: the normalize
     # kernel's programmatic dependent launch overlaps the stats kernel.
-    mean_g, rstd_g = gn_stats(xr, g, eps, split)
+    mean_g, rstd_g = gn_stats(xr, g, eps)
     y = _normalize(xr, mean_g, rstd_g, scale, bias, out_dtype,
                    after_stats=True)
     return y.reshape(b, h, w, c), mean_g, rstd_g
@@ -457,16 +542,17 @@ def group_norm_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                   g: int, eps: float, out_dtype: torch.dtype,
                   training: bool = False
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """:func:`group_norm`. A training forward (``training``) gives each
-    model's statistics the same bits however many models vmap puts into
-    the launch: the stats kernel takes :func:`training_split`, and under
-    vmap the models are always folded into the batch (read on the channel
-    side, a group's sum runs in an order set by ``M*C``: in csrc/gn.cu the
-    threads of a row and the group reduction follow the row's width). An
-    eval forward plans the stats kernel's split and reads the channel side
-    where it can."""
+    """:func:`group_norm`. Under vmap a training forward (``training``)
+    folds the models into the batch, and an eval forward reads them on the
+    channel side where ``M*C`` fits a kernel row (:func:`channel_side`):
+    either way each model's statistics have the bits of its own call
+    (csrc/gn.cu orders a group's sums by the group's shape alone). The
+    eval's channel side spares a copy of every activation; training folds
+    so that a model's output, and the backward's sums over it, take one
+    layout whether or not ``M*C`` fits: a solo chunk of 10 bf16 models
+    fits at stages 1-2 where a fleet's 40 do not."""
     return group_norm(x.contiguous(), scale.contiguous(), bias.contiguous(),
-                      g, eps, out_dtype, training)
+                      g, eps, out_dtype)
 
 
 @group_norm_op.register_fake
@@ -479,13 +565,14 @@ def _(x, scale, bias, g, eps, out_dtype, training=False):
 def _group_norm_folded(info, in_dims, x, scale, bias, g, eps, out_dtype,
                        training=False):
     """The models folded into the batch: ``[M*B, HW, C]`` with the
-    ``[M, C]`` affine (or the shared ``[C]`` one)."""
+    ``[M, C]`` affine (or the shared ``[C]`` one), in training and eval
+    alike (chip_smoke.py's ``gn_folded`` arm takes it as the rule)."""
     size = info.batch_size
     xd, sd, bd = in_dims[:3]
     b = _samples(x, xd)
     scale, bias = _model_rows(scale, bias, (sd, bd), size)
     y, mean, rstd = group_norm_op(_fold(x, xd, size), scale, bias, g, eps,
-                                  out_dtype, training)
+                                  out_dtype)
     return ((y.reshape((size, b) + tuple(y.shape[1:])),
              mean.reshape(size, -1, g), rstd.reshape(size, -1, g)),
             (0, 0, 0))
@@ -506,12 +593,12 @@ def _group_norm_vmap(info, in_dims, x, scale, bias, g, eps, out_dtype,
     # x is folded (or, below, viewed) once, then the stats -> normalize
     # pair runs back to back inside group_norm (the programmatic dependent
     # launch needs nothing launched between them). A training forward
-    # always folds (group_norm_op).
+    # always folds (group_norm_op says why).
     size = info.batch_size
     xd, sd, bd = in_dims[:3]
     if training or not channel_side(x, xd, size):
         return _group_norm_folded(info, in_dims, x, scale, bias, g, eps,
-                                  out_dtype, training)
+                                  out_dtype)
     # x is [B, H, W, M*C] in memory, and its GroupNorm with M*G groups and
     # the M affines side by side is each model's GroupNorm (a group never
     # spans two models). No copy, and the output keeps the layout for the

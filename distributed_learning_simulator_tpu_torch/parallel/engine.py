@@ -657,11 +657,25 @@ def make_experiment_round_fn(fleet_round_fn, lr_schedule: bool):
 
 
 def make_experiment_eval_fn(eval_fn: Callable, layout):
-    """The fleet's server eval of its E global models, one vmapped forward
-    per eval batch (:func:`make_models_eval_fn`; the JAX package's
+    """The fleet's server eval of its E global models (the JAX package's
     ``make_experiment_eval_fn``): ``evaluate(params_e [E, P], xb, yb, mb)
-    -> {"loss": [E], "accuracy": [E]}``."""
-    return make_models_eval_fn(eval_fn, layout)
+    -> {"loss": [E], "accuracy": [E]}``, each experiment's model through
+    ``eval_fn`` (:func:`make_eval_fn`) as a solo run evaluates its one,
+    from a copy of its own (a solo run's global model is a tensor of its
+    own, so its leaves' addresses are aligned alike), so that every
+    round's test loss and accuracy are the solo run's bits. The
+    JAX package vmaps the eval over the experiments; here one vmapped
+    forward of E models (:func:`make_models_eval_fn`) takes other kernels
+    than one model's: cuDNN's bf16 grouped convolutions at 4 groups
+    against 1, cuBLAS's batched classifier head, and ``sum`` over ``[E,
+    n]`` against ``[n]`` (tests/test_torch_fleet_replay_cuda.py)."""
+
+    def evaluate(params_e, xb, yb, mb):
+        outs = [eval_fn(layout.unflatten(row.clone()), xb, yb, mb)
+                for row in params_e]
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    return tracked("evaluate_models", evaluate)
 
 
 def stack_rounds(values: list):

@@ -14,14 +14,14 @@ Two execution strategies behind the :class:`~.spec.SweepSpec` front door
   fn`` over ``FedAvg.make_fleet_round_fn``). Per-point model inits and key
   chains stay per experiment, per-point learning rates become a length-E
   f32 factor vector, and point ``i``'s metric history is its solo
-  ``run_simulation`` with that seed on the shared data: a client's
-  training has the same bits however many models share its program
+  ``run_simulation`` with that seed on the shared data, bitwise: a
+  client's training has the same bits however many models share its
+  program, and each experiment's global model is evaluated as its solo
+  run evaluates it (``parallel/engine.make_experiment_eval_fn``; one
+  vmapped forward of the E models takes other kernels than one model's)
   (tests/test_torch_sweep.py; on the card chip_smoke.py ``sweep_fleet``
-  in f32 and bf16). The one exception is the eval: the E models' forward
-  sums a GroupNorm group in another order than one model's, which moves a
-  test loss by about 1e-7 in f32 and up to 2e-5 in bf16 (an H100). A
-  fleet round makes as many training forwards as one solo round, and one
-  eval forward per eval batch for all E models. With ``mesh_devices >
+  in f32 and bf16). A fleet round makes as many training forwards as one
+  solo round, and E eval forwards per eval batch. With ``mesh_devices >
   1`` the experiment axis is packed over the mesh (parallel/mesh.py):
   each device owns E/n whole experiments and trains them as a fleet of its
   own, on its copy of the shared data (the spec refuses an E that is not a

@@ -226,7 +226,7 @@ def test_training_group_norm_folds_models_at_any_width(monkeypatch, m, c):
     convolution leaves it, ``[B, H, W, M, C]`` vmapped at dim 3, in bf16:
     the models are folded into the batch (one stats call at ``[M*B, HW,
     C]``) even where ``M*C`` fits a kernel row and the eval reads them in
-    place, so that a model's statistics do not depend on M; each model
+    place, so that a model's output takes one layout at any M; each model
     against ``jax.vmap(pallas_group_norm)`` in interpret mode at this
     file's GroupNorm tolerances."""
     b, hw = 2, 4

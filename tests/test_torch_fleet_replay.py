@@ -1,7 +1,8 @@
 """The fleet replayer of tests/test_torch_fleet_replay_cuda.py on the CPU:
 it names an op whose bits depend on how many models share its launch, and
 an op that takes another layout at the two model counts, and passes one
-that does neither. The training GroupNorm (``training=True``) takes one
+that does neither; it pairs a fleet's eval of E models with one model's
+eval. The training GroupNorm (``training=True``) takes one
 layout at 10 and at 40 bf16 models; the eval's, which reads the models on
 the channel side while ``M*C`` fits a kernel row, does not."""
 
@@ -9,7 +10,13 @@ import pytest
 import torch
 
 from distributed_learning_simulator_tpu_torch.ops import gn_cuda
-from test_torch_fleet_replay_cuda import replay
+from test_torch_fleet_replay_cuda import (
+    EXACT_FORMS,
+    MLP,
+    _Step,
+    eval_differences,
+    replay,
+)
 
 
 @torch.library.custom_op("dls_test::count_scaled", mutates_args=())
@@ -70,3 +77,29 @@ def test_training_group_norm_keeps_its_layout(training):
     found = replay(fn, args(10), args(40), 4)
     layouts = [m.split()[0] for m in found.layouts]
     assert layouts == ([] if training else ["dls::group_norm"])
+
+
+@pytest.mark.parametrize("model,experiments,n", [
+    ({"model": "resnet18"}, 2, 4), (MLP, 8, 64)])
+def test_replayer_pairs_a_fleet_eval_with_one_models(model, experiments, n):
+    """A fleet's server eval of E models against a solo run's eval of its
+    one model, ResNet-18 at full width (f32) and the MLP: the fleet
+    evaluates each model as the solo run does (one call a model of every
+    op), so every op pairs, none moves, and each model's loss and accuracy
+    are its solo eval's bits. One vmapped forward of the E models takes
+    batched products and sums of its own: the replayer names them as ops
+    of another form."""
+    kwargs = {k: v for k, v in model.items() if k != "model"}
+    step = _Step("float32", torch.device("cpu"), model["model"], **kwargs)
+    solo_fn, fleet_fn, vmapped_fn = step.eval_fns()
+    models = step.rows(experiments)[0]
+    batches = step.eval_batches(n)
+    found = replay(fleet_fn, (models[0].clone(),) + batches,
+                   (models,) + batches, experiments, solo_fn=solo_fn)
+    assert found.replayed > 10
+    assert not found.moved and not found.layouts
+    assert not found.other_forms(EXACT_FORMS)
+    assert not eval_differences(solo_fn, fleet_fn, models, batches)
+    vmapped = replay(vmapped_fn, (models[0].clone(),) + batches,
+                     (models,) + batches, experiments, solo_fn=solo_fn)
+    assert "aten::bmm" in vmapped.other_forms(EXACT_FORMS)

@@ -1,10 +1,11 @@
-"""A sweep fleet's training against its solo runs, op by op, on the card.
+"""A sweep fleet's training, aggregate and eval against its solo runs, op
+by op, on the card.
 
 A fleet (sweep/engine.py) trains E experiments' chunks of M clients as
 one program of E*M models, and the JAX package promises that each point's
 history is its solo run's, bitwise. That holds only if no operation of a
-training step rounds a model's values differently when more models share
-its launch. CUDA libraries and kernels pick their reduction splits, tiles
+round rounds a model's values differently when more models share its
+launch. CUDA libraries and kernels pick their reduction splits, tiles
 and algorithms by shape, so the tests here hold a ResNet-18 training step
 at a fleet's model count against the solo chunk's, on the card:
 
@@ -24,7 +25,17 @@ at a fleet's model count against the solo chunk's, on the card:
 * one test per operation that rounded by the model count in bf16 before
   (the training forward's GroupNorm, read on the channel side or folded
   by the width ``M*C`` and split by the sample count ``M*B``; the GroupNorm
-  backward's sums over (b, h, w)): bitwise at 10 and at 40 models.
+  backward's sums over (b, h, w)): bitwise at 10 and at 40 models;
+* ``test_eval_replay_names_no_op_that_moves``: the server eval, a fleet's
+  of E models (each evaluated as its solo run evaluates it) against one
+  model's, ResNet-18 at sweep_fleet's E (2 f32, 4 bf16; 1000 samples) and
+  sweep_scheduled's MLP at 8, each model's loss and accuracy bitwise; one
+  vmapped forward of the E models (client eval's and Shapley's form) is
+  replayed beside it and printed, for the record;
+* the MLP fleet of chip_smoke.py's ``sweep_scheduled`` (8 experiments of
+  32 clients): its step moves in cuBLAS's batched products only (an open
+  fault, ROADMAP queue 3), and each experiment's aggregate is its solo
+  contraction's bits.
 
 The replayer itself is held on the CPU by tests/test_torch_fleet_replay.py.
 CUDA kernels have no CPU mode, so every test here needs an NVIDIA GPU and
@@ -49,6 +60,23 @@ TRAIN_BATCH = 25
 FLEET = 40
 #: The solo chunk of each of chip_smoke.py's ``sweep_fleet`` fleets.
 SOLO = {"bfloat16": 10, "float32": 20}
+#: chip_smoke.py's ``sweep_scheduled`` fleet: bench.py's MLP sweep leg, 8
+#: seeds of 32 clients (one chunk), batch 16, f32, 8x8x1 samples.
+MLP = {"model": "mlp", "sample": (8, 8, 1), "batch": 16}
+MLP_SOLO, MLP_EXPERIMENTS = 32, 8
+#: A training step's fleets: (dtype, model keywords, solo rows, fleet rows).
+STEP_FLEETS = {
+    "bfloat16": ("bfloat16", {}, SOLO["bfloat16"], FLEET),
+    "float32": ("float32", {}, SOLO["float32"], FLEET),
+}
+#: The server eval: sweep_fleet's one 1000-sample batch at its fleets' E
+#: (2 f32 points, 4 bf16), and sweep_scheduled's 512 samples at E = 8.
+EVAL_BATCH = 1000
+EVAL_FLEETS = {
+    "bfloat16": ("bfloat16", {}, EVAL_BATCH, 4),
+    "float32": ("float32", {}, EVAL_BATCH, 2),
+    "mlp": ("float32", MLP, 512, MLP_EXPERIMENTS),
+}
 
 #: Ops that move or make data and compute nothing: bitwise at any count,
 #: and their number differs where a layout does (a copy more or less).
@@ -77,11 +105,14 @@ def cuda():
 
 
 class _Step:
-    """ResNet-18 at full width in ``dtype_name``, the replayed init of seed
-    0, and per-row inputs made from the row's index: row r's starting
-    model, batch and salt are the same in a stack of any size."""
+    """A model at full width in ``dtype_name`` (ResNet-18 on 32x32x3
+    inputs, or chip_smoke.py's ``sweep_scheduled`` MLP on 8x8x1), the
+    replayed init of seed 0, and per-row inputs made from the row's index:
+    row r's starting model, batch and salt are the same in a stack of any
+    size."""
 
-    def __init__(self, dtype_name: str, device):
+    def __init__(self, dtype_name: str, device, model: str = "resnet18",
+                 sample=(32, 32, 3), batch: int = TRAIN_BATCH):
         from distributed_learning_simulator_tpu_torch.models.bridge import (
             jax_leaf_order,
         )
@@ -93,10 +124,13 @@ class _Step:
 
         self.dtype = getattr(torch, dtype_name)
         self.device = device
-        self.model = get_model("resnet18", dtype=self.dtype).to(device)
-        params = init_params(self.model, (32, 32), seed=0)
+        self.sample, self.batch = tuple(sample), batch
+        kwargs = {"dtype": self.dtype} if model.startswith("resnet") else {}
+        self.model = get_model(model, input_shape=self.sample,
+                               **kwargs).to(device)
+        params = init_params(self.model, self.sample[:2], seed=0)
         self.layout = ParamLayout.from_params(
-            params, jax_leaf_order(self.model, (32, 32)))
+            params, jax_leaf_order(self.model, self.sample[:2]))
         self.flat = self.layout.flatten(params).to(device)
 
     def apply(self, views, x):
@@ -109,12 +143,12 @@ class _Step:
             gen = torch.Generator(device=self.device).manual_seed(1000 + r)
             starts.append(self.flat + 1e-3 * torch.randn(
                 self.flat.shape, device=self.device, generator=gen))
-            xs.append(torch.rand(TRAIN_BATCH, 32, 32, 3, device=self.device,
-                                 generator=gen))
-            ys.append(torch.randint(0, 10, (TRAIN_BATCH,),
+            xs.append(torch.rand((self.batch,) + self.sample,
+                                 device=self.device, generator=gen))
+            ys.append(torch.randint(0, 10, (self.batch,),
                                     device=self.device, generator=gen))
-        mask = torch.ones(m, TRAIN_BATCH, device=self.device)
-        perms = torch.arange(TRAIN_BATCH).expand(m, 1, TRAIN_BATCH)
+        mask = torch.ones(m, self.batch, device=self.device)
+        perms = torch.arange(self.batch).expand(m, 1, self.batch)
         return (torch.stack(starts), torch.stack(xs), torch.stack(ys), mask,
                 perms, list(range(m)))
 
@@ -125,7 +159,7 @@ class _Step:
 
         train = engine.make_chunk_train_fn(
             self.apply, engine.make_optimizer("sgd", 0.02, 0.9), self.layout,
-            1, TRAIN_BATCH, compute_dtype=self.dtype, device=self.device)
+            1, self.batch, compute_dtype=self.dtype, device=self.device)
         params, _, metrics = train(*self.rows(m))
         return params, metrics["loss"]
 
@@ -143,6 +177,31 @@ class _Step:
         """:meth:`grad_fn`'s arguments for the first ``m`` rows."""
         starts, xs, ys, mask, _, _ = self.rows(m)
         return starts.to(self.dtype), xs, ys, mask
+
+    def eval_fns(self):
+        """``(solo, fleet, vmapped)``: a solo run's server eval of one flat
+        ``[P]`` model (``make_eval_fn``, simulator.py), a fleet's of ``[E,
+        P]`` (``make_experiment_eval_fn``, sweep/engine.py), and one
+        vmapped forward of ``[E, P]`` (``make_models_eval_fn``, the form of
+        client eval and the Shapley subset evals), all over the same padded
+        batches."""
+        from distributed_learning_simulator_tpu_torch.parallel import engine
+
+        evaluate = engine.make_eval_fn(self.apply)
+
+        def solo(flat, xb, yb, mb):
+            return evaluate(self.layout.unflatten(flat), xb, yb, mb)
+
+        return (solo, engine.make_experiment_eval_fn(evaluate, self.layout),
+                engine.make_models_eval_fn(evaluate, self.layout))
+
+    def eval_batches(self, n: int):
+        """One padded eval batch of ``n`` samples ``(xb, yb, mb)``."""
+        gen = torch.Generator(device=self.device).manual_seed(7)
+        xb = torch.rand((1, n) + self.sample, device=self.device,
+                        generator=gen)
+        yb = torch.randint(0, 10, (1, n), device=self.device, generator=gen)
+        return xb, yb, torch.ones(1, n, device=self.device)
 
 
 class _Meta:
@@ -185,10 +244,21 @@ def _slice(t: torch.Tensor, meta, ratio: int) -> torch.Tensor:
     """The first experiment's part of the fleet's ``t``, shaped as the solo
     op's tensor ``meta``: every dim the fleet holds ``ratio`` times the
     solo's is cut to its first solo-sized block (the models are the outer
-    factor of a merged dim: experiment-major)."""
+    factor of a merged dim: experiment-major). Where the solo op has no
+    model axis at all (a solo run's eval of its one model is not vmapped)
+    and the fleet's has one of ``ratio`` models, the first model's entry
+    of that axis (the first such dim that leaves a slice)."""
     shape = meta.shape
     if tuple(t.shape) == shape:
         return t
+    if t.dim() == len(shape) + 1:
+        for d in range(t.dim()):
+            if t.shape[d] == ratio:
+                try:
+                    return _slice(t.select(d, 0), meta, ratio)
+                except _NoSlice:
+                    pass
+        raise _NoSlice
     if t.dim() != len(shape) or any(
             a != b and a != ratio * b for a, b in zip(t.shape, shape)):
         raise _NoSlice
@@ -233,19 +303,31 @@ class _Replay(TorchDispatchMode):
     experiment's slice of its inputs at the solo op's shapes (the k-th call
     of an op against the solo's k-th), and keeps what differs."""
 
-    def __init__(self, solo_calls, ratio: int):
+    def __init__(self, solo_calls, ratio: int, per_model=()):
         super().__init__()
         self.solo = solo_calls
         self.ratio = ratio
+        self.per_model = set(per_model)
         self.seen = collections.Counter()
         self.moved, self.layouts = [], []
         self.replayed = 0
 
+    def other_forms(self, exact=()) -> list:
+        """Ops whose call count differs from the solo's (so not replayed
+        pair by pair), other than views, data ops and the ops in
+        ``exact`` (whose outputs are exact at any launch)."""
+        return sorted(f._schema.name for f in self.seen
+                      if f._schema.name in self.counts()
+                      and not f.is_view and f._schema.name not in _DATA_OPS
+                      and f._schema.name not in exact)
+
     def counts(self) -> dict:
-        """``{op: (solo calls, fleet calls)}`` where the two differ."""
+        """``{op: (solo calls, fleet calls)}`` where the two differ (an op
+        called once per model counted once a solo call)."""
         return {f._schema.name: (len(self.solo.get(f, [])), n)
                 for f, n in self.seen.items()
-                if n != len(self.solo.get(f, []))}
+                if n != len(self.solo.get(f, [])) * (
+                    self.ratio if f in self.per_model else 1)}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -292,25 +374,34 @@ class _Replay(TorchDispatchMode):
         return out
 
 
-def replay(fn, solo_args, fleet_args, ratio: int) -> _Replay:
+def replay(fn, solo_args, fleet_args, ratio: int, solo_fn=None) -> _Replay:
     """``fn`` (vmapped over the models) on the fleet's arguments, each op
     replayed against its call on the solo's (``ratio`` times fewer
-    models, the fleet's first)."""
-    record = _Record()
+    models, the fleet's first), run through ``solo_fn`` where the solo
+    takes another function (a solo run's eval of one model)."""
+    record, fleet = _Record(), _Record()
     with record:
-        fn(*solo_args)
-    replayer = _Replay(dict(record.calls), ratio)
+        (solo_fn or fn)(*solo_args)
+    with fleet:
+        fn(*fleet_args)
+    # Ops the fleet calls ``ratio`` times for each solo call: once a model,
+    # the models one after another (the first model's calls, which pair
+    # with the solo's, come first).
+    per_model = [f for f, calls in fleet.calls.items()
+                 if record.calls.get(f)
+                 and len(calls) == ratio * len(record.calls[f])]
+    replayer = _Replay(dict(record.calls), ratio, per_model)
     with replayer:
         fn(*fleet_args)
     return replayer
 
 
-@pytest.mark.parametrize("dtype_name", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dtype_name", list(STEP_FLEETS))
 def test_step_rows_do_not_depend_on_the_model_count(cuda, dtype_name):
-    step = _Step(dtype_name, cuda)
-    solo = SOLO[dtype_name]
+    dtype, model, solo, fleet = STEP_FLEETS[dtype_name]
+    step = _Step(dtype, cuda, **model)
     params, loss = step.train(solo)
-    fleet_params, fleet_loss = step.train(FLEET)
+    fleet_params, fleet_loss = step.train(fleet)
     differ, off = [], 0
     for name, numel in zip(step.layout.names, step.layout.numels):
         if not torch.equal(params[:, off:off + numel],
@@ -322,19 +413,116 @@ def test_step_rows_do_not_depend_on_the_model_count(cuda, dtype_name):
     assert torch.equal(fleet_loss[:solo], loss)
 
 
-@pytest.mark.parametrize("dtype_name", ["bfloat16", "float32"])
-def test_replay_names_no_op_that_moves(cuda, dtype_name):
-    solo, step = SOLO[dtype_name], _Step(dtype_name, cuda)
-    found = replay(step.grad_fn(), step.grad_args(solo),
-                   step.grad_args(FLEET), FLEET // solo)
-    report = (f"{dtype_name} {solo} against {FLEET} models: "
-              f"{found.replayed} ops replayed; "
+def _report(what: str, found: _Replay) -> str:
+    report = (f"{what}: {found.replayed} ops replayed; "
               f"{len(found.moved)} moved: {found.moved}; "
               f"{len(found.layouts)} in another layout: {found.layouts}; "
               f"op counts (solo, fleet) that differ: {found.counts()}")
     print(report)
-    assert found.replayed > 100
+    return report
+
+
+@pytest.mark.parametrize("dtype_name", list(STEP_FLEETS))
+def test_replay_names_no_op_that_moves(cuda, dtype_name):
+    dtype, model, solo, fleet = STEP_FLEETS[dtype_name]
+    step = _Step(dtype, cuda, **model)
+    found = replay(step.grad_fn(), step.grad_args(solo),
+                   step.grad_args(fleet), fleet // solo)
+    report = _report(f"{dtype_name} step, {solo} against {fleet} models",
+                     found)
+    assert found.replayed > (100 if model == {} else 10)
     assert not found.moved and not found.layouts, report
+
+
+@pytest.mark.parametrize("dtype_name", list(EVAL_FLEETS))
+def test_eval_replay_names_no_op_that_moves(cuda, dtype_name):
+    """The server eval: a fleet's of its E global models
+    (``make_experiment_eval_fn``) against a solo run's eval of its one
+    model (``make_eval_fn``). Each model's loss and accuracy must be its
+    solo eval's bits, and no op may move, take another layout or another
+    form. Printed beside it, for the record, the same for one vmapped
+    forward of the E models (``make_models_eval_fn``), which the fleet
+    does not take: in bf16 cuDNN's grouped convolutions at E groups round
+    otherwise than at one."""
+    dtype, model, n, experiments = EVAL_FLEETS[dtype_name]
+    step = _Step(dtype, cuda, **model)
+    solo_fn, fleet_fn, vmapped_fn = step.eval_fns()
+    models = step.rows(experiments)[0]
+    batches = step.eval_batches(n)
+    reports = {}
+    for form, fn in (("vmapped", vmapped_fn), ("fleet", fleet_fn)):
+        found = replay(fn, (models[0].clone(),) + batches,
+                       (models,) + batches, experiments, solo_fn=solo_fn)
+        differ = eval_differences(solo_fn, fn, models, batches)
+        reports[form] = (found, differ, _report(
+            f"{dtype_name} eval ({form}), 1 against {experiments} models "
+            f"of {n} samples; metrics that differ (fleet, solo) {differ}; "
+            f"other forms {found.other_forms(EXACT_FORMS)}", found))
+    found, differ, report = reports["fleet"]
+    assert found.replayed > 10
+    assert not differ and not found.moved and not found.layouts, report
+    assert not found.other_forms(EXACT_FORMS), report
+
+
+#: What a vmapped eval computes in another form than one model's, exactly:
+#: cross_entropy's gather of the label's log-probability (negated) and the
+#: sums of 0/1 values (correct answers, the mask). Its loss sum is not
+#: exact, but pairs with nothing: the vmapped form's ``sum`` reduces ``[E,
+#: n]`` where one model's reduces ``[n]``.
+EXACT_FORMS = {"aten::ne", "aten::where", "aten::gather", "aten::neg",
+               "aten::new_full", "aten::sum", "aten::nll_loss_forward"}
+
+
+def eval_differences(solo_fn, fleet_fn, models, batches) -> dict:
+    """The fleet's eval of ``models [E, P]`` against each model's solo
+    eval: ``{metric of model e: (fleet, solo)}`` where they are not
+    bitwise equal (each solo model a tensor of its own, as a solo run's)."""
+    got = fleet_fn(models, *batches)
+    differ = {}
+    for e, row in enumerate(models):
+        want = solo_fn(row.clone(), *batches)
+        differ.update({f"{k} of model {e}": (got[k][e].item(), w.item())
+                       for k, w in want.items()
+                       if not torch.equal(got[k][e], w)})
+    return differ
+
+
+def test_mlp_fleet_step_moves_only_in_batched_products(cuda):
+    """The MLP fleet's training step (32 solo rows against 256), an open
+    fault (ROADMAP queue 3): the replayer names cuBLAS's batched products
+    (``aten::bmm``, whose kernel follows the batch count) and nothing
+    else, and no op takes another layout. Printed, the rows that move."""
+    step = _Step("float32", cuda, **MLP)
+    fleet = MLP_SOLO * MLP_EXPERIMENTS
+    found = replay(step.grad_fn(), step.grad_args(MLP_SOLO),
+                   step.grad_args(fleet), MLP_EXPERIMENTS)
+    report = _report(f"mlp step, {MLP_SOLO} against {fleet} models", found)
+    params, _ = step.train(MLP_SOLO)
+    fleet_params, _ = step.train(fleet)
+    print(f"mlp step rows bitwise the solo chunk's: "
+          f"{torch.equal(params, fleet_params[:MLP_SOLO])}")
+    assert found.replayed > 10 and not found.layouts, report
+    assert {m.split()[0] for m in found.moved} <= {"aten::bmm"}, report
+
+
+def test_mlp_fleet_aggregate_is_each_experiments_solo_contraction(cuda):
+    """The round's aggregate of the MLP fleet: experiment e's weighted sum
+    of its rows of the fleet's uploads (a slice of ``[E*M, P]``,
+    FedAvg.make_fleet_round_fn) against the same sum of a tensor of its
+    own, as a solo round contracts its chunk's uploads."""
+    step = _Step("float32", cuda, **MLP)
+    params, _ = step.train(MLP_SOLO * MLP_EXPERIMENTS)
+    w = torch.full((MLP_SOLO,), 1.0 / MLP_SOLO, device=cuda)
+    differ = {}
+    for e in range(MLP_EXPERIMENTS):
+        rows = params[e * MLP_SOLO:(e + 1) * MLP_SOLO]
+        fleet = torch.tensordot(w, rows.float(), dims=1)
+        solo = torch.tensordot(w, rows.clone().float(), dims=1)
+        if not torch.equal(fleet, solo):
+            differ[e] = (fleet.double() - solo.double()).abs().max().item()
+    print(f"mlp aggregate, experiments whose contraction moves (max abs "
+          f"diff): {differ}; row bytes {params.stride(0) * 4}")
+    assert not differ
 
 
 #: ResNet-18's GroupNorm shapes at the training batch: (H, W, C).

@@ -217,35 +217,53 @@ def test_group_count_must_divide_channels():
     (25, 1024, 64, 2), (25, 256, 128, 2), (25, 64, 256, 2), (25, 16, 512, 2),
     (25, 1024, 64, 4), (200, 1024, 64, 2), (263, 4096, 64, 2),
     (264, 1024, 64, 2), (1000, 1024, 64, 2), (1000, 16, 512, 2),
-    (10**6, 3, 64, 4), (1, 10**6, 2048, 2),
+    (10**6, 3, 64, 4), (1, 10**6, 2048, 2), (1000, 1024, 2048, 2),
 ])
 def test_stats_split_plan(b, hw, c, elem):
-    """S is a power of two in 1..8 (a portable cluster) and at most HW,
-    B*S a legal grid, S = 1 once B fills two CTAs per SM, and the kernel's
-    HW slices (rank r: rows [r*ceil(HW/S), ...)) cover every row once."""
+    """S is a power of two in 1..8 (a portable cluster) and at most the
+    order's lanes, B*S a legal grid, S = 1 once B fills two CTAs per SM,
+    and the kernel's cut of the lanes (a numpy mirror of csrc/gn.cu
+    ``gn_stats_kernel``: rank r, thread row t and its lane j read rows
+    ``r L/S + t q + j + s L``) reads every row of every channel vector once,
+    with at most 256 threads a CTA and q a power of two up to 32."""
     s = gn_cuda.stats_split(b, hw, c, elem)
+    lanes = gn_cuda.stats_lanes(hw)
     assert s in (1, 2, 4, 8)
     assert b * s < 2**31
-    assert s <= max(1, hw)
+    assert s <= lanes <= 32 and lanes >= min(hw, 32)
     if b >= 264:
         assert s == 1
-    per = -(-hw // s)
-    rows = np.zeros(hw, dtype=int)
-    for rank in range(s):
-        r0 = min(hw, rank * per)
-        rows[r0:min(hw, r0 + per)] += 1
-    assert (rows == 1).all()
+    nvec = c // (16 // elem)
+    for split in (1, 2, 4, 8):
+        if split > lanes:
+            break
+        tlanes, q = gn_cuda.stats_threads(hw, c, elem, split)
+        assert tlanes * nvec <= 256 and tlanes * q * split == lanes
+        assert q in (1, 2, 4, 8, 16, 32)
+        r, t, j, slot = np.meshgrid(np.arange(split), np.arange(tlanes),
+                                    np.arange(q),
+                                    np.arange(-(-min(hw, 10**4) // lanes)),
+                                    indexing="ij")
+        row = (r * (lanes // split) + t * q + j + slot * lanes).ravel()
+        rows = np.bincount(row[row < min(hw, 10**4)],
+                           minlength=min(hw, 10**4))
+        assert (rows == 1).all()
 
 
 def test_stats_split_at_the_main_path_shapes():
-    # Stage 1 at B=25: 4 batches of 8 loads a thread on one CTA, 1 on four.
+    # One client's 32x32 and 16x16 stages (64 KiB a sample or more) spread
+    # over 4 CTAs: one CTA alone on its SM reads too few bytes a trip.
     assert gn_cuda.stats_split(25, 1024, 64, 2) == 4
-    # The other stages need at most 2 batches: a cluster does not pay.
-    assert gn_cuda.stats_split(25, 256, 128, 2) == 1
+    assert gn_cuda.stats_split(25, 256, 128, 2) == 4
+    assert gn_cuda.stats_split(25, 1024, 64, 4) == 4
+    # The smaller stages take one batch of loads a thread on one CTA.
     assert gn_cuda.stats_split(25, 64, 256, 2) == 1
     assert gn_cuda.stats_split(25, 16, 512, 2) == 1
     assert gn_cuda.stats_split(1000, 1024, 64, 2) == 1  # eval: fills the card
-    assert gn_cuda.stats_split(1, 10**6, 64, 2) == 8
+    # A row of 2048 bf16 channels: one thread row walks all 32 lanes, so
+    # 8 CTAs cut its batches by 8; at 1000 samples the card is full.
+    assert gn_cuda.stats_split(25, 1024, 2048, 2) == 8
+    assert gn_cuda.stats_split(1000, 1024, 2048, 2) == 1
 
 
 H100_SMS = 132  # the card the plans are tuned on (H100 SXM)

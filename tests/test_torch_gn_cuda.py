@@ -5,9 +5,12 @@ not have JAX) run them without the suite's JAX conftest:
 
     python -m pytest --noconftest tests/test_torch_gn_cuda.py -q
 
-Tolerances as in chip_smoke.py and tests/test_torch_gn.py: mean/rstd rtol
-1e-5; y, measured at the largest of the terms ``x*a``, ``mean*a``,
-``bias`` that sum to it, within one bf16 ulp (bf16) or 1e-5 of it (f32).
+The stats kernel is bitwise its order twin (``gn_stats_plain``, and
+``gn_sums_plain`` for each group's sum x and sum x^2) at every split, and
+the statistics of M models side by side on the channel axis are bitwise
+each model's own call. y, measured at the largest of the terms ``x*a``,
+``mean*a``, ``bias`` that sum to it, is within one bf16 ulp (bf16) or 1e-5
+of it (f32) of the plain pair's.
 The normalize kernel alone, on the plain statistics, is bit-equal to the
 plain version, with f32 and with bf16 scale/bias (bf16 local training); a
 stats -> normalize pair (a programmatic dependent launch) replayed from a
@@ -59,9 +62,9 @@ def _error_in_tolerances(x, y_k, y_p, mean, rstd, scale, bias):
 
 
 @pytest.mark.parametrize("b,hw,c", [
-    (25, 1024, 64),  # S = 4 planned
+    (25, 1024, 64),  # 32 lanes, one a thread row
     (25, 256, 128), (25, 64, 256), (25, 16, 512),
-    (3, 7, 96),  # C/8 = 12 vectors: the general (not power-of-two) path
+    (3, 7, 96),  # C/8 = 12 vectors: 8 thread rows of 12, idle threads
     (1000, 1024, 64),  # the eval batch: S = 1, one CTA per sample
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -71,8 +74,7 @@ def test_kernels_match_plain(cuda, b, hw, c, dtype, params):
     scale, bias = scale.to(params), bias.to(params)
     mean_k, rstd_k = gn_cuda.gn_stats(x, G, EPS)
     mean_p, rstd_p = gn_cuda.gn_stats_plain(x, G, EPS)
-    torch.testing.assert_close(mean_k, mean_p, rtol=1e-5, atol=0)
-    torch.testing.assert_close(rstd_k, rstd_p, rtol=1e-5, atol=0)
+    assert torch.equal(mean_k, mean_p) and torch.equal(rstd_k, rstd_p)
     y_p = gn_cuda.gn_normalize_plain(x, mean_p, rstd_p, scale, bias, dtype)
     y_alone = gn_cuda.gn_normalize(x, mean_p, rstd_p, scale, bias, dtype)
     assert torch.equal(y_alone, y_p)
@@ -133,16 +135,17 @@ def test_one_group_norm_call_launches_two_kernels(cuda):
 @pytest.mark.parametrize("split", [1, 2, 4, 8])
 @pytest.mark.parametrize("b,hw,c,dtype", [
     (25, 1024, 64, torch.bfloat16),
-    (25, 16, 512, torch.bfloat16),  # S = 8: two HW rows a CTA
-    (3, 7, 96, torch.bfloat16),  # S = 4, 8 over 7 rows: ragged, empty slices
+    (25, 16, 512, torch.bfloat16),  # S = 8: two lanes a CTA
+    (3, 7, 96, torch.bfloat16),  # 8 lanes over 7 rows: an empty lane
     (4, 100, 64, torch.float32),
 ])
 def test_every_split_matches_plain(cuda, b, hw, c, dtype, split):
     x, _, _ = _inputs(b, hw, c, dtype, cuda, seed=2)
-    mean_k, rstd_k = gn_cuda.gn_stats(x, G, EPS, split=split)
+    mean_k, rstd_k, sums_k = gn_cuda.gn_stats(x, G, EPS, split=split,
+                                              sums=True)
     mean_p, rstd_p = gn_cuda.gn_stats_plain(x, G, EPS)
-    torch.testing.assert_close(mean_k, mean_p, rtol=1e-5, atol=0)
-    torch.testing.assert_close(rstd_k, rstd_p, rtol=1e-5, atol=0)
+    assert torch.equal(sums_k, torch.stack(gn_cuda.gn_sums_plain(x, G), -1))
+    assert torch.equal(mean_k, mean_p) and torch.equal(rstd_k, rstd_p)
 
 
 @pytest.mark.parametrize("slices", [1, 3, 7, 64])
@@ -215,6 +218,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="multiple of 8"):
         gn_cuda.gn_stats(torch.zeros(2, 4, 36, dtype=torch.bfloat16,
                                      device=cuda), 4, EPS)
+    # 4 rows make 4 lanes: a split of 8 would leave ranks without one.
+    with pytest.raises(ValueError, match="at most 4"):
+        gn_cuda.gn_stats(x[:, :4].contiguous(), G, EPS, split=8)
     mean, rstd = gn_cuda.gn_stats(x, G, EPS)
     with pytest.raises(ValueError, match="dtype"):
         gn_cuda.gn_normalize(x, mean, rstd, scale, bias, torch.float32)
@@ -276,15 +282,15 @@ def test_model_forward_launches_each_kernel_once_per_group_norm(cuda, params):
 
 
 # The models on the channel side (ops/gn_cuda.py ``channel_side``): x
-# [B, HW, M*C] with M*G groups, each stage's (HW, C) for M in 10, 16, 32
-# where M*C fits a kernel row (2048 bf16 / 1024 f32 channels), at the
-# training batch and the eval batch. M*C = 640 or 1280 is no power of two
-# (the stats kernel's general branch); M*G > 256 groups loops over groups.
+# [B, HW, M*C] with M*G groups, each stage's (HW, C) for M in 1, 2, 4, 10,
+# 16, 32 where M*C fits a kernel row (2048 bf16 / 1024 f32 channels), at the
+# training batch and the eval batch. M*C = 640 or 1280 is no power of two;
+# M*G > 256 groups loops over groups.
 _CHANNEL_SIDE = [
     (b, hw, c, m, dtype)
     for dtype, width in ((torch.bfloat16, 2048), (torch.float32, 1024))
     for hw, c in ((1024, 64), (256, 128), (64, 256), (16, 512))
-    for m in (10, 16, 32) if m * c <= width
+    for m in (1, 2, 4, 10, 16, 32) if m * c <= width
     for b in (25, 1000)
 ]
 
@@ -292,28 +298,37 @@ _CHANNEL_SIDE = [
 @pytest.mark.parametrize("b,hw,c,m,dtype", _CHANNEL_SIDE)
 def test_channel_side_matches_plain_and_per_model_calls(cuda, b, hw, c, m,
                                                         dtype):
-    """Stats within rtol 1e-5 of the plain version and of the M per-model
-    calls; normalize (bf16 affine) bitwise equal to its plain version and,
-    on the same statistics, to M per-model calls with ``[C]`` affines;
-    ``group_norm`` bitwise equal to its two kernels called alone."""
+    """The statistics bitwise their order twin (mean, rstd and each
+    group's sums) and each model's own call, at the planned split and at
+    splits 1, 2, 4 and 8; normalize (bf16 affine) bitwise equal to its
+    plain version and, on the same statistics, to M per-model calls with
+    ``[C]`` affines; ``group_norm`` bitwise equal to its two kernels called
+    alone."""
     x, _, _ = _inputs(b, hw, m * c, dtype, cuda, seed=6)
     gen = torch.Generator(device=cuda).manual_seed(7)
     scale = torch.randn(m, c, device=cuda, generator=gen).bfloat16()
     bias = torch.randn(m, c, device=cuda, generator=gen).bfloat16()
     flat_s, flat_b = scale.reshape(-1), bias.reshape(-1)
-    mean, rstd = gn_cuda.gn_stats(x, m * G, EPS)
     mean_p, rstd_p = gn_cuda.gn_stats_plain(x, m * G, EPS)
-    torch.testing.assert_close(mean, mean_p, rtol=1e-5, atol=0)
-    torch.testing.assert_close(rstd, rstd_p, rtol=1e-5, atol=0)
+    sums_p = torch.stack(gn_cuda.gn_sums_plain(x, m * G), -1)
+    models = [gn_cuda.gn_stats(x[:, :, k * c:(k + 1) * c].contiguous(), G,
+                               EPS) for k in range(m)]
+    for split in (None, 1, 2, 4, 8):
+        mean, rstd, sums = gn_cuda.gn_stats(x, m * G, EPS, split=split,
+                                            sums=True)
+        assert torch.equal(sums, sums_p), split
+        assert torch.equal(mean, mean_p) and torch.equal(rstd, rstd_p), split
+        for k, (mk, rk) in enumerate(models):
+            grp = slice(k * G, (k + 1) * G)
+            assert torch.equal(mean[:, grp], mk), (split, k)
+            assert torch.equal(rstd[:, grp], rk), (split, k)
+    mean, rstd = gn_cuda.gn_stats(x, m * G, EPS)
     y = gn_cuda.gn_normalize(x, mean, rstd, flat_s, flat_b, dtype)
     assert torch.equal(y, gn_cuda.gn_normalize_plain(
         x, mean, rstd, flat_s, flat_b, dtype))
     for k in range(m):
         cols, grp = slice(k * c, (k + 1) * c), slice(k * G, (k + 1) * G)
         xk = x[:, :, cols].contiguous()
-        mk, rk = gn_cuda.gn_stats(xk, G, EPS)
-        torch.testing.assert_close(mean[:, grp], mk, rtol=1e-5, atol=0)
-        torch.testing.assert_close(rstd[:, grp], rk, rtol=1e-5, atol=0)
         assert torch.equal(y[:, :, cols], gn_cuda.gn_normalize(
             xk, mean[:, grp].contiguous(), rstd[:, grp].contiguous(),
             scale[k], bias[k], dtype))
